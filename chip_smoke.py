@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the port's serve path on one NVIDIA card and hold every kernel
-against its plain PyTorch version.
+"""Run the port's serve path and training step on one NVIDIA card and hold
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,31 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. toolchain and card: torch, CUDA, nvcc and Triton versions; the card's
    name and power limit from nvidia-smi;
-2. build: both kernels from ``mmdfn_torch/csrc`` (one nvcc each, at once);
+2. build: all four kernels from ``mmdfn_torch/csrc`` (one nvcc each, at
+   once);
 3. kernels: each kernel against its plain version at the shapes the serve
-   path gives it (buckets 32, 64 and 200, i.e. N = 600 for the GCNII
-   stack), timed beside the plain version and, for the bi-GRU, cuDNN's GRU;
-   the bound is computed from the same inputs;
+   path (buckets 32, 64 and 200, i.e. N = 600 for the GCNII stack) and the
+   training step (B = 32 text rows and 192 party streams of L = 80; the
+   GCNII stack at B = 32, N = 240, 16 layers, dropout 0.4) give it, timed
+   beside the plain version and, for the bi-GRU, cuDNN's GRU; the bound is
+   computed from the same inputs.  Kernels C and D are checked on the
+   residuals their forwards wrote, and kernel B's training-mode dropout
+   mask against the plain Philox mask, bit for bit;
 4. serve: the flagship MM-DFN (IEMOCAP GDF with the reason-LSTM, 16 GCNII
    layers, full widths, weights fresh from a seed) answers every utterance
    of three synthetic dialogues through ``StreamingSession``; the launch
-   counts, zeroed just before, must show both kernels on every append, and
-   every append's log-probs must match the same model run with the plain
-   versions on the card (``ops.plain_ops()``); a torch.profiler window
-   shows where one forward's time goes; then the stdio server answers a
-   few requests.
+   counts, zeroed just before, must show both forward kernels on every
+   append, and every append's log-probs must match the same model run with
+   the plain versions on the card (``ops.plain_ops()``); a torch.profiler
+   window shows where one forward's time goes; then the stdio server
+   answers a few requests;
+5. train: the flagship training step at ``bench.py``'s production settings
+   (B = 32 dialogues of U[20, 80] turns, class weights, focal loss, dropout
+   0.4, Adam) through ``Trainer.train_step``: one step with the kernels and
+   one under ``ops.plain_ops()`` from the same weights and seeds must agree
+   in loss and every gradient; then 2 warm-up and 10 timed steps, whose
+   launch counts (zeroed just before) must show all four kernels; a
+   profiled window; and 20 steps on one batch, whose loss must fall.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -47,10 +59,18 @@ PEAK_BYTES = 3.35e12
 NLAYERS = 16             # the flagship's GCNII depth, for the kernel checks
 H = 100
 SEED = 0
+TRAIN_B, TRAIN_L = 32, 80   # bench.py: batch 32, dialogues of 20-80 turns
+RATE = 0.4               # the training dropout (mmdfn_tpu config default)
 KERNEL_A_TOL = 1e-5      # f32 both sides; summation order of h @ W_hh only
 KERNEL_B_RTOL = 1e-5     # of max |h|: f32, summation order over 16 layers
+KERNEL_C_RTOL = 1e-5     # of each gradient's max |.| (at least 1): f32, the
+                         # dW_hh sums over B L terms in another order
+KERNEL_D_RTOL = 1e-4     # of each gradient's max |.|: f32, sums over B N
+                         # rows and 16 layers in another order
 SERVE_TOL = 1e-4         # log-probs, kernels vs plain through the model
 CLI_TOL = 2e-4           # the server rounds log-probs to 4 decimals
+STEP_LOSS_RTOL = 1e-5    # training step, kernels vs plain: the loss
+STEP_GRAD_RTOL = 1e-4    # and every gradient, of its max |.|
 
 
 def check(cond: bool, what: str) -> None:
@@ -241,6 +261,21 @@ def bigru_inputs(torch, dev, B, L, holes=True, seed=1):
             mask)
 
 
+def cudnn_gru(torch, dev, args):
+    """cuDNN's bidirectional GRU set up to compute the bi-GRU kernels'
+    function for an all-valid mask and xg_b = xg_f: identity input weights,
+    zero input bias, the kernels' hidden weights and biases."""
+    _, _, w_f, b_f, w_b, b_b, _ = args
+    gru = torch.nn.GRU(3 * H, H, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for suf, w, b in (("", w_f, b_f), ("_reverse", w_b, b_b)):
+            getattr(gru, f"weight_ih_l0{suf}").copy_(torch.eye(3 * H))
+            getattr(gru, f"bias_ih_l0{suf}").zero_()
+            getattr(gru, f"weight_hh_l0{suf}").copy_(w.t())
+            getattr(gru, f"bias_hh_l0{suf}").copy_(b)
+    return gru
+
+
 def bigru_case(torch, dev, B, L) -> dict:
     """Kernel A at (B, L): the party streams have holes in their masks."""
     from mmdfn_torch.ops import bigru_layer_fwd, bigru_layer_plain
@@ -254,16 +289,9 @@ def bigru_case(torch, dev, B, L) -> dict:
     ms = time_ms(torch, lambda: bigru_layer_fwd(*args), 50)
     plain_ms = time_ms(torch, lambda: bigru_layer_plain(*args), 3)
 
-    # cuDNN's bidirectional GRU computes the same function for an all-valid
-    # mask and xg_b = xg_f when its input weights are the identity
     xg_f, _, w_f, b_f, w_b, b_b, _ = args
-    gru = torch.nn.GRU(3 * H, H, batch_first=True, bidirectional=True).to(dev)
+    gru = cudnn_gru(torch, dev, args)
     with torch.no_grad():
-        for suf, w, b in (("", w_f, b_f), ("_reverse", w_b, b_b)):
-            getattr(gru, f"weight_ih_l0{suf}").copy_(torch.eye(3 * H))
-            getattr(gru, f"bias_ih_l0{suf}").zero_()
-            getattr(gru, f"weight_hh_l0{suf}").copy_(w.t())
-            getattr(gru, f"bias_hh_l0{suf}").copy_(b)
         lib_out, _ = gru(xg_f)
         ones = torch.ones(B, L, device=dev)
         ref = bigru_layer_fwd(xg_f, xg_f, w_f, b_f, w_b, b_b, ones)
@@ -317,6 +345,303 @@ def gcnii_case(torch, dev, L, reason=True) -> dict:
             "library_ms": None, **bound(nbytes, flops)}
 
 
+def bigru_bwd_case(torch, dev, B, L) -> dict:
+    """Kernel C at (B, L) with holed masks, on the outputs kernel A wrote;
+    cuDNN's bidirectional GRU forward plus backward (all-valid mask,
+    identity input weights) as the library yardstick."""
+    from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
+                                 bigru_layer_fwd)
+
+    args = bigru_inputs(torch, dev, B, L, seed=2)
+    ys = bigru_layer_fwd(*args)
+    g = torch.Generator().manual_seed(3)
+    dy = [torch.randn(B, L, H, generator=g).to(dev) for _ in range(2)]
+    run = lambda: bigru_layer_bwd(*args, *ys, *dy)
+    plain = lambda: bigru_layer_bwd_plain(*args, *ys, *dy)
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    err = 0.0
+    for a, b in zip(got, want):
+        e = float((a - b).abs().max())
+        tol = KERNEL_C_RTOL * max(1.0, float(b.abs().max()))
+        check(e <= tol, f"bi-GRU bwd kernel vs plain at B={B} L={L}: "
+                        f"{e} > {tol}")
+        err = max(err, e)
+    ms = time_ms(torch, run, 20)
+    plain_ms = time_ms(torch, plain, 2)
+
+    gru = cudnn_gru(torch, dev, args)
+    x = args[0].clone().requires_grad_()
+    dout = torch.cat(dy, dim=-1)
+
+    def library():
+        out, _ = gru(x)
+        out.backward(dout)
+    library_ms = time_ms(torch, library, 20)
+
+    G = 3 * H
+    # xg, ys, dy, W_hh, b_hh, mask in; dxg, dW_hh, db_hh out
+    nbytes = 4 * (2 * B * L * G + 4 * B * L * H + 2 * (H * G + G) + B * L
+                  + 2 * B * L * G + 2 * (H * G + G))
+    # per step, row and direction: the gate recompute h @ W_hh, dhg @ W_hh^T
+    # and the dW_hh update (2 H G each) and ~30 H of gate math
+    flops = 2 * L * B * (6 * H * G + 30 * H)
+    return {"shape": f"B={B} L={L} H={H}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **bound(nbytes, flops)}
+
+
+def gcnii_train_inputs(torch, dev, B, L, seed=4):
+    from mmdfn_torch.graph.adjacency import mm_big_adjacency
+
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(20, L + 1, (B,), generator=g)
+    umask = (torch.arange(L)[None] < lengths[:, None]).float()
+    adj = mm_big_adjacency([torch.randn(B, L, 2 * H, generator=g)
+                            * umask[..., None] for _ in range(3)],
+                           umask).to(dev)
+    N = 3 * L
+    u = lambda *s: (torch.rand(*s, generator=g) * 0.2 - 0.1).to(dev)
+    h0 = torch.relu(torch.randn(B, N, H, generator=g)).to(dev)
+    h = h0 * (torch.rand(B, N, H, generator=g) < 1 - RATE).to(dev) \
+        / (1 - RATE)
+    theta = torch.log(0.5 / torch.arange(1, NLAYERS + 1) + 1.0).to(dev)
+    args = (adj, h, h0, u(NLAYERS, 2 * H, H), theta, u(4 * H, H).t(),
+            u(4 * H, H).t(), u(4 * H))
+    return args, g
+
+
+def gcnii_train_case(torch, dev, B, L) -> dict:
+    """Kernel B's training mode (dropout, residuals) and kernel D at the
+    training shapes, each against its plain version; kernel D on the
+    residuals kernel B wrote."""
+    from mmdfn_torch.ops import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
+                                 gcnii_stack_fwd, gcnii_stack_plain)
+    from mmdfn_torch.ops.gcnii import RESIDUALS
+
+    args, g = gcnii_train_inputs(torch, dev, B, L)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    N = 3 * L
+    seed = torch.tensor([SEED + 12345], dtype=torch.int64, device=dev)
+    slabs = lambda: [torch.empty(B, NLAYERS, N, H, device=dev)
+                     for _ in RESIDUALS]
+    res, res_p = slabs(), slabs()
+    opts = dict(alpha=0.2, reason=True, rate=RATE, seed=seed)
+    fwd = lambda: gcnii_stack_fwd(*args, residuals=res, **opts)
+    fwd_plain = lambda: gcnii_stack_plain(*args, residuals=res_p, **opts)
+    out = fwd()
+    torch.cuda.synchronize()
+    want = fwd_plain()
+    scale = max(1.0, float(want.abs().max()))
+    fwd_err = max(float((a - b).abs().max())
+                  for a, b in zip([out, *res], [want, *res_p]))
+    fwd_tol = KERNEL_B_RTOL * scale
+    check(fwd_err <= fwd_tol, f"GCNII training forward vs plain: {fwd_err}")
+
+    dh = torch.randn(B, N, H, generator=g).to(dev)
+    bwd_args = (adj, h0, W, theta, ih, hh, lb, res, dh)
+    bwd = lambda: gcnii_stack_bwd(*bwd_args, **opts)
+    bwd_plain = lambda: gcnii_stack_bwd_plain(*bwd_args, **opts)
+    got = bwd()
+    torch.cuda.synchronize()
+    ref = bwd_plain()
+    bwd_err = 0.0
+    for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh",
+                           "db"), got, ref):
+        e = float((a - b).abs().max())
+        tol = KERNEL_D_RTOL * float(b.abs().max())
+        check(e <= tol, f"GCNII bwd kernel vs plain, {name}: {e} > {tol}")
+        bwd_err = max(bwd_err, e)
+
+    R, nl = B * N, NLAYERS
+    layer_fwd = 2 * B * N * N * H + 4 * R * H * H + 16 * R * H * H
+    fwd_flops = nl * (layer_fwd + 20 * R * H)
+    # adj, h, h0, W, theta, LSTM in; h and four residual slabs out
+    fwd_bytes = 4 * (B * N * N + 2 * R * H + nl * (2 * H * H + 1)
+                     + 2 * 4 * H * H + 4 * H + R * H + 4 * nl * R * H)
+    # per layer: adj @ h1, adj^T d_hi, d_hi h1^T (6 B N^2 H); the support
+    # products, their transposes and dW (12 B N H^2); the LSTM recompute,
+    # its input gradients and dW_ih, dW_hh (48 B N H^2 - not counting the
+    # bias row); elementwise ~40 B N H
+    bwd_flops = nl * (6 * B * N * N * H + 60 * R * H * H + 40 * R * H)
+    # adj, h0, W, the LSTM, four residual slabs and dh in; d_adj, d_h,
+    # d_h0, dW and the LSTM gradients out
+    bwd_bytes = 4 * (2 * B * N * N + 4 * R * H + 2 * nl * 2 * H * H
+                     + 2 * (8 * H * H + 4 * H) + 4 * nl * R * H)
+    return {
+        "fwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE} "
+                         "residuals", "max_abs_err": fwd_err,
+                "tolerance": fwd_tol, "ms": time_ms(torch, fwd, 10),
+                "plain_ms": time_ms(torch, fwd_plain, 2),
+                "library_ms": None, **bound(fwd_bytes, fwd_flops)},
+        "bwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE}",
+                "max_abs_err": bwd_err, "ms": time_ms(torch, bwd, 10),
+                "plain_ms": time_ms(torch, bwd_plain, 2),
+                "library_ms": None, **bound(bwd_bytes, bwd_flops)}}
+
+
+def mask_check(torch, dev) -> dict:
+    """Kernel B's training-mode dropout mask against the plain Philox mask,
+    bit for bit, for all 16 layers at B = 32, N = 240: with W = 0, alpha =
+    1 and no reason-LSTM a layer's output is keep * (1 - theta) h0 /
+    (1 - rate), so layer l + 1's residual h shows layer l's mask."""
+    from mmdfn_torch.ops import gcnii_stack_fwd, philox
+    from mmdfn_torch.ops.gcnii import RESIDUALS
+
+    B, N, nl = TRAIN_B, 3 * TRAIN_L, NLAYERS
+    g = torch.Generator().manual_seed(6)
+    h0 = (torch.rand(B, N, H, generator=g) + 0.5).to(dev)
+    adj = (torch.rand(B, N, N, generator=g) / N).to(dev)
+    theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
+    seed = torch.tensor([SEED + 777], dtype=torch.int64, device=dev)
+    res = [torch.zeros(B, nl, N, H, device=dev) for _ in RESIDUALS]
+    out = gcnii_stack_fwd(adj, h0, h0, torch.zeros(nl, 2 * H, H, device=dev),
+                          theta, alpha=1.0, reason=False, rate=RATE,
+                          seed=seed, residuals=res)
+    torch.cuda.synchronize()
+    kept = 0
+    for l in range(nl):
+        got = (res[0][:, l + 1] if l + 1 < nl else out) != 0
+        want = philox.keep_mask(seed, RATE, B, l, N, H)
+        check(torch.equal(got, want), f"dropout mask of layer {l} differs")
+        kept += int(want.sum())
+    return {"layers": nl, "elements": nl * B * N * H,
+            "keep_fraction": kept / (nl * B * N * H)}
+
+
+def train_batch(torch, rng, dev, B=TRAIN_B, L=TRAIN_L) -> dict:
+    """bench.py's make_batch recipe: lengths U[20, L], random speakers,
+    standard-normal features, random labels; on the card."""
+    import numpy as np
+
+    lengths = rng.integers(20, L + 1, size=B)
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    spk = rng.integers(0, 2, size=(B, L))
+    qmask = np.zeros((B, L, 2), np.float32)
+    qmask[np.arange(B)[:, None], np.arange(L)[None, :], spk] = 1.0
+    qmask *= umask[..., None]
+    feat = lambda D: (rng.standard_normal((B, L, D), dtype=np.float32)
+                      * umask[..., None])
+    label = (rng.integers(0, 6, size=(B, L)) * umask).astype(np.int64)
+    arrays = dict(text=feat(100), audio=feat(1582), visual=feat(342),
+                  qmask=qmask, umask=umask, label=label)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def train_phase(torch, dev) -> dict:
+    """The flagship training step at bench.py's production settings."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.train import Trainer
+
+    cfg = ExperimentConfig(dataset="IEMOCAP", graph_type="GDF",
+                           reason_flag=True, class_weight=True,
+                           Deep_GCN_nlayers=NLAYERS, batch_size=TRAIN_B,
+                           speaker_weights="3-0-1", dropout=RATE, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(4)]
+
+    # one step with the kernels, one with the plain versions: same weights
+    # (cfg.seed), same step seed
+    def one_step(plain):
+        tr = Trainer(cfg, device=dev)
+        if plain:
+            with ops.plain_ops():
+                loss, _ = tr.train_step(batches[0], seed=1)
+        else:
+            loss, _ = tr.train_step(batches[0], seed=1)
+        torch.cuda.synchronize()
+        return float(loss), {n: p.grad for n, p in
+                             tr.model.named_parameters()}
+    loss_k, grads_k = one_step(plain=False)
+    loss_p, grads_p = one_step(plain=True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= STEP_LOSS_RTOL, f"step loss kernels {loss_k} vs plain "
+                                      f"{loss_p}")
+    grad_err = 0.0
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        check(gk is not None and float(gk.abs().max()) > 0,
+              f"no gradient reached {name}")
+        e = float((gk - gp).abs().max()) / float(gp.abs().max())
+        check(e <= STEP_GRAD_RTOL, f"gradient of {name}: {e} of its scale")
+        grad_err = max(grad_err, e)
+
+    # the main path: 2 warm-up steps, then 10 timed steps with the counts
+    # zeroed just before and read just after
+    tr = Trainer(cfg, device=dev)
+    for i in range(2):
+        tr.train_step(batches[i % 4], seed=100 + i)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    wall, enqueue, losses = [], [], []
+    for i in range(10):
+        t0 = time.perf_counter()
+        loss, _ = tr.train_step(batches[i % 4], seed=200 + i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        enqueue.append((t1 - t0) * 1e3)
+        losses.append(float(loss))
+    counts = ops.launch_counts()
+    per_step = {k: v / 10 for k, v in counts.items()}
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel was not launched by the training step: {counts}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    step_ms = sorted(wall)[len(wall) // 2]
+
+    # chained steps: the stream's time per step; then a profiled window
+    K = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(K):
+        tr.train_step(batches[i % 4], seed=300 + i)
+    end.record()
+    end.synchronize()
+    stream_ms = start.elapsed_time(end) / K
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            tr.train_step(batches[i % 4], seed=400 + i)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kern:
+        busy = sum(e.self_device_time_total for e in kern) / 1e3 / 3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        profiled = {"device_busy_ms_per_step": busy,
+                    "idle_share": 1.0 - busy / stream_ms,
+                    "device_ops_per_step": sum(e.count for e in kern) / 3,
+                    "top": [[e.key[:40], e.self_device_time_total / 1e3 / 3,
+                             e.count / 3] for e in top]}
+    else:
+        profiled = {"device_busy_ms_per_step": "not measured",
+                    "idle_share": "not measured"}
+
+    # 20 steps on one fixed batch: the loss must fall
+    tr = Trainer(cfg, device=dev)
+    fit = [float(tr.train_step(batches[0], seed=500 + i)[0])
+           for i in range(20)]
+    check(sum(fit[-5:]) < sum(fit[:5]),
+          f"the loss did not fall over 20 steps on one batch: {fit}")
+    return {"shape": f"B={TRAIN_B} L<={TRAIN_L} layers={NLAYERS} "
+                     f"dropout={RATE}",
+            "step_loss_rel_err_vs_plain": loss_err,
+            "step_grad_max_rel_err_vs_plain": grad_err,
+            "launches": counts, "launches_per_step": per_step,
+            "step_ms_median": step_ms, "step_ms_all": wall,
+            "dialogues_per_sec": TRAIN_B / (step_ms / 1e3),
+            "host_enqueue_ms_per_step": sorted(enqueue)[len(enqueue) // 2],
+            "stream_ms_per_step": stream_ms, **profiled,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "fixed_batch_losses": fit}
+
+
 def main() -> int:
     import torch
 
@@ -346,36 +671,60 @@ def main() -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "kernels": list(_build.KERNELS)}), flush=True)
 
-    # the kernel checks first, so that the serve line stands near the end
-    # of the output; their launches are zeroed before the serve run
+    # the kernel checks first, so that the serve and train lines stand near
+    # the end of the output; their launches are zeroed before those runs
     cases_a = {(B, L): bigru_case(torch, dev, B, L)
                for L in (32, 64, 200) for B in (1, 6)}
+    for B in (TRAIN_B, 6 * TRAIN_B):     # lstm_l, and rnn_parties' streams
+        cases_a[(B, TRAIN_L)] = bigru_case(torch, dev, B, TRAIN_L)
     cases_b = {L: gcnii_case(torch, dev, L) for L in (32, 64, 200)}
     cases_b["200_no_reason"] = gcnii_case(torch, dev, 200, reason=False)
+    cases_c = {B: bigru_bwd_case(torch, dev, B, TRAIN_L)
+               for B in (TRAIN_B, 6 * TRAIN_B)}
+    case_bd = gcnii_train_case(torch, dev, TRAIN_B, TRAIN_L)
+    mask = mask_check(torch, dev)
     print(json.dumps({"kernel_cases": {
         "bigru_fwd (library: torch.nn.GRU, cuDNN, all-valid mask)":
             list(cases_a.values()),
-        "gcnii_fwd": list(cases_b.values())}}), flush=True)
+        "gcnii_fwd": list(cases_b.values()),
+        "bigru_bwd (library: torch.nn.GRU forward + backward, cuDNN)":
+            list(cases_c.values()),
+        "gcnii_fwd training mode": case_bd["fwd"],
+        "gcnii_bwd": case_bd["bwd"],
+        "dropout mask vs plain Philox": mask}}), flush=True)
 
     serve = serve_phase(torch, dev)
     print(json.dumps({"serve": serve}), flush=True)
+    train = train_phase(torch, dev)
+    print(json.dumps({"train": train}), flush=True)
 
-    # the line's numbers: bucket 64, the largest the serve run used
-    # (rnn_parties' B = 6 party streams; N = 3 x 64 graph nodes)
+    # the line's numbers: the training step's shapes (the party streams'
+    # B = 192 for the bi-GRU kernels; B = 32, N = 240 for the GCNII stack);
+    # launches from the training step's main-path run
+    big = (6 * TRAIN_B, TRAIN_L)
     report = [
         ("bigru_fwd", "cuda", "mmdfn_torch/csrc/bigru_fwd.cu",
-         "mmdfn_tpu/ops/pallas_rnn.py:266", cases_a[(6, 64)],
+         "mmdfn_tpu/ops/pallas_rnn.py:266", cases_a[big],
          max(c["max_abs_err"] for c in cases_a.values()), KERNEL_A_TOL),
+        ("bigru_bwd", "cuda", "mmdfn_torch/csrc/bigru_bwd.cu",
+         "mmdfn_tpu/ops/pallas_rnn.py:298", cases_c[6 * TRAIN_B],
+         max(c["max_abs_err"] for c in cases_c.values()),
+         f"{KERNEL_C_RTOL} x max(1, max|grad|) of each gradient"),
         ("gcnii_fwd", "cuda", "mmdfn_torch/csrc/gcnii_fwd.cu",
-         "mmdfn_tpu/ops/pallas_gcnii.py:90", cases_b[64],
-         max(c["max_abs_err"] for c in cases_b.values()),
+         "mmdfn_tpu/ops/pallas_gcnii_train.py:472", case_bd["fwd"],
+         max([c["max_abs_err"] for c in cases_b.values()]
+             + [case_bd["fwd"]["max_abs_err"]]),
          f"{KERNEL_B_RTOL} x max|h|"),
+        ("gcnii_bwd", "cuda", "mmdfn_torch/csrc/gcnii_bwd.cu",
+         "mmdfn_tpu/ops/pallas_gcnii_train.py:526", case_bd["bwd"],
+         case_bd["bwd"]["max_abs_err"],
+         f"{KERNEL_D_RTOL} x max|grad| of each gradient"),
     ]
     kernels = []
     for name, route, source, replaces, case, err, tol in report:
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": serve["launches"][name],
+            "replaces": replaces, "launches": train["launches"][name],
             "max_abs_err": err, "tolerance": tol, "shape": case["shape"],
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],

@@ -1,5 +1,5 @@
-"""IEMOCAP feature pickles -> numpy dialogues (the serve path's subset of
-``mmdfn_tpu/data/datasets.py``).
+"""IEMOCAP feature pickles -> numpy dialogues (the serve and training
+paths' subset of ``mmdfn_tpu/data/datasets.py``).
 
 The pickle is the reference's 9-tuple of dicts keyed by dialogue id
 (``dataloader.py:12-14``); speakers are 'M'/'F', one-hot as [1,0]/[0,1].
@@ -75,3 +75,12 @@ class IEMOCAPDataset:
 
     def dialogues(self) -> List[Dialogue]:
         return [self[i] for i in range(len(self))]
+
+
+def train_valid_split(n: int, valid_rate: float):
+    """(train, valid) index lists: the first ``valid_rate`` fraction is
+    validation (reference ``get_train_valid_sampler``,
+    ``run_train_erc.py:29-33``)."""
+    split = int(valid_rate * n)
+    idx = list(range(n))
+    return idx[split:], idx[:split]

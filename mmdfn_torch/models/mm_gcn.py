@@ -3,7 +3,7 @@ reference ``model_mm.py:44-180``)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -26,7 +26,8 @@ class MMGCN(nn.Module):
     def __init__(self, n_dim: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.2,
                  use_residue: bool = True, modals: str = "avl",
-                 reason_flag: bool = False, modal_weight: float = 1.0):
+                 reason_flag: bool = False, modal_weight: float = 1.0,
+                 dropout: float = 0.0):
         super().__init__()
         if len(modals) < 2:
             raise ValueError("MMGCN needs at least two modalities")
@@ -34,13 +35,17 @@ class MMGCN(nn.Module):
         self.use_residue = use_residue
         self.modal_weight = modal_weight
         self.graph_net = GCNIIStack(n_dim, nlayers, nhidden, lamda=lamda,
-                                    alpha=alpha, reason_flag=reason_flag)
+                                    alpha=alpha, reason_flag=reason_flag,
+                                    dropout=dropout)
 
-    def forward(self, feats: Dict[str, Tensor], umask: Tensor) -> Tensor:
+    def forward(self, feats: Dict[str, Tensor], umask: Tensor, *,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         L = umask.shape[1]
         ordered = [feats[m] for m in self.modals]
         adj = mm_big_adjacency(ordered, umask, modal_weight=self.modal_weight)
-        x_resid, h = self.graph_net(torch.cat(ordered, dim=1), adj)
+        x_resid, h = self.graph_net(torch.cat(ordered, dim=1), adj,
+                                    train=train, generator=generator)
         if self.use_residue:
             h = torch.cat([x_resid, h], dim=-1)      # model_GCN.py:482-483
         parts = [h[:, i * L:(i + 1) * L] for i in range(len(self.modals))]

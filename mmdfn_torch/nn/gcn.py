@@ -1,11 +1,15 @@
-"""The deep GCNII stack, deterministic forward (``mmdfn_tpu/nn/gcn.py``
-``GCNIIStack`` with the GCNII_lyc wiring, reference ``model_GCN.py:412-488``).
+"""The deep GCNII stack (``mmdfn_tpu/nn/gcn.py`` ``GCNIIStack`` with the
+GCNII_lyc wiring, reference ``model_GCN.py:412-488``).
 
 ``fc_in`` and ReLU give ``h = h0``; then per layer l = 1..nlayers, with
 ``theta_l = log(lamda / l + 1)``: the shared reason-LSTM step (gates
 i, f, g, o; bias ``b_ih + b_hh``; state carried across layers), the GCNII
-variant update, ReLU and the additive skip ``+q``.  The layer loop is
-kernel B (:func:`mmdfn_torch.ops.gcnii_stack_fwd`).
+variant update, ReLU, dropout and the additive skip ``+q``.  In training
+the input x is dropped before ``fc_in`` and h after its ReLU, with h0 kept
+undropped (``mmdfn_tpu/nn/gcn.py:159-165``), and each layer's dropout bits
+come from Philox under a seed drawn from the step's generator.  The layer
+loop is :func:`mmdfn_torch.ops.gcnii_stack_fwd`: kernel B, and under
+autograd kernel B's training mode with kernel D for the backward.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.ops import gcnii_stack_fwd
 
 Tensor = torch.Tensor
@@ -48,10 +53,11 @@ class GCNIIStack(nn.Module):
 
     def __init__(self, nfeat: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.2,
-                 reason_flag: bool = False):
+                 reason_flag: bool = False, dropout: float = 0.0):
         super().__init__()
         self.nhidden = nhidden
         self.alpha = alpha
+        self.dropout = dropout
         self.reason_flag = reason_flag
         self._cache = None       # (parameter key, packed weights)
         self.fcs = nn.ModuleList([nn.Linear(nfeat, nhidden)])
@@ -103,9 +109,22 @@ class GCNIIStack(nn.Module):
         self._cache = None if torch.is_grad_enabled() else (key, packed)
         return packed
 
-    def forward(self, x: Tensor, adj: Tensor) -> Tuple[Tensor, Tensor]:
-        h = torch.relu(self.fcs[0](x))
+    def forward(self, x: Tensor, adj: Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[Tensor, Tensor]:
+        """Returns (x, h): the input as the residue concat takes it
+        (dropped in training, as the reference reuses its mutated ``x``)
+        and the final hidden state."""
         W, *lstm = self._packed()
-        h = gcnii_stack_fwd(adj, h, h, W, self.theta, *lstm,
-                            alpha=self.alpha, reason=self.reason_flag)
+        rate = self.dropout if train else 0.0
+        x = dropout(x, rate, generator)
+        h0 = torch.relu(self.fcs[0](x))
+        h = dropout(h0, rate, generator)
+        seed = None
+        if rate > 0.0:   # the kernels' Philox key, never read by the host
+            seed = torch.randint(0, 1 << 62, (1,), generator=generator,
+                                 device=x.device)
+        h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
+                            alpha=self.alpha, reason=self.reason_flag,
+                            rate=rate, seed=seed)
         return x, h

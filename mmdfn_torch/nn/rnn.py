@@ -8,8 +8,8 @@ directions, is kernel A (:func:`mmdfn_torch.ops.bigru_layer_fwd`).
 The recurrence is gated per (batch, time) by a mask with a select: a masked
 frame carries the state unchanged, so outputs are padding-invariant and a
 mask with holes visits a subsequence (the CRN party encoder rides this).
-This slice serves only: the inter-layer dropout is the identity at serve
-time and is not built.
+In training, the output of every layer but the last goes through dropout
+(``mmdfn_tpu/nn/rnn.py:346-351``), drawn from the caller's generator.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.ops import bigru_layer_fwd
 
 Tensor = torch.Tensor
@@ -34,10 +35,11 @@ class BiRNN(nn.Module):
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 2):
+                 num_layers: int = 2, dropout: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.dropout = dropout
         H = hidden_size
         for layer in range(num_layers):
             in_dim = input_size if layer == 0 else 2 * H
@@ -58,8 +60,11 @@ class BiRNN(nn.Module):
             for p in self.parameters():
                 p.uniform_(-k, k, generator=generator)
 
-    def forward(self, x: Tensor, umask: Optional[Tensor] = None) -> Tensor:
-        """x: (B, L, D) -> (B, L, 2H)."""
+    def forward(self, x: Tensor, umask: Optional[Tensor] = None, *,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """x: (B, L, D) -> (B, L, 2H); ``train`` turns the inter-layer
+        dropout on, drawn from ``generator``."""
         if umask is None:
             umask = x.new_ones(x.shape[:2])
         out = x
@@ -72,11 +77,14 @@ class BiRNN(nn.Module):
                 w("weight_hh", "_reverse").t(), w("bias_hh", "_reverse"),
                 umask)
             out = torch.cat([ys_f, ys_b], dim=-1)
+            if train and layer < self.num_layers - 1:
+                out = dropout(out, self.dropout, generator)
         return out
 
 
 def crn_party_delta(rnn: BiRNN, x: Tensor, qmask: Tensor,
-                    umask: Tensor) -> Tensor:
+                    umask: Tensor, *, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> Tensor:
     """Contextual-reasoning speaker encoder (``mmdfn_tpu/nn/rnn.py:411``).
 
     All B*P (batch, party) streams run as one RNN batch, each gated by "this
@@ -92,7 +100,8 @@ def crn_party_delta(rnn: BiRNN, x: Tensor, qmask: Tensor,
     B, L, P = qmask.shape
     is_p = (qmask.transpose(1, 2) > 0) & (umask[:, None, :] > 0)   # (B, P, L)
     flat = x[:, None].expand(B, P, L, x.shape[-1]).reshape(B * P, L, -1)
-    E = rnn(flat, is_p.reshape(B * P, L).to(x.dtype)).reshape(B, P, L, -1)
+    E = rnn(flat, is_p.reshape(B * P, L).to(x.dtype), train=train,
+            generator=generator).reshape(B, P, L, -1)
     # select, not multiply: masked frames hold carried state, and a
     # non-finite value parked in one must stay quarantined (0 * inf = nan)
     return torch.where(is_p[..., None], E, torch.zeros_like(E)).sum(dim=1)

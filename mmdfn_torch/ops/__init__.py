@@ -6,10 +6,13 @@ counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from mmdfn_torch.ops._mode import plain_ops
-from mmdfn_torch.ops.bigru import bigru_layer_fwd, bigru_layer_plain
-from mmdfn_torch.ops.gcnii import gcnii_stack_fwd, gcnii_stack_plain
+from mmdfn_torch.ops.bigru import (bigru_layer_bwd, bigru_layer_bwd_plain,
+                                   bigru_layer_fwd, bigru_layer_plain)
+from mmdfn_torch.ops.gcnii import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
+                                   gcnii_stack_fwd, gcnii_stack_plain)
 
-WRAPPERS = {"bigru_fwd": bigru_layer_fwd, "gcnii_fwd": gcnii_stack_fwd}
+WRAPPERS = {"bigru_fwd": bigru_layer_fwd, "bigru_bwd": bigru_layer_bwd,
+            "gcnii_fwd": gcnii_stack_fwd, "gcnii_bwd": gcnii_stack_bwd}
 
 
 def reset_launch_counts() -> None:

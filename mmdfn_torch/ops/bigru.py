@@ -1,14 +1,23 @@
-"""Kernel A: one masked bidirectional GRU layer's hidden recurrence.
+"""Kernels A and C: one masked bidirectional GRU layer's hidden recurrence,
+forward and backward.
 
-Replaces ``mmdfn_tpu/ops/pallas_rnn.py:_bigru_fwd`` (the forward of
-``fused_bigru_layer``).  The CUDA kernel is ``csrc/bigru_fwd.cu``: one block
-per (direction, tile of 8 batch rows), the time loop inside the kernel,
-W_hh in dynamic shared memory, h in shared memory.  It is bound by the
-latency of L dependent steps, not by bytes or FLOPs (see the source note).
+Kernel A replaces ``mmdfn_tpu/ops/pallas_rnn.py:_bigru_fwd`` (the forward
+of ``fused_bigru_layer``).  The CUDA kernel is ``csrc/bigru_fwd.cu``: one
+block per (direction, tile of 8 batch rows), the time loop inside the
+kernel, W_hh in dynamic shared memory, h in shared memory.  It is bound by
+the latency of L dependent steps, not by bytes or FLOPs (see the source
+note).
 
-``bigru_layer_fwd`` launches the kernel for CUDA tensors and runs
-``bigru_layer_plain`` for CPU tensors or inside ``ops.plain_ops()``; it
-raises for anything else.
+Kernel C replaces ``mmdfn_tpu/ops/pallas_rnn.py:_bigru_bwd``: the reverse
+walk of each direction with the gates recomputed from the carried state,
+``dxg`` per step (zero at masked frames) and ``dW_hh``/``db_hh`` summed over
+batch and time (``csrc/bigru_bwd.cu``).
+
+``bigru_layer_fwd`` with autograd on goes through :class:`BiGRULayer`, whose
+backward is ``bigru_layer_bwd``; with autograd off it runs the forward
+alone.  Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors; anything else raises.  Inside ``ops.plain_ops()``
+``bigru_layer_fwd`` runs the plain forward and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -26,6 +35,11 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # xg_f, xg_b, w_f, b_f, w_b, b_b, the two weights' strides, mask, ys_f,
 # ys_b, B, L, H, stream
 _ARGTYPES = [_p] * 6 + [_i64] * 4 + [_p] * 3 + [_i32] * 3 + [_p]
+# xg_f, xg_b, w_f, b_f, w_b, b_b, the two weights' strides, mask, ys_f,
+# ys_b, dy_f, dy_b, dxg_f, dxg_b, dw_f, db_f, dw_b, db_b, partials, B, L,
+# H, stream
+_BWD_ARGTYPES = ([_p] * 6 + [_i64] * 4 + [_p] * 12 + [_i32] * 3 + [_p])
+_BT = 8          # batch rows per block of kernels A and C
 
 
 def _gru_gates(xg_t: Tensor, hg: Tensor, h: Tensor) -> Tensor:
@@ -49,15 +63,69 @@ def bigru_layer_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
     for xg, w, b, steps in ((xg_f, w_hh_f, b_hh_f, range(L)),
                             (xg_b, w_hh_b, b_hh_b, range(L - 1, -1, -1))):
         h = xg.new_zeros(B, H)
-        ys = xg.new_empty(B, L, H)
+        ys = [None] * L
         for t in steps:
             h_new = _gru_gates(xg[:, t], h @ w + b, h)
             # select, never multiply: a non-finite value in a masked frame
             # must not reach the carry (0 * inf would be NaN)
             h = torch.where(gate[:, t, None], h_new, h)
-            ys[:, t] = h
-        outs.append(ys)
+            ys[t] = h
+        outs.append(torch.stack(ys, dim=1) if L else xg.new_empty(B, 0, H))
     return outs[0], outs[1]
+
+
+def bigru_layer_bwd_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
+                          b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
+                          mask: Tensor, ys_f: Tensor, ys_b: Tensor,
+                          dy_f: Tensor, dy_b: Tensor):
+    """Plain PyTorch version of :func:`bigru_layer_bwd`: the explicit time
+    loop of ``_bwd_kernel`` (``mmdfn_tpu/ops/pallas_rnn.py:127-209``).
+
+    Each direction walks its forward walk backwards; ``h_prev`` is the
+    walk-order shifted output (``ys_f[t-1]`` forward, ``ys_b[t+1]``
+    backward, zero at the walk's start), and the gates are recomputed from
+    it.  Masked frames are selected away, never multiplied, so a non-finite
+    value there reaches no gradient.
+
+    Returns:
+      (dxg_f, dxg_b, dW_hh_f, db_hh_f, dW_hh_b, db_hh_b), float32, dW in
+      the JAX orientation (H, 3H).
+    """
+    B, L, G = xg_f.shape
+    H = G // 3
+    gate = (mask > 0)[..., None]
+    out = []
+    for xg, w, b, ys, dy, walk, shift in (
+            (xg_f, w_hh_f, b_hh_f, ys_f, dy_f, range(L - 1, -1, -1), -1),
+            (xg_b, w_hh_b, b_hh_b, ys_b, dy_b, range(L), 1)):
+        zero = xg.new_zeros(B, H)
+        dh = xg.new_zeros(B, H)
+        dxg = xg.new_zeros(B, L, G)
+        dw = torch.zeros_like(w)
+        db = torch.zeros_like(b)
+        for t in walk:
+            tp = t + shift
+            h_prev = ys[:, tp] if 0 <= tp < L else zero
+            dh = dh + dy[:, t]
+            m = gate[:, t]
+            hg = h_prev @ w + b
+            xr, xz, xn = xg[:, t].chunk(3, dim=-1)
+            hr, hz, hn = hg.chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            dh_eff = torch.where(m, dh, 0.0)
+            dz = dh_eff * (h_prev - n) * z * (1.0 - z)
+            dn = dh_eff * (1.0 - z) * (1.0 - n * n)
+            dr = dn * hn * r * (1.0 - r)
+            dhg = torch.where(m, torch.cat([dr, dz, dn * r], dim=-1), 0.0)
+            dxg[:, t] = torch.where(m, torch.cat([dr, dz, dn], dim=-1), 0.0)
+            dh = torch.where(m, dh_eff * z + dhg @ w.t(), dh)
+            dw = dw + h_prev.t() @ dhg
+            db = db + dhg.sum(dim=0)
+        out.append((dxg, dw, db))
+    (dxg_f, dw_f, db_f), (dxg_b, dw_b, db_b) = out
+    return dxg_f, dxg_b, dw_f, db_f, dw_b, db_b
 
 
 def _check(name: str, t: Tensor, shape, device) -> None:
@@ -68,39 +136,38 @@ def _check(name: str, t: Tensor, shape, device) -> None:
                          f"{t.device}")
 
 
-def bigru_layer_fwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
-                    b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
-                    mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """One masked bi-GRU layer's recurrence, both directions.
-
-    Args:
-      xg_f / xg_b: (B, L, 3H) ``x @ W_ih + b_ih`` per direction, both in
-        natural time order (the backward direction is walked in reverse).
-      w_hh_f / w_hh_b: (H, 3H) hidden weights in the JAX orientation (a
-        transposed view of torch's (3H, H) ``weight_hh`` is taken as is).
-      b_hh_f / b_hh_b: (3H,).
-      mask: (B, L) recurrence gate, need not be a prefix; None = all frames.
-    Returns:
-      (ys_f, ys_b): (B, L, H) float32; a masked frame holds the carried state.
-    """
+def _prepare(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, more=()):
+    """Contiguous f32 operands on one CUDA device, shapes checked; the
+    hidden weights keep their strides (the kernels take them)."""
     B, L, G = xg_f.shape
     H = G // 3
-    if mask is None:
-        mask = xg_f.new_ones(B, L)
-    if _mode.plain or xg_f.device.type == "cpu":
-        return bigru_layer_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
-                                 mask)
-    if xg_f.device.type != "cuda":
-        raise ValueError(f"bigru_layer_fwd: no kernel for {xg_f.device}")
     dev = xg_f.device
-    xg_f, xg_b = xg_f.contiguous(), xg_b.contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"bi-GRU kernels: no kernel for {dev}")
+    xg_f, xg_b, b_hh_f, b_hh_b = (t.contiguous()
+                                  for t in (xg_f, xg_b, b_hh_f, b_hh_b))
     mask = mask.to(torch.float32).contiguous()
-    b_hh_f, b_hh_b = b_hh_f.contiguous(), b_hh_b.contiguous()
+    more = tuple(t.contiguous() for t in more)
     for name, t, shape in (("xg_f", xg_f, (B, L, G)), ("xg_b", xg_b, (B, L, G)),
                            ("w_hh_f", w_hh_f, (H, G)), ("w_hh_b", w_hh_b, (H, G)),
                            ("b_hh_f", b_hh_f, (G,)), ("b_hh_b", b_hh_b, (G,)),
-                           ("mask", mask, (B, L))):
+                           ("mask", mask, (B, L)),
+                           *((f"operand {i}", t, (B, L, H))
+                             for i, t in enumerate(more))):
         _check(name, t, shape, dev)
+    return (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask) + more
+
+
+def _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
+    """Kernel A on CUDA tensors, the plain version on CPU tensors."""
+    if xg_f.device.type == "cpu":
+        return bigru_layer_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
+                                 mask)
+    xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask = _prepare(
+        xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask)
+    B, L, G = xg_f.shape
+    H = G // 3
+    dev = xg_f.device
     ys_f = torch.empty(B, L, H, device=dev)
     ys_b = torch.empty(B, L, H, device=dev)
     if B == 0 or L == 0:
@@ -116,4 +183,105 @@ def bigru_layer_fwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
     return ys_f, ys_b
 
 
+def bigru_layer_bwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
+                    b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
+                    mask: Tensor, ys_f: Tensor, ys_b: Tensor, dy_f: Tensor,
+                    dy_b: Tensor):
+    """Kernel C: the gradients of one bi-GRU layer's recurrence.
+
+    Takes the forward's operands (as :func:`bigru_layer_fwd`), its outputs
+    ``ys_f``/``ys_b`` and their cotangents ``dy_f``/``dy_b`` (B, L, H).
+    Returns (dxg_f, dxg_b, dW_hh_f, db_hh_f, dW_hh_b, db_hh_b) as
+    :func:`bigru_layer_bwd_plain` does, which CPU tensors and
+    ``ops.plain_ops()`` run instead.
+    """
+    if _mode.plain or xg_f.device.type == "cpu":
+        return bigru_layer_bwd_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b,
+                                     b_hh_b, mask, ys_f, ys_b, dy_f, dy_b)
+    (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, ys_f, ys_b, dy_f,
+     dy_b) = _prepare(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
+                      (ys_f, ys_b, dy_f, dy_b))
+    B, L, G = xg_f.shape
+    H = G // 3
+    dev = xg_f.device
+    dxg_f = torch.empty(B, L, G, device=dev)
+    dxg_b = torch.empty(B, L, G, device=dev)
+    dw_f = torch.empty(H, G, device=dev)
+    dw_b = torch.empty(H, G, device=dev)
+    db_f = torch.empty(G, device=dev)
+    db_b = torch.empty(G, device=dev)
+    if B == 0 or L == 0:
+        for t in (dxg_f, dxg_b, dw_f, dw_b, db_f, db_b):
+            t.zero_()
+        return dxg_f, dxg_b, dw_f, db_f, dw_b, db_b
+    # each block's dW_hh / db_hh over its own rows, summed by a second pass
+    tiles = (B + _BT - 1) // _BT
+    partials = torch.empty(2, tiles, H * G + G, device=dev)
+    fn = _build.load("bigru_bwd", "bigru_bwd", _BWD_ARGTYPES)
+    err = fn(xg_f.data_ptr(), xg_b.data_ptr(), w_hh_f.data_ptr(),
+             b_hh_f.data_ptr(), w_hh_b.data_ptr(), b_hh_b.data_ptr(),
+             *w_hh_f.stride(), *w_hh_b.stride(), mask.data_ptr(),
+             ys_f.data_ptr(), ys_b.data_ptr(), dy_f.data_ptr(),
+             dy_b.data_ptr(), dxg_f.data_ptr(), dxg_b.data_ptr(),
+             dw_f.data_ptr(), db_f.data_ptr(), dw_b.data_ptr(),
+             db_b.data_ptr(), partials.data_ptr(), B, L, H,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "bigru_bwd launch")
+    bigru_layer_bwd.launches += 1
+    return dxg_f, dxg_b, dw_f, db_f, dw_b, db_b
+
+
+class BiGRULayer(torch.autograd.Function):
+    """One bi-GRU layer's recurrence with kernel A forward and kernel C
+    backward (their plain versions on CPU tensors).  Saves what
+    ``_bigru_bwd`` saves: xg, mask, W_hh, b_hh and the outputs."""
+
+    @staticmethod
+    def forward(ctx, xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
+        ys_f, ys_b = _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
+                              mask)
+        ctx.save_for_backward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
+                              mask, ys_f, ys_b)
+        return ys_f, ys_b
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        saved = ctx.saved_tensors
+        ys_f = saved[7]
+        dy_f = torch.zeros_like(ys_f) if dy_f is None else dy_f
+        dy_b = torch.zeros_like(ys_f) if dy_b is None else dy_b
+        grads = bigru_layer_bwd(*saved, dy_f, dy_b)
+        return (*grads, None)
+
+
+def bigru_layer_fwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
+                    b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
+                    mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """One masked bi-GRU layer's recurrence, both directions.
+
+    Args:
+      xg_f / xg_b: (B, L, 3H) ``x @ W_ih + b_ih`` per direction, both in
+        natural time order (the backward direction is walked in reverse).
+      w_hh_f / w_hh_b: (H, 3H) hidden weights in the JAX orientation (a
+        transposed view of torch's (3H, H) ``weight_hh`` is taken as is).
+      b_hh_f / b_hh_b: (3H,).
+      mask: (B, L) recurrence gate, need not be a prefix; None = all frames.
+    Returns:
+      (ys_f, ys_b): (B, L, H) float32; a masked frame holds the carried
+      state.  With autograd on, their gradients come from kernel C.
+    """
+    B, L, G = xg_f.shape
+    if mask is None:
+        mask = xg_f.new_ones(B, L)
+    args = (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask)
+    if _mode.plain:
+        return bigru_layer_plain(*args)
+    if xg_f.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bigru_layer_fwd: no kernel for {xg_f.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return BiGRULayer.apply(*args)
+    return _forward(*args)
+
+
 bigru_layer_fwd.launches = 0
+bigru_layer_bwd.launches = 0

@@ -2,6 +2,7 @@
 held against the JAX package on the same numpy inputs."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -15,6 +16,18 @@ from mmdfn_tpu.ops.pallas_rnn import fused_bigru_layer
 from mmdfn_torch.nn.rnn import BiRNN, crn_party_delta
 from mmdfn_torch.ops import bigru_layer_fwd, bigru_layer_plain
 from mmdfn_torch.weights import gru_from_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small tensors: with several test workers on a few cores, one torch
+    # thread per core makes every op wait for the others (a test of 0.7 s
+    # alone took 120 s beside five other workers)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 H, B, L = 100, 3, 9
 

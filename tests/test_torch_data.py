@@ -18,6 +18,17 @@ from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
 from mmdfn_torch.graph.adjacency import mm_big_adjacency
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small tensors: with several test workers on a few cores, one torch
+    # thread per core makes every op wait for the others (a test of 0.7 s
+    # alone took 120 s beside five other workers)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_same_seed_gives_the_same_pickle(tmp_path):
     ours, theirs = tmp_path / "port.pkl", tmp_path / "jax.pkl"
     kw = dict(n_train=3, n_test=2, min_len=2, max_len=9, seed=5)

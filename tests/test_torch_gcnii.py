@@ -2,6 +2,7 @@
 against the JAX package's three functions on the same numpy inputs."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -15,6 +16,18 @@ from mmdfn_tpu.ops.pallas_gcnii_train import gcnii_stack_train
 from mmdfn_torch.nn.gcn import GCNIIStack
 from mmdfn_torch.ops import gcnii_stack_fwd
 from mmdfn_torch.weights import gcnii_from_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small tensors: with several test workers on a few cores, one torch
+    # thread per core makes every op wait for the others (a test of 0.7 s
+    # alone took 120 s beside five other workers)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ALPHA, NL, H = 0.2, 16, 100
 

@@ -23,6 +23,18 @@ from mmdfn_torch.serve import StreamingSession
 from mmdfn_torch.weights import (build_model, load_model, params_from_jax,
                                  save_model)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small tensors: with several test workers on a few cores, one torch
+    # thread per core makes every op wait for the others (a test of 0.7 s
+    # alone took 120 s beside five other workers)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NL = 2
 BUCKETS = (8,)
 
