@@ -9,30 +9,39 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. toolchain and card: torch, CUDA, nvcc and Triton versions; the card's
    name and power limit from nvidia-smi;
 2. build: all four kernels from ``mmdfn_torch/csrc`` (one nvcc each, at
-   once);
+   once); each kernel's registers, stack and spill bytes (``-Xptxas -v``)
+   are printed, and the bi-GRU time loops must not spill;
 3. kernels: each kernel against its plain version at the shapes the serve
    path (buckets 32, 64 and 200, i.e. N = 600 for the GCNII stack) and the
    training step (B = 32 text rows and 192 party streams of L = 80; the
    GCNII stack at B = 32, N = 240, 16 layers, dropout 0.4) give it, timed
-   beside the plain version and, for the bi-GRU, cuDNN's GRU; the bound is
-   computed from the same inputs.  Kernels C and D are checked on the
-   residuals their forwards wrote, and kernel B's training-mode dropout
-   mask against the plain Philox mask, bit for bit;
+   on the card (a sleep kernel gives the host a head start) beside the
+   plain version and, for the bi-GRU, cuDNN's GRU, timed by the time
+   torch.profiler shows its kernels busy on the card (so that autograd's
+   host time does not set its pace): kernel A beside its forward, kernel
+   C beside its backward alone, and kernel A's training mode plus kernel
+   C beside its forward plus backward; the bound is computed from the
+   same inputs.  Kernels C and D are checked on the
+   residuals their forwards wrote (kernel C also for the same dW_hh bits
+   from two launches), and kernel B's training-mode dropout mask against
+   the plain Philox mask, bit for bit;
 4. serve: the flagship MM-DFN (IEMOCAP GDF with the reason-LSTM, 16 GCNII
    layers, full widths, weights fresh from a seed) answers every utterance
    of three synthetic dialogues through ``StreamingSession``; the launch
    counts, zeroed just before, must show both forward kernels on every
    append, and every append's log-probs must match the same model run with
    the plain versions on the card (``ops.plain_ops()``); a torch.profiler
-   window shows where one forward's time goes; then the stdio server
-   answers a few requests;
+   window shows where one forward's time goes (device busy sums the
+   kernels, not the GPU-side user annotations around them); then the stdio
+   server answers a few requests;
 5. train: the flagship training step at ``bench.py``'s production settings
    (B = 32 dialogues of U[20, 80] turns, class weights, focal loss, dropout
    0.4, Adam) through ``Trainer.train_step``: one step with the kernels and
    one under ``ops.plain_ops()`` from the same weights and seeds must agree
    in loss and every gradient; then 2 warm-up and 10 timed steps, whose
    launch counts (zeroed just before) must show all four kernels; a
-   profiled window; and 20 steps on one batch, whose loss must fall.
+   profiled window (device time by kernel, the bi-GRU kernels by name);
+   and 20 steps on one batch, whose loss must fall.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -68,6 +77,7 @@ KERNEL_C_RTOL = 1e-5     # of each gradient's max |.| (at least 1): f32, the
 KERNEL_D_RTOL = 1e-4     # of each gradient's max |.|: f32, sums over B N
                          # rows and 16 layers in another order
 SERVE_TOL = 1e-4         # log-probs, kernels vs plain through the model
+HEAD_START_CYCLES_PER_CALL = 400_000   # ~0.2 ms of the card's clock
 CLI_TOL = 2e-4           # the server rounds log-probs to 4 decimals
 STEP_LOSS_RTOL = 1e-5    # training step, kernels vs plain: the loss
 STEP_GRAD_RTOL = 1e-4    # and every gradient, of its max |.|
@@ -84,17 +94,86 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def ptxas_report(outputs: dict) -> list:
+    """Registers, stack and spill bytes of every kernel, from the
+    ``-Xptxas -v`` output of each build."""
+    import re
+
+    rows = []
+    for lib, text in outputs.items():
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = {"lib": lib, "kernel": m.group(1)}
+                rows.append(cur)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m[1])
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            n = n.replace("(anonymous namespace)::", "").replace("void ", "")
+            r["kernel"] = n.split("(")[0]
+    return rows
+
+
 def time_ms(torch, fn, reps: int) -> float:
+    """Stream time per call over ``reps`` chained calls.  A sleep kernel
+    first gives the host a head start, so that a kernel shorter than its
+    wrapper's host time is timed on the card and not at the host's pace."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time per call: the union of the intervals in which the kernels
+    that ``fn`` launches ran, from torch.profiler over ``reps`` calls.  For
+    library calls whose host time (autograd's engine) may exceed their
+    device time: the gaps in which the card waits for the host are not
+    counted, and kernels that run at once on several streams (cuDNN runs a
+    bidirectional GRU's two directions side by side) are counted once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    check(bool(spans), "torch.profiler saw no device time")
+    busy, until = 0.0, -math.inf
+    for a, b in spans:
+        if b > until:
+            busy += b - max(a, until)
+            until = b
+    return busy / 1e3 / reps
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its namespace and argument list."""
+    return key.replace("void ", "").replace("(anonymous namespace)::",
+                                            "").split("(")[0]
 
 
 def toolchain(torch, _build) -> dict:
@@ -174,6 +253,16 @@ def serve_phase(torch, dev) -> dict:
             "latency_bench_p50_ms": stats["p50_ms"], "cli": cli}
 
 
+def device_events(torch, prof):
+    """The profile's device work by name, and apart from it the GPU-side
+    user annotations (``Optimizer.step#Adam.step``): spans that cover
+    kernels already counted, so they stay out of the busy sums."""
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    notes = [e for e in cuda if getattr(e, "is_user_annotation", False)]
+    return [e for e in cuda if e not in notes], notes
+
+
 def profile_phase(torch, session, L: int, reps: int = 10) -> dict:
     """Where one forward's time goes at bucket L: device-busy time summed
     over the CUDA kernels torch.profiler saw, against the stream time of
@@ -201,8 +290,7 @@ def profile_phase(torch, session, L: int, reps: int = 10) -> dict:
             session._forward(L, L - 1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern, notes = device_events(torch, prof)
     if not kern:
         return {"bucket": L, "host_enqueue_ms_per_forward": enqueue,
                 "stream_ms_per_forward": stream,
@@ -216,6 +304,8 @@ def profile_phase(torch, session, L: int, reps: int = 10) -> dict:
             "device_busy_ms_per_forward": busy,
             "idle_share": 1.0 - busy / stream,
             "device_ops_per_forward": sum(e.count for e in kern) / reps,
+            "annotations_left_out": [[e.key[:40], e.self_device_time_total
+                                      / 1e3 / reps] for e in notes],
             "top": [[e.key[:40], e.self_device_time_total / 1e3 / reps,
                      e.count / reps] for e in top]}
 
@@ -276,15 +366,29 @@ def cudnn_gru(torch, dev, args):
     return gru
 
 
-def bigru_case(torch, dev, B, L) -> dict:
-    """Kernel A at (B, L): the party streams have holes in their masks."""
+def bigru_case(torch, dev, B, L, train=False) -> dict:
+    """Kernel A at (B, L): the party streams have holes in their masks.
+    With ``train`` also its training mode, which writes hg for kernel C:
+    checked against the plain forward's hg and timed beside the serve
+    launch."""
     from mmdfn_torch.ops import bigru_layer_fwd, bigru_layer_plain
+    from mmdfn_torch.ops.bigru import _forward
 
     args = bigru_inputs(torch, dev, B, L, holes=B > 1)
     got = bigru_layer_fwd(*args)
     torch.cuda.synchronize()
-    want = bigru_layer_plain(*args)
+    want = bigru_layer_plain(*args, with_hg=train)
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    extra = {}
+    if train:
+        got_hg = _forward(*args, with_hg=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, got_hg)),
+              f"bi-GRU training mode changed ys at B={B} L={L}")
+        err = max(err, *(float((a - b).abs().max())
+                         for a, b in zip(got_hg[2:], want[2:])))
+        extra["train_ms"] = time_ms(
+            torch, lambda: _forward(*args, with_hg=True), 50)
     check(err <= KERNEL_A_TOL, f"bi-GRU kernel vs plain at B={B} L={L}: {err}")
     ms = time_ms(torch, lambda: bigru_layer_fwd(*args), 50)
     plain_ms = time_ms(torch, lambda: bigru_layer_plain(*args), 3)
@@ -298,14 +402,14 @@ def bigru_case(torch, dev, B, L) -> dict:
         lib_err = float((lib_out - torch.cat(ref, -1)).abs().max())
         check(lib_err <= 1e-4, f"cuDNN GRU vs kernel at B={B} L={L}: "
                                f"{lib_err}")
-        library_ms = time_ms(torch, lambda: gru(xg_f), 50)
+        library_ms = device_ms(torch, lambda: gru(xg_f), 50)
 
     G = 3 * H
     nbytes = 4 * (2 * B * L * G + 2 * (H * G + G) + B * L + 2 * B * L * H)
     # per step, row and direction: h @ W_hh (2 H G) and ~12 H of gate math
     flops = 2 * L * B * (2 * H * G + 12 * H)
     return {"shape": f"B={B} L={L} H={H}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            **extra, "plain_ms": plain_ms, "library_ms": library_ms,
             **bound(nbytes, flops)}
 
 
@@ -345,21 +449,27 @@ def gcnii_case(torch, dev, L, reason=True) -> dict:
             "library_ms": None, **bound(nbytes, flops)}
 
 
-def bigru_bwd_case(torch, dev, B, L) -> dict:
-    """Kernel C at (B, L) with holed masks, on the outputs kernel A wrote;
-    cuDNN's bidirectional GRU forward plus backward (all-valid mask,
-    identity input weights) as the library yardstick."""
-    from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
-                                 bigru_layer_fwd)
+def bigru_bwd_case(torch, dev, B, L, a_train_ms) -> dict:
+    """Kernel C at (B, L) with holed masks, on the ys and hg that kernel
+    A's training mode wrote, against the plain backward (which recomputes
+    the gates); two launches must give the same dW_hh and db_hh bits.
+    Yardsticks: cuDNN's bidirectional GRU (all-valid mask, identity input
+    weights) backward alone, and its forward plus backward beside kernel A's
+    training mode plus kernel C."""
+    from mmdfn_torch.ops import bigru_layer_bwd, bigru_layer_bwd_plain
+    from mmdfn_torch.ops.bigru import _forward
 
     args = bigru_inputs(torch, dev, B, L, seed=2)
-    ys = bigru_layer_fwd(*args)
+    ys_f, ys_b, hg_f, hg_b = _forward(*args, with_hg=True)
     g = torch.Generator().manual_seed(3)
     dy = [torch.randn(B, L, H, generator=g).to(dev) for _ in range(2)]
-    run = lambda: bigru_layer_bwd(*args, *ys, *dy)
-    plain = lambda: bigru_layer_bwd_plain(*args, *ys, *dy)
-    got = run()
+    run = lambda: bigru_layer_bwd(*args, ys_f, ys_b, *dy, hg_f, hg_b)
+    plain = lambda: bigru_layer_bwd_plain(*args, ys_f, ys_b, *dy)
+    got = [t.clone() for t in run()]
+    again = run()
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got[2:], again[2:])),
+          f"bi-GRU bwd dW_hh / db_hh differ between launches at B={B}")
     want = plain()
     err = 0.0
     for a, b in zip(got, want):
@@ -369,27 +479,44 @@ def bigru_bwd_case(torch, dev, B, L) -> dict:
                         f"{e} > {tol}")
         err = max(err, e)
     ms = time_ms(torch, run, 20)
+    run_device_ms = device_ms(torch, run, 20)
     plain_ms = time_ms(torch, plain, 2)
 
     gru = cudnn_gru(torch, dev, args)
     x = args[0].clone().requires_grad_()
     dout = torch.cat(dy, dim=-1)
+    out, _ = gru(x)
+    wrt = [x, gru.weight_hh_l0, gru.bias_hh_l0, gru.weight_hh_l0_reverse,
+           gru.bias_hh_l0_reverse]
+    library_ms = device_ms(torch, lambda: torch.autograd.grad(
+        out, wrt, dout, retain_graph=True), 20)
 
-    def library():
-        out, _ = gru(x)
-        out.backward(dout)
-    library_ms = time_ms(torch, library, 20)
+    def fwd_bwd():
+        o, _ = gru(x)
+        torch.autograd.grad(o, wrt, dout)
+    library_fwd_bwd_ms = device_ms(torch, fwd_bwd, 20)
 
     G = 3 * H
-    # xg, ys, dy, W_hh, b_hh, mask in; dxg, dW_hh, db_hh out
-    nbytes = 4 * (2 * B * L * G + 4 * B * L * H + 2 * (H * G + G) + B * L
+    # xg, hg (3H each), ys, dy (H each), mask, W_hh in; dxg, dW_hh, db_hh
+    # out.  The dhg scratch that the kernel writes and reads back is its
+    # own choice, not the function's work, so it is not counted
+    nbytes = 4 * (2 * (2 * B * L * G + 2 * B * L * H + H * G) + B * L
                   + 2 * B * L * G + 2 * (H * G + G))
-    # per step, row and direction: the gate recompute h @ W_hh, dhg @ W_hh^T
-    # and the dW_hh update (2 H G each) and ~30 H of gate math
-    flops = 2 * L * B * (6 * H * G + 30 * H)
+    # per step, row and direction: dhg @ W_hh^T (2 H G) and ~30 H of gate
+    # math; after the loop, [h_prev, 1]^T dhg (2 (H + 1) G)
+    flops = 2 * L * B * (2 * H * G + 2 * (H + 1) * G + 30 * H)
+    # the count for a backward that recomputes the gates (three products a
+    # step, hg not read), which earlier measurements were held against
+    old_bytes = 4 * (2 * B * L * G + 4 * B * L * H + 2 * (H * G + G) + B * L
+                     + 2 * B * L * G + 2 * (H * G + G))
+    old_flops = 2 * L * B * (6 * H * G + 30 * H)
     return {"shape": f"B={B} L={L} H={H}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            **bound(nbytes, flops)}
+            "device_ms": run_device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "a_train_plus_c_ms": a_train_ms + ms,
+            "library_fwd_bwd_ms": library_fwd_bwd_ms,
+            **bound(nbytes, flops),
+            "bound_ms_recompute_basis":
+                bound(old_bytes, old_flops)["bound_ms"]}
 
 
 def gcnii_train_inputs(torch, dev, B, L, seed=4):
@@ -609,14 +736,19 @@ def train_phase(torch, dev) -> dict:
         for i in range(3):
             tr.train_step(batches[i % 4], seed=400 + i)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern, notes = device_events(torch, prof)
     if kern:
         busy = sum(e.self_device_time_total for e in kern) / 1e3 / 3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+        bigru = [[kernel_name(e.key), e.self_device_time_total / 1e3 / 3,
+                  e.count / 3] for e in kern if "bigru" in e.key]
         profiled = {"device_busy_ms_per_step": busy,
+                    "bigru_kernels": sorted(bigru),
                     "idle_share": 1.0 - busy / stream_ms,
                     "device_ops_per_step": sum(e.count for e in kern) / 3,
+                    "annotations_left_out": [
+                        [e.key[:40], e.self_device_time_total / 1e3 / 3]
+                        for e in notes],
                     "top": [[e.key[:40], e.self_device_time_total / 1e3 / 3,
                              e.count / 3] for e in top]}
     else:
@@ -667,28 +799,38 @@ def main() -> int:
 
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    _build.build_all()
+    ptxas = ptxas_report(_build.build_all())
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "kernels": list(_build.KERNELS)}), flush=True)
+    print(json.dumps({"ptxas": ptxas}), flush=True)
+    # the time loops of kernels A and C keep W_hh in registers: no spills
+    loops = [r for r in ptxas if r["lib"] in ("bigru_fwd", "bigru_bwd")
+             and ("bigru_fwd_kernel" in r["kernel"]
+                 or "bigru_bwd_kernel" in r["kernel"])]
+    check(len(loops) == 9 and all(
+        r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+        for r in loops), f"bi-GRU time-loop kernels spill: {loops}")
 
     # the kernel checks first, so that the serve and train lines stand near
     # the end of the output; their launches are zeroed before those runs
     cases_a = {(B, L): bigru_case(torch, dev, B, L)
                for L in (32, 64, 200) for B in (1, 6)}
     for B in (TRAIN_B, 6 * TRAIN_B):     # lstm_l, and rnn_parties' streams
-        cases_a[(B, TRAIN_L)] = bigru_case(torch, dev, B, TRAIN_L)
+        cases_a[(B, TRAIN_L)] = bigru_case(torch, dev, B, TRAIN_L, train=True)
     cases_b = {L: gcnii_case(torch, dev, L) for L in (32, 64, 200)}
     cases_b["200_no_reason"] = gcnii_case(torch, dev, 200, reason=False)
-    cases_c = {B: bigru_bwd_case(torch, dev, B, TRAIN_L)
+    cases_c = {B: bigru_bwd_case(torch, dev, B, TRAIN_L,
+                                 cases_a[(B, TRAIN_L)]["train_ms"])
                for B in (TRAIN_B, 6 * TRAIN_B)}
     case_bd = gcnii_train_case(torch, dev, TRAIN_B, TRAIN_L)
     mask = mask_check(torch, dev)
     print(json.dumps({"kernel_cases": {
-        "bigru_fwd (library: torch.nn.GRU, cuDNN, all-valid mask)":
-            list(cases_a.values()),
+        "bigru_fwd (library: torch.nn.GRU, cuDNN, all-valid mask, device "
+        "time)": list(cases_a.values()),
         "gcnii_fwd": list(cases_b.values()),
-        "bigru_bwd (library: torch.nn.GRU forward + backward, cuDNN)":
-            list(cases_c.values()),
+        "bigru_bwd (library: torch.nn.GRU backward alone, cuDNN; "
+        "library_fwd_bwd: its forward + backward, beside kernel A's "
+        "training mode + kernel C; both device time)": list(cases_c.values()),
         "gcnii_fwd training mode": case_bd["fwd"],
         "gcnii_bwd": case_bd["bwd"],
         "dropout mask vs plain Philox": mask}}), flush=True)

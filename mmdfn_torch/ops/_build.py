@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/lib<name>.so`` inside the package, at first use:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC \
+         -Xptxas -v
 
 A build failure raises; nothing falls back.  ``build_all`` starts one nvcc
 per source at once, so a cold start pays for the slowest file only.
@@ -21,8 +22,10 @@ from typing import Dict, Iterable, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("bigru_fwd", "bigru_bwd", "gcnii_fwd", "gcnii_bwd")
+# -Xptxas -v: each kernel's registers, stack and spill bytes, in the output
+# build_all returns
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
@@ -48,8 +51,9 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
-def build_all(names: Iterable[str] = KERNELS) -> None:
-    """Compile every stale kernel source, one nvcc process per source."""
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every stale kernel source, one nvcc process per source;
+    returns each build's nvcc output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -60,15 +64,16 @@ def build_all(names: Iterable[str] = KERNELS) -> None:
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-    errors = []
+    errors, outputs = [], {}
     for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+        outputs[n], _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu:\n{out}")
+            errors.append(f"nvcc failed for {n}.cu:\n{outputs[n]}")
         else:
             os.replace(tmp, _lib_path(n))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return outputs
 
 
 def load(lib: str, entry: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -3,26 +3,30 @@ forward and backward.
 
 Kernel A replaces ``mmdfn_tpu/ops/pallas_rnn.py:_bigru_fwd`` (the forward
 of ``fused_bigru_layer``).  The CUDA kernel is ``csrc/bigru_fwd.cu``: one
-block per (direction, tile of 8 batch rows), the time loop inside the
-kernel, W_hh in dynamic shared memory, h in shared memory.  It is bound by
-the latency of L dependent steps, not by bytes or FLOPs (see the source
-note).
+block per (direction, tile of BT batch rows, BT from
+:func:`_rows_per_block`), the time loop inside the kernel, W_hh in
+registers, h double-buffered in shared memory with one barrier per step,
+and xg fetched ahead.  It is bound by the latency of L dependent steps, not
+by bytes or FLOPs (see the source note).  In training mode it also writes
+``hg = h_prev @ W_hh + b_hh`` per step for the backward.
 
 Kernel C replaces ``mmdfn_tpu/ops/pallas_rnn.py:_bigru_bwd``: the reverse
-walk of each direction with the gates recomputed from the carried state,
-``dxg`` per step (zero at masked frames) and ``dW_hh``/``db_hh`` summed over
-batch and time (``csrc/bigru_bwd.cu``).
+walk of each direction from the saved ``hg``, ``dxg`` per step (zero at
+masked frames), then ``dW_hh``/``db_hh`` summed over batch and time by a
+second kernel after the loop (``csrc/bigru_bwd.cu``).
 
 ``bigru_layer_fwd`` with autograd on goes through :class:`BiGRULayer`, whose
-backward is ``bigru_layer_bwd``; with autograd off it runs the forward
-alone.  Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors; anything else raises.  Inside ``ops.plain_ops()``
+forward is kernel A's training mode and whose backward is
+``bigru_layer_bwd``; with autograd off it runs the serve forward.  Each
+wrapper launches its kernel for CUDA tensors and runs its plain version for
+CPU tensors; anything else raises.  Inside ``ops.plain_ops()``
 ``bigru_layer_fwd`` runs the plain forward and autograd differentiates it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -33,13 +37,29 @@ Tensor = torch.Tensor
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # xg_f, xg_b, w_f, b_f, w_b, b_b, the two weights' strides, mask, ys_f,
-# ys_b, B, L, H, stream
-_ARGTYPES = [_p] * 6 + [_i64] * 4 + [_p] * 3 + [_i32] * 3 + [_p]
-# xg_f, xg_b, w_f, b_f, w_b, b_b, the two weights' strides, mask, ys_f,
-# ys_b, dy_f, dy_b, dxg_f, dxg_b, dw_f, db_f, dw_b, db_b, partials, B, L,
-# H, stream
-_BWD_ARGTYPES = ([_p] * 6 + [_i64] * 4 + [_p] * 12 + [_i32] * 3 + [_p])
-_BT = 8          # batch rows per block of kernels A and C
+# ys_b, hg_f, hg_b (null in serve mode), B, L, H, BT, stream
+_ARGTYPES = [_p] * 6 + [_i64] * 4 + [_p] * 5 + [_i32] * 4 + [_p]
+# xg_f, xg_b, hg_f, hg_b, w_f, w_b, the two weights' strides, mask, ys_f,
+# ys_b, dy_f, dy_b, dxg_f, dxg_b, dhg_f, dhg_b, partials, dwb, B, L, H, BT,
+# split_rows, stream
+_BWD_ARGTYPES = [_p] * 6 + [_i64] * 4 + [_p] * 11 + [_i32] * 5 + [_p]
+_KERNEL_H = 100      # the only hidden width the kernels take (the port's)
+_SPLIT_ROWS = 256    # rows of B L per split of kernel C's dW_hh product
+
+
+def _rows_per_block(B: int, sms: int) -> int:
+    """Batch rows per block of kernels A and C: the fewest of 1, 2, 4 for
+    which both directions' blocks fit on a card of ``sms`` multiprocessors
+    in one wave (one block per SM); 4 beyond that."""
+    for bt in (1, 2):
+        if 2 * -(-B // bt) <= sms:
+            return bt
+    return 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _gru_gates(xg_t: Tensor, hg: Tensor, h: Tensor) -> Tensor:
@@ -54,38 +74,48 @@ def _gru_gates(xg_t: Tensor, hg: Tensor, h: Tensor) -> Tensor:
 
 def bigru_layer_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
                       b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
-                      mask: Tensor) -> Tuple[Tensor, Tensor]:
-    """Plain PyTorch version of :func:`bigru_layer_fwd` (same contract)."""
+                      mask: Tensor, with_hg: bool = False) -> Tuple[Tensor, ...]:
+    """Plain PyTorch version of :func:`bigru_layer_fwd` (same contract).
+
+    With ``with_hg`` it returns ``(ys_f, ys_b, hg_f, hg_b)``: hg (B, L, 3H)
+    is ``h_prev @ W_hh + b_hh`` of each step, as kernel A's training mode
+    writes it."""
     B, L, G = xg_f.shape
     H = G // 3
     gate = mask > 0
-    outs = []
+    outs, hgs = [], []
     for xg, w, b, steps in ((xg_f, w_hh_f, b_hh_f, range(L)),
                             (xg_b, w_hh_b, b_hh_b, range(L - 1, -1, -1))):
         h = xg.new_zeros(B, H)
-        ys = [None] * L
+        ys, hg = [None] * L, [None] * L
         for t in steps:
-            h_new = _gru_gates(xg[:, t], h @ w + b, h)
+            hg[t] = h @ w + b
+            h_new = _gru_gates(xg[:, t], hg[t], h)
             # select, never multiply: a non-finite value in a masked frame
             # must not reach the carry (0 * inf would be NaN)
             h = torch.where(gate[:, t, None], h_new, h)
             ys[t] = h
         outs.append(torch.stack(ys, dim=1) if L else xg.new_empty(B, 0, H))
-    return outs[0], outs[1]
+        if with_hg:
+            hgs.append(torch.stack(hg, dim=1) if L else xg.new_empty(B, 0, G))
+    return (*outs, *hgs)
 
 
 def bigru_layer_bwd_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
                           b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
                           mask: Tensor, ys_f: Tensor, ys_b: Tensor,
-                          dy_f: Tensor, dy_b: Tensor):
+                          dy_f: Tensor, dy_b: Tensor,
+                          hg_f: Optional[Tensor] = None,
+                          hg_b: Optional[Tensor] = None):
     """Plain PyTorch version of :func:`bigru_layer_bwd`: the explicit time
     loop of ``_bwd_kernel`` (``mmdfn_tpu/ops/pallas_rnn.py:127-209``).
 
     Each direction walks its forward walk backwards; ``h_prev`` is the
     walk-order shifted output (``ys_f[t-1]`` forward, ``ys_b[t+1]``
     backward, zero at the walk's start), and the gates are recomputed from
-    it.  Masked frames are selected away, never multiplied, so a non-finite
-    value there reaches no gradient.
+    it, or taken from the forward's ``hg_f``/``hg_b`` (B, L, 3H) where
+    given.  Masked frames are selected away, never multiplied, so a
+    non-finite value there reaches no gradient.
 
     Returns:
       (dxg_f, dxg_b, dW_hh_f, db_hh_f, dW_hh_b, db_hh_b), float32, dW in
@@ -95,9 +125,9 @@ def bigru_layer_bwd_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
     H = G // 3
     gate = (mask > 0)[..., None]
     out = []
-    for xg, w, b, ys, dy, walk, shift in (
-            (xg_f, w_hh_f, b_hh_f, ys_f, dy_f, range(L - 1, -1, -1), -1),
-            (xg_b, w_hh_b, b_hh_b, ys_b, dy_b, range(L), 1)):
+    for xg, w, b, ys, dy, hgs, walk, shift in (
+            (xg_f, w_hh_f, b_hh_f, ys_f, dy_f, hg_f, range(L - 1, -1, -1), -1),
+            (xg_b, w_hh_b, b_hh_b, ys_b, dy_b, hg_b, range(L), 1)):
         zero = xg.new_zeros(B, H)
         dh = xg.new_zeros(B, H)
         dxg = xg.new_zeros(B, L, G)
@@ -108,7 +138,7 @@ def bigru_layer_bwd_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
             h_prev = ys[:, tp] if 0 <= tp < L else zero
             dh = dh + dy[:, t]
             m = gate[:, t]
-            hg = h_prev @ w + b
+            hg = h_prev @ w + b if hgs is None else hgs[:, t]
             xr, xz, xn = xg[:, t].chunk(3, dim=-1)
             hr, hz, hn = hg.chunk(3, dim=-1)
             r = torch.sigmoid(xr + hr)
@@ -136,33 +166,45 @@ def _check(name: str, t: Tensor, shape, device) -> None:
                          f"{t.device}")
 
 
+def _aligned(t: Tensor) -> Tensor:
+    """Contiguous, and 16-byte aligned for the kernels' cp.async copies."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _prepare(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, more=()):
-    """Contiguous f32 operands on one CUDA device, shapes checked; the
-    hidden weights keep their strides (the kernels take them)."""
+    """Aligned contiguous f32 operands on one CUDA device, shapes checked;
+    the hidden weights keep their strides (the kernels take them).  ``more``
+    holds (name, tensor, width) operands of shape (B, L, width)."""
     B, L, G = xg_f.shape
     H = G // 3
     dev = xg_f.device
     if dev.type != "cuda":
         raise ValueError(f"bi-GRU kernels: no kernel for {dev}")
-    xg_f, xg_b, b_hh_f, b_hh_b = (t.contiguous()
-                                  for t in (xg_f, xg_b, b_hh_f, b_hh_b))
-    mask = mask.to(torch.float32).contiguous()
-    more = tuple(t.contiguous() for t in more)
+    if H != _KERNEL_H:
+        raise ValueError(f"bi-GRU kernels take H = {_KERNEL_H}, got {H}")
+    xg_f, xg_b, b_hh_f, b_hh_b = map(_aligned, (xg_f, xg_b, b_hh_f, b_hh_b))
+    mask = _aligned(mask.to(torch.float32))
+    more = tuple((name, _aligned(t), width) for name, t, width in more)
     for name, t, shape in (("xg_f", xg_f, (B, L, G)), ("xg_b", xg_b, (B, L, G)),
                            ("w_hh_f", w_hh_f, (H, G)), ("w_hh_b", w_hh_b, (H, G)),
                            ("b_hh_f", b_hh_f, (G,)), ("b_hh_b", b_hh_b, (G,)),
                            ("mask", mask, (B, L)),
-                           *((f"operand {i}", t, (B, L, H))
-                             for i, t in enumerate(more))):
+                           *((name, t, (B, L, width))
+                             for name, t, width in more)):
         _check(name, t, shape, dev)
-    return (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask) + more
+    return (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask) \
+        + tuple(t for _, t, _ in more)
 
 
-def _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
-    """Kernel A on CUDA tensors, the plain version on CPU tensors."""
+def _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
+             with_hg: bool = False):
+    """Kernel A on CUDA tensors, the plain version on CPU tensors.  With
+    ``with_hg`` (training mode) it also returns hg_f, hg_b (B, L, 3H) for
+    kernel C."""
     if xg_f.device.type == "cpu":
         return bigru_layer_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
-                                 mask)
+                                 mask, with_hg=with_hg)
     xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask = _prepare(
         xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask)
     B, L, G = xg_f.shape
@@ -170,78 +212,92 @@ def _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
     dev = xg_f.device
     ys_f = torch.empty(B, L, H, device=dev)
     ys_b = torch.empty(B, L, H, device=dev)
+    hgs = (torch.empty(B, L, G, device=dev),
+           torch.empty(B, L, G, device=dev)) if with_hg else ()
     if B == 0 or L == 0:
-        return ys_f, ys_b
+        return (ys_f, ys_b, *hgs)
     fn = _build.load("bigru_fwd", "bigru_fwd", _ARGTYPES)
+    hg_ptrs = [t.data_ptr() for t in hgs] if with_hg else [None, None]
     err = fn(xg_f.data_ptr(), xg_b.data_ptr(), w_hh_f.data_ptr(),
              b_hh_f.data_ptr(), w_hh_b.data_ptr(), b_hh_b.data_ptr(),
              *w_hh_f.stride(), *w_hh_b.stride(), mask.data_ptr(),
-             ys_f.data_ptr(), ys_b.data_ptr(), B, L, H,
+             ys_f.data_ptr(), ys_b.data_ptr(), *hg_ptrs, B, L, H,
+             _rows_per_block(B, _sm_count(dev)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bigru_fwd launch")
     bigru_layer_fwd.launches += 1
-    return ys_f, ys_b
+    return (ys_f, ys_b, *hgs)
 
 
 def bigru_layer_bwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
                     b_hh_f: Tensor, w_hh_b: Tensor, b_hh_b: Tensor,
                     mask: Tensor, ys_f: Tensor, ys_b: Tensor, dy_f: Tensor,
-                    dy_b: Tensor):
+                    dy_b: Tensor, hg_f: Optional[Tensor] = None,
+                    hg_b: Optional[Tensor] = None):
     """Kernel C: the gradients of one bi-GRU layer's recurrence.
 
     Takes the forward's operands (as :func:`bigru_layer_fwd`), its outputs
-    ``ys_f``/``ys_b`` and their cotangents ``dy_f``/``dy_b`` (B, L, H).
-    Returns (dxg_f, dxg_b, dW_hh_f, db_hh_f, dW_hh_b, db_hh_b) as
-    :func:`bigru_layer_bwd_plain` does, which CPU tensors and
-    ``ops.plain_ops()`` run instead.
+    ``ys_f``/``ys_b``, their cotangents ``dy_f``/``dy_b`` (B, L, H) and the
+    ``hg_f``/``hg_b`` (B, L, 3H) that kernel A's training mode wrote, which
+    the kernel needs.  Returns (dxg_f, dxg_b, dW_hh_f, db_hh_f, dW_hh_b,
+    db_hh_b) as :func:`bigru_layer_bwd_plain` does, which CPU tensors and
+    ``ops.plain_ops()`` run instead (there hg may be None: recomputed).
     """
     if _mode.plain or xg_f.device.type == "cpu":
         return bigru_layer_bwd_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b,
-                                     b_hh_b, mask, ys_f, ys_b, dy_f, dy_b)
-    (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, ys_f, ys_b, dy_f,
-     dy_b) = _prepare(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
-                      (ys_f, ys_b, dy_f, dy_b))
+                                     b_hh_b, mask, ys_f, ys_b, dy_f, dy_b,
+                                     hg_f, hg_b)
+    if hg_f is None or hg_b is None:
+        raise ValueError("bigru_layer_bwd: kernel C needs the hg that kernel "
+                         "A's training mode writes")
     B, L, G = xg_f.shape
     H = G // 3
+    (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, ys_f, ys_b, dy_f,
+     dy_b, hg_f, hg_b) = _prepare(
+        xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
+        (("ys_f", ys_f, H), ("ys_b", ys_b, H), ("dy_f", dy_f, H),
+         ("dy_b", dy_b, H), ("hg_f", hg_f, G), ("hg_b", hg_b, G)))
     dev = xg_f.device
     dxg_f = torch.empty(B, L, G, device=dev)
     dxg_b = torch.empty(B, L, G, device=dev)
-    dw_f = torch.empty(H, G, device=dev)
-    dw_b = torch.empty(H, G, device=dev)
-    db_f = torch.empty(G, device=dev)
-    db_b = torch.empty(G, device=dev)
+    # [dW_hh; db_hh] of each direction
+    dwb = torch.empty(2, H + 1, G, device=dev)
+    grads = (dxg_f, dxg_b, dwb[0, :H], dwb[0, H], dwb[1, :H], dwb[1, H])
     if B == 0 or L == 0:
-        for t in (dxg_f, dxg_b, dw_f, dw_b, db_f, db_b):
+        for t in (dxg_f, dxg_b, dwb):
             t.zero_()
-        return dxg_f, dxg_b, dw_f, db_f, dw_b, db_b
-    # each block's dW_hh / db_hh over its own rows, summed by a second pass
-    tiles = (B + _BT - 1) // _BT
-    partials = torch.empty(2, tiles, H * G + G, device=dev)
+        return grads
+    # each step's dhg, and the dW_hh product's partials over row splits
+    dhg = torch.empty(2, B, L, G, device=dev)
+    splits = -(-B * L // _SPLIT_ROWS)
+    partials = torch.empty(2, splits, H + 1, G, device=dev)
     fn = _build.load("bigru_bwd", "bigru_bwd", _BWD_ARGTYPES)
-    err = fn(xg_f.data_ptr(), xg_b.data_ptr(), w_hh_f.data_ptr(),
-             b_hh_f.data_ptr(), w_hh_b.data_ptr(), b_hh_b.data_ptr(),
+    err = fn(xg_f.data_ptr(), xg_b.data_ptr(), hg_f.data_ptr(),
+             hg_b.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
              *w_hh_f.stride(), *w_hh_b.stride(), mask.data_ptr(),
              ys_f.data_ptr(), ys_b.data_ptr(), dy_f.data_ptr(),
              dy_b.data_ptr(), dxg_f.data_ptr(), dxg_b.data_ptr(),
-             dw_f.data_ptr(), db_f.data_ptr(), dw_b.data_ptr(),
-             db_b.data_ptr(), partials.data_ptr(), B, L, H,
+             dhg[0].data_ptr(), dhg[1].data_ptr(), partials.data_ptr(),
+             dwb.data_ptr(), B, L, H, _rows_per_block(B, _sm_count(dev)),
+             _SPLIT_ROWS,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bigru_bwd launch")
     bigru_layer_bwd.launches += 1
-    return dxg_f, dxg_b, dw_f, db_f, dw_b, db_b
+    return grads
 
 
 class BiGRULayer(torch.autograd.Function):
-    """One bi-GRU layer's recurrence with kernel A forward and kernel C
-    backward (their plain versions on CPU tensors).  Saves what
-    ``_bigru_bwd`` saves: xg, mask, W_hh, b_hh and the outputs."""
+    """One bi-GRU layer's recurrence with kernel A forward (training mode)
+    and kernel C backward (their plain versions on CPU tensors).  Saves what
+    ``_bigru_bwd`` needs: xg, mask, W_hh, b_hh, the outputs, and the gate
+    pre-activations hg, so the backward recomputes nothing."""
 
     @staticmethod
     def forward(ctx, xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
-        ys_f, ys_b = _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
-                              mask)
+        ys_f, ys_b, hg_f, hg_b = _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b,
+                                          b_hh_b, mask, with_hg=True)
         ctx.save_for_backward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
-                              mask, ys_f, ys_b)
+                              mask, ys_f, ys_b, hg_f, hg_b)
         return ys_f, ys_b
 
     @staticmethod
@@ -250,7 +306,7 @@ class BiGRULayer(torch.autograd.Function):
         ys_f = saved[7]
         dy_f = torch.zeros_like(ys_f) if dy_f is None else dy_f
         dy_b = torch.zeros_like(ys_f) if dy_b is None else dy_b
-        grads = bigru_layer_bwd(*saved, dy_f, dy_b)
+        grads = bigru_layer_bwd(*saved[:9], dy_f, dy_b, *saved[9:])
         return (*grads, None)
 
 

@@ -113,3 +113,33 @@ def test_crn_party_delta_matches_jax():
     got = crn_party_delta(pm, *map(torch.from_numpy, (x, qmask, umask)))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-5)
+
+
+def test_plain_hg_is_each_steps_gate_preactivation():
+    """The training mode's hg is h_prev @ W_hh + b_hh of each step, with
+    h_prev the walk-order previous output, and asking for it leaves ys
+    bit for bit as they were."""
+    T = lambda a: torch.from_numpy(a)
+    args = [T(a) for a in _layer_inputs(4)]
+    ys = bigru_layer_plain(*args)
+    ys_f, ys_b, hg_f, hg_b = bigru_layer_plain(*args, with_hg=True)
+    assert torch.equal(ys[0], ys_f) and torch.equal(ys[1], ys_b)
+    _, _, wf, bf, wb, bb, _ = args
+    zero = torch.zeros(B, H)
+    for t in range(L):
+        prev_f = ys_f[:, t - 1] if t > 0 else zero
+        prev_b = ys_b[:, t + 1] if t < L - 1 else zero
+        # the same f32 product on the same values
+        torch.testing.assert_close(hg_f[:, t], prev_f @ wf + bf, atol=1e-6,
+                                   rtol=0)
+        torch.testing.assert_close(hg_b[:, t], prev_b @ wb + bb, atol=1e-6,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("batch,rows", [(1, 1), (6, 1), (32, 1), (66, 1),
+                                        (67, 2), (192, 4), (528, 4),
+                                        (864, 4)])
+def test_rows_per_block_fills_the_card_in_one_wave(batch, rows):
+    """On an H100's 132 SMs; beyond one wave (B > 264) four rows."""
+    from mmdfn_torch.ops.bigru import _rows_per_block
+    assert _rows_per_block(batch, 132) == rows

@@ -125,3 +125,44 @@ def test_birnn_train_dropout():
     b = rnn(x, umask, train=True, generator=torch.Generator().manual_seed(1))
     c = rnn(x, umask, train=True, generator=torch.Generator().manual_seed(2))
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_bwd_plain_with_the_saved_hg_matches_the_recompute_and_jax():
+    """Kernel C's contract: the backward from the forward's saved hg gives
+    the gradients of the backward that recomputes the gates, and of the
+    JAX ``_bigru_bwd``."""
+    args, dy = _inputs(4)
+    T = [torch.from_numpy(a) for a in args]
+    ys_f, ys_b, hg_f, hg_b = bigru_layer_plain(*T, with_hg=True)
+    dyt = tuple(map(torch.from_numpy, dy))
+    saved = bigru_layer_bwd_plain(*T, ys_f, ys_b, *dyt, hg_f, hg_b)
+    recomputed = bigru_layer_bwd_plain(*T, ys_f, ys_b, *dyt)
+    for a, b in zip(saved, recomputed):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    xg_f, xg_b, wf, bf, wb, bb, mask = map(jnp.asarray, args)
+    f = lambda *a: fused_bigru_layer(*a, mask, interpret=True)
+    _, vjp = jax.vjp(f, xg_f, xg_b, wf, bf, wb, bb)
+    want = vjp(tuple(map(jnp.asarray, dy)))
+    # f32 BPTT over 9 steps; only the summation order differs
+    for a, b in zip(saved, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def test_bigru_layer_function_on_the_cpu_gives_autograds_gradients():
+    """BiGRULayer (plain forward with hg, plain backward from it) against
+    autograd through the plain forward."""
+    from mmdfn_torch.ops.bigru import BiGRULayer
+
+    args, dy = _inputs(5)
+    T = [torch.from_numpy(a).requires_grad_(i < 6)
+         for i, a in enumerate(args)]
+    dyt = tuple(map(torch.from_numpy, dy))
+    ys = BiGRULayer.apply(*T)
+    want_ys = bigru_layer_plain(*T)
+    for a, b in zip(ys, want_ys):
+        assert torch.equal(a, b)
+    got = torch.autograd.grad(ys, T[:6], dyt)
+    want = torch.autograd.grad(want_ys, T[:6], dyt)
+    # f32; autograd sums dW over steps in another order
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)

@@ -14,6 +14,7 @@ from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
                              gcnii_stack_bwd, gcnii_stack_bwd_plain,
                              gcnii_stack_fwd, gcnii_stack_plain, philox,
                              plain_ops)
+from mmdfn_torch.ops.bigru import _forward as bigru_forward
 from mmdfn_torch.ops.gcnii import RESIDUALS
 
 H = 100
@@ -36,8 +37,15 @@ def _bigru_args(dev, B, L, seed):
     return (xg_f, xg_b, w_f.t(), u(3 * H), w_b.t(), u(3 * H), mask), g
 
 
+# every rows-per-block variant of kernels A and C on an H100 (B = 1..66:
+# 1 row, 67: 2, 133 and 192: 4, 300: 4 in more than one wave), ragged
+# tails, L = 1, and the training shapes
+BIGRU_SHAPES = [(1, 200), (6, 64), (13, 9), (32, 80), (67, 1), (133, 7),
+                (192, 80), (300, 5)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L", [(1, 200), (6, 64), (13, 9)])
+@pytest.mark.parametrize("B,L", BIGRU_SHAPES)
 def test_bigru_kernel_matches_plain(B, L):
     dev = _card()
     args, _ = _bigru_args(dev, B, L, B * 1000 + L)
@@ -50,21 +58,97 @@ def test_bigru_kernel_matches_plain(B, L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L", [(32, 80), (192, 80), (13, 9)])
+@pytest.mark.parametrize("B,L", BIGRU_SHAPES)
 def test_bigru_bwd_kernel_matches_plain(B, L):
-    """Kernel C at the training shapes (lstm_l B = 32, the party streams
-    B = 192, both L = 80, holed masks) and a ragged one."""
+    """Kernel C on the ys and hg that kernel A's training mode wrote, at
+    the training shapes (lstm_l B = 32, the party streams B = 192, both
+    L = 80, holed masks) and the other variants."""
     dev = _card()
     args, g = _bigru_args(dev, B, L, B * 7 + L)
-    ys = bigru_layer_fwd(*args)
+    ys_hg = bigru_forward(*args, with_hg=True)
     dy = [torch.randn(B, L, H, generator=g).to(dev) for _ in range(2)]
-    got = bigru_layer_bwd(*args, *ys, *dy)
+    got = bigru_layer_bwd(*args, *ys_hg[:2], *dy, *ys_hg[2:])
     torch.cuda.synchronize()
-    want = bigru_layer_bwd_plain(*args, *ys, *dy)
+    want = bigru_layer_bwd_plain(*args, *ys_hg[:2], *dy)
     for a, b in zip(got, want):
         # f32; dW_hh sums B L terms in another order: relative to its scale
         scale = float(b.abs().max().clamp(min=1.0))
         torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(6, 64), (192, 80)])
+def test_bigru_training_mode_writes_the_plain_hg(B, L):
+    """Kernel A's training mode: ys bit-equal to the serve launch, hg equal
+    to the plain forward's."""
+    dev = _card()
+    args, _ = _bigru_args(dev, B, L, B + 5 * L)
+    serve = bigru_forward(*args)
+    got = bigru_forward(*args, with_hg=True)
+    torch.cuda.synchronize()
+    assert torch.equal(serve[0], got[0]) and torch.equal(serve[1], got[1])
+    want = bigru_layer_plain(*args, with_hg=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_bigru_kernels_keep_masked_frames_out():
+    """An all-masked row and a NaN in a masked frame: every output and
+    gradient finite, and the clean rows as without the poison."""
+    dev = _card()
+    B, L = 13, 20
+    args, g = _bigru_args(dev, B, L, 99)
+    xg_f, xg_b, w_f, b_f, w_b, b_b, mask = args
+    mask = mask.clone()
+    mask[3] = 0.0                        # a row with no valid frame
+    mask[5, 7] = 0.0
+    xg_f, xg_b = xg_f.clone(), xg_b.clone()
+    xg_f[5, 7] = float("nan")
+    xg_b[5, 7] = float("inf")
+    xg_f[3] = float("nan")
+    args = (xg_f, xg_b, w_f, b_f, w_b, b_b, mask)
+    ys_hg = bigru_forward(*args, with_hg=True)
+    dy = [torch.randn(B, L, H, generator=g).to(dev) for _ in range(2)]
+    grads = bigru_layer_bwd(*args, *ys_hg[:2], *dy, *ys_hg[2:])
+    torch.cuda.synchronize()
+    for t in (*ys_hg, *grads):
+        assert bool(torch.isfinite(t).all())
+    assert not bool(ys_hg[0][3].any()) and not bool(ys_hg[1][3].any())
+    assert not bool(grads[0][3].any()) and not bool(grads[0][5, 7].any())
+
+
+@pytest.mark.gpu
+def test_bigru_kernels_refuse_a_width_they_do_not_take():
+    """The kernels hold W_hh in registers for H = 100 only: another width
+    raises before any launch."""
+    dev = _card()
+    B, L, width = 2, 3, 64
+    xg = torch.zeros(B, L, 3 * width, device=dev)
+    w = torch.zeros(width, 3 * width, device=dev)
+    b = torch.zeros(3 * width, device=dev)
+    mask = torch.ones(B, L, device=dev)
+    before = bigru_layer_fwd.launches
+    with pytest.raises(ValueError, match="H = 100"):
+        bigru_layer_fwd(xg, xg, w, b, w, b, mask)
+    assert bigru_layer_fwd.launches == before
+
+
+@pytest.mark.gpu
+def test_bigru_bwd_weight_gradients_are_deterministic():
+    """Kernel C sums dW_hh and db_hh in a fixed order: two launches give
+    the same bits."""
+    dev = _card()
+    B, L = 192, 80
+    args, g = _bigru_args(dev, B, L, 17)
+    ys_hg = bigru_forward(*args, with_hg=True)
+    dy = [torch.randn(B, L, H, generator=g).to(dev) for _ in range(2)]
+    first = [t.clone() for t in
+             bigru_layer_bwd(*args, *ys_hg[:2], *dy, *ys_hg[2:])]
+    second = bigru_layer_bwd(*args, *ys_hg[:2], *dy, *ys_hg[2:])
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _gcnii_args(dev, B, L, nl, reason, seed):
