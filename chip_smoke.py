@@ -176,6 +176,18 @@ def kernel_name(key: str) -> str:
                                             "").split("(")[0]
 
 
+# kernel D's kernels: each tiled product is named by its epilogue's type
+KERNEL_D_PARTS = ("P1Gates", "P2Hi", "P3Pre", "P4DProj", "P5DAdj", "P6Lstm",
+                  "P7LstmIn", "WgradW", "WgradLstm", "gcnii_reduce_kernel")
+
+
+def kernel_label(key: str) -> str:
+    """A short name for a profiler key: kernel D's product, else the key's
+    head."""
+    part = next((p for p in KERNEL_D_PARTS if p in key), None)
+    return f"gcnii_bwd {part}" if part else key[:40]
+
+
 def toolchain(torch, _build) -> dict:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -545,7 +557,7 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
     residuals kernel B wrote."""
     from mmdfn_torch.ops import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
                                  gcnii_stack_fwd, gcnii_stack_plain)
-    from mmdfn_torch.ops.gcnii import RESIDUALS
+    from mmdfn_torch.ops.gcnii import RESIDUALS, gcnii_bwd_splits
 
     args, g = gcnii_train_inputs(torch, dev, B, L)
     adj, h, h0, W, theta, ih, hh, lb = args
@@ -593,9 +605,17 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
     # bias row); elementwise ~40 B N H
     bwd_flops = nl * (6 * B * N * N * H + 60 * R * H * H + 40 * R * H)
     # adj, h0, W, the LSTM, four residual slabs and dh in; d_adj, d_h,
-    # d_h0, dW and the LSTM gradients out
+    # d_h0, dW and the LSTM gradients out; and what this design keeps
+    # between its products, each written once and read once: the gates
+    # (R, 4H) of every layer, the hi and tdpre slabs (nl, R, H), the dgates
+    # slab (nl, R, 4H), and the weight-gradient partials (no transposed
+    # weight copies)
+    splits_w, splits_l = gcnii_bwd_splits(R, nl)
+    scratch = (nl * R * 4 * H + 2 * nl * R * H + nl * R * 4 * H
+               + nl * splits_w * 2 * H * H + splits_l * (2 * H + 1) * 4 * H)
     bwd_bytes = 4 * (2 * B * N * N + 4 * R * H + 2 * nl * 2 * H * H
-                     + 2 * (8 * H * H + 4 * H) + 4 * nl * R * H)
+                     + 2 * (8 * H * H + 4 * H) + 4 * nl * R * H
+                     + 2 * scratch)
     return {
         "fwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE} "
                          "residuals", "max_abs_err": fwd_err,
@@ -742,14 +762,23 @@ def train_phase(torch, dev) -> dict:
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
         bigru = [[kernel_name(e.key), e.self_device_time_total / 1e3 / 3,
                   e.count / 3] for e in kern if "bigru" in e.key]
+        gcnii_bwd = {}
+        for e in kern:
+            if kernel_label(e.key).startswith("gcnii_bwd"):
+                t = gcnii_bwd.setdefault(kernel_label(e.key), [0.0, 0.0])
+                t[0] += e.self_device_time_total / 1e3 / 3
+                t[1] += e.count / 3
         profiled = {"device_busy_ms_per_step": busy,
                     "bigru_kernels": sorted(bigru),
+                    "gcnii_bwd_kernels": sorted([k, *v] for k, v in
+                                                gcnii_bwd.items()),
                     "idle_share": 1.0 - busy / stream_ms,
                     "device_ops_per_step": sum(e.count for e in kern) / 3,
                     "annotations_left_out": [
                         [e.key[:40], e.self_device_time_total / 1e3 / 3]
                         for e in notes],
-                    "top": [[e.key[:40], e.self_device_time_total / 1e3 / 3,
+                    "top": [[kernel_label(e.key),
+                             e.self_device_time_total / 1e3 / 3,
                              e.count / 3] for e in top]}
     else:
         profiled = {"device_busy_ms_per_step": "not measured",
@@ -810,6 +839,11 @@ def main() -> int:
     check(len(loops) == 9 and all(
         r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
         for r in loops), f"bi-GRU time-loop kernels spill: {loops}")
+    # kernel D's tiled products keep their register tiles: no spills either
+    prods = [r for r in ptxas if r["lib"] == "gcnii_bwd"]
+    check(len(prods) >= len(KERNEL_D_PARTS) and all(
+        r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+        for r in prods), f"kernel D's kernels spill: {prods}")
 
     # the kernel checks first, so that the serve and train lines stand near
     # the end of the output; their launches are zeroed before those runs

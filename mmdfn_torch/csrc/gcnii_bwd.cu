@@ -10,381 +10,250 @@
 //   hi   = adj @ h1;   pre = theta (hi W1 + h0 W2) + (1 - theta)((1-a) hi + a h0)
 //   dh2  = drop ? (keep ? dh / (1 - rate) : 0) : dh;  dpre = pre > 0 ? dh2 : 0
 //   tdpre = theta dpre
-//   dW[l] = [hi, h0]^T tdpre                       (sums over all B N rows)
 //   d_hi = tdpre W1^T + (1-theta)(1-a) dpre;  d_h0 += tdpre W2^T + (1-theta) a dpre
 //   d_adj += d_hi h1^T;   d_h1 = adj^T d_hi      (the transposed contraction,
 //                                                   adj is not assumed symmetric)
 //   reason: the LSTM step's backward from d_h1 + dlh and dlc (gates
-//     recomputed from h, lh, lc); d[W_ih; W_hh; b] += [h, lh, 1]^T dgates;
-//     dh = dh + dgates W_ih^T;  dlh = dgates W_hh^T;  dlc = dlc1 f
+//     recomputed from h, lh, lc); dh = dh + dgates W_ih^T;
+//     dlh = dgates W_hh^T;  dlc = dlc1 f
 //   else: dh = d_h1
+// and after the walk, as sums over every row:
+//   dW[l] = [hi_l, h0]^T tdpre_l;   [dW_ih; dW_hh; db] = [h, lh, 1]^T dgates
 // After layer 0, dh is the gradient of the stack's entry h.
 //
-// Bound: at the training shapes (B = 32, N = 240, H = 100, 16 layers) the
-// backward does ~87 GFLOP in f32 (per layer 6 B N^2 H for adj @ h1,
-// adj^T d_hi and d_hi h1^T, and 56 B N H^2 for the support products and
-// their transposes, the LSTM recompute, its two input-gradient products and
-// the weight-gradient sums), 1.3 ms of the card's f32 rate; its bytes (the
-// four 49 MB residual slabs and the adjacency read once, d_adj written
-// once) take ~0.07 ms.  So it is bound by operations.  This first version
-// runs on the CUDA cores.
+// Bound: at the training shapes (B = 32, N = 240, H = 100, 16 layers, R =
+// B N rows) the function is nine products a layer: 6 B N^2 H for adj @ h1,
+// adj^T d_hi and d_hi h1^T, 60 R H^2 for the gate recompute, the support
+// product, both input-gradient pairs and the weight gradients; with ~40 R H
+// of elementwise work, ~91 GFLOP, 1.37 ms at the card's 67 TFLOP/s in f32.
+// Its bytes (the four 49 MB residual slabs, the adjacency, and the gates,
+// hi, tdpre and dgates scratch written and read once) take ~0.4 ms, so it
+// is bound by operations.
 //
-// Design: as in the forward, a product that reads every row of a layer
-// needs a launch boundary.  Because the forward stored h1, hi = adj @ h1 is
-// recomputed inside the first launch of the layer (kernel X: one block per
-// kR rows of one dialogue), which also does the row-local update gradients,
-// writes d_hi, and adds d_hi[rows] h1^T into d_adj (h1 streamed a second
-// time).  d_h1 = adj^T d_hi needs every row's d_hi, so the LSTM backward is
-// a second launch (kernel Y).  The weight gradients are sums over all B N
-// rows: kernel W computes A^T B for each tile of the output and each split
-// of 256 rows into a private partial; a last kernel sums the partials in a
-// fixed order (deterministic, no atomics).  The transposed weights (W^T,
-// W_ih^T, W_hh^T) are handed in contiguous so that every weight read in the
-// input-gradient products coalesces.
+// Design: every product is one launch of the tiled product of
+// gemm_f32.cuh, with its elementwise work in the epilogue.  Per layer, each
+// batched over the B dialogues (rows = the N nodes of one dialogue):
+//   P1 gates = act([h | lh] [W_ih; W_hh] + b)      wide    -> gates scratch
+//   P2 hi = adj h1                                 narrow  -> hi slab[l]
+//   P3 [hi | h0] W[l]; pre, the Philox redraw, dpre, tdpre, d_hi, dh0
+//                                                  narrow  -> tdpre slab[l]
+//   P4 tdpre W[l]^T: d_hi += [:, :H], dh0 += [:, H:] narrow
+//   P5 d_adj += d_hi h1^T                          narrow
+//   P6 d_h1 = adj^T d_hi; the LSTM step's backward narrow  -> dgates slab[l]
+//   P7 dgates [W_ih^T | W_hh^T]: dh += [:, :H], dlh = [:, H:]   narrow
+// (without reason P1 and P7 are skipped and P6 writes dh = d_h1).  After
+// the walk, two split-K products write partial sums over row splits, and
+// two sums add the partials in split order (deterministic, no atomics):
+// dW for all layers in one launch (K = R), and [dW_ih; dW_hh; db] in one
+// launch over every layer's rows (K = B nl N; the dgates slab is laid out
+// (B, nl, N, 4H) like the residual slabs).  No operand is copied to
+// transpose it: each is read in place through its strides.
+//
+// Tiles (BM x BN, a thread's register tile, threads; shared memory for a
+// ring of three 8-deep slices): wide 128 x 128, 8 x 8, 256, 25.3 KB, for
+// P1 and the weight-gradient sums; narrow 64 x 128, 4 x 8, 256, 19.2 KB,
+// for the rest (more blocks where a product has 100-240 columns).  Both
+// are capped at 128 registers for two blocks per SM, except the three
+// products with H columns (P2, P3, P6), which launch at most one block per
+// SM.  128 columns let the 16 column threads of a row read B conflict-free;
+// 112 (less padding for H = 100) measured slower.  Registers and spills:
+// see `-Xptxas -v` (chip_smoke.py prints them and fails on a spill).
+//
+// Why f32 on the CUDA cores: TF32 or bf16 tensor cores keep ~3 decimal
+// digits, and the port holds kernel D to 1e-4 of each gradient's scale
+// against the plain f32 version.
 //
 // C interface: device pointers to contiguous f32 arrays; the stream is the
-// caller's.  gcnii_bwd_layer runs one layer (kernels X, Y and W);
-// gcnii_bwd_finish sums the weight-gradient partials.  Each returns
-// cudaGetLastError() after its launches.
+// caller's.  gcnii_bwd runs the whole backward and returns the number of
+// kernels it launched, or minus the CUDA error of the first launch that
+// failed (cudaGetLastError() after each launch).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gemm_f32.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kR = 8;        // rows of one dialogue per block
-constexpr int kTX = 128;     // threads over the hidden axis (H <= 128)
-constexpr int kTY = 4;
-constexpr int kRT = kR / kTY;
-constexpr int kKC = 32;      // row tile of the adjacency products
-constexpr int kHMax = kTX;
-constexpr int kWT = 32;      // output tile of the weight-gradient sums
-constexpr int kRows = 256;   // rows per weight-gradient split
+using gemm::Operand;
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Kernel X: the update's backward for kR rows of dialogue b, layer l.
-__global__ void __launch_bounds__(kTX * kTY) gcnii_bwd_conv_kernel(
-    const float* __restrict__ adj, const float* __restrict__ h0,
-    const float* __restrict__ w, const float* __restrict__ wt,
-    const float* __restrict__ theta_l, float alpha,
-    const float* __restrict__ h1, const float* __restrict__ dh,
-    float* __restrict__ d_hi, float* __restrict__ hih0,
-    float* __restrict__ tdpre, float* __restrict__ dh0,
-    float* __restrict__ dadj, int drop, unsigned int thresh, float inv_keep,
-    const long long* __restrict__ seed_ptr, int l, int nl, int N, int H) {
-  __shared__ float adj_s[kR][kKC];
-  __shared__ float h1_s[kKC][kHMax + 1];
-  __shared__ float hi_s[kR][kHMax];
-  __shared__ float h0_s[kR][kHMax];
-  __shared__ float tdp_s[kR][kHMax];
-  __shared__ float dhi_s[kR][kHMax];
+// The shapes every epilogue needs; o(b, r, c) is the offset of (b, node r,
+// channel c) in a (B, N, H) array.
+struct Dims {
+  int N, H, nl, l;
+  __device__ __forceinline__ long long o(int b, int r, int c) const {
+    return ((long long)b * N + r) * H + c;
+  }
+  // (b, layer l, node r, column c) in a (B, nl, N, width) slab
+  __device__ __forceinline__ long long slab(int b, int r, int c,
+                                            int width) const {
+    return (((long long)b * nl + l) * N + r) * width + c;
+  }
+};
 
-  const int c = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTX + c;
-  const int nthreads = kTX * kTY;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kR;
-  const long long base = (long long)b * N * H;
-  const float* A = adj + (long long)b * N * N;
-  const float* h1b = h1 + ((long long)b * nl + l) * N * H;
-  const float* w1 = w;
-  const float* w2 = w + H * H;
+// Each epilogue reads its global inputs in load() and writes in operator()
+// (see gemm_f32.cuh); each product has an epilogue type of its own, so that
+// a profile names the product.
 
-  // hi = adj[rows] @ h1
-  float acc[kRT];
-#pragma unroll
-  for (int q = 0; q < kRT; ++q) acc[q] = 0.0f;
-  for (int k0 = 0; k0 < N; k0 += kKC) {
-    const int kc = min(kKC, N - k0);
-    for (int e = tid; e < kR * kKC; e += nthreads) {
-      const int r = e / kKC, kk = e % kKC, row = row0 + r;
-      adj_s[r][kk] =
-          (row < N && kk < kc) ? A[(long long)row * N + k0 + kk] : 0.0f;
-    }
-    for (int e = tid; e < kKC * H; e += nthreads) {
-      const int kk = e / H, cc = e % H;
-      h1_s[kk][cc] = kk < kc ? h1b[(long long)(k0 + kk) * H + cc] : 0.0f;
-    }
-    __syncthreads();
-    if (c < H) {
-      for (int kk = 0; kk < kc; ++kk) {
-        const float v = h1_s[kk][c];
-#pragma unroll
-        for (int q = 0; q < kRT; ++q) acc[q] += adj_s[ty + q * kTY][kk] * v;
-      }
-    }
-    __syncthreads();
+// P1: the reason-LSTM gates i, f, g, o of layer l, activated.
+struct P1Gates {
+  Dims d;
+  const float* lb;
+  float* gates;   // (B, N, 4H)
+  struct In { float b; };
+  __device__ In load(int, int, int c) const { return {lb[c]}; }
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    v += in.b;
+    const int u = c / d.H;
+    gates[((long long)b * d.N + r) * 4 * d.H + c] =
+        u == 2 ? tanhf(v) : sigmoidf_(v);
   }
-  if (c < H) {
-#pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = ty + q * kTY, row = row0 + r;
-      hi_s[r][c] = acc[q];
-      h0_s[r][c] = row < N ? h0[base + (long long)row * H + c] : 0.0f;
-    }
-  }
-  __syncthreads();
+};
 
-  // pre, dpre, tdpre; the operands of dW[l]
-  const float theta = *theta_l;
-  const unsigned long long seed = drop ? (unsigned long long)*seed_ptr : 0ull;
-  float dpre[kRT];
-  if (c < H) {
-#pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = ty + q * kTY, row = row0 + r;
-      dpre[q] = 0.0f;
-      float tdp = 0.0f;
-      if (row < N) {
-        float sup = 0.0f;
-        for (int k = 0; k < H; ++k)
-          sup += hi_s[r][k] * w1[k * H + c] + h0_s[r][k] * w2[k * H + c];
-        const float rr = (1.0f - alpha) * hi_s[r][c] + alpha * h0_s[r][c];
-        const float pre = theta * sup + (1.0f - theta) * rr;
-        const long long o = base + (long long)row * H + c;
-        float d = dh[o];
-        if (drop)
-          d = philox::keep(seed, b, l, row, c, thresh) ? d * inv_keep : 0.0f;
-        dpre[q] = pre > 0.0f ? d : 0.0f;
-        tdp = theta * dpre[q];
-        tdpre[o] = tdp;
-        const long long o2 = ((long long)b * N + row) * 2 * H;
-        hih0[o2 + c] = hi_s[r][c];
-        hih0[o2 + H + c] = h0_s[r][c];
-      }
-      tdp_s[r][c] = tdp;
-    }
+// P2: hi = adj h1 into layer l's slab of the (nl, B, N, H) hi store.
+struct P2Hi {
+  float* out;
+  int N, H;
+  using In = gemm::NoIn;
+  __device__ In load(int, int, int) const { return {}; }
+  __device__ void operator()(int b, int r, int c, float v, In) const {
+    out[((long long)b * N + r) * H + c] = v;
   }
-  __syncthreads();
+};
 
-  // d_hi and d_h0 (thread c now indexes the input feature k)
-  if (c < H) {
-#pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = ty + q * kTY, row = row0 + r;
-      float dhi = 0.0f;
-      if (row < N) {
-        float a1 = 0.0f, a2 = 0.0f;
-        for (int j = 0; j < H; ++j) {
-          const float t = tdp_s[r][j];
-          a1 += t * wt[j * 2 * H + c];
-          a2 += t * wt[j * 2 * H + H + c];
-        }
-        const long long o = base + (long long)row * H + c;
-        dhi = a1 + (1.0f - theta) * (1.0f - alpha) * dpre[q];
-        dh0[o] += a2 + (1.0f - theta) * alpha * dpre[q];
-        d_hi[o] = dhi;
-      }
-      dhi_s[r][c] = dhi;
-    }
+// P3: v = (hi W1 + h0 W2)(r, c); the update's backward up to tdpre.
+struct P3Pre {
+  Dims d;
+  const float* hi;     // layer l's slab
+  const float* h0;
+  const float* dh;     // the carry: d(layer output)
+  const float* theta;  // theta[l]
+  float alpha;
+  int drop;
+  unsigned int thresh;
+  float inv_keep;
+  const long long* seed;
+  int first;           // l == nl - 1: dh0 starts here
+  float* tdpre;        // layer l's slab
+  float* d_hi;
+  float* dh0;
+  struct In { float hi, h0, dh, dh0, th; unsigned long long seed; };
+  __device__ In load(int b, int r, int c) const {
+    const long long o = d.o(b, r, c);
+    return {hi[o], h0[o], dh[o], first ? 0.0f : dh0[o], *theta,
+            drop ? (unsigned long long)*seed : 0ull};
   }
-  __syncthreads();
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    const long long o = d.o(b, r, c);
+    const float th = in.th;
+    const float pre =
+        th * v + (1.0f - th) * ((1.0f - alpha) * in.hi + alpha * in.h0);
+    float g = in.dh;
+    if (drop)
+      g = philox::keep(in.seed, b, d.l, r, c, thresh) ? g * inv_keep : 0.0f;
+    const float dpre = pre > 0.0f ? g : 0.0f;
+    tdpre[o] = th * dpre;
+    d_hi[o] = (1.0f - th) * (1.0f - alpha) * dpre;
+    dh0[o] = in.dh0 + (1.0f - th) * alpha * dpre;
+  }
+};
 
-  // d_adj[rows] += d_hi[rows] @ h1^T
-  float* dA = dadj + (long long)b * N * N;
-  for (int m0 = 0; m0 < N; m0 += kKC) {
-    const int mc = min(kKC, N - m0);
-    for (int e = tid; e < kKC * H; e += nthreads) {
-      const int mm = e / H, cc = e % H;
-      h1_s[mm][cc] = mm < mc ? h1b[(long long)(m0 + mm) * H + cc] : 0.0f;
-    }
-    __syncthreads();
-    for (int p = tid; p < kR * kKC; p += nthreads) {
-      const int r = p / kKC, mm = p % kKC, row = row0 + r;
-      if (row < N && mm < mc) {
-        float s = 0.0f;
-        for (int cc = 0; cc < H; ++cc) s += dhi_s[r][cc] * h1_s[mm][cc];
-        dA[(long long)row * N + m0 + mm] += s;
-      }
-    }
-    __syncthreads();
+// P4 and P7: v = (x [Wa^T | Wb^T])(r, c), c < 2H; lo[c] (+)= v for c < H,
+// hi[c - H] (+)= v for the rest.  lo_src is what lo adds to (lo itself, or
+// the carry's first value); hi is overwritten when hi_add is 0.
+struct SplitCols {
+  Dims d;
+  const float* lo_src;
+  float* lo;
+  float* hi;
+  int hi_add;
+  struct In { float old; };
+  __device__ In load(int b, int r, int c) const {
+    if (c < d.H) return {lo_src[d.o(b, r, c)]};
+    return {hi_add ? hi[d.o(b, r, c - d.H)] : 0.0f};
   }
-}
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    if (c < d.H)
+      lo[d.o(b, r, c)] = in.old + v;
+    else
+      hi[d.o(b, r, c - d.H)] = in.old + v;
+  }
+};
 
-// Kernel Y: d_h1 = adj^T d_hi for kR rows, then the reason-LSTM step's
-// backward (or dh = d_h1 without it).
-__global__ void __launch_bounds__(kTX * kTY) gcnii_bwd_lstm_kernel(
-    const float* __restrict__ adj, const float* __restrict__ d_hi,
-    const float* __restrict__ res_h, const float* __restrict__ res_lh,
-    const float* __restrict__ res_lc, const float* __restrict__ ih,
-    const float* __restrict__ hh, const float* __restrict__ lb,
-    const float* __restrict__ iht, const float* __restrict__ hht,
-    float* __restrict__ dh, float* __restrict__ dlh, float* __restrict__ dlc,
-    float* __restrict__ xcat, float* __restrict__ dgates, int reason, int l,
-    int nl, int N, int H) {
-  __shared__ float adjt_s[kR][kKC + 1];
-  __shared__ float dhi_s[kKC][kHMax];
-  __shared__ float hs[kR][kHMax];
-  __shared__ float lhs[kR][kHMax];
-  __shared__ float dg_s[kR][4 * kHMax];
+struct P4DProj : SplitCols {};
+struct P7LstmIn : SplitCols {};
 
-  const int c = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTX + c;
-  const int nthreads = kTX * kTY;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kR;
-  const long long base = (long long)b * N * H;
-  const float* A = adj + (long long)b * N * N;
+// P5: d_adj (+)= d_hi h1^T.
+struct P5DAdj {
+  float* dadj;
+  int N, first;
+  struct In { float old; };
+  __device__ In load(int b, int r, int c) const {
+    return {first ? 0.0f : dadj[((long long)b * N + r) * N + c]};
+  }
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    dadj[((long long)b * N + r) * N + c] = in.old + v;
+  }
+};
 
-  float acc[kRT];
-#pragma unroll
-  for (int q = 0; q < kRT; ++q) acc[q] = 0.0f;
-  for (int m0 = 0; m0 < N; m0 += kKC) {
-    const int mc = min(kKC, N - m0);
-    for (int e = tid; e < kR * kKC; e += nthreads) {
-      const int r = e % kR, mm = e / kR, row = row0 + r;
-      adjt_s[r][mm] =
-          (row < N && mm < mc) ? A[(long long)(m0 + mm) * N + row] : 0.0f;
-    }
-    for (int e = tid; e < kKC * H; e += nthreads) {
-      const int mm = e / H, cc = e % H;
-      dhi_s[mm][cc] = mm < mc ? d_hi[base + (long long)(m0 + mm) * H + cc]
-                              : 0.0f;
-    }
-    __syncthreads();
-    if (c < H) {
-      for (int mm = 0; mm < mc; ++mm) {
-        const float v = dhi_s[mm][c];
-#pragma unroll
-        for (int q = 0; q < kRT; ++q) acc[q] += adjt_s[ty + q * kTY][mm] * v;
-      }
-    }
-    __syncthreads();
+// P6: v = d_h1 = (adj^T d_hi)(r, c).  Without reason dh = d_h1; with it,
+// the LSTM step's backward (the gates from P1).
+struct P6Lstm {
+  Dims d;
+  int reason, first;
+  const float* gates;   // (B, N, 4H), activated
+  const float* res_lc;  // (B, nl, N, H)
+  float* dh;
+  float* dlh;
+  float* dlc;
+  float* dgates;        // (B, nl, N, 4H)
+  struct In { float ig, fg, gg, og, lc, dlh, dlc; };
+  __device__ In load(int b, int r, int c) const {
+    if (!reason) return {};
+    const int H = d.H;
+    const long long o = d.o(b, r, c);
+    const float* g = gates + ((long long)b * d.N + r) * 4 * H + c;
+    return {g[0], g[H], g[2 * H], g[3 * H], res_lc[d.slab(b, r, c, H)],
+            first ? 0.0f : dlh[o], first ? 0.0f : dlc[o]};
   }
-  if (!reason) {
-    if (c < H) {
-#pragma unroll
-      for (int q = 0; q < kRT; ++q) {
-        const int row = row0 + ty + q * kTY;
-        if (row < N) dh[base + (long long)row * H + c] = acc[q];
-      }
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    const long long o = d.o(b, r, c);
+    if (!reason) {
+      dh[o] = v;
+      return;
     }
-    return;
+    const int H = d.H;
+    const float ig = in.ig, fg = in.fg, gg = in.gg, og = in.og, lc = in.lc;
+    const float tl = tanhf(fg * lc + ig * gg);
+    const float dlh1 = v + in.dlh;
+    const float dlc1 = in.dlc + dlh1 * og * (1.0f - tl * tl);
+    float* dg = dgates + d.slab(b, r, c, 4 * H);
+    dg[0] = dlc1 * gg * ig * (1.0f - ig);
+    dg[H] = dlc1 * lc * fg * (1.0f - fg);
+    dg[2 * H] = dlc1 * ig * (1.0f - gg * gg);
+    dg[3 * H] = dlh1 * tl * og * (1.0f - og);
+    dlc[o] = dlc1 * fg;
   }
+};
 
-  const long long rbase = ((long long)b * nl + l) * N * H;
-  if (c < H) {
-#pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = ty + q * kTY, row = row0 + r;
-      const bool in = row < N;
-      hs[r][c] = in ? res_h[rbase + (long long)row * H + c] : 0.0f;
-      lhs[r][c] = in ? res_lh[rbase + (long long)row * H + c] : 0.0f;
-    }
+// A split-K product's partial sums: part[blockIdx.z] is (M, N).
+struct Partial {
+  float* part;
+  int M, N;
+  using In = gemm::NoIn;
+  __device__ In load(int, int, int) const { return {}; }
+  __device__ void operator()(int, int r, int c, float v, In) const {
+    part[((long long)blockIdx.z * M + r) * N + c] = v;
   }
-  __syncthreads();
-  const int G = 4 * H;
-  if (c < H) {
-#pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = ty + q * kTY, row = row0 + r;
-      if (row >= N) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) dg_s[r][u * H + c] = 0.0f;
-        continue;
-      }
-      float g[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) g[u] = lb[u * H + c];
-      for (int k = 0; k < H; ++k) {
-        const float x = hs[r][k], y = lhs[r][k];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = k * G + u * H + c;
-          g[u] += x * ih[j] + y * hh[j];
-        }
-      }
-      const float ig = sigmoidf_(g[0]), fg = sigmoidf_(g[1]);
-      const float gg = tanhf(g[2]), og = sigmoidf_(g[3]);
-      const long long o = base + (long long)row * H + c;
-      const float lc = res_lc[rbase + (long long)row * H + c];
-      const float lc1 = fg * lc + ig * gg;
-      const float tl = tanhf(lc1);
-      const float dlh1 = acc[q] + dlh[o];
-      const float dlc1 = dlc[o] + dlh1 * og * (1.0f - tl * tl);
-      const float dgv[4] = {dlc1 * gg * ig * (1.0f - ig),
-                            dlc1 * lc * fg * (1.0f - fg),
-                            dlc1 * ig * (1.0f - gg * gg),
-                            dlh1 * tl * og * (1.0f - og)};
-      const long long row2 = (long long)b * N + row;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        dg_s[r][u * H + c] = dgv[u];
-        dgates[row2 * G + u * H + c] = dgv[u];
-      }
-      dlc[o] = dlc1 * fg;
-      float* xc = xcat + row2 * (2 * H + 1);
-      xc[c] = hs[r][c];
-      xc[H + c] = lhs[r][c];
-      if (c == 0) xc[2 * H] = 1.0f;
-    }
-  }
-  __syncthreads();
-  if (c < H) {
-#pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = ty + q * kTY, row = row0 + r;
-      if (row >= N) continue;
-      float a = 0.0f, bb = 0.0f;
-      for (int j = 0; j < G; ++j) {
-        const float d = dg_s[r][j];
-        a += d * iht[j * H + c];
-        bb += d * hht[j * H + c];
-      }
-      const long long o = base + (long long)row * H + c;
-      dh[o] += a;       // the skip's dh plus the LSTM input's gradient
-      dlh[o] = bb;
-    }
-  }
-}
+};
 
-// Kernel W: part[split] (+)= A[rows of split]^T @ Bm[rows of split], A (R, K)
-// and Bm (R, J) row-major, part (splits, K, J).
-__global__ void __launch_bounds__(256) gcnii_wgrad_kernel(
-    const float* __restrict__ A, const float* __restrict__ Bm, int R, int K,
-    int J, float* __restrict__ part, int accumulate) {
-  __shared__ float a_s[kWT][kWT + 1];
-  __shared__ float b_s[kWT][kWT + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;   // (32, 8)
-  const int tid = ty * kWT + tx;
-  const int j0 = blockIdx.x * kWT, k0 = blockIdx.y * kWT;
-  const int r_begin = blockIdx.z * kRows;
-  const int r_end = min(R, r_begin + kRows);
-  float acc[kWT / 8];
-#pragma unroll
-  for (int q = 0; q < kWT / 8; ++q) acc[q] = 0.0f;
-  for (int r0 = r_begin; r0 < r_end; r0 += kWT) {
-    for (int e = tid; e < kWT * kWT; e += 256) {
-      const int rr = e / kWT, xx = e % kWT, row = r0 + rr;
-      const bool in = row < r_end;
-      a_s[rr][xx] = (in && k0 + xx < K) ? A[(long long)row * K + k0 + xx] : 0.0f;
-      b_s[rr][xx] = (in && j0 + xx < J) ? Bm[(long long)row * J + j0 + xx] : 0.0f;
-    }
-    __syncthreads();
-    for (int rr = 0; rr < kWT; ++rr) {
-      const float bv = b_s[rr][tx];
-#pragma unroll
-      for (int q = 0; q < kWT / 8; ++q) acc[q] += a_s[rr][ty + 8 * q] * bv;
-    }
-    __syncthreads();
-  }
-  float* out = part + (long long)blockIdx.z * K * J;
-#pragma unroll
-  for (int q = 0; q < kWT / 8; ++q) {
-    const int k = k0 + ty + 8 * q, j = j0 + tx;
-    if (k < K && j < J) {
-      const long long i = (long long)k * J + j;
-      out[i] = accumulate ? out[i] + acc[q] : acc[q];
-    }
-  }
-}
+struct WgradW : Partial {};
+struct WgradLstm : Partial {};
 
 // out[g][e] = sum over s of part[g][s][e], in split order.
 __global__ void gcnii_reduce_kernel(const float* __restrict__ part,
@@ -400,64 +269,133 @@ __global__ void gcnii_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-int splits_of(int R) { return (R + kRows - 1) / kRows; }
+// The tile shapes (see the note at the top); wide and narrow leave room
+// for two blocks per SM.
+template <bool AKC, bool BKC, class Epi>
+cudaError_t wide(const Operand& A, const Operand& B, int M, int N, int K,
+                 int batches, int splits, const Epi& epi, cudaStream_t st) {
+  return gemm::launch<128, 128, 8, AKC, BKC, 2>(A, B, M, N, K, batches,
+                                                splits, epi, st);
+}
+
+template <bool AKC, bool BKC, class Epi>
+cudaError_t narrow(const Operand& A, const Operand& B, int M, int N, int K,
+                   int batches, const Epi& epi, cudaStream_t st) {
+  return gemm::launch<64, 128, 4, AKC, BKC, 2>(A, B, M, N, K, batches, 1,
+                                               epi, st);
+}
+
+// The products with H = 100 columns launch one block per SM at most (B x
+// N / 64 blocks): their registers need no cap.
+template <bool AKC, bool BKC, class Epi>
+cudaError_t narrow100(const Operand& A, const Operand& B, int M, int N,
+                      int K, int batches, const Epi& epi, cudaStream_t st) {
+  return gemm::launch<64, 128, 4, AKC, BKC, 1>(A, B, M, N, K, batches, 1,
+                                               epi, st);
+}
+
+cudaError_t reduce(const float* part, int groups, int splits, long long E,
+                   float* out, cudaStream_t st) {
+  const long long want = (E + 255) / 256;
+  const unsigned blocks = (unsigned)(want < 4096 ? want : 4096);
+  gcnii_reduce_kernel<<<dim3(blocks, groups), 256, 0, st>>>(part, splits, E,
+                                                           out);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-extern "C" int gcnii_bwd_splits(int R) { return splits_of(R); }
-
-extern "C" int gcnii_bwd_layer(
-    const float* adj, const float* h0, const float* w, const float* wt,
-    const float* theta_l, float alpha, const float* res_h,
-    const float* res_lh, const float* res_lc, const float* res_h1,
-    const float* ih, const float* hh, const float* lb, const float* iht,
-    const float* hht, float* dh, float* dlh, float* dlc, float* d_hi,
-    float* hih0, float* tdpre, float* xcat, float* dgates, float* dh0,
-    float* dadj, float* part_w, float* part_l, int drop, unsigned int thresh,
-    float inv_keep, const long long* seed_ptr, int reason, int l, int nl,
-    int B, int N, int H, void* stream) {
-  if (H > kHMax) return (int)cudaErrorInvalidValue;
+// The whole backward on `stream`.  Scratch: hi and tdpre (nl, B, N, H);
+// with reason gates (B, N, 4H) and dgates (B, nl, N, 4H); part_w (nl,
+// splits_w, 2H, H) and part_l (splits_l, 2H + 1, 4H).  dh_out is read only;
+// dh, dlh, dlc, d_hi, dh0 and dadj need no initial value.  dl is
+// [dW_ih; dW_hh; db], (2H + 1, 4H), written only with reason.
+extern "C" int gcnii_bwd(
+    const float* adj, const float* h0, const float* W, const float* theta,
+    float alpha, const float* res_h, const float* res_lh,
+    const float* res_lc, const float* res_h1, const float* ih,
+    const float* hh, const float* lb, const float* dh_out, float* dh,
+    float* dlh, float* dlc, float* d_hi, float* dh0, float* dadj, float* hi,
+    float* tdpre, float* gates, float* dgates, float* part_w, float* part_l,
+    float* dW, float* dl, int drop, unsigned int thresh, float inv_keep,
+    const long long* seed, int reason, int nl, int B, int N, int H,
+    int splits_w, int splits_l, void* stream) {
+  if (H > 128 || B <= 0 || N <= 0 || nl <= 0 || splits_w <= 0 ||
+      splits_l <= 0)
+    return -(int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((N + kR - 1) / kR, B);
-  dim3 block(kTX, kTY);
-  gcnii_bwd_conv_kernel<<<grid, block, 0, st>>>(
-      adj, h0, w, wt, theta_l, alpha, res_h1, dh, d_hi, hih0, tdpre, dh0,
-      dadj, drop, thresh, inv_keep, seed_ptr, l, nl, N, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gcnii_bwd_lstm_kernel<<<grid, block, 0, st>>>(
-      adj, d_hi, res_h, res_lh, res_lc, ih, hh, lb, iht, hht, dh, dlh, dlc,
-      xcat, dgates, reason, l, nl, N, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int G = 4 * H;
+  const long long NH = (long long)N * H, NN = (long long)N * N;
+  const long long RH = (long long)B * NH;
   const int R = B * N;
-  const int S = splits_of(R);
-  dim3 wblock(kWT, 8);
-  // dW[l] = [hi, h0]^T tdpre, into layer l's partials
-  gcnii_wgrad_kernel<<<dim3((H + kWT - 1) / kWT, (2 * H + kWT - 1) / kWT, S),
-                       wblock, 0, st>>>(hih0, tdpre, R, 2 * H, H, part_w, 0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !reason) return (int)err;
-  // d[W_ih; W_hh; b] += [h, lh, 1]^T dgates, summed over the layers
-  gcnii_wgrad_kernel<<<dim3((4 * H + kWT - 1) / kWT,
-                            (2 * H + 1 + kWT - 1) / kWT, S),
-                       wblock, 0, st>>>(xcat, dgates, R, 2 * H + 1, 4 * H,
-                                        part_l, l != nl - 1);
-  return (int)cudaGetLastError();
-}
+  int launches = 0;
+  cudaError_t err = cudaSuccess;
+#define GCNII_LAUNCH(call)                    \
+  do {                                        \
+    err = (call);                             \
+    if (err != cudaSuccess) return -(int)err; \
+    ++launches;                               \
+  } while (0)
 
-extern "C" int gcnii_bwd_finish(const float* part_w, const float* part_l,
-                                int R, int nl, int H, int reason, float* dW,
-                                float* dl, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int S = splits_of(R);
-  const long long Ew = 2LL * H * H;
-  gcnii_reduce_kernel<<<dim3((unsigned)((Ew + 255) / 256), nl), 256, 0, st>>>(
-      part_w, S, Ew, dW);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !reason) return (int)err;
-  const long long El = (2LL * H + 1) * 4 * H;
-  gcnii_reduce_kernel<<<dim3((unsigned)((El + 255) / 256), 1), 256, 0, st>>>(
-      part_l, S, El, dl);
-  return (int)cudaGetLastError();
+  for (int l = nl - 1; l >= 0; --l) {
+    const Dims d{N, H, nl, l};
+    const int first = l == nl - 1;
+    const float* dh_src = first ? dh_out : dh;
+    const float* h1 = res_h1 + l * NH;   // (B, nl, N, H) at layer l
+    float* hi_l = hi + l * RH;
+    float* tdpre_l = tdpre + l * RH;
+    const float* W_l = W + (long long)l * 2 * H * H;
+    if (reason)   // P1
+      GCNII_LAUNCH((wide<true, false>(
+          gemm::cat(res_h + l * NH, nl * NH, res_lh + l * NH, nl * NH, H, 1,
+                    H, true),
+          gemm::cat(ih, 0, hh, 0, 1, G, H, true), N, G, 2 * H, B, 1,
+          P1Gates{d, lb, gates}, st)));
+    // P2
+    GCNII_LAUNCH((narrow100<true, false>(
+        gemm::dense(adj, NN, N, 1), gemm::dense(h1, nl * NH, 1, H), N, H, N,
+        B, P2Hi{hi_l, N, H}, st)));
+    // P3
+    GCNII_LAUNCH((narrow100<true, false>(
+        gemm::cat(hi_l, NH, h0, NH, H, 1, H, true),
+        gemm::dense(W_l, 0, 1, H), N, H, 2 * H, B,
+        P3Pre{d, hi_l, h0, dh_src, theta + l, alpha, drop, thresh, inv_keep,
+               seed, first, tdpre_l, d_hi, dh0},
+        st)));
+    // P4
+    GCNII_LAUNCH((narrow<true, true>(
+        gemm::dense(tdpre_l, NH, H, 1), gemm::dense(W_l, 0, H, 1), N, 2 * H,
+        H, B, P4DProj{{d, d_hi, d_hi, dh0, 1}}, st)));
+    // P5
+    GCNII_LAUNCH((narrow<true, true>(
+        gemm::dense(d_hi, NH, H, 1), gemm::dense(h1, nl * NH, H, 1), N, N, H,
+        B, P5DAdj{dadj, N, first}, st)));
+    // P6
+    GCNII_LAUNCH((narrow100<false, false>(
+        gemm::dense(adj, NN, 1, N), gemm::dense(d_hi, NH, 1, H), N, H, N, B,
+        P6Lstm{d, reason, first, gates, res_lc, dh, dlh, dlc, dgates}, st)));
+    if (reason)   // P7
+      GCNII_LAUNCH((narrow<true, true>(
+          gemm::dense(dgates + (long long)l * N * G, (long long)nl * N * G, G,
+                      1),
+          gemm::cat(ih, 0, hh, 0, G, 1, H, false), N, 2 * H, G, B,
+          P7LstmIn{{d, dh_src, dh, dlh, 0}}, st)));
+  }
+
+  // dW[l] = [hi_l | h0]^T tdpre_l, all layers at once, K = B N
+  GCNII_LAUNCH((wide<false, false>(
+      gemm::cat(hi, RH, h0, 0, 1, H, H, false), gemm::dense(tdpre, RH, 1, H),
+      2 * H, H, R, nl, splits_w, WgradW{{part_w, 2 * H, H}}, st)));
+  GCNII_LAUNCH(reduce(part_w, nl, splits_w, 2LL * H * H, dW, st));
+  if (reason) {
+    // [dW_ih; dW_hh; db] = [h | lh | 1]^T dgates over all B nl N rows
+    Operand A = gemm::cat(res_h, 0, res_lh, 0, 1, H, H, false);
+    A.one_row = 2 * H;
+    GCNII_LAUNCH((wide<false, false>(
+        A, gemm::dense(dgates, 0, 1, G), 2 * H + 1, G, R * nl, 1, splits_l,
+        WgradLstm{{part_l, 2 * H + 1, G}}, st)));
+    GCNII_LAUNCH(reduce(part_l, 1, splits_l, (2LL * H + 1) * G, dl, st));
+  }
+#undef GCNII_LAUNCH
+  return launches;
 }

@@ -1,0 +1,267 @@
+// A tiled f32 matrix product on the CUDA cores, with the operands read in
+// place through strides and the output handed to an epilogue functor.
+//
+//   out(z, r, c) = sum over k of A(z, r, k) * B(z, c, k),  r < M, c < N
+//
+// Both operands are seen as (rows, K): A as (M, K), B as (N, K), so that a
+// transposed operand (adj^T, W^T, h1^T) is only another pair of strides.
+// An Operand may take its columns (split_k) or its rows from a second
+// pointer from index `split` on ([h | lh], [W_ih; W_hh]), and may have one
+// row of ones (the bias row of a weight gradient).  z indexes a batch
+// (one dialogue, or one layer); blockIdx.z = z * splits + s, where split s
+// of a split-K product sums k in [s kchunk, (s + 1) kchunk).
+//
+// Tiling: a block computes a BM x BN tile; 8-deep slices of both operands
+// are staged k-major in shared memory through a ring of three slices
+// filled by cp.async (16 bytes where the operand is aligned and lands
+// contiguous, else 4: every stride and ragged edge is legal).  Each
+// thread holds a TM x 8 register tile, split into 4-wide chunks BM/(TM/4)
+// rows and BN/2 columns apart, so that its float4 reads of a slice are
+// broadcasts (A) or consecutive (B).  The
+// epilogue is a functor with a type In, `In load(z, r, c)` (the global
+// values it reads) and `operator()(z, r, c, acc, in)`, called for every
+// element inside M x N.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace gemm {
+
+constexpr int BK = 8;       // depth of a slice
+constexpr int STAGES = 3;   // slices in flight
+
+__device__ float kOne = 1.0f;   // the source of a row of ones
+
+struct NoIn {};   // the In of an epilogue that reads nothing
+
+struct Operand {
+  const float* p0;      // segment 0
+  const float* p1;      // segment 1: index >= split along k or rows
+  long long bs0, bs1;   // batch strides of the segments (elements)
+  long long rs, ks;     // strides of a row and of k
+  int split;            // where segment 1 starts; a large value: never
+  int split_k;          // 1: split along k; 0: along the rows
+  int one_row;          // a row that reads 1.0; -1: none
+
+  __device__ __forceinline__ const float* at(int z, int r, int k) const {
+    if (r == one_row) return &kOne;
+    const float* p = p0;
+    long long bs = bs0;
+    if (split_k) {
+      if (k >= split) { p = p1; bs = bs1; k -= split; }
+    } else if (r >= split) {
+      p = p1; bs = bs1; r -= split;
+    }
+    return p + z * bs + r * rs + k * ks;
+  }
+};
+
+// A dense operand: element (r, k) at p + z bs + r rs + k ks.
+inline Operand dense(const float* p, long long bs, long long rs,
+                     long long ks) {
+  return Operand{p, p, bs, bs, rs, ks, 1 << 30, 0, -1};
+}
+
+// Two operands side by side along k (split_k) or stacked along the rows,
+// with the same strides.
+inline Operand cat(const float* p0, long long bs0, const float* p1,
+                   long long bs1, long long rs, long long ks, int split,
+                   bool split_k) {
+  return Operand{p0, p1, bs0, bs1, rs, ks, split, split_k ? 1 : 0, -1};
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// An edge group, element by element (out of line: rare, and kept out of the
+// main loop's code).
+__device__ __noinline__ void load_edge(float* d, int step, const Operand op,
+                                       int z, int gr, int gk, bool kc,
+                                       int nrows, int ke) {
+  for (int j = 0; j < 4; ++j) {
+    const int rr = kc ? gr : gr + j, kk = kc ? gk + j : gk;
+    const bool ok = rr < nrows && kk < ke;
+    cp_async4(d + j * step, ok ? op.at(z, rr, kk) : op.p0, ok ? 4 : 0);
+  }
+}
+
+// One BK-deep slice of an operand's rows [r0, r0 + ROWS) into dst[k][r]
+// (row stride ROWS + 4); zeros outside rows < nrows and k < ke.  Each
+// thread copies groups of 4 elements along the operand's contiguous axis
+// (k where KC, else the rows; its stride must be 1), so that one address
+// serves four elements and the global reads coalesce: a group that lies
+// inside the operand and in one segment is copied from that address, by
+// one 16-byte copy where it is aligned and lands contiguous (rows
+// contiguous), else by four 4-byte copies; an edge group element by
+// element.
+template <int ROWS, bool KC, int T>
+__device__ __forceinline__ void load_slice(float* dst, const Operand& op,
+                                           int z, int r0, int nrows, int k0,
+                                           int ke, int tid) {
+  constexpr int S = ROWS + 4;
+  constexpr int NG = BK * ROWS / 4;
+  static_assert(ROWS % 4 == 0, "rows in groups of 4");
+#pragma unroll
+  for (int i = 0; i < (NG + T - 1) / T; ++i) {
+    const int g = tid + i * T;
+    if (NG % T == 0 || g < NG) {
+      const int r = KC ? g / (BK / 4) : g % (ROWS / 4) * 4;
+      const int k = KC ? g % (BK / 4) * 4 : g / (ROWS / 4);
+      const int gr = r0 + r, gk = k0 + k;
+      float* d = dst + k * S + r;
+      constexpr int step = KC ? S : 1;   // the next element's place in dst
+      const int c = KC ? gk : gr;        // the contiguous coordinate
+      const bool in = KC ? gr < nrows && gk + 3 < ke
+                         : gk < ke && gr + 3 < nrows;
+      const bool split_here = (op.split_k != 0) == KC;
+      const bool whole =
+          in && !(split_here && c < op.split && c + 3 >= op.split) &&
+          !(KC ? gr == op.one_row
+               : op.one_row >= gr && op.one_row <= gr + 3);
+      if (whole) {
+        const float* src = op.at(z, gr, gk);
+        if (!KC && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+          cp_async16(d, src);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) cp_async4(d + j * step, src + j, 4);
+        }
+      } else {
+        load_edge(d, step, op, z, gr, gk, KC, nrows, ke);
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, class Epi>
+__global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
+    gemm_kernel(const Operand A, const Operand B, int M, int N, int K,
+                int splits, int kchunk, const Epi epi) {
+  constexpr int TN = 8;
+  constexpr int TR = BM / TM, TC = BN / TN, T = TR * TC;
+  constexpr int SA = BM + 4, SB = BN + 4;
+  static_assert(TM == 4 || TM == 8, "TM is 4 or 8");
+  static_assert(BM % TM == 0 && BN % TN == 0, "tile shape");
+  __shared__ __align__(16) float As[STAGES][BK * SA];
+  __shared__ __align__(16) float Bs[STAGES][BK * SB];
+
+  const int tid = threadIdx.x;
+  const int tc = tid % TC, tr = tid / TC;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int z = blockIdx.z / splits, s = blockIdx.z % splits;
+  const int kb = s * kchunk, ke = min(K, kb + kchunk);
+  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  // a ring of STAGES slices: slice t + STAGES - 1 is fetched while slice t
+  // is multiplied; one barrier a slice
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nk) {
+      load_slice<BM, AKC, T>(As[p], A, z, m0, M, kb + p * BK, ke, tid);
+      load_slice<BN, BKC, T>(Bs[p], B, z, n0, N, kb + p * BK, ke, tid);
+    }
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    {
+      const int p = t + STAGES - 1, nb = p % STAGES;
+      if (p < nk) {
+        load_slice<BM, AKC, T>(As[nb], A, z, m0, M, kb + p * BK, ke, tid);
+        load_slice<BN, BKC, T>(Bs[nb], B, z, n0, N, kb + p * BK, ke, tid);
+      }
+      cp_async_commit();
+    }
+    const float* as = As[t % STAGES] + tr * 4;
+    const float* bs = Bs[t % STAGES] + tc * 4;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(as + kk * SA + q * TR * 4);
+        a[4 * q] = v.x; a[4 * q + 1] = v.y; a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(bs + kk * SB + q * TC * 4);
+        b[4 * q] = v.x; b[4 * q + 1] = v.y; b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // a row of the register tile at a time: first every global value its
+  // epilogue reads, then the epilogue itself (its stores would otherwise
+  // order each later load behind them)
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + (i / 4) * TR * 4 + tr * 4 + i % 4;
+    if (r >= M) continue;
+    typename Epi::In in[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + (j / 4) * TC * 4 + tc * 4 + j % 4;
+      if (c < N) in[j] = epi.load(z, r, c);
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + (j / 4) * TC * 4 + tc * 4 + j % 4;
+      if (c < N) epi(z, r, c, acc[i][j], in[j]);
+    }
+  }
+}
+
+// Launches out = A B^T over `batches` batches and `splits` splits of K on
+// `st`; returns cudaGetLastError().
+template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, class Epi>
+cudaError_t launch(const Operand& A, const Operand& B, int M, int N, int K,
+                   int batches, int splits, const Epi& epi, cudaStream_t st) {
+  constexpr int T = (BM / TM) * (BN / 8);
+  // the loader steps along the contiguous axis with stride 1
+  if ((AKC ? A.ks : A.rs) != 1 || (BKC ? B.ks : B.rs) != 1)
+    return cudaErrorInvalidValue;
+  int kchunk = (K + splits - 1) / splits;
+  kchunk = (kchunk + BK - 1) / BK * BK;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batches * splits);
+  gemm_kernel<BM, BN, TM, AKC, BKC, MINB, Epi>
+      <<<grid, T, 0, st>>>(A, B, M, N, K, splits, kchunk, epi);
+  return cudaGetLastError();
+}
+
+}  // namespace gemm

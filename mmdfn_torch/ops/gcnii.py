@@ -14,9 +14,11 @@ is bound by f32 operations (about 3.1 GFLOP at N = 600, 16 layers; see the
 source note).
 
 Kernel D replaces ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_bwd``
-(``csrc/gcnii_bwd.cu``): the reverse layer walk, the dropout bits drawn
-again, and every gradient (adjacency, entry h, h0, the per-layer weights,
-the reason-LSTM's weights) summed inside its kernels.
+(``csrc/gcnii_bwd.cu``): the reverse layer walk as register-tiled f32
+products (``csrc/gemm_f32.cuh``) with the elementwise work in their
+epilogues, the dropout bits drawn again, and every gradient (adjacency,
+entry h, h0, the per-layer weights, the reason-LSTM's weights); the weight
+gradients are summed once after the walk.
 
 ``gcnii_stack_fwd`` with autograd on goes through :class:`GCNIIStackTrain`
 (kernel B in training mode, keeping the residuals; kernel D backward); with
@@ -43,14 +45,24 @@ _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # res_lh, res_lc, res_h1, drop, thresh, inv_keep, seed, stream
 _ARGTYPES = ([_p] * 5 + [_f] + [_p] * 9 + [_i] * 9 + [_p] * 4
              + [_i, _u, _f, _p, _p])
-# adj, h0, w, wt, theta_l, alpha, res_h, res_lh, res_lc, res_h1, ih, hh, lb,
-# iht, hht, dh, dlh, dlc, d_hi, hih0, tdpre, xcat, dgates, dh0, dadj,
-# part_w, part_l, drop, thresh, inv_keep, seed, reason, l, nl, B, N, H,
-# stream
-_BWD_ARGTYPES = ([_p] * 5 + [_f] + [_p] * 21 + [_i, _u, _f, _p]
-                 + [_i] * 6 + [_p])
-# part_w, part_l, R, nl, H, reason, dW, dl, stream
-_FINISH_ARGTYPES = [_p, _p, _i, _i, _i, _i, _p, _p, _p]
+# adj, h0, W, theta, alpha, res_h, res_lh, res_lc, res_h1, ih, hh, lb,
+# dh_out, dh, dlh, dlc, d_hi, dh0, dadj, hi, tdpre, gates, dgates, part_w,
+# part_l, dW, dl, drop, thresh, inv_keep, seed, reason, nl, B, N, H,
+# splits_w, splits_l, stream
+_BWD_ARGTYPES = ([_p] * 4 + [_f] + [_p] * 22 + [_i, _u, _f, _p]
+                 + [_i] * 7 + [_p])
+# row splits of the weight-gradient sums after the walk: dW (K = B N rows,
+# nl layers, 2 x 1 tiles each) and the LSTM's (K = B nl N, 2 x 4 tiles);
+# 8 x 32 and 32 x 8 blocks fill the card's 132 SMs about twice
+_SPLITS_W, _SPLITS_L = 8, 32
+_SPLIT_ROWS_MIN = 16   # one 16-deep slice of the product
+
+
+def gcnii_bwd_splits(R: int, nl: int) -> Tuple[int, int]:
+    """Kernel D's row splits of the dW and the LSTM weight-gradient sums,
+    for R = B N rows and nl layers."""
+    return (max(1, min(_SPLITS_W, R // _SPLIT_ROWS_MIN)),
+            max(1, min(_SPLITS_L, nl * R // _SPLIT_ROWS_MIN)))
 
 # the residual slabs, each (B, nlayers, N, H): the pre-layer h, lh, lc of
 # every layer and the layer's LSTM output h1
@@ -328,8 +340,10 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     residuals (``gcnii_stack_fwd(..., residuals=...)``) and the cotangent
     ``dh_out`` of its output; same contract as
     :func:`gcnii_stack_bwd_plain`, which CPU tensors and ``ops.plain_ops()``
-    run instead.  One launch per layer (kernels X, Y and the weight-gradient
-    sums) and one that sums the weight-gradient partials."""
+    run instead.  One call into ``csrc/gcnii_bwd.cu`` runs the whole walk
+    (7 tiled products a layer with reason, 5 without) and the
+    weight-gradient sums (4 kernels, 2 without reason); ``launches`` counts
+    those CUDA kernel launches."""
     if _mode.plain or h0.device.type == "cpu":
         return gcnii_stack_bwd_plain(adj, h0, W, theta, lstm_ih, lstm_hh,
                                      lstm_b, residuals, dh_out, alpha=alpha,
@@ -359,53 +373,38 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     _check_all(expect, dev)
     residuals = [r.contiguous() for r in residuals]
 
-    dadj = torch.zeros_like(adj)
-    dh = dh_out.clone()                    # carry: d(layer output)
-    dlh = torch.zeros_like(h0)
-    dlc = torch.zeros_like(h0)
-    dh0 = torch.zeros_like(h0)
-    dW = torch.empty_like(W)
     dl = torch.zeros(2 * H + 1, 4 * H, device=dev)   # [dW_ih; dW_hh; db]
     if B == 0 or N == 0 or nl == 0:
-        return (dadj, dh, dh0, dW.zero_(), dl[:H], dl[H:2 * H], dl[2 * H])
+        return (torch.zeros_like(adj), dh_out.clone(), torch.zeros_like(h0),
+                torch.zeros_like(W), dl[:H], dl[H:2 * H], dl[2 * H])
+    if not reason:   # never read by the kernels; any valid pointer will do
+        lstm_ih = lstm_hh = lstm_b = h0
     R = B * N
-    splits = _build.load("gcnii_bwd", "gcnii_bwd_splits", [_i])(R)
-    # the transposed weights, contiguous, for the input-gradient products
-    WT = W.transpose(1, 2).contiguous()
-    if reason:
-        iht, hht = lstm_ih.t().contiguous(), lstm_hh.t().contiguous()
-    else:   # never read by the kernels; any valid pointer will do
-        lstm_ih = lstm_hh = lstm_b = iht = hht = h0
+    new = lambda *shape: torch.empty(shape, device=dev)
+    # outputs and carries: every element is written before it is read
+    dadj, dh, dlh, dlc, dh0 = (torch.empty_like(adj), *(
+        torch.empty_like(h0) for _ in range(4)))
+    dW = torch.empty_like(W)
     d_hi = torch.empty_like(h0)
-    tdpre = torch.empty_like(h0)
-    hih0 = torch.empty(R, 2 * H, device=dev)
-    xcat = torch.empty(R, 2 * H + 1, device=dev) if reason else hih0
-    dgates = torch.empty(R, 4 * H, device=dev) if reason else hih0
-    part_w = torch.empty(nl, splits, 2 * H, H, device=dev)
-    part_l = (torch.empty(splits, 2 * H + 1, 4 * H, device=dev) if reason
-              else part_w)
-    fn = _build.load("gcnii_bwd", "gcnii_bwd_layer", _BWD_ARGTYPES)
-    finish = _build.load("gcnii_bwd", "gcnii_bwd_finish", _FINISH_ARGTYPES)
+    hi, tdpre = new(nl, B, N, H), new(nl, B, N, H)    # the walk's slabs
+    gates = new(B, N, 4 * H) if reason else d_hi
+    dgates = new(B, nl, N, 4 * H) if reason else d_hi
+    splits_w, splits_l = gcnii_bwd_splits(R, nl)
+    part_w = new(nl, splits_w, 2 * H, H)
+    part_l = new(splits_l, 2 * H + 1, 4 * H) if reason else part_w
+    fn = _build.load("gcnii_bwd", "gcnii_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     thresh = philox.threshold(rate) if drop else 0
-    wl = W.stride(0) * W.element_size()
-    pl_w = part_w.stride(0) * part_w.element_size()
     ptr = lambda t: t.data_ptr()
-    for l in range(nl - 1, -1, -1):
-        err = fn(ptr(adj), ptr(h0), ptr(W) + l * wl, ptr(WT) + l * wl,
-                 ptr(theta) + l * 4, float(alpha), *map(ptr, residuals),
-                 ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b), ptr(iht), ptr(hht),
-                 ptr(dh), ptr(dlh), ptr(dlc), ptr(d_hi), ptr(hih0),
-                 ptr(tdpre), ptr(xcat), ptr(dgates), ptr(dh0), ptr(dadj),
-                 ptr(part_w) + l * pl_w, ptr(part_l), int(drop), thresh,
-                 float(inv_keep), seed_ptr, int(reason), l, nl, B, N, H,
-                 stream)
-        _build.check(err, "gcnii_bwd_layer launch")
-        gcnii_stack_bwd.launches += 1
-    err = finish(ptr(part_w), ptr(part_l), R, nl, H, int(reason), ptr(dW),
-                 ptr(dl), stream)
-    _build.check(err, "gcnii_bwd_finish launch")
-    gcnii_stack_bwd.launches += 1
+    n = fn(ptr(adj), ptr(h0), ptr(W), ptr(theta), float(alpha),
+           *map(ptr, residuals), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b),
+           ptr(dh_out), ptr(dh), ptr(dlh), ptr(dlc), ptr(d_hi), ptr(dh0),
+           ptr(dadj), ptr(hi), ptr(tdpre), ptr(gates), ptr(dgates),
+           ptr(part_w), ptr(part_l), ptr(dW), ptr(dl), int(drop), thresh,
+           float(inv_keep), seed_ptr, int(reason), nl, B, N, H, splits_w,
+           splits_l, stream)
+    _build.check(-n if n < 0 else 0, "gcnii_bwd launch")
+    gcnii_stack_bwd.launches += n
     return dadj, dh, dh0, dW, dl[:H], dl[H:2 * H], dl[2 * H]
 
 

@@ -200,11 +200,12 @@ def _train_fwd(args, reason, rate, seed, plain):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("reason", [True, False])
-@pytest.mark.parametrize("B,L", [(32, 80), (1, 9)])
+@pytest.mark.parametrize("B,L", [(32, 80), (1, 9), (3, 43)])
 def test_gcnii_train_kernels_match_plain(B, L, reason):
     """Kernel B's training mode (dropout 0.4, residuals) and kernel D at the
-    training shapes (B = 32, N = 240, 16 layers) and a ragged one (N = 27),
-    both against their plain versions on identical residuals."""
+    training shapes (B = 32, N = 240, 16 layers) and ragged ones (N = 27;
+    N = 129 crosses every tile edge of kernel D's products), both against
+    their plain versions on identical residuals."""
     dev = _card()
     args, g = _gcnii_args(dev, B, L, 16, reason, 31 * B + L)
     seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
@@ -228,6 +229,58 @@ def test_gcnii_train_kernels_match_plain(B, L, reason):
         # f32; sums over up to B N rows and 16 layers in another order
         s = float(b.abs().max().clamp(min=1e-6))
         assert float((a - b).abs().max()) <= 1e-4 * s, name
+
+
+def _gcnii_bwd_inputs(dev, B, L, reason, seed):
+    args, g = _gcnii_args(dev, B, L, 16, reason, seed)
+    rate_seed = torch.tensor([seed], dtype=torch.int64, device=dev)
+    out, res = _train_fwd(args, reason, 0.4, rate_seed, plain=False)
+    adj, _, h0, W, theta, ih, hh, lb = args
+    dh = torch.randn(out.shape, generator=g).to(dev)
+    return (adj, h0, W, theta, ih, hh, lb, res, dh), dict(
+        alpha=0.2, reason=reason, rate=0.4, seed=rate_seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reason", [True, False])
+def test_gcnii_bwd_is_deterministic(reason):
+    """Kernel D sums the weight gradients over row splits in a fixed order
+    and d_adj layer by layer, with no atomics: two launches give the same
+    bits in every output."""
+    dev = _card()
+    args, opts = _gcnii_bwd_inputs(dev, 32, 80, reason, 41)
+    first = [t.clone() for t in gcnii_stack_bwd(*args, **opts)]
+    second = gcnii_stack_bwd(*args, **opts)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh",
+                           "db"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_gcnii_bwd_refuses_what_it_does_not_take():
+    """A hidden size above 128 or a non-f32 input raises before any launch."""
+    dev = _card()
+    args, opts = _gcnii_bwd_inputs(dev, 2, 5, True, 43)
+    before = gcnii_stack_bwd.launches
+    adj, h0, W, theta, ih, hh, lb, res, dh = args
+    B, N, _ = h0.shape
+    nl, wide = W.shape[0], 129
+    big = [torch.zeros(B, nl, N, wide, device=dev) for _ in RESIDUALS]
+    with pytest.raises(ValueError, match="128"):
+        gcnii_stack_bwd(adj, torch.zeros(B, N, wide, device=dev),
+                        torch.zeros(nl, 2 * wide, wide, device=dev), theta,
+                        torch.zeros(wide, 4 * wide, device=dev),
+                        torch.zeros(wide, 4 * wide, device=dev),
+                        torch.zeros(4 * wide, device=dev), big,
+                        torch.zeros(B, N, wide, device=dev), **opts)
+    with pytest.raises(ValueError, match="float32"):
+        gcnii_stack_bwd(adj, h0.double(), W, theta, ih, hh, lb, res, dh,
+                        **opts)
+    with pytest.raises(ValueError, match="float32"):
+        gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res, dh.half(),
+                        **opts)
+    assert gcnii_stack_bwd.launches == before
 
 
 @pytest.mark.gpu
