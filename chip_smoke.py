@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    name and power limit from nvidia-smi;
 2. build: all four kernels from ``mmdfn_torch/csrc`` (one nvcc each, at
    once); each kernel's registers, stack and spill bytes (``-Xptxas -v``)
-   are printed, and the bi-GRU time loops must not spill;
+   are printed, and neither the bi-GRU time loops nor any kernel of the
+   GCNII stack (B, D) may spill;
 3. kernels: each kernel against its plain version at the shapes the serve
    path (buckets 32, 64 and 200, i.e. N = 600 for the GCNII stack) and the
    training step (B = 32 text rows and 192 party streams of L = 80; the
@@ -24,12 +25,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    same inputs.  Kernels C and D are checked on the
    residuals their forwards wrote (kernel C also for the same dW_hh bits
    from two launches), and kernel B's training-mode dropout mask against
-   the plain Philox mask, bit for bit;
+   the plain Philox mask, bit for bit.  Kernel D is held against the plain
+   backward at its own ReLU decisions, which must differ from the plain
+   recompute's only where the ReLU's input is within the forward's
+   tolerance of 0.  Kernel B's serve cases (N = 96, 192 and 600) time both
+   of its designs (three tiled products a layer, or one row-wise launch a
+   layer) and report the one the wrapper picks; its training case times
+   the row-wise design beside the tiled one;
 4. serve: the flagship MM-DFN (IEMOCAP GDF with the reason-LSTM, 16 GCNII
    layers, full widths, weights fresh from a seed) answers every utterance
    of three synthetic dialogues through ``StreamingSession``; the launch
    counts, zeroed just before, must show both forward kernels on every
-   append, and every append's log-probs must match the same model run with
+   append (kernel B: its documented CUDA launches per forward), and every
+   append's log-probs must match the same model run with
    the plain versions on the card (``ops.plain_ops()``); a torch.profiler
    window shows where one forward's time goes (device busy sums the
    kernels, not the GPU-side user annotations around them); then the stdio
@@ -39,9 +47,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    0.4, Adam) through ``Trainer.train_step``: one step with the kernels and
    one under ``ops.plain_ops()`` from the same weights and seeds must agree
    in loss and every gradient; then 2 warm-up and 10 timed steps, whose
-   launch counts (zeroed just before) must show all four kernels; a
-   profiled window (device time by kernel, the bi-GRU kernels by name);
-   and 20 steps on one batch, whose loss must fall.
+   launch counts (zeroed just before) must show all four kernels, and
+   whose own peak memory is read (``step_peak_mem_gb``); a profiled
+   window (device time by kernel, the bi-GRU kernels by name, kernels B
+   and D by product); and 20 steps on one batch, whose loss must fall.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -176,16 +185,34 @@ def kernel_name(key: str) -> str:
                                             "").split("(")[0]
 
 
-# kernel D's kernels: each tiled product is named by its epilogue's type
+# the kernels of kernels B and D: each tiled product is named by its
+# epilogue's type
+KERNEL_B_PARTS = ("F1Cell", "F2Hi", "F3Update", "gcnii_fwd_init",
+                  "gcnii_layer_kernel")
 KERNEL_D_PARTS = ("P1Gates", "P2Hi", "P3Pre", "P4DProj", "P5DAdj", "P6Lstm",
                   "P7LstmIn", "WgradW", "WgradLstm", "gcnii_reduce_kernel")
 
 
 def kernel_label(key: str) -> str:
-    """A short name for a profiler key: kernel D's product, else the key's
-    head."""
-    part = next((p for p in KERNEL_D_PARTS if p in key), None)
-    return f"gcnii_bwd {part}" if part else key[:40]
+    """A short name for a profiler key: kernel B's or D's product, else the
+    key's head."""
+    for lib, parts in (("gcnii_fwd", KERNEL_B_PARTS),
+                       ("gcnii_bwd", KERNEL_D_PARTS)):
+        part = next((p for p in parts if p in key), None)
+        if part:
+            return f"{lib} {part}"
+    return key[:40]
+
+
+def by_part(kern, lib: str, per: int) -> list:
+    """Device ms and launches per step (of ``per``) of one kernel's parts."""
+    acc = {}
+    for e in kern:
+        if kernel_label(e.key).startswith(lib):
+            t = acc.setdefault(kernel_label(e.key), [0.0, 0.0])
+            t[0] += e.self_device_time_total / 1e3 / per
+            t[1] += e.count / per
+    return sorted([k, *v] for k, v in acc.items())
 
 
 def toolchain(torch, _build) -> dict:
@@ -207,6 +234,8 @@ def serve_phase(torch, dev) -> dict:
     from mmdfn_torch.data.batching import bucket_length
     from mmdfn_torch.data.datasets import IEMOCAPDataset
     from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
     from mmdfn_torch.serve import StreamingSession, measure_latency
     from mmdfn_torch.weights import build_model
 
@@ -238,9 +267,12 @@ def serve_phase(torch, dev) -> dict:
     n = len(logps)
     check(counts["bigru_fwd"] == 4 * n,
           f"bi-GRU launches {counts['bigru_fwd']} != 4 x {n} appends")
-    per_fwd = cfg.Deep_GCN_nlayers + 1          # + layer 0's LSTM step
-    check(counts["gcnii_fwd"] == per_fwd * n,
-          f"GCNII launches {counts['gcnii_fwd']} != {per_fwd} x {n} appends")
+    # kernel B's CUDA launches: its design is picked by the bucket's shape
+    sms = _sm_count(dev)
+    want = sum(gcnii_fwd_launches(cfg.Deep_GCN_nlayers, cfg.reason_flag,
+                                  _design(1, 3 * L, sms)) for L in used)
+    check(counts["gcnii_fwd"] == want,
+          f"GCNII launches {counts['gcnii_fwd']} != {want} for {n} appends")
     for lp in logps:
         check(lp.shape == (6,) and bool(all(math.isfinite(v) for v in lp)),
               "log-probs not finite of shape (6,)")
@@ -318,8 +350,9 @@ def profile_phase(torch, session, L: int, reps: int = 10) -> dict:
             "device_ops_per_forward": sum(e.count for e in kern) / reps,
             "annotations_left_out": [[e.key[:40], e.self_device_time_total
                                       / 1e3 / reps] for e in notes],
-            "top": [[e.key[:40], e.self_device_time_total / 1e3 / reps,
-                     e.count / reps] for e in top]}
+            "gcnii_fwd_kernels": by_part(kern, "gcnii_fwd", reps),
+            "top": [[kernel_label(e.key), e.self_device_time_total / 1e3
+                     / reps, e.count / reps] for e in top]}
 
 
 def cli_phase(d, want) -> dict:
@@ -426,9 +459,12 @@ def bigru_case(torch, dev, B, L, train=False) -> dict:
 
 
 def gcnii_case(torch, dev, L, reason=True) -> dict:
-    """Kernel B at bucket L: one dialogue, N = 3L nodes, 16 layers."""
+    """Kernel B at bucket L: one dialogue, N = 3L nodes, 16 layers; every
+    design checked and timed, ``ms`` the one the wrapper picks."""
     from mmdfn_torch.graph.adjacency import mm_big_adjacency
     from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import DESIGNS, _design, _forward
 
     g = torch.Generator().manual_seed(L)
     umask = torch.ones(1, L)
@@ -442,12 +478,22 @@ def gcnii_case(torch, dev, L, reason=True) -> dict:
     args = (adj, h, h, u(nl, 2 * H, H), theta, *lstm)
     run = lambda: gcnii_stack_fwd(*args, alpha=0.2, reason=reason)
     plain = lambda: gcnii_stack_plain(*args, alpha=0.2, reason=reason)
-    got = run()
-    torch.cuda.synchronize()
     want = plain()
-    err = float((got - want).abs().max())
     tol = KERNEL_B_RTOL * max(1.0, float(want.abs().max()))
-    check(err <= tol, f"GCNII kernel vs plain at N={N}: {err} > {tol}")
+    err, ms_by_design = 0.0, {}
+    for name, design in DESIGNS.items():
+        fwd = lambda: _forward(*args, *(None,) * (8 - len(args)), alpha=0.2,
+                               reason=reason, rate=0.0, seed=None,
+                               residuals=None, design=design)
+        got = fwd()
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        check(e <= tol, f"GCNII kernel ({name}) vs plain at N={N}: {e} > "
+                        f"{tol}")
+        err = max(err, e)
+        ms_by_design[name] = time_ms(torch, fwd, 20)
+    chosen = next(k for k, v in DESIGNS.items()
+                  if v == _design(1, N, _sm_count(dev)))
     nbytes = 4 * (N * N + 3 * N * H + nl * (2 * H * H + 1)
                   + (2 * H * 4 * H + 4 * H if reason else 0))
     # per layer: adj @ h1, the two support products, the update (~6 N H);
@@ -456,8 +502,9 @@ def gcnii_case(torch, dev, L, reason=True) -> dict:
     if reason:
         flops += nl * (16 * N * H * H + 12 * N * H)
     return {"shape": f"B=1 N={N} H={H} layers={nl} reason={reason}",
-            "max_abs_err": err, "tolerance": tol,
-            "ms": time_ms(torch, run, 20), "plain_ms": time_ms(torch, plain, 5),
+            "max_abs_err": err, "tolerance": tol, "design": chosen,
+            "ms": time_ms(torch, run, 20), "ms_by_design": ms_by_design,
+            "plain_ms": time_ms(torch, plain, 5),
             "library_ms": None, **bound(nbytes, flops)}
 
 
@@ -554,10 +601,11 @@ def gcnii_train_inputs(torch, dev, B, L, seed=4):
 def gcnii_train_case(torch, dev, B, L) -> dict:
     """Kernel B's training mode (dropout, residuals) and kernel D at the
     training shapes, each against its plain version; kernel D on the
-    residuals kernel B wrote."""
+    residuals kernel B wrote, at its own ReLU decisions."""
     from mmdfn_torch.ops import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
                                  gcnii_stack_fwd, gcnii_stack_plain)
-    from mmdfn_torch.ops.gcnii import RESIDUALS, gcnii_bwd_splits
+    from mmdfn_torch.ops.gcnii import (ROWWISE, RESIDUALS, TILED, _forward,
+                                       _lstm_step, gcnii_bwd_splits)
 
     args, g = gcnii_train_inputs(torch, dev, B, L)
     adj, h, h0, W, theta, ih, hh, lb = args
@@ -577,6 +625,14 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
                   for a, b in zip([out, *res], [want, *res_p]))
     fwd_tol = KERNEL_B_RTOL * scale
     check(fwd_err <= fwd_tol, f"GCNII training forward vs plain: {fwd_err}")
+    # the row-wise design, the one before the tiled products, beside it
+    res_r = slabs()
+    fwd_rowwise = lambda: _forward(*args, residuals=res_r, design=ROWWISE,
+                                   **opts)
+    rowwise_err = max(float((a - b).abs().max()) for a, b in
+                      zip([fwd_rowwise(), *res_r], [want, *res_p]))
+    check(rowwise_err <= fwd_tol,
+          f"GCNII training forward (row-wise) vs plain: {rowwise_err}")
 
     dh = torch.randn(B, N, H, generator=g).to(dev)
     bwd_args = (adj, h0, W, theta, ih, hh, lb, res, dh)
@@ -584,14 +640,42 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
     bwd_plain = lambda: gcnii_stack_bwd_plain(*bwd_args, **opts)
     got = bwd()
     torch.cuda.synchronize()
-    ref = bwd_plain()
-    bwd_err = 0.0
-    for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh",
-                           "db"), got, ref):
+
+    # Kernel D's ReLU decisions.  Its hi and pre products (P2, P3) are
+    # kernel B's tiled F2 and F3 on the same operands, so kernel B's tiled
+    # path, one layer at a time on the stored h1 without reason or dropout,
+    # returns relu(pre) as kernel D forms pre.  They may differ from the
+    # plain recompute's only where pre is within the forward's tolerance of
+    # 0, where the two summation orders may round either way; there one
+    # flipped decision moves a gradient by up to several percent.
+    alpha = opts["alpha"]
+    masks, flips, flip_pre = [], 0, 0.0
+    for l in range(NLAYERS):
+        masks.append(_forward(
+            adj, res[3][:, l].contiguous(), h0, W[l:l + 1], theta[l:l + 1],
+            None, None, None, alpha=alpha, reason=False, rate=0.0,
+            seed=None, residuals=None, design=TILED) > 0)
+        h1, _, _ = _lstm_step(res[0][:, l], res[1][:, l], res[2][:, l], ih,
+                              hh, lb)
+        hi = adj @ h1
+        pre = theta[l] * (hi @ W[l, :H] + h0 @ W[l, H:]) \
+            + (1.0 - theta[l]) * ((1.0 - alpha) * hi + alpha * h0)
+        differ = masks[l] != (pre > 0.0)
+        flips += int(differ.sum())
+        if bool(differ.any()):
+            flip_pre = max(flip_pre, float(pre[differ].abs().max()))
+    check(flip_pre <= fwd_tol, f"kernel D's ReLU decisions differ from the "
+                               f"plain recompute at |pre| = {flip_pre}")
+    ref = gcnii_stack_bwd_plain(*bwd_args, relu_masks=masks, **opts)
+    at_plain = bwd_plain()
+    bwd_err, plain_rel = 0.0, {}
+    names = ("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh", "db")
+    for name, a, b, c in zip(names, got, ref, at_plain):
         e = float((a - b).abs().max())
         tol = KERNEL_D_RTOL * float(b.abs().max())
         check(e <= tol, f"GCNII bwd kernel vs plain, {name}: {e} > {tol}")
         bwd_err = max(bwd_err, e)
+        plain_rel[name] = float((a - c).abs().max() / c.abs().max())
 
     R, nl = B * N, NLAYERS
     layer_fwd = 2 * B * N * N * H + 4 * R * H * H + 16 * R * H * H
@@ -620,10 +704,15 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
         "fwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE} "
                          "residuals", "max_abs_err": fwd_err,
                 "tolerance": fwd_tol, "ms": time_ms(torch, fwd, 10),
+                "rowwise_ms": time_ms(torch, fwd_rowwise, 10),
                 "plain_ms": time_ms(torch, fwd_plain, 2),
                 "library_ms": None, **bound(fwd_bytes, fwd_flops)},
         "bwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE}",
-                "max_abs_err": bwd_err, "ms": time_ms(torch, bwd, 10),
+                "max_abs_err": bwd_err,
+                "relu_decisions_differing_from_plain": flips,
+                "max_abs_pre_where_they_differ": flip_pre,
+                "rel_err_vs_plain_at_plain_decisions": plain_rel,
+                "ms": time_ms(torch, bwd, 10),
                 "plain_ms": time_ms(torch, bwd_plain, 2),
                 "library_ms": None, **bound(bwd_bytes, bwd_flops)}}
 
@@ -683,6 +772,8 @@ def train_phase(torch, dev) -> dict:
 
     from mmdfn_torch import ops
     from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
     from mmdfn_torch.train import Trainer
 
     cfg = ExperimentConfig(dataset="IEMOCAP", graph_type="GDF",
@@ -724,6 +815,8 @@ def train_phase(torch, dev) -> dict:
     for i in range(2):
         tr.train_step(batches[i % 4], seed=100 + i)
     torch.cuda.synchronize()
+    script_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     wall, enqueue, losses = [], [], []
     for i in range(10):
@@ -735,9 +828,15 @@ def train_phase(torch, dev) -> dict:
         enqueue.append((t1 - t0) * 1e3)
         losses.append(float(loss))
     counts = ops.launch_counts()
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / 10 for k, v in counts.items()}
     check(all(v > 0 for v in counts.values()),
           f"a kernel was not launched by the training step: {counts}")
+    N = 3 * TRAIN_L
+    want = 10 * gcnii_fwd_launches(NLAYERS, True,
+                                   _design(TRAIN_B, N, _sm_count(dev)))
+    check(counts["gcnii_fwd"] == want,
+          f"GCNII forward launches {counts['gcnii_fwd']} != {want}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     step_ms = sorted(wall)[len(wall) // 2]
 
@@ -762,16 +861,10 @@ def train_phase(torch, dev) -> dict:
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
         bigru = [[kernel_name(e.key), e.self_device_time_total / 1e3 / 3,
                   e.count / 3] for e in kern if "bigru" in e.key]
-        gcnii_bwd = {}
-        for e in kern:
-            if kernel_label(e.key).startswith("gcnii_bwd"):
-                t = gcnii_bwd.setdefault(kernel_label(e.key), [0.0, 0.0])
-                t[0] += e.self_device_time_total / 1e3 / 3
-                t[1] += e.count / 3
         profiled = {"device_busy_ms_per_step": busy,
                     "bigru_kernels": sorted(bigru),
-                    "gcnii_bwd_kernels": sorted([k, *v] for k, v in
-                                                gcnii_bwd.items()),
+                    "gcnii_fwd_kernels": by_part(kern, "gcnii_fwd", 3),
+                    "gcnii_bwd_kernels": by_part(kern, "gcnii_bwd", 3),
                     "idle_share": 1.0 - busy / stream_ms,
                     "device_ops_per_step": sum(e.count for e in kern) / 3,
                     "annotations_left_out": [
@@ -799,7 +892,9 @@ def train_phase(torch, dev) -> dict:
             "dialogues_per_sec": TRAIN_B / (step_ms / 1e3),
             "host_enqueue_ms_per_step": sorted(enqueue)[len(enqueue) // 2],
             "stream_ms_per_step": stream_ms, **profiled,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_peak_mem_gb": step_peak,
+            "peak_mem_gb": max(script_peak,
+                               torch.cuda.max_memory_allocated()) / 1e9,
             "fixed_batch_losses": fit}
 
 
@@ -839,11 +934,14 @@ def main() -> int:
     check(len(loops) == 9 and all(
         r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
         for r in loops), f"bi-GRU time-loop kernels spill: {loops}")
-    # kernel D's tiled products keep their register tiles: no spills either
-    prods = [r for r in ptxas if r["lib"] == "gcnii_bwd"]
-    check(len(prods) >= len(KERNEL_D_PARTS) and all(
-        r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
-        for r in prods), f"kernel D's kernels spill: {prods}")
+    # kernels B's and D's tiled products keep their register tiles: no
+    # spills either
+    for lib, parts in (("gcnii_fwd", KERNEL_B_PARTS),
+                       ("gcnii_bwd", KERNEL_D_PARTS)):
+        prods = [r for r in ptxas if r["lib"] == lib]
+        check(len(prods) >= len(parts) and all(
+            r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+            for r in prods), f"the kernels of {lib} spill: {prods}")
 
     # the kernel checks first, so that the serve and train lines stand near
     # the end of the output; their launches are zeroed before those runs
@@ -894,7 +992,8 @@ def main() -> int:
         ("gcnii_bwd", "cuda", "mmdfn_torch/csrc/gcnii_bwd.cu",
          "mmdfn_tpu/ops/pallas_gcnii_train.py:526", case_bd["bwd"],
          case_bd["bwd"]["max_abs_err"],
-         f"{KERNEL_D_RTOL} x max|grad| of each gradient"),
+         f"{KERNEL_D_RTOL} x max|grad| of each gradient, at kernel D's ReLU "
+         "decisions"),
     ]
     kernels = []
     for name, route, source, replaces, case, err, tol in report:

@@ -7,12 +7,16 @@ the response line is ``{"pred": int, "label": str, "log_probs": [...],
 ``--warmup`` runs every bucket once before reading input.  The protocol is
 that of ``mmdfn_tpu/cli/serve.py``.
 
-Weights come from a port checkpoint (``--load_model``, a ``torch.save`` of
-``{config, state_dict}`` whose config rebuilds the model) or, without it,
-fresh from ``--seed`` for the flagship model (16 GCNII layers).
+Weights come from ``--load_model``: the directory that the port's trainer
+wrote (``run_train_erc --save_model_dir``; its ``best`` checkpoint, with
+the model rebuilt from the config in its meta and the checkpoint's epoch
+reported as ``ckpt_epoch``), or a ``weights.save_model`` file.  Without
+it they are fresh from ``--seed`` for the flagship model (16 GCNII
+layers).  A directory with no checkpoint, or whose meta holds no config,
+exits 1.
 
 Example:
-  python -m mmdfn_torch.cli.serve --load_model model.pt < utterances.jsonl
+  python -m mmdfn_torch.cli.serve --load_model ckpts/ < utterances.jsonl
 """
 
 from __future__ import annotations
@@ -38,14 +42,19 @@ def main(argv=None) -> int:
 
     from mmdfn_torch.config import flagship_config
     from mmdfn_torch.serve import StreamingSession
-    from mmdfn_torch.weights import build_model, load_model
+    from mmdfn_torch.weights import (CheckpointError, build_model,
+                                     load_served)
 
-    state_dict = None
+    epoch = None
     if args.load_model is not None:
-        cfg, state_dict = load_model(args.load_model)
+        try:
+            cfg, model, epoch = load_served(args.load_model)
+        except CheckpointError as e:
+            print(e, file=sys.stderr)
+            return 1
     else:
         cfg = flagship_config(seed=args.seed)
-    model = build_model(cfg, state_dict)
+        model = build_model(cfg)
     names = cfg.info["target_names"]
     buckets = tuple(int(b) for b in args.buckets.split(","))
     session = StreamingSession(model, cfg, buckets=buckets,
@@ -53,10 +62,9 @@ def main(argv=None) -> int:
     if args.warmup:
         t0 = time.perf_counter()
         session.warmup()
-        # ckpt_epoch: the JAX server's key; port checkpoints carry no epoch
         print(json.dumps({"ready": True,
                           "warmup_s": round(time.perf_counter() - t0, 2),
-                          "ckpt_epoch": None,
+                          "ckpt_epoch": epoch,
                           "device": str(session.device)}), flush=True)
 
     for line in sys.stdin:

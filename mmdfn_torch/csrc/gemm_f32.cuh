@@ -20,11 +20,16 @@
 // broadcasts (A) or consecutive (B).  The
 // epilogue is a functor with a type In, `In load(z, r, c)` (the global
 // values it reads) and `operator()(z, r, c, acc, in)`, called for every
-// element inside M x N.
+// element inside M x N.  An epilogue derived from Chunk4 is called once
+// per 4-wide chunk of a thread's columns instead, with c the chunk's first
+// column (a multiple of 4) and acc a float4 of columns c .. c + 3; N must
+// be a multiple of 4.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace gemm {
 
@@ -34,6 +39,12 @@ constexpr int STAGES = 3;   // slices in flight
 __device__ float kOne = 1.0f;   // the source of a row of ones
 
 struct NoIn {};   // the In of an epilogue that reads nothing
+
+// the base of an epilogue that takes a thread's columns 4 at a time
+struct Chunk4 {};
+
+template <class Epi>
+constexpr bool kChunked = std::is_base_of<Chunk4, Epi>::value;
 
 struct Operand {
   const float* p0;      // segment 0
@@ -229,20 +240,43 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
   // a row of the register tile at a time: first every global value its
   // epilogue reads, then the epilogue itself (its stores would otherwise
   // order each later load behind them)
+  if constexpr (kChunked<Epi>) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + (i / 4) * TR * 4 + tr * 4 + i % 4;
-    if (r >= M) continue;
-    typename Epi::In in[TN];
+    for (int i = 0; i < TM; ++i) {
+      const int r = m0 + (i / 4) * TR * 4 + tr * 4 + i % 4;
+      if (r >= M) continue;
+      typename Epi::In in[2];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + (j / 4) * TC * 4 + tc * 4 + j % 4;
-      if (c < N) in[j] = epi.load(z, r, c);
+      for (int q = 0; q < 2; ++q) {
+        const int c = n0 + q * TC * 4 + tc * 4;
+        if (c < N) in[q] = epi.load(z, r, c);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = n0 + q * TC * 4 + tc * 4;
+        if (c < N)
+          epi(z, r, c,
+              make_float4(acc[i][4 * q], acc[i][4 * q + 1],
+                          acc[i][4 * q + 2], acc[i][4 * q + 3]),
+              in[q]);
+      }
     }
+  } else {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + (j / 4) * TC * 4 + tc * 4 + j % 4;
-      if (c < N) epi(z, r, c, acc[i][j], in[j]);
+    for (int i = 0; i < TM; ++i) {
+      const int r = m0 + (i / 4) * TR * 4 + tr * 4 + i % 4;
+      if (r >= M) continue;
+      typename Epi::In in[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = n0 + (j / 4) * TC * 4 + tc * 4 + j % 4;
+        if (c < N) in[j] = epi.load(z, r, c);
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = n0 + (j / 4) * TC * 4 + tc * 4 + j % 4;
+        if (c < N) epi(z, r, c, acc[i][j], in[j]);
+      }
     }
   }
 }
@@ -256,6 +290,7 @@ cudaError_t launch(const Operand& A, const Operand& B, int M, int N, int K,
   // the loader steps along the contiguous axis with stride 1
   if ((AKC ? A.ks : A.rs) != 1 || (BKC ? B.ks : B.rs) != 1)
     return cudaErrorInvalidValue;
+  if (kChunked<Epi> && N % 4 != 0) return cudaErrorInvalidValue;
   int kchunk = (K + splits - 1) / splits;
   kchunk = (kchunk + BK - 1) / BK * BK;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batches * splits);

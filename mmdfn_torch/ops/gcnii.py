@@ -2,16 +2,18 @@
 a training mode, and backward.
 
 Kernel B replaces ``mmdfn_tpu/ops/pallas_gcnii.py:gcnii_stack_fused`` and
-``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_fwd``.  The CUDA kernel is
-``csrc/gcnii_fwd.cu``, launched once per layer (plus one launch for layer
-0's reason-LSTM step): each block owns 8 rows of one dialogue and computes
-``adj[rows] @ h1``, both support products, the update, the skip and the
-next layer's LSTM step itself; no cuBLAS call stands in for any of them.
-In training mode it also draws the dropout after each layer's ReLU from
-Philox (``csrc/philox.cuh``, key the step seed, counter (b, layer, node,
-channel)) and writes the residuals the backward reads.  At serve shapes it
-is bound by f32 operations (about 3.1 GFLOP at N = 600, 16 layers; see the
-source note).
+``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_fwd`` (``csrc/gcnii_fwd.cu``):
+one C call, ``gcnii_fwd``, runs the whole stack in one of two designs,
+picked by shape (:func:`_design`).  At the training batch it runs three
+register-tiled f32 products a layer (``csrc/gemm_f32.cuh``): the
+reason-LSTM's gates with the cell in the epilogue, ``adj @ h1``, and
+``[hi | h0] @ W[l]`` with the update, the dropout and the skip in the
+epilogue.  A serve forward (one dialogue) fills too few blocks for them,
+and runs the row-wise kernel: one launch a layer, each block owning 8
+rows.  No cuBLAS call stands in for any of it.  In training mode it draws
+the dropout after each layer's ReLU from Philox (``csrc/philox.cuh``, key
+the step seed, counter (b, layer, node, channel)) and writes the residuals
+the backward reads.
 
 Kernel D replaces ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_bwd``
 (``csrc/gcnii_bwd.cu``): the reverse layer walk as register-tiled f32
@@ -24,8 +26,9 @@ gradients are summed once after the walk.
 (kernel B in training mode, keeping the residuals; kernel D backward); with
 autograd off it runs kernel B alone.  Each wrapper launches its kernels for
 CUDA tensors and runs its plain version for CPU tensors; anything else
-raises.  Inside ``ops.plain_ops()`` ``gcnii_stack_fwd`` runs the plain
-forward and autograd differentiates it.
+raises.  Each counts the CUDA kernels its C call launched.  Inside
+``ops.plain_ops()`` ``gcnii_stack_fwd`` runs the plain forward and autograd
+differentiates it.
 """
 
 from __future__ import annotations
@@ -36,15 +39,20 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from mmdfn_torch.ops import _build, _mode, philox
+from mmdfn_torch.ops.bigru import _sm_count
 
 Tensor = torch.Tensor
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-# adj, h0, w1, w2, theta_l, alpha, h_in, h1_in, h_out, h1_out, lh, lc, ih,
-# hh, lb, do_conv, do_lstm, reason, B, N, H, l_conv, l_lstm, nl, res_h,
-# res_lh, res_lc, res_h1, drop, thresh, inv_keep, seed, stream
-_ARGTYPES = ([_p] * 5 + [_f] + [_p] * 9 + [_i] * 9 + [_p] * 4
-             + [_i, _u, _f, _p, _p])
+# adj, h, h0, W, theta, alpha, wl, ih, hh, lb, out, scratch, res_h, res_lh,
+# res_lc, res_h1, drop, thresh, inv_keep, seed, reason, design, nl, B, N, H,
+# stream
+_ARGTYPES = ([_p] * 5 + [_f] + [_p] * 10 + [_i, _u, _f, _p] + [_i] * 6
+             + [_p])
+# kernel B's designs (gcnii_fwd.cu): three tiled products a layer, or one
+# row-wise launch a layer
+TILED, ROWWISE = 0, 1
+DESIGNS = {"tiled": TILED, "rowwise": ROWWISE}
 # adj, h0, W, theta, alpha, res_h, res_lh, res_lc, res_h1, ih, hh, lb,
 # dh_out, dh, dlh, dlc, d_hi, dh0, dadj, hi, tdpre, gates, dgates, part_w,
 # part_l, dW, dl, drop, thresh, inv_keep, seed, reason, nl, B, N, H,
@@ -67,6 +75,37 @@ def gcnii_bwd_splits(R: int, nl: int) -> Tuple[int, int]:
 # the residual slabs, each (B, nlayers, N, H): the pre-layer h, lh, lc of
 # every layer and the layer's LSTM output h1
 RESIDUALS = ("h", "lh", "lc", "h1")
+
+
+def gcnii_fwd_launches(nl: int, reason: bool, design: int = TILED) -> int:
+    """The CUDA kernels one ``gcnii_fwd`` call launches: a first one that
+    sets up the layer-0 state, then per layer the gates, ``adj @ h1`` and
+    the update (the row-wise design: one a layer, and with reason one for
+    layer 0's LSTM step)."""
+    if design == ROWWISE:
+        return 1 + nl + int(reason)
+    return 1 + (3 if reason else 2) * nl
+
+
+def _design(B: int, N: int, sms: int) -> int:
+    """Kernel B's design for B dialogues of N nodes on a card of ``sms``
+    multiprocessors: the tiled products where their 64-row tiles (B x
+    ceil(N / 64) blocks a product) fill at least half the card, else the
+    row-wise kernel.  On an H100 the tiled design is the faster at the
+    training batch (B = 32, N = 240: 128 blocks) and the row-wise one at a
+    serve forward (B = 1, N = 96-600: 2-10 blocks); PERF.md §6."""
+    return TILED if B * -(-N // 64) >= sms // 2 else ROWWISE
+
+
+def interleave_gates(ih: Tensor, hh: Tensor, b: Tensor) -> Tensor:
+    """``[W_ih; W_hh; b]`` ((H, 4H), (H, 4H), (4H,); gate columns u H + c
+    for gate u = i, f, g, o of channel c) with the gate columns
+    interleaved, as kernel B's LSTM product reads it: (2H + 1, 4H), column
+    4c + u is gate u of channel c, so that the four gates of a channel are
+    four neighbouring columns of the product."""
+    H = ih.shape[0]
+    return torch.cat([ih, hh, b[None]]).view(2 * H + 1, 4, H) \
+        .transpose(1, 2).reshape(2 * H + 1, 4 * H)
 
 
 def _dropout_args(rate: float, seed: Optional[Tensor]):
@@ -183,8 +222,9 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
 
 
 def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
-             reason, rate, seed, residuals):
-    """Kernel B on CUDA tensors, the plain version on CPU tensors."""
+             reason, rate, seed, residuals, design=None):
+    """Kernel B on CUDA tensors (``design``: one of ``DESIGNS``' values;
+    None: chosen by shape), the plain version on CPU tensors."""
 
     if h.device.type == "cpu":
         return gcnii_stack_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh,
@@ -208,8 +248,6 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
         expect += (("lstm_ih", lstm_ih, (H, 4 * H)),
                    ("lstm_hh", lstm_hh, (H, 4 * H)),
                    ("lstm_b", lstm_b, (4 * H,)))
-    else:   # never read by the kernel; any valid pointer will do
-        lstm_ih = lstm_hh = lstm_b = h
     if residuals is not None:
         expect += tuple((f"residual {n}", r, (B, nl, N, H))
                         for n, r in zip(RESIDUALS, residuals))
@@ -219,41 +257,31 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
     else:
         res_ptrs = [None] * 4
     _check_all(expect, dev)
-
-    out = h.clone()            # layer input / output, updated row-locally
     if B == 0 or N == 0 or nl == 0:
-        return out
-    lh = torch.zeros_like(h)
-    lc = torch.zeros_like(h)
-    # h1 (the operand of adj @ h1) is read by every block, so it ping-pongs
-    bufs = (torch.empty_like(h), torch.empty_like(h))
-    fn = _build.load("gcnii_fwd", "gcnii_layer", _ARGTYPES)
+        return h.clone()
+    if design is None:
+        design = _design(B, N, _sm_count(dev))
+    if not reason:      # never read by the kernels; any valid pointer will do
+        lstm_ih = lstm_hh = lstm_b = wl = h
+    elif design == ROWWISE:
+        wl = h
+    else:
+        wl = interleave_gates(lstm_ih, lstm_hh, lstm_b)
+    out = torch.empty_like(h)
+    # the tiled design's training mode keeps its state in the residual
+    # slabs and needs hi only (see the C entry's note)
+    k = 1 if residuals is not None and design != ROWWISE else 4
+    scratch = torch.empty((k, B, N, H), device=dev)
+    fn = _build.load("gcnii_fwd", "gcnii_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    layer = 2 * H * H * W.element_size()
     thresh = philox.threshold(rate) if drop else 0
-
-    def launch(l, h1_in, h1_out, do_conv, do_lstm):
-        w1 = W.data_ptr() + max(l, 0) * layer
-        err = fn(adj.data_ptr(), h0.data_ptr(), w1, w1 + layer // 2,
-                 theta.data_ptr() + max(l, 0) * 4, float(alpha),
-                 out.data_ptr(), h1_in.data_ptr(), out.data_ptr(),
-                 h1_out.data_ptr(), lh.data_ptr(), lc.data_ptr(),
-                 lstm_ih.data_ptr(), lstm_hh.data_ptr(), lstm_b.data_ptr(),
-                 int(do_conv), int(do_lstm), int(reason), B, N, H, max(l, 0),
-                 l + 1, nl, *res_ptrs, int(drop), thresh, float(inv_keep),
-                 seed_ptr, stream)
-        _build.check(err, "gcnii_layer launch")
-        gcnii_stack_fwd.launches += 1
-
-    if reason:     # layer 0's LSTM step: h1_0 into bufs[0]
-        launch(-1, bufs[0], bufs[0], False, True)
-        h1_src = bufs[0]
-    else:          # h1_0 = h, read-only here (out is written in place)
-        h1_src = h
-    for l in range(nl):
-        h1_dst = bufs[(l + 1) % 2]
-        launch(l, h1_src, h1_dst, True, reason and l + 1 < nl)
-        h1_src = h1_dst
+    ptr = lambda t: t.data_ptr()
+    n = fn(ptr(adj), ptr(h), ptr(h0), ptr(W), ptr(theta), float(alpha),
+           ptr(wl), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b), ptr(out),
+           ptr(scratch), *res_ptrs, int(drop), thresh, float(inv_keep),
+           seed_ptr, int(reason), design, nl, B, N, H, stream)
+    _build.check(-n if n < 0 else 0, "gcnii_fwd launch")
+    gcnii_stack_fwd.launches += n
     return out
 
 
@@ -262,11 +290,18 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
                           lstm_b: Optional[Tensor],
                           residuals: Sequence[Tensor], dh_out: Tensor, *,
                           alpha: float, reason: bool, rate: float = 0.0,
-                          seed: Optional[Tensor] = None):
+                          seed: Optional[Tensor] = None,
+                          relu_masks: Optional[Sequence[Tensor]] = None):
     """Plain PyTorch version of :func:`gcnii_stack_bwd`: the reverse layer
     walk of ``_bwd_kernel`` (``mmdfn_tpu/ops/pallas_gcnii_train.py:183-394``,
     without the ``ablate`` paths), recomputing each layer from its pre-layer
     residuals h, lh, lc and redrawing its dropout bits.
+
+    ``relu_masks``, when given, are each layer's ReLU decisions (nlayers
+    bool (B, N, H) tensors, True where the ReLU passes) in place of the
+    recompute's ``pre > 0``: where ``pre`` lies within rounding of 0, two
+    f32 recomputes in another summation order may decide either way, and a
+    check holds a kernel against this version at the kernel's decisions.
 
     Returns:
       (d_adj, d_h_entry, d_h0, dW, dW_ih, dW_hh, db): (B, N, N),
@@ -303,7 +338,8 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
             dh2 = torch.where(keep, dh * inv_keep, 0.0)
         else:
             dh2 = dh
-        dpre = torch.where(pre > 0.0, dh2, 0.0)
+        passes = pre > 0.0 if relu_masks is None else relu_masks[l]
+        dpre = torch.where(passes, dh2, 0.0)
         tdpre = th * dpre
         dW[l, :H] = rows(hi).t() @ rows(tdpre)
         dW[l, H:] = rows(h0).t() @ rows(tdpre)

@@ -4,8 +4,10 @@ Builds the flagship MM-DFN (IEMOCAP GDF with the reason-LSTM, 16 GCNII
 layers, the model ``mmdfn_tpu/serve/latency_bench.py`` measures), feeds
 synthetic dialogues utterance by utterance through
 :func:`mmdfn_torch.serve.streaming.measure_latency`, and prints the summary.
-Weights are fresh from ``--seed`` (latency does not depend on them) or a
-port checkpoint (``--load_model``, written by ``weights.save_model``).
+Weights are fresh from ``--seed`` (latency does not depend on them) or
+come from ``--load_model``: the trainer's save directory (its ``best``
+checkpoint and the config in its meta; the summary then has its
+``ckpt_epoch``) or a ``weights.save_model`` file.
 
     python -m mmdfn_torch.serve.latency_bench --out latency.json
 """
@@ -30,14 +32,14 @@ def run(cfg: Optional[ExperimentConfig] = None, n_dialogues: int = 6,
     from mmdfn_torch.data.datasets import IEMOCAPDataset
     from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
     from mmdfn_torch.serve.streaming import measure_latency
-    from mmdfn_torch.weights import build_model, load_model as load
+    from mmdfn_torch.weights import build_model, load_served
 
-    state_dict = None
+    epoch = None
     if load_model is not None:
-        cfg, state_dict = load(load_model)
-    elif cfg is None:
-        cfg = flagship_config(seed=seed)
-    model = build_model(cfg, state_dict)
+        cfg, model, epoch = load_served(load_model)
+    else:
+        cfg = cfg or flagship_config(seed=seed)
+        model = build_model(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/iemocap_synth.pkl"
         make_synthetic_iemocap_pickle(path, n_train=1, n_test=n_dialogues,
@@ -50,7 +52,7 @@ def run(cfg: Optional[ExperimentConfig] = None, n_dialogues: int = 6,
         model=f"MM-DFN {cfg.graph_type} {cfg.Deep_GCN_nlayers}L "
               f"({cfg.dataset})",
         buckets=list(buckets), n_dialogues=n_dialogues,
-        dialogue_len=[min_len, max_len])
+        dialogue_len=[min_len, max_len], ckpt_epoch=epoch)
     return summary
 
 
@@ -65,17 +67,24 @@ def main(argv=None) -> int:
     ap.add_argument("--nlayers", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--load_model", type=str, default=None,
-                    help="port checkpoint (torch.save of {config, "
-                         "state_dict}); default: fresh weights from --seed")
+                    help="the trainer's save directory or a "
+                         "weights.save_model file; default: fresh weights "
+                         "from --seed")
     ap.add_argument("--device", type=str, default="cuda",
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
-    summary = run(cfg=flagship_config(args.nlayers, seed=args.seed),
-                  n_dialogues=args.n_dialogues, min_len=args.min_len,
-                  max_len=args.max_len,
-                  buckets=tuple(int(b) for b in args.buckets.split(",")),
-                  seed=args.seed, load_model=args.load_model,
-                  device=args.device)
+    from mmdfn_torch.weights import CheckpointError
+
+    try:
+        summary = run(cfg=flagship_config(args.nlayers, seed=args.seed),
+                      n_dialogues=args.n_dialogues, min_len=args.min_len,
+                      max_len=args.max_len,
+                      buckets=tuple(int(b) for b in args.buckets.split(",")),
+                      seed=args.seed, load_model=args.load_model,
+                      device=args.device)
+    except CheckpointError as e:
+        print(e, file=sys.stderr)
+        return 1
     line = json.dumps(summary)
     print(line)
     if args.out:

@@ -10,6 +10,7 @@ code of its own.
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import OrderedDict
 from typing import Any, Mapping, Optional, Tuple
 
@@ -18,6 +19,7 @@ import torch
 
 from mmdfn_torch.config import ExperimentConfig
 from mmdfn_torch.models import DialogueGNN
+from mmdfn_torch.runtime import checkpoint as ckpt_lib
 
 
 def _t(a) -> torch.Tensor:
@@ -83,14 +85,49 @@ def save_model(path: str, cfg: ExperimentConfig, model: torch.nn.Module) -> None
                                for k, v in model.state_dict().items()}}, path)
 
 
+def _config(saved: Mapping) -> ExperimentConfig:
+    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    return ExperimentConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                               for k, v in saved.items() if k in fields})
+
+
 def load_model(path: str) -> Tuple[ExperimentConfig, "OrderedDict"]:
     """Read a file written by :func:`save_model` (tensors and plain data
     only: ``weights_only`` loading)."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
-    cfg = ExperimentConfig(**{k: v for k, v in blob["config"].items()
-                              if k in fields})
-    return cfg, blob["state_dict"]
+    return _config(blob["config"]), blob["state_dict"]
+
+
+class CheckpointError(ValueError):
+    """A trainer's directory that holds no servable checkpoint."""
+
+
+def load_served(path: str) -> Tuple[ExperimentConfig, DialogueGNN,
+                                      Optional[int]]:
+    """The model to serve from ``path``: a directory that
+    ``Trainer.fit(save_dir=...)`` wrote (its ``best`` checkpoint, rebuilt
+    from the config in its meta and restored strictly), or a file that
+    :func:`save_model` wrote.  Returns (config, model, the checkpoint's
+    epoch; None for a :func:`save_model` file).
+
+    Raises:
+      CheckpointError: a directory without a ``best`` checkpoint, or one whose
+        meta holds no config.
+    """
+    if not os.path.isdir(path):
+        cfg, state_dict = load_model(path)
+        return cfg, build_model(cfg, state_dict), None
+    if not ckpt_lib.has_checkpoint(path, "best"):
+        raise CheckpointError(f"no checkpoint under {path!r}")
+    # the model is rebuilt from the config it was trained with: flags
+    # given to the server could mis-serve it or fail to load its weights
+    meta = ckpt_lib.read_meta(path, "best")
+    if not meta.get("config"):
+        raise CheckpointError(f"the checkpoint under {path!r} has no config in "
+                         "its meta; cannot rebuild its model")
+    cfg = _config(meta["config"])
+    model, _ = ckpt_lib.restore_checkpoint(path, DialogueGNN.from_config(cfg))
+    return cfg, model, meta.get("epoch")
 
 
 def build_model(cfg: ExperimentConfig, state_dict: Optional[Mapping] = None):

@@ -18,7 +18,7 @@ from mmdfn_tpu.ops.pallas_gcnii_train import gcnii_stack_train
 from mmdfn_torch.nn.gcn import GCNIIStack
 from mmdfn_torch.ops import (gcnii_stack_bwd_plain, gcnii_stack_fwd,
                              gcnii_stack_plain, philox, plain_ops)
-from mmdfn_torch.ops.gcnii import RESIDUALS
+from mmdfn_torch.ops.gcnii import RESIDUALS, _lstm_step, interleave_gates
 from mmdfn_torch.weights import gcnii_from_jax
 
 
@@ -169,6 +169,40 @@ def test_bwd_plain_with_live_dropout_equals_autograd(reason):
     assert not torch.equal(other, out2)
 
 
+@pytest.mark.parametrize("reason", [True, False])
+def test_bwd_plain_at_given_relu_decisions(reason):
+    """The plain backward's ReLU decisions can be given: its own recompute's
+    decisions give the same bits as without them, and the opposite decision
+    on one passing element changes the gradients."""
+    rng, x, adj, jm, params, theta, dh = _inputs(3, reason)
+    T = torch.from_numpy
+    g = torch.Generator().manual_seed(3)
+    h = torch.relu(torch.randn(B, N, H, generator=g))
+    h0 = torch.relu(torch.randn(B, N, H, generator=g))
+    W = T(params["conv_w"])
+    lstm = ((T(params["reason_w_ih"]), T(params["reason_w_hh"]),
+             T(params["reason_b_ih"] + params["reason_b_hh"]))
+            if reason else (None, None, None))
+    _, res = _residuals(T(adj), h, h0, W, T(theta), lstm, reason)
+    masks = []
+    for l in range(NL):
+        h1 = (_lstm_step(res[0][:, l], res[1][:, l], res[2][:, l], *lstm)[0]
+              if reason else res[0][:, l])
+        hi = T(adj) @ h1
+        th = T(theta)[l]
+        masks.append(th * (hi @ W[l, :H] + h0 @ W[l, H:]) + (1.0 - th) * (
+            (1.0 - ALPHA) * hi + ALPHA * h0) > 0.0)
+    run = lambda m: gcnii_stack_bwd_plain(
+        T(adj), h0, W, T(theta), *lstm, res, T(dh), alpha=ALPHA,
+        reason=reason, relu_masks=m)
+    want = run(None)
+    for a, b in zip(run(masks), want):
+        assert torch.equal(a, b)
+    flipped = [m.clone() for m in masks]
+    flipped[NL - 1][0, 0, int(masks[NL - 1][0, 0].int().argmax())] = False
+    assert not torch.equal(run(flipped)[2], want[2])
+
+
 def test_philox_known_answer_and_keep_fraction():
     z = torch.zeros(1, dtype=torch.int64)
     words = [int(w) for w in philox.philox4x32(z, z, z, z, z, z)]
@@ -189,3 +223,33 @@ def test_philox_known_answer_and_keep_fraction():
     assert abs(frac - (1 - rate)) < 4 * sigma
     # another layer draws other bits
     assert not torch.equal(keep, philox.keep_mask(seed, rate, 8, 4, 125, 100))
+
+
+def test_gate_interleave_round_trips_and_gives_the_lstm_step():
+    """Kernel B's LSTM product reads [W_ih; W_hh; b] with the gate columns
+    interleaved (column 4c + u is gate u of channel c): undoing the
+    interleave gives the stacked weights back, and the cell computed on the
+    product's 4-wide chunks, as the kernel's epilogue does, is the plain
+    ``_lstm_step``."""
+    rng = np.random.default_rng(8)
+    Hs, rows = 6, (3, 5)
+    f32 = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32))
+    ih, hh, b = f32(Hs, 4 * Hs), f32(Hs, 4 * Hs), f32(4 * Hs)
+    wl = interleave_gates(ih, hh, b)
+    assert wl.shape == (2 * Hs + 1, 4 * Hs)
+    back = wl.view(2 * Hs + 1, Hs, 4).transpose(1, 2).reshape(
+        2 * Hs + 1, 4 * Hs)
+    assert torch.equal(back, torch.cat([ih, hh, b[None]]))
+
+    h, lh, lc = f32(*rows, Hs), f32(*rows, Hs), f32(*rows, Hs)
+    gates = torch.cat([h, lh, torch.ones(*rows, 1)], -1) @ wl
+    chunk = gates.view(*rows, Hs, 4)          # one channel's i, f, g, o
+    i, f = torch.sigmoid(chunk[..., 0]), torch.sigmoid(chunk[..., 1])
+    g, o = torch.tanh(chunk[..., 2]), torch.sigmoid(chunk[..., 3])
+    lc1 = f * lc + i * g
+    want_h1, want_lc1, _ = _lstm_step(h, lh, lc, ih, hh, b)
+    # f32; the bias is summed with the product here, after it there
+    torch.testing.assert_close(lc1, want_lc1, atol=1e-5, rtol=0)
+    torch.testing.assert_close(o * torch.tanh(lc1), want_h1, atol=1e-5,
+                               rtol=0)

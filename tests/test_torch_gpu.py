@@ -14,8 +14,10 @@ from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
                              gcnii_stack_bwd, gcnii_stack_bwd_plain,
                              gcnii_stack_fwd, gcnii_stack_plain, philox,
                              plain_ops)
-from mmdfn_torch.ops.bigru import _forward as bigru_forward
-from mmdfn_torch.ops.gcnii import RESIDUALS
+from mmdfn_torch.ops.bigru import _forward as bigru_forward, _sm_count
+from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, _design,
+                                   gcnii_fwd_launches,
+                                   _forward as gcnii_forward)
 
 H = 100
 
@@ -229,6 +231,97 @@ def test_gcnii_train_kernels_match_plain(B, L, reason):
         # f32; sums over up to B N rows and 16 layers in another order
         s = float(b.abs().max().clamp(min=1e-6))
         assert float((a - b).abs().max()) <= 1e-4 * s, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("reason", [True, False])
+def test_gcnii_fwd_ragged_in_every_design(reason, train, design):
+    """Kernel B at N = 129 nodes (L = 43, two dialogues), which no tile
+    edge divides, in serve mode and in training mode (dropout 0.4,
+    residuals), in each of its designs, against the plain version."""
+    dev = _card()
+    args, _ = _gcnii_args(dev, 2, 43, 16, reason, 4343)
+    if not reason:
+        args = args[:5]
+    seed = torch.tensor([77], dtype=torch.int64, device=dev)
+    opts = dict(alpha=0.2, reason=reason, rate=0.4 if train else 0.0,
+                seed=seed if train else None)
+    B, N = args[1].shape[:2]
+    slabs = lambda: [torch.zeros(B, 16, N, H, device=dev)
+                     for _ in RESIDUALS] if train else None
+    res, want_res = slabs(), slabs()
+    got = gcnii_forward(*args, *(None,) * (8 - len(args)),
+                        residuals=res, design=DESIGNS[design], **opts)
+    torch.cuda.synchronize()
+    want = gcnii_stack_plain(*args, residuals=want_res, **opts)
+    scale = float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+    for a, b in zip(res or [], want_res or []):
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("reason", [True, False])
+def test_gcnii_fwd_is_deterministic_and_counts_its_launches(reason, train):
+    """Two calls of kernel B give the same bits in the output and every
+    residual, and each call launches the documented number of kernels (the
+    training batch takes the tiled design, one dialogue the row-wise
+    one)."""
+    dev = _card()
+    B, L, nl = (32, 80, 16) if train else (1, 200, 16)
+    args, _ = _gcnii_args(dev, B, L, nl, reason, 53)
+    if not reason:
+        args = args[:5]
+    seed = torch.tensor([99], dtype=torch.int64, device=dev)
+    opts = dict(alpha=0.2, reason=reason, rate=0.4 if train else 0.0,
+                seed=seed if train else None)
+
+    def run():
+        res = ([torch.zeros(B, nl, 3 * L, H, device=dev) for _ in RESIDUALS]
+               if train else None)
+        before = gcnii_stack_fwd.launches
+        out = gcnii_stack_fwd(*args, residuals=res, **opts)
+        return [out, *(res or [])], gcnii_stack_fwd.launches - before
+
+    first, n1 = run()
+    second, n2 = run()
+    torch.cuda.synchronize()
+    design = _design(B, 3 * L, _sm_count(dev))
+    assert design == (DESIGNS["tiled"] if train else DESIGNS["rowwise"])
+    assert n1 == n2 == gcnii_fwd_launches(nl, reason, design)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gcnii_fwd_refuses_what_it_does_not_take():
+    """A hidden size above 128 or residual slabs of another shape raise
+    before any launch."""
+    dev = _card()
+    args, _ = _gcnii_args(dev, 2, 5, 4, True, 59)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    B, N, _ = h.shape
+    nl, wide = W.shape[0], 129
+    before = gcnii_stack_fwd.launches
+    with pytest.raises(ValueError, match="128"):
+        gcnii_stack_fwd(adj, torch.zeros(B, N, wide, device=dev),
+                        torch.zeros(B, N, wide, device=dev),
+                        torch.zeros(nl, 2 * wide, wide, device=dev), theta,
+                        torch.zeros(wide, 4 * wide, device=dev),
+                        torch.zeros(wide, 4 * wide, device=dev),
+                        torch.zeros(4 * wide, device=dev), alpha=0.2,
+                        reason=True)
+    short = [torch.zeros(B, nl - 1, N, H, device=dev) for _ in RESIDUALS]
+    with pytest.raises(ValueError, match="residual h"):
+        gcnii_stack_fwd(*args, alpha=0.2, reason=True, residuals=short)
+    res = [torch.zeros(B, nl, N, H, device=dev) for _ in RESIDUALS]
+    res[3] = torch.zeros(B, nl, N, H + 1, device=dev)[..., :H]
+    with pytest.raises(ValueError, match="contiguous"):
+        gcnii_stack_fwd(*args, alpha=0.2, reason=True, residuals=res)
+    assert gcnii_stack_fwd.launches == before
 
 
 def _gcnii_bwd_inputs(dev, B, L, reason, seed):

@@ -219,3 +219,74 @@ def test_training_cli_runs_on_the_cpu(pickle_path, tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="later slice"):
         run_train_erc.main(["--device", "cpu", "--data_dir", pickle_path,
                             "--graph_type", "relation"])
+
+
+def _utterances(pickle_path, n):
+    d = IEMOCAPDataset(pickle_path, train=False).dialogues()[0]
+    return [(d.text[t], d.audio[t], d.visual[t], int(d.qmask[t].argmax()))
+            for t in range(n)]
+
+
+def test_serve_cli_serves_the_trainers_checkpoint(pickle_path, tmp_path,
+                                                  monkeypatch, capsys):
+    """One epoch of the training CLI writes its directory; the server and
+    the latency bench load it as their --load_model, answer with the
+    trained weights and report the checkpoint's epoch."""
+    import io
+
+    from mmdfn_torch.cli import run_train_erc, serve
+    from mmdfn_torch.models import DialogueGNN
+    from mmdfn_torch.serve import StreamingSession, latency_bench
+    from mmdfn_torch.weights import load_served
+
+    save = str(tmp_path / "ckpts")
+    assert run_train_erc.main([
+        "--device", "cpu", "--epochs", "1", "--data_dir", pickle_path,
+        "--Deep_GCN_nlayers", "1", "--reason_flag", "--batch-size", "4",
+        "--buckets", "12", "--save_model_dir", save]) == 0
+    capsys.readouterr()
+    meta = ckpt_lib.read_meta(save)
+    utts = _utterances(pickle_path, 2)
+    lines = [json.dumps({"text": x.tolist(), "audio": a.tolist(),
+                         "visual": v.tolist(), "speaker": s})
+             for x, a, v, s in utts]
+    monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(lines) + "\n"))
+    assert serve.main(["--load_model", save, "--device", "cpu",
+                       "--buckets", "4"]) == 0
+    out = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert out[0]["ready"] and out[0]["ckpt_epoch"] == meta["epoch"] == 0
+    assert len(out) == 3
+
+    # the restored model's own forward, from the same directory
+    cfg = ExperimentConfig(**meta["config"])
+    model, _ = ckpt_lib.restore_checkpoint(save, DialogueGNN.from_config(cfg))
+    session = StreamingSession(model, cfg, buckets=(4,), device="cpu")
+    for (x, a, v, s), got in zip(utts, out[1:]):
+        pred, logp = session.append(x, a, v, s)
+        assert got["pred"] == pred
+        # the server rounds log-probs to 4 decimals
+        np.testing.assert_allclose(got["log_probs"], logp, atol=5e-5 + 1e-6)
+    cfg2, served, epoch = load_served(save)
+    assert cfg2.Deep_GCN_nlayers == 1 and epoch == 0
+    for k, v in model.state_dict().items():
+        assert torch.equal(served.state_dict()[k], v)
+    stats = latency_bench.run(n_dialogues=1, min_len=3, max_len=4,
+                              buckets=(8,), load_model=save, device="cpu")
+    assert stats["ckpt_epoch"] == 0 and stats["model"].startswith(
+        "MM-DFN GDF 1L")
+
+
+@pytest.mark.parametrize("what", ["no checkpoint", "no config"])
+def test_serve_cli_refuses_a_directory_it_cannot_serve(tmp_path, what,
+                                                       capsys):
+    from mmdfn_torch.cli import serve
+    from mmdfn_torch.models import DialogueGNN
+
+    if what == "no config":
+        model = DialogueGNN.from_config(ExperimentConfig(Deep_GCN_nlayers=1))
+        ckpt_lib.save_checkpoint(str(tmp_path), model, meta={"epoch": 3})
+    assert serve.main(["--load_model", str(tmp_path), "--device",
+                       "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert ("no checkpoint" if what == "no checkpoint" else "no config") \
+        in err
