@@ -11,7 +11,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: all four kernels from ``mmdfn_torch/csrc`` (one nvcc each, at
    once); each kernel's registers, stack and spill bytes (``-Xptxas -v``)
    are printed, and neither the bi-GRU time loops nor any kernel of the
-   GCNII stack (B, D) may spill;
+   GCNII stack (B, D, the resident one included) may spill;
 3. kernels: each kernel against its plain version at the shapes the serve
    path (buckets 32, 64 and 200, i.e. N = 600 for the GCNII stack) and the
    training step (B = 32 text rows and 192 party streams of L = 80; the
@@ -28,10 +28,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    the plain Philox mask, bit for bit.  Kernel D is held against the plain
    backward at its own ReLU decisions, which must differ from the plain
    recompute's only where the ReLU's input is within the forward's
-   tolerance of 0.  Kernel B's serve cases (N = 96, 192 and 600) time both
-   of its designs (three tiled products a layer, or one row-wise launch a
-   layer) and report the one the wrapper picks; its training case times
-   the row-wise design beside the tiled one;
+   tolerance of 0.  Kernel B's serve cases (one dialogue at every serve
+   bucket, N = 24 ... 600, and N = 600 without the reason-LSTM) check and
+   time each of its three designs (three tiled products a layer, one
+   row-wise launch a layer, or the whole stack in one launch on a cluster
+   of CTAs) and report the one the wrapper picks, and a table does the
+   same at N = 240 for B = 1 ... 32 dialogues, in inference and in
+   training mode; its training case times the row-wise design beside the
+   tiled one;
 4. serve: the flagship MM-DFN (IEMOCAP GDF with the reason-LSTM, 16 GCNII
    layers, full widths, weights fresh from a seed) answers every utterance
    of three synthetic dialogues through ``StreamingSession``; the launch
@@ -188,7 +192,7 @@ def kernel_name(key: str) -> str:
 # the kernels of kernels B and D: each tiled product is named by its
 # epilogue's type
 KERNEL_B_PARTS = ("F1Cell", "F2Hi", "F3Update", "gcnii_fwd_init",
-                  "gcnii_layer_kernel")
+                  "gcnii_layer_kernel", "gcnii_resident_kernel")
 KERNEL_D_PARTS = ("P1Gates", "P2Hi", "P3Pre", "P4DProj", "P5DAdj", "P6Lstm",
                   "P7LstmIn", "WgradW", "WgradLstm", "gcnii_reduce_kernel")
 
@@ -506,6 +510,44 @@ def gcnii_case(torch, dev, L, reason=True) -> dict:
             "ms": time_ms(torch, run, 20), "ms_by_design": ms_by_design,
             "plain_ms": time_ms(torch, plain, 5),
             "library_ms": None, **bound(nbytes, flops)}
+
+
+def gcnii_crossover(torch, dev, L=TRAIN_L) -> list:
+    """Kernel B's designs at N = 3L = 240 (16 layers, reason) for B = 1 ..
+    32 dialogues of U[20, L] turns, in inference mode and in training mode
+    (dropout, residual slabs): each checked against the plain version and
+    timed, beside the one the wrapper picks."""
+    from mmdfn_torch.ops import gcnii_stack_plain
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import DESIGNS, RESIDUALS, _design, _forward
+
+    N, rows = 3 * L, []
+    for B in (1, 2, 4, 8, 16, 32):
+        args, _ = gcnii_train_inputs(torch, dev, B, L, seed=40 + B)
+        seed = torch.tensor([SEED + B], dtype=torch.int64, device=dev)
+        ms, train_ms = {}, {}
+        for mode, opts, out_ms in (
+                ("inference", dict(rate=0.0, seed=None), ms),
+                ("training", dict(rate=RATE, seed=seed), train_ms)):
+            slabs = lambda: ([torch.empty(B, NLAYERS, N, H, device=dev)
+                              for _ in RESIDUALS] if opts["seed"] is not None
+                             else None)
+            want = gcnii_stack_plain(*args, alpha=0.2, reason=True,
+                                     residuals=slabs(), **opts)
+            tol = KERNEL_B_RTOL * max(1.0, float(want.abs().max()))
+            for name, design in DESIGNS.items():
+                res = slabs()
+                fwd = lambda: _forward(*args, alpha=0.2, reason=True,
+                                       residuals=res, design=design, **opts)
+                e = float((fwd() - want).abs().max())
+                check(e <= tol, f"GCNII kernel ({name}, {mode}) vs plain at "
+                                f"B={B} N={N}: {e} > {tol}")
+                out_ms[name] = time_ms(torch, fwd, 10)
+        chosen = next(k for k, v in DESIGNS.items()
+                      if v == _design(B, N, _sm_count(dev)))
+        rows.append({"B": B, "N": N, "ms_by_design": ms,
+                     "train_ms_by_design": train_ms, "design": chosen})
+    return rows
 
 
 def bigru_bwd_case(torch, dev, B, L, a_train_ms) -> dict:
@@ -910,6 +952,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from mmdfn_torch import ops
+    from mmdfn_torch.data.batching import SERVE_BUCKETS
     from mmdfn_torch.device import resolve_device
     from mmdfn_torch.ops import _build
 
@@ -949,8 +992,9 @@ def main() -> int:
                for L in (32, 64, 200) for B in (1, 6)}
     for B in (TRAIN_B, 6 * TRAIN_B):     # lstm_l, and rnn_parties' streams
         cases_a[(B, TRAIN_L)] = bigru_case(torch, dev, B, TRAIN_L, train=True)
-    cases_b = {L: gcnii_case(torch, dev, L) for L in (32, 64, 200)}
+    cases_b = {L: gcnii_case(torch, dev, L) for L in SERVE_BUCKETS}
     cases_b["200_no_reason"] = gcnii_case(torch, dev, 200, reason=False)
+    crossover = gcnii_crossover(torch, dev)
     cases_c = {B: bigru_bwd_case(torch, dev, B, TRAIN_L,
                                  cases_a[(B, TRAIN_L)]["train_ms"])
                for B in (TRAIN_B, 6 * TRAIN_B)}
@@ -960,6 +1004,8 @@ def main() -> int:
         "bigru_fwd (library: torch.nn.GRU, cuDNN, all-valid mask, device "
         "time)": list(cases_a.values()),
         "gcnii_fwd": list(cases_b.values()),
+        "gcnii_fwd designs at N = 240 by batch (inference; training "
+        "mode: rate 0.4, residuals)": crossover,
         "bigru_bwd (library: torch.nn.GRU backward alone, cuDNN; "
         "library_fwd_bwd: its forward + backward, beside kernel A's "
         "training mode + kernel C; both device time)": list(cases_c.values()),

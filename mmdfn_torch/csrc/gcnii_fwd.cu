@@ -73,20 +73,60 @@
 // K axis streamed through shared memory), both support products, the
 // update, the dropout, the skip and the NEXT layer's row-local LSTM step,
 // with the weights read from global memory one per FMA.  A first launch
-// with do_conv = 0 runs layer 0's LSTM step.  At a serve forward (B = 1, N
-// <= 600) the tiled products have 2-20 blocks for 132 SMs and each runs
-// latency-bound; there the row-wise design is the faster one (PERF.md).
+// with do_conv = 0 runs layer 0's LSTM step.  At a serve forward (B = 1) the
+// tiled products have 1-20 blocks for 132 SMs and each runs latency-bound;
+// the row-wise design beats them there, and the resident design beats it
+// up to N = 384 (PERF.md); the row-wise design stays for N = 600.
+//
+// The resident design (gcnii_resident_kernel, one launch per forward): the
+// whole stack of each dialogue on one thread-block cluster of 16 CTAs
+// (grid (16, B)), as the TPU kernel keeps a dialogue resident in VMEM for
+// all its layers.  One SM cannot carry a dialogue (N = 192: 0.74 GFLOP,
+// ~1.5 ms at one SM's share of the f32 rate), so the cluster splits the H
+// channels: CTA q owns channels [c0, c0 + S), S = 6 or 7 at H = 100 (8 at
+// most, the slice pad), and keeps in its shared memory, for all layers,
+// its columns of h, lh (a ping-pong pair), lc, hi and h0 (channel-major,
+// NP = N rounded up to 4 rows) and of h1 (row-major), its 4S gate columns
+// of [W_ih; W_hh; b] (loaded once) and its S columns of W[l] (the next
+// layer's fetched by cp.async during this one).  What each phase reads
+// fixes the exchanges:
+//   F1 gates = [h | lh] [W_ih; W_hh]: row-local, but a row's h and lh are
+//      spread over the cluster: read from the owning CTAs' shared memory
+//      (distributed shared memory, ld.shared::cluster) in rounds of 16
+//      channels into a warp's own buffer, each element once a CTA; the
+//      cell writes h1, lh', lc of the CTA's own channels;
+//   F2 hi = adj @ h1: the CTA's own columns of h1 over all rows, adj read
+//      from global memory (L2): no exchange;
+//   F3 [hi | h0] W[l]: hi and h0 read from the owning CTAs as F1 reads h;
+//      the update, the dropout and the skip write the CTA's columns of h.
+// Two cluster barriers a layer order it: after F2 (F3 reads every CTA's
+// hi) and after F3 (the next F1 reads every CTA's h, and no CTA writes hi
+// or h while another still reads them).  F1 writes the new lh into the
+// other buffer of the pair, since other CTAs may still read the old.
+// Where few rows leave warps idle, lanes or warps split k and their sums
+// meet in a fixed order (shuffles, or shared memory in warp order), so
+// two launches give the same bits.  Pad rows (masked utterances, rows
+// N..NP) stay finite: the state starts zeroed, and adj's columns at masked
+// nodes are zero.  At N = 600 a CTA holds ~203 KB of shared memory, one
+// CTA an SM; the launch is refused where a cluster of that size does not
+// fit (cudaOccupancyMaxActiveClusters).  Training mode (dropout, residual
+// stores) runs in the same kernel.  What bounds it (PERF.md §6): at N = 192
+// the products run at ~20% of the 16 SMs' f32 rate; F1, the LSTM gates
+// (80% of the FLOPs), takes about half the time.
 //
 // C interface: device pointers to contiguous f32 arrays; the stream is the
 // caller's.  gcnii_fwd runs the whole stack and returns the number of
 // kernels it launched, or minus the CUDA error of the first launch that
 // failed (cudaGetLastError() after each launch).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "gemm_f32.cuh"
 #include "philox.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -342,8 +382,422 @@ __global__ void __launch_bounds__(kTX * kTY) gcnii_layer_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The resident design: the whole stack of a dialogue in one launch, on one
+// thread-block cluster of kCluster CTAs (see the note at the top).
+
+constexpr int kCluster = 16;   // CTAs a dialogue (a non-portable cluster)
+constexpr int kSP = 8;         // channels a CTA owns, at most (H <= 128)
+constexpr int kThreads = 256;
+constexpr int kOwners = 128;   // channels, at most
+constexpr int kBufs = 5;       // the gathered buffers: h, lh (2), hi, h0
+constexpr int kSmemMax = 232448;   // 227 KB, a block's most on an H100
+constexpr int kRound = 16;     // channels F1 reads a round
+constexpr int kStage = kThreads / 32 * 2 * kRound * 32;   // F1's staging
+
+__host__ __device__ inline int padded_rows(int N) { return (N + 3) & ~3; }
+
+// Dynamic shared memory of one CTA, in floats: 7 state buffers of kSP x NP
+// (h, the lh pair, lc, hi, h0 channel-major; h1 row-major), the gate
+// weights' slice with its bias row ((2H + 1) x 4 kSP), W[l]'s slice twice
+// (2H x kSP, the next layer's fetched during this one), F1's staging
+// (two 16 x 32 buffers a warp) and a table of where each channel of the
+// gathered buffers lives in the cluster (32-bit cluster addresses).
+inline long long resident_smem_bytes(int N, int H) {
+  return 4LL * (7LL * kSP * padded_rows(N) + (2 * H + 1) * 4 * kSP +
+                2 * 2 * H * kSP + kStage + kBufs * kOwners);
+}
+
+struct ResidentArgs {
+  const float *adj, *h, *h0, *W, *theta, *wl;
+  float alpha;
+  float* out;
+  float *res_h, *res_lh, *res_lc, *res_h1;   // null outside training mode
+  int drop;
+  unsigned int thresh;
+  float inv_keep;
+  const long long* seed;
+  int reason, nl, N, H;
+};
+
+// The k splits of a product over R rows: the most (a power of two, up to
+// kmax) that keep R rows in one pass of `full` / ks rows.
+__device__ __forceinline__ int splits(int R, int full, int kmax) {
+  int ks = 1;
+  while (ks < kmax && full / (2 * ks) >= R) ks *= 2;
+  return ks;
+}
+
+// Adds the partial sums of the ks lanes `stride` apart (a split's lanes);
+// a fixed butterfly, so the result does not depend on timing.
+template <int M>
+__device__ __forceinline__ void reduce_splits(float (&acc)[M], int stride,
+                                              int ks) {
+  for (int o = stride; o < stride * ks; o *= 2)
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+}
+
+// Distributed shared memory by its 32-bit cluster address: `p` (in this
+// CTA's shared memory) as CTA `rank` of the cluster holds it, and loads
+// from such an address (ld.shared::cluster; ordered by the cluster
+// barriers around the phases that read).
+__device__ __forceinline__ unsigned cluster_addr(const float* p, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float2 ld_cluster2(unsigned addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4x4(float* acc, float4 a, float4 w) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[i * 4 + j] = fmaf(av[i], wv[j], acc[i * 4 + j]);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gcnii_resident_kernel(ResidentArgs a) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int q = (int)cl.block_rank(), C = (int)cl.num_blocks();
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid % 32;
+  const int N = a.N, H = a.H, NP = padded_rows(N), K2 = 2 * H;
+  // this CTA's channels [c0, c0 + S): H split as evenly as C allows
+  const int base = H / C, extra = H % C;
+  const int c0 = q * base + min(q, extra), S = base + (q < extra);
+
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* hS = sm;                     // (kSP, NP): h, and the skip q
+  float* lhA = hS + kSP * NP;         // lh, a ping-pong pair
+  float* lhB = hS + 2 * kSP * NP;
+  float* hiS = hS + 3 * kSP * NP;     // adj @ h1
+  float* h0S = hS + 4 * kSP * NP;
+  float* lcS = hS + 5 * kSP * NP;
+  float* h1r = hS + 6 * kSP * NP;     // (NP, kSP): F2's B operand
+  float* Wl = hS + 7 * kSP * NP;      // (2H + 1, 4 kSP): [W_ih; W_hh; b]
+  float* Wc0 = Wl + (K2 + 1) * 4 * kSP;   // (2H, kSP): W[l] slice, l even
+  float* Wc1 = Wc0 + K2 * kSP;            // and l odd
+  // F1's staging: two kRound k x 32 row buffers a warp
+  float* stage = Wc1 + K2 * kSP;
+  // tab[i kOwners + c]: the cluster address of channel c of buffer i (h,
+  // lhA, lhB, hi, h0), row 0, in the CTA that owns it
+  unsigned* tab = reinterpret_cast<unsigned*>(stage + kStage);
+  const long long gb = (long long)b * N * H;
+  const bool train = a.res_h != nullptr;
+  // W[l]'s slice by cp.async (pad columns zero-filled)
+  auto fetch_w = [&](int l) {
+    const float* src = a.W + (long long)l * K2 * H + c0;
+    float* dst = l % 2 ? Wc1 : Wc0;
+    for (int e = tid; e < K2 * kSP; e += kThreads) {
+      const int k = e / kSP, j = e % kSP;
+      gemm::cp_async4(dst + e, j < S ? src + (long long)k * H + j : src,
+                      j < S ? 4 : 0);
+    }
+    gemm::cp_async_commit();
+  };
+
+  // zero state (pad rows and channels stay 0, so every operand is finite)
+  for (int e = tid; e < 7 * kSP * NP; e += kThreads) sm[e] = 0.0f;
+  for (int c = tid; c < H; c += kThreads) {
+    const int big = extra * (base + 1);
+    const int o = c < big ? c / (base + 1) : extra + (c - big) / base;
+    const int j = c - (o * base + min(o, extra));
+    float* bufs[kBufs] = {hS, lhA, lhB, hiS, h0S};
+#pragma unroll
+    for (int i = 0; i < kBufs; ++i)
+      tab[i * kOwners + c] = cluster_addr(bufs[i] + j * NP, o);
+  }
+  __syncthreads();
+  if (a.reason) {   // gate column 4c + u of the interleaved weights
+    const float* src = a.wl + 4 * c0;
+    for (int e = tid; e < (K2 + 1) * 4 * kSP; e += kThreads) {
+      const int k = e / (4 * kSP), m = e % (4 * kSP);
+      gemm::cp_async4(Wl + e, m / 4 < S ? src + (long long)k * 4 * H + m : src,
+                      m / 4 < S ? 4 : 0);
+    }
+  }
+  for (int e = tid; e < N * S; e += kThreads) {
+    const int r = e / S, j = e % S;
+    const long long g = gb + (long long)r * H + c0 + j;
+    gemm::cp_async4(hS + j * NP + r, a.h + g, 4);
+    gemm::cp_async4(h0S + j * NP + r, a.h0 + g, 4);
+    if (!a.reason) gemm::cp_async4(h1r + r * kSP + j, a.h + g, 4);
+  }
+  fetch_w(0);
+  const unsigned long long seed =
+      a.drop ? (unsigned long long)*a.seed : 0ull;
+  gemm::cp_async_wait<0>();
+  cl.sync();   // every CTA's state is in place before the first gather
+
+  for (int l = 0; l < a.nl; ++l) {
+    float* lh = l % 2 ? lhB : lhA;
+    float* lh_next = l % 2 ? lhA : lhB;
+    const float* Wconv = l % 2 ? Wc1 : Wc0;
+    gemm::cp_async_wait<0>();   // W[l] (visible after the next barrier)
+    if (l + 1 < a.nl) fetch_w(l + 1);   // lands during this layer
+    if (train) {   // layer l's pre-layer state
+      for (int e = tid; e < N * S; e += kThreads) {
+        const int r = e / S, j = e % S;
+        const long long o = (((long long)b * a.nl + l) * N + r) * H + c0 + j;
+        a.res_h[o] = hS[j * NP + r];
+        if (a.reason) {
+          a.res_lh[o] = lh[j * NP + r];
+          a.res_lc[o] = lcS[j * NP + r];
+        } else {
+          a.res_h1[o] = hS[j * NP + r];
+        }
+      }
+      __syncthreads();   // read before F1's cell rewrites lc
+    }
+
+    // F1: gates = [h | lh] [W_ih; W_hh] + b and the LSTM cell.  A group
+    // of kw warps owns 32 rows (lane: channel lane % 8, rows 8 (lane / 8)
+    // .. + 7, all 4 gates); k goes in rounds of kRound, round t taken by warp
+    // t % kw of the group.  In a round each lane reads kRound / 4 x 16 bytes
+    // of [h | lh] from the owning CTAs (a channel's 32 rows in one 128-byte run)
+    // into the warp's ping-pong buffer, the next round's reads in flight
+    // while this one is multiplied.  The kw partial sums meet in shared
+    // memory in the order of the warps.
+    if (a.reason) {
+      const unsigned* tx = tab;
+      const unsigned* ty = tab + (l % 2 ? 2 : 1) * kOwners;
+      const int warp = tid / 32, ch = lane % 8, ro = lane / 8;
+      const int groups = min(8, (N + 31) / 32), kw = 8 / groups;
+      const int g = warp / kw, sw = warp % kw, rounds = (K2 + kRound - 1) / kRound;
+      float* wb = stage + warp * 2 * kRound * 32;
+      for (int r0 = 0; r0 < N; r0 += 32 * groups) {
+        const int r = r0 + 32 * g;
+        const bool act = g < groups && r < N;
+        auto fetch = [&](float4(&v)[kRound / 4], int t) {
+#pragma unroll
+          for (int j = 0; j < kRound / 4; ++j) {
+            const int k = kRound * t + 4 * j + lane / 8;
+            const int rr = r + 4 * (lane % 8);
+            v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (act && t < rounds && k < K2 && rr < NP)
+              v[j] = ld_cluster4((k < H ? tx[k] : ty[k - H]) + 4 * rr);
+          }
+        };
+        float acc[32] = {};   // row i, gate u at 4 i + u
+        float4 v[kRound / 4];   // the next round's reads, in flight
+        fetch(v, sw);
+        for (int t = sw, n = 0; t < rounds; t += kw, ++n) {
+          float* buf = wb + (n % 2) * kRound * 32;
+#pragma unroll
+          for (int j = 0; j < kRound / 4; ++j)
+            *reinterpret_cast<float4*>(buf + (4 * j + lane / 8) * 32 +
+                                       4 * (lane % 8)) = v[j];
+          __syncwarp();
+          fetch(v, t + kw);
+          const int kb = kRound * t, kn = min(kRound, K2 - kb);
+          if (act) {
+#pragma unroll 4
+            for (int kk = 0; kk < kn; ++kk) {
+              const float4 w = *reinterpret_cast<const float4*>(
+                  Wl + (kb + kk) * 4 * kSP + 4 * ch);
+              const float* x = buf + kk * 32 + 8 * ro;
+              fma4x4(acc, *reinterpret_cast<const float4*>(x), w);
+              fma4x4(acc + 16, *reinterpret_cast<const float4*>(x + 4), w);
+            }
+          }
+        }
+        if (kw > 1) {   // the group's sums, in the order of its warps
+          float* red = stage;   // (32, 256): value i of thread t at i 256 + t
+          __syncthreads();
+          if (sw > 0)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) red[i * kThreads + tid] = acc[i];
+          __syncthreads();
+          if (sw == 0)
+            for (int w2 = 1; w2 < kw; ++w2)
+#pragma unroll
+              for (int i = 0; i < 32; ++i)
+                acc[i] += red[i * kThreads + tid + 32 * w2];
+          __syncthreads();   // the buffers are free again
+        }
+        if (sw == 0 && act) {
+          const float* bb = Wl + K2 * 4 * kSP + 4 * ch;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int rr = r + 8 * ro + i;
+            if (rr >= N) continue;
+            const int e = ch * NP + rr;
+            const float ig = sigmoidf_(acc[4 * i] + bb[0]);
+            const float fg = sigmoidf_(acc[4 * i + 1] + bb[1]);
+            const float gg = tanhf(acc[4 * i + 2] + bb[2]);
+            const float og = sigmoidf_(acc[4 * i + 3] + bb[3]);
+            const float cn = fg * lcS[e] + ig * gg;
+            const float hn = og * tanhf(cn);
+            lcS[e] = cn;
+            lh_next[e] = hn;
+            h1r[rr * kSP + ch] = hn;
+            if (train && ch < S)
+              a.res_h1[(((long long)b * a.nl + l) * N + rr) * H + c0 + ch] =
+                  hn;
+          }
+        }
+      }
+      __syncthreads();   // h1 is written
+    }
+
+    {   // F2: hi = adj @ h1 over the CTA's channels.  A thread: 4 rows x 8
+        // channels, adj read from global memory (L2, L1) 16 bytes a row
+        // where N is a multiple of 4, its k range one of ks splits.
+      const float* adj = a.adj + (long long)b * N * N;
+      const int ks = splits(N, 4 * kThreads, 4);
+      // a quarter-warp (8 lanes) shares its split, so its reads of h1 are
+      // one broadcast
+      const int s = tid / 8 % ks, r = 4 * (tid % 8 + 8 * (tid / (8 * ks)));
+      float acc[32] = {};
+      if (r < N) {
+        const float* A[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          A[i] = adj + (long long)min(r + i, N - 1) * N;
+        if (N % 4 == 0) {
+          const int kq = N / 4, klo = 4 * (kq * s / ks),
+                    khi = 4 * (kq * (s + 1) / ks);
+#pragma unroll 4
+          for (int k = klo; k < khi; k += 4) {
+            float4 x[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[i] = *reinterpret_cast<const float4*>(A[i] + k);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 w0 =
+                  *reinterpret_cast<const float4*>(h1r + (k + kk) * kSP);
+              const float4 w1 =
+                  *reinterpret_cast<const float4*>(h1r + (k + kk) * kSP + 4);
+              const float4 av = make_float4(comp(x[0], kk), comp(x[1], kk),
+                                            comp(x[2], kk), comp(x[3], kk));
+              fma4x4(acc, av, w0);
+              fma4x4(acc + 16, av, w1);
+            }
+          }
+        } else {
+          const int klo = N * s / ks, khi = N * (s + 1) / ks;
+#pragma unroll 4
+          for (int k = klo; k < khi; ++k) {
+            const float4 av = make_float4(A[0][k], A[1][k], A[2][k], A[3][k]);
+            fma4x4(acc, av, *reinterpret_cast<const float4*>(h1r + k * kSP));
+            fma4x4(acc + 16, av,
+                   *reinterpret_cast<const float4*>(h1r + k * kSP + 4));
+          }
+        }
+      }
+      reduce_splits(acc, 8, ks);
+      if (s == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r + i >= N) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            hiS[j * NP + r + i] = acc[4 * i + j];
+            hiS[(j + 4) * NP + r + i] = acc[16 + 4 * i + j];
+          }
+        }
+      }
+    }
+    cl.sync();   // every CTA's hi is written
+
+    // F3: [hi | h0] W[l], the update, the dropout, the skip.  A thread: 2
+    // rows x 4 channels, hi and h0 read from the owning CTAs (8 bytes a k).
+    {
+      const float th = a.theta[l], alpha = a.alpha;
+      const unsigned* tx = tab + 3 * kOwners;
+      const unsigned* ty = tab + 4 * kOwners;
+      for (int r0 = 0; r0 < N;) {
+        const int ks = splits(N - r0, 256, 16);
+        const int cq = lane % 2, s = tid / 2 % ks, r = r0 + 2 * (tid / (2 * ks));
+        const int klo = K2 * s / ks, khi = K2 * (s + 1) / ks;
+        float acc[8] = {};
+        if (r < N) {
+          const float* w = Wconv + 4 * cq;
+#pragma unroll 16
+          for (int k = klo; k < min(khi, H); ++k) {
+            const float2 x = ld_cluster2(tx[k] + 4 * r);
+            const float4 v = *reinterpret_cast<const float4*>(w + k * kSP);
+            const float wv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[j] = fmaf(x.x, wv[j], acc[j]);
+              acc[4 + j] = fmaf(x.y, wv[j], acc[4 + j]);
+            }
+          }
+#pragma unroll 16
+          for (int k = max(klo, H); k < khi; ++k) {
+            const float2 x = ld_cluster2(ty[k - H] + 4 * r);
+            const float4 v = *reinterpret_cast<const float4*>(w + k * kSP);
+            const float wv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[j] = fmaf(x.x, wv[j], acc[j]);
+              acc[4 + j] = fmaf(x.y, wv[j], acc[4 + j]);
+            }
+          }
+        }
+        reduce_splits(acc, 2, ks);
+        if (s == 0) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (r + i >= N) continue;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int cj = 4 * cq + j, e = cj * NP + r + i;
+              const float pre =   // as F3Update forms it
+                  th * acc[4 * i + j] +
+                  (1.0f - th) * ((1.0f - alpha) * hiS[e] + alpha * h0S[e]);
+              float hn = fmaxf(pre, 0.0f);
+              if (a.drop && cj < S)
+                hn = philox::keep(seed, b, l, r + i, c0 + cj, a.thresh)
+                         ? hn * a.inv_keep
+                         : 0.0f;
+              if (a.reason) hn += hS[e];
+              hS[e] = hn;
+              if (!a.reason) h1r[(r + i) * kSP + cj] = hn;
+            }
+          }
+        }
+        r0 += 256 / ks;
+      }
+    }
+    cl.sync();   // every CTA's h is written; every gather of this layer done
+  }
+  for (int e = tid; e < N * S; e += kThreads) {
+    const int r = e / S, j = e % S;
+    a.out[gb + (long long)r * H + c0 + j] = hS[j * NP + r];
+  }
+}
+
 // The designs gcnii_fwd runs (the wrapper picks one by shape).
-enum Design { kTiled = 0, kRowwise = 1 };
+enum Design { kTiled = 0, kRowwise = 1, kResident = 2 };
 
 // F1 at the wide tile.
 template <class Epi>
@@ -362,6 +816,45 @@ cudaError_t narrow100(const Operand& A, const Operand& B, int M, int N,
                                                   e, st);
 }
 
+// One launch of the resident kernel: grid (kCluster, B), one cluster a
+// dialogue.  Refused (minus the CUDA error) where the shared memory or the
+// cluster does not fit the card.
+cudaError_t resident(const ResidentArgs& a, int B, cudaStream_t st) {
+  const long long smem = resident_smem_bytes(a.N, a.H);
+  if (smem > kSmemMax || a.H > kCluster * kSP) return cudaErrorInvalidValue;
+  static bool attrs = false;
+  if (!attrs) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gcnii_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemMax);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gcnii_resident_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                 1);
+    if (err != cudaSuccess) return err;
+    attrs = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &clusters, (void*)gcnii_resident_kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, gcnii_resident_kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 cudaError_t init(const float* h, View hs, View h1, View lh, View lc, int B,
                  long long NH, cudaStream_t st) {
   const long long total = B * NH;
@@ -375,12 +868,14 @@ cudaError_t init(const float* h, View hs, View h1, View lh, View lc, int B,
 
 // The whole forward on `stream`; see the note at the top.  out (B, N, H)
 // gets the stack's output.  wl is [W_ih; W_hh; b] with interleaved gate
-// columns, (2H + 1, 4H), read by the tiled design with reason; ih, hh
+// columns, (2H + 1, 4H), read by the tiled and resident designs with
+// reason; ih, hh
 // (H, 4H) and lb (4H) are read by the row-wise design with reason.  The
 // residual pointers are null outside training mode; without reason the
 // lh and lc slabs are not written (the caller zeroes them).  scratch:
 // (B, N, H) for hi in the tiled design's training mode, else 4 (B, N, H)
-// (tiled: hi, the two lh buffers and lc; row-wise: two h1 buffers, lh, lc).
+// (tiled: hi, the two lh buffers and lc; row-wise: two h1 buffers, lh, lc);
+// the resident design keeps its state in shared memory and reads none.
 extern "C" int gcnii_fwd(
     const float* adj, const float* h, const float* h0, const float* W,
     const float* theta, float alpha, const float* wl, const float* ih,
@@ -389,7 +884,7 @@ extern "C" int gcnii_fwd(
     unsigned int thresh, float inv_keep, const long long* seed, int reason,
     int design, int nl, int B, int N, int H, void* stream) {
   if (H > kHMax || B <= 0 || N <= 0 || nl <= 0 ||
-      (design != kTiled && design != kRowwise))
+      (design != kTiled && design != kRowwise && design != kResident))
     return -(int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long NH = (long long)N * H, NN = (long long)N * N;
@@ -403,6 +898,15 @@ extern "C" int gcnii_fwd(
     if (err != cudaSuccess) return -(int)err; \
     ++launches;                               \
   } while (0)
+
+  if (design == kResident) {
+    const ResidentArgs a{adj,    h,      h0,     W,      theta,  wl,
+                         alpha,  out,    res_h,  res_lh, res_lc, res_h1,
+                         drop,   thresh, inv_keep, seed, reason, nl,
+                         N,      H};
+    GCNII_LAUNCH(resident(a, B, st));
+    return launches;
+  }
 
   if (design == kRowwise) {
     float *h1a = scratch, *h1b = scratch + RH;

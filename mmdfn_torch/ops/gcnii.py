@@ -3,17 +3,19 @@ a training mode, and backward.
 
 Kernel B replaces ``mmdfn_tpu/ops/pallas_gcnii.py:gcnii_stack_fused`` and
 ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_fwd`` (``csrc/gcnii_fwd.cu``):
-one C call, ``gcnii_fwd``, runs the whole stack in one of two designs,
+one C call, ``gcnii_fwd``, runs the whole stack in one of three designs,
 picked by shape (:func:`_design`).  At the training batch it runs three
 register-tiled f32 products a layer (``csrc/gemm_f32.cuh``): the
 reason-LSTM's gates with the cell in the epilogue, ``adj @ h1``, and
 ``[hi | h0] @ W[l]`` with the update, the dropout and the skip in the
-epilogue.  A serve forward (one dialogue) fills too few blocks for them,
-and runs the row-wise kernel: one launch a layer, each block owning 8
-rows.  No cuBLAS call stands in for any of it.  In training mode it draws
-the dropout after each layer's ReLU from Philox (``csrc/philox.cuh``, key
-the step seed, counter (b, layer, node, channel)) and writes the residuals
-the backward reads.
+epilogue.  A serve forward (one dialogue) fills too few blocks for them:
+up to N = 384 nodes it runs the resident design, the whole stack in one
+launch on a cluster of 16 CTAs that split the channels and exchange rows
+through distributed shared memory; at N = 600 the row-wise kernel, one
+launch a layer, each block owning 8 rows.  No cuBLAS call stands in for
+any of it.  In training mode it draws the dropout after each layer's ReLU
+from Philox (``csrc/philox.cuh``, key the step seed, counter (b, layer,
+node, channel)) and writes the residuals the backward reads.
 
 Kernel D replaces ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_bwd``
 (``csrc/gcnii_bwd.cu``): the reverse layer walk as register-tiled f32
@@ -49,10 +51,21 @@ _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # stream
 _ARGTYPES = ([_p] * 5 + [_f] + [_p] * 10 + [_i, _u, _f, _p] + [_i] * 6
              + [_p])
-# kernel B's designs (gcnii_fwd.cu): three tiled products a layer, or one
-# row-wise launch a layer
-TILED, ROWWISE = 0, 1
-DESIGNS = {"tiled": TILED, "rowwise": ROWWISE}
+# kernel B's designs (gcnii_fwd.cu): three tiled products a layer, one
+# row-wise launch a layer, or the whole stack in one launch, a cluster of
+# CTAs a dialogue
+TILED, ROWWISE, RESIDENT = 0, 1, 2
+DESIGNS = {"tiled": TILED, "rowwise": ROWWISE, "resident": RESIDENT}
+# the resident design's plan, as gcnii_fwd.cu fixes it: CTAs a dialogue,
+# channels a CTA at most, the buffers whose channels its table locates,
+# F1's staging (two 16 x 32 buffers for each of 8 warps), and the shared
+# memory a block may have on an H100
+RESIDENT_CLUSTER, _SLICE_PAD, _BUFS, _OWNERS = 16, 8, 5, 128
+_STAGE = 8 * 2 * 16 * 32
+SMEM_MAX = 232448
+# the most nodes for which the resident design measured faster than the
+# row-wise kernel (one dialogue, 16 layers; PERF.md §6)
+RESIDENT_MAX_N = 384
 # adj, h0, W, theta, alpha, res_h, res_lh, res_lc, res_h1, ih, hh, lb,
 # dh_out, dh, dlh, dlc, d_hi, dh0, dadj, hi, tdpre, gates, dgates, part_w,
 # part_l, dW, dl, drop, thresh, inv_keep, seed, reason, nl, B, N, H,
@@ -81,20 +94,49 @@ def gcnii_fwd_launches(nl: int, reason: bool, design: int = TILED) -> int:
     """The CUDA kernels one ``gcnii_fwd`` call launches: a first one that
     sets up the layer-0 state, then per layer the gates, ``adj @ h1`` and
     the update (the row-wise design: one a layer, and with reason one for
-    layer 0's LSTM step)."""
+    layer 0's LSTM step; the resident design: one in all)."""
+    if design == RESIDENT:
+        return 1
     if design == ROWWISE:
         return 1 + nl + int(reason)
     return 1 + (3 if reason else 2) * nl
 
 
-def _design(B: int, N: int, sms: int) -> int:
+def resident_slices(H: int) -> list:
+    """The resident design's channel slices ``(c0, S)``, one per CTA of a
+    dialogue's cluster: H split as evenly as the cluster allows."""
+    base, extra = divmod(H, RESIDENT_CLUSTER)
+    return [(q * base + min(q, extra), base + int(q < extra))
+            for q in range(RESIDENT_CLUSTER)]
+
+
+def resident_smem_bytes(N: int, H: int) -> int:
+    """Shared memory of one CTA of the resident design (gcnii_fwd.cu:
+    ``resident_smem_bytes``): 7 state buffers of 8 channels x N rounded up
+    to 4 rows, the gate weights' slice with its bias row, W[l]'s slice
+    twice (the next layer's fetched during this one), F1's staging, and
+    the table of where each channel of the gathered buffers lives (32-bit
+    cluster addresses)."""
+    NP = -(-N // 4) * 4
+    return (4 * (7 * _SLICE_PAD * NP + (2 * H + 1) * 4 * _SLICE_PAD
+                 + 2 * 2 * H * _SLICE_PAD + _STAGE + _BUFS * _OWNERS))
+
+
+def _design(B: int, N: int, sms: int, H: int = 100) -> int:
     """Kernel B's design for B dialogues of N nodes on a card of ``sms``
     multiprocessors: the tiled products where their 64-row tiles (B x
-    ceil(N / 64) blocks a product) fill at least half the card, else the
-    row-wise kernel.  On an H100 the tiled design is the faster at the
-    training batch (B = 32, N = 240: 128 blocks) and the row-wise one at a
-    serve forward (B = 1, N = 96-600: 2-10 blocks); PERF.md §6."""
-    return TILED if B * -(-N // 64) >= sms // 2 else ROWWISE
+    ceil(N / 64) blocks a product) number at least a quarter of the SMs;
+    else the resident design up to ``RESIDENT_MAX_N`` nodes, where its
+    shared memory fits; else the row-wise kernel.  On an H100 (PERF.md §6)
+    at N = 240 the resident design is the fastest up to B = 8 (32 tiles)
+    and the tiled products from B = 16 (64 tiles); for one dialogue the
+    resident design is the fastest at the serve buckets up to N = 384 and
+    the row-wise kernel at N = 600."""
+    if B * -(-N // 64) >= sms // 4:
+        return TILED
+    if N <= RESIDENT_MAX_N and resident_smem_bytes(N, H) <= SMEM_MAX:
+        return RESIDENT
+    return ROWWISE
 
 
 def interleave_gates(ih: Tensor, hh: Tensor, b: Tensor) -> Tensor:
@@ -260,7 +302,7 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
     if B == 0 or N == 0 or nl == 0:
         return h.clone()
     if design is None:
-        design = _design(B, N, _sm_count(dev))
+        design = _design(B, N, _sm_count(dev), H)
     if not reason:      # never read by the kernels; any valid pointer will do
         lstm_ih = lstm_hh = lstm_b = wl = h
     elif design == ROWWISE:
@@ -269,8 +311,14 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
         wl = interleave_gates(lstm_ih, lstm_hh, lstm_b)
     out = torch.empty_like(h)
     # the tiled design's training mode keeps its state in the residual
-    # slabs and needs hi only (see the C entry's note)
-    k = 1 if residuals is not None and design != ROWWISE else 4
+    # slabs and needs hi only, the resident design none (see the C entry's
+    # note)
+    if design == RESIDENT:
+        k = 0
+    elif residuals is not None and design == TILED:
+        k = 1
+    else:
+        k = 4
     scratch = torch.empty((k, B, N, H), device=dev)
     fn = _build.load("gcnii_fwd", "gcnii_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -15,7 +15,7 @@ from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
                              gcnii_stack_fwd, gcnii_stack_plain, philox,
                              plain_ops)
 from mmdfn_torch.ops.bigru import _forward as bigru_forward, _sm_count
-from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, _design,
+from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, _design, _lstm_step,
                                    gcnii_fwd_launches,
                                    _forward as gcnii_forward)
 
@@ -187,6 +187,36 @@ def test_gcnii_kernel_matches_plain(B, L, reason):
     torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("nl", [2, 16])
+@pytest.mark.parametrize("reason", [True, False])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("L", [8, 43, 64, 200])
+def test_gcnii_resident_matches_plain(L, B, reason, nl):
+    """Kernel B's resident design (the whole stack in one launch, one
+    cluster a dialogue) at N = 24, 129 (ragged), 192 and 600, one and two
+    dialogues (the second shorter, with masked nodes): against the plain
+    version, bit-equal over two launches, one launch a call."""
+    dev = _card()
+    args, _ = _gcnii_args(dev, B, L, nl, reason, 17 * B + L + nl)
+    if not reason:
+        args = args[:5]
+    args += (None,) * (8 - len(args))
+    opts = dict(alpha=0.2, reason=reason, rate=0.0, seed=None,
+                residuals=None, design=DESIGNS["resident"])
+    before = gcnii_stack_fwd.launches
+    got = gcnii_forward(*args, **opts)
+    again = gcnii_forward(*args, **opts)
+    torch.cuda.synchronize()
+    assert gcnii_stack_fwd.launches - before == 2 == 2 * gcnii_fwd_launches(
+        nl, reason, DESIGNS["resident"])
+    assert torch.equal(got, again)
+    want = gcnii_stack_plain(*args[:5], *args[5:] if reason else (),
+                             alpha=0.2, reason=reason)
+    scale = float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+
+
 def _train_fwd(args, reason, rate, seed, plain):
     adj, h = args[0], args[1]
     B, N, _ = h.shape
@@ -200,6 +230,32 @@ def _train_fwd(args, reason, rate, seed, plain):
     return out, res
 
 
+def _kernel_d_decisions(args, res, reason, tol):
+    """Kernel D's ReLU decisions on the residuals ``res``, one bool (B, N,
+    H) tensor a layer.  Its hi and pre products are kernel B's tiled F2
+    and F3 on the same operands, so kernel B's tiled design, one layer at
+    a time on the stored h1 without reason or dropout, returns relu(pre) as
+    kernel D forms pre.  They may differ from the plain recompute's
+    decisions only where pre is within ``tol`` of 0, where two f32
+    summation orders may round either way."""
+    adj, _, h0, W, theta, ih, hh, lb = args
+    masks = []
+    for l in range(W.shape[0]):
+        masks.append(gcnii_forward(
+            adj, res[3][:, l].contiguous(), h0, W[l:l + 1], theta[l:l + 1],
+            None, None, None, alpha=0.2, reason=False, rate=0.0, seed=None,
+            residuals=None, design=DESIGNS["tiled"]) > 0)
+        h1 = (_lstm_step(res[0][:, l], res[1][:, l], res[2][:, l], ih, hh,
+                         lb)[0] if reason else res[0][:, l])
+        hi = adj @ h1
+        pre = theta[l] * (hi @ W[l, :H] + h0 @ W[l, H:]) \
+            + (1.0 - theta[l]) * (0.8 * hi + 0.2 * h0)
+        differ = masks[l] != (pre > 0.0)
+        if bool(differ.any()):
+            assert float(pre[differ].abs().max()) <= tol, l
+    return masks
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("reason", [True, False])
 @pytest.mark.parametrize("B,L", [(32, 80), (1, 9), (3, 43)])
@@ -207,7 +263,8 @@ def test_gcnii_train_kernels_match_plain(B, L, reason):
     """Kernel B's training mode (dropout 0.4, residuals) and kernel D at the
     training shapes (B = 32, N = 240, 16 layers) and ragged ones (N = 27;
     N = 129 crosses every tile edge of kernel D's products), both against
-    their plain versions on identical residuals."""
+    their plain versions on identical residuals; kernel D at its own ReLU
+    decisions (:func:`_kernel_d_decisions`)."""
     dev = _card()
     args, g = _gcnii_args(dev, B, L, 16, reason, 31 * B + L)
     seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
@@ -224,8 +281,10 @@ def test_gcnii_train_kernels_match_plain(B, L, reason):
     got = gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res, dh,
                           alpha=0.2, reason=reason, rate=0.4, seed=seed)
     torch.cuda.synchronize()
+    masks = _kernel_d_decisions(args, res, reason, 1e-5 * scale)
     ref = gcnii_stack_bwd_plain(adj, h0, W, theta, ih, hh, lb, res, dh,
-                                alpha=0.2, reason=reason, rate=0.4, seed=seed)
+                                alpha=0.2, reason=reason, rate=0.4, seed=seed,
+                                relu_masks=masks)
     for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh",
                            "db"), got, ref):
         # f32; sums over up to B N rows and 16 layers in another order
@@ -263,15 +322,17 @@ def test_gcnii_fwd_ragged_in_every_design(reason, train, design):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("train,L,want", [
+    (False, 64, "resident"), (False, 200, "rowwise"), (True, 80, "tiled")])
 @pytest.mark.parametrize("reason", [True, False])
-def test_gcnii_fwd_is_deterministic_and_counts_its_launches(reason, train):
+def test_gcnii_fwd_is_deterministic_and_counts_its_launches(reason, train, L,
+                                                            want):
     """Two calls of kernel B give the same bits in the output and every
     residual, and each call launches the documented number of kernels (the
-    training batch takes the tiled design, one dialogue the row-wise
-    one)."""
+    training batch takes the tiled design; one dialogue the resident one up
+    to N = 384 nodes, the row-wise one at N = 600)."""
     dev = _card()
-    B, L, nl = (32, 80, 16) if train else (1, 200, 16)
+    B, nl = (32, 16) if train else (1, 16)
     args, _ = _gcnii_args(dev, B, L, nl, reason, 53)
     if not reason:
         args = args[:5]
@@ -290,7 +351,7 @@ def test_gcnii_fwd_is_deterministic_and_counts_its_launches(reason, train):
     second, n2 = run()
     torch.cuda.synchronize()
     design = _design(B, 3 * L, _sm_count(dev))
-    assert design == (DESIGNS["tiled"] if train else DESIGNS["rowwise"])
+    assert design == DESIGNS[want]
     assert n1 == n2 == gcnii_fwd_launches(nl, reason, design)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
