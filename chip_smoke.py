@@ -55,8 +55,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    whose own peak memory is read (``step_peak_mem_gb``); a profiled
    window (device time by kernel, the bi-GRU kernels by name, kernels B
    and D by product); and 20 steps on one batch, whose loss must fall.
+   The step is checked once more on bench.py's own draw order, where a few
+   ReLU decisions of the GCNII stack lie within rounding of 0 (see 6);
+6. meld: MELD at its published depth (GDF with the reason-LSTM, 64 GCNII
+   layers, 9 speakers, full widths, the first combination of the
+   reference's MELD grid) on ``benchmarks/bench_meld.py``'s batch (B = 32
+   dialogues of U[5, 33] turns): the training step against the plain step
+   (loss and every gradient; the ReLU decisions of the stack that differ
+   between the two are counted, and the plain step is held at the
+   kernels' decisions only if the gradients disagree and every differing
+   decision lies within the forward's tolerance of 0), 10 timed steps with
+   launch counts and a profile; ``StreamingSession`` over three synthetic
+   MELD dialogues against the plain model; kernels A and C alone at the
+   CRN's 864 party streams (L = 33) beside cuDNN, kernels B (training
+   mode) and D at B = 32, N = 99, 64 layers, kernel B's serve designs at
+   N = 192, 64 layers; and the command lines: one epoch of
+   ``run_train_erc --dataset MELD``, ``--test_label`` on its directory and
+   the server answering from it.
 
-It prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
+It prints a line per phase, the seconds each took (``phase_s``), a
+``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 ``mmdfn_torch`` package beside it, it exits nonzero before any result.
 """
@@ -94,6 +112,8 @@ HEAD_START_CYCLES_PER_CALL = 400_000   # ~0.2 ms of the card's clock
 CLI_TOL = 2e-4           # the server rounds log-probs to 4 decimals
 STEP_LOSS_RTOL = 1e-5    # training step, kernels vs plain: the loss
 STEP_GRAD_RTOL = 1e-4    # and every gradient, of its max |.|
+MELD_NLAYERS = 64        # MELD's published depth (the reference's MELD grid)
+MELD_B, MELD_L = 32, 33  # benchmarks/bench_meld.py: 32 dialogues of 5-33 turns
 
 
 def check(cond: bool, what: str) -> None:
@@ -462,9 +482,9 @@ def bigru_case(torch, dev, B, L, train=False) -> dict:
             **bound(nbytes, flops)}
 
 
-def gcnii_case(torch, dev, L, reason=True) -> dict:
-    """Kernel B at bucket L: one dialogue, N = 3L nodes, 16 layers; every
-    design checked and timed, ``ms`` the one the wrapper picks."""
+def gcnii_case(torch, dev, L, reason=True, nl=NLAYERS) -> dict:
+    """Kernel B at bucket L: one dialogue, N = 3L nodes, ``nl`` layers;
+    every design checked and timed, ``ms`` the one the wrapper picks."""
     from mmdfn_torch.graph.adjacency import mm_big_adjacency
     from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
     from mmdfn_torch.ops.bigru import _sm_count
@@ -474,7 +494,7 @@ def gcnii_case(torch, dev, L, reason=True) -> dict:
     umask = torch.ones(1, L)
     adj = mm_big_adjacency([torch.randn(1, L, 2 * H, generator=g)
                             for _ in range(3)], umask).to(dev)
-    N, nl = 3 * L, NLAYERS
+    N = 3 * L
     u = lambda *s: (torch.rand(*s, generator=g) * 0.2 - 0.1).to(dev)
     h = torch.relu(torch.randn(1, N, H, generator=g)).to(dev)
     theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
@@ -620,11 +640,12 @@ def bigru_bwd_case(torch, dev, B, L, a_train_ms) -> dict:
                 bound(old_bytes, old_flops)["bound_ms"]}
 
 
-def gcnii_train_inputs(torch, dev, B, L, seed=4):
+def gcnii_train_inputs(torch, dev, B, L, seed=4, nl=NLAYERS, lo=20):
+    """The GCNII stack's operands for B dialogues of U[lo, L] turns."""
     from mmdfn_torch.graph.adjacency import mm_big_adjacency
 
     g = torch.Generator().manual_seed(seed)
-    lengths = torch.randint(20, L + 1, (B,), generator=g)
+    lengths = torch.randint(lo, L + 1, (B,), generator=g)
     umask = (torch.arange(L)[None] < lengths[:, None]).float()
     adj = mm_big_adjacency([torch.randn(B, L, 2 * H, generator=g)
                             * umask[..., None] for _ in range(3)],
@@ -634,26 +655,27 @@ def gcnii_train_inputs(torch, dev, B, L, seed=4):
     h0 = torch.relu(torch.randn(B, N, H, generator=g)).to(dev)
     h = h0 * (torch.rand(B, N, H, generator=g) < 1 - RATE).to(dev) \
         / (1 - RATE)
-    theta = torch.log(0.5 / torch.arange(1, NLAYERS + 1) + 1.0).to(dev)
-    args = (adj, h, h0, u(NLAYERS, 2 * H, H), theta, u(4 * H, H).t(),
+    theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
+    args = (adj, h, h0, u(nl, 2 * H, H), theta, u(4 * H, H).t(),
             u(4 * H, H).t(), u(4 * H))
     return args, g
 
 
-def gcnii_train_case(torch, dev, B, L) -> dict:
+def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20) -> dict:
     """Kernel B's training mode (dropout, residuals) and kernel D at the
-    training shapes, each against its plain version; kernel D on the
-    residuals kernel B wrote, at its own ReLU decisions."""
+    training shapes (B dialogues of U[lo, L] turns, ``nl`` layers), each
+    against its plain version; kernel D on the residuals kernel B wrote, at
+    its own ReLU decisions."""
     from mmdfn_torch.ops import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
                                  gcnii_stack_fwd, gcnii_stack_plain)
     from mmdfn_torch.ops.gcnii import (ROWWISE, RESIDUALS, TILED, _forward,
                                        _lstm_step, gcnii_bwd_splits)
 
-    args, g = gcnii_train_inputs(torch, dev, B, L)
+    args, g = gcnii_train_inputs(torch, dev, B, L, nl=nl, lo=lo)
     adj, h, h0, W, theta, ih, hh, lb = args
     N = 3 * L
     seed = torch.tensor([SEED + 12345], dtype=torch.int64, device=dev)
-    slabs = lambda: [torch.empty(B, NLAYERS, N, H, device=dev)
+    slabs = lambda: [torch.empty(B, nl, N, H, device=dev)
                      for _ in RESIDUALS]
     res, res_p = slabs(), slabs()
     opts = dict(alpha=0.2, reason=True, rate=RATE, seed=seed)
@@ -692,7 +714,7 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
     # flipped decision moves a gradient by up to several percent.
     alpha = opts["alpha"]
     masks, flips, flip_pre = [], 0, 0.0
-    for l in range(NLAYERS):
+    for l in range(nl):
         masks.append(_forward(
             adj, res[3][:, l].contiguous(), h0, W[l:l + 1], theta[l:l + 1],
             None, None, None, alpha=alpha, reason=False, rate=0.0,
@@ -719,7 +741,7 @@ def gcnii_train_case(torch, dev, B, L) -> dict:
         bwd_err = max(bwd_err, e)
         plain_rel[name] = float((a - c).abs().max() / c.abs().max())
 
-    R, nl = B * N, NLAYERS
+    R = B * N
     layer_fwd = 2 * B * N * N * H + 4 * R * H * H + 16 * R * H * H
     fwd_flops = nl * (layer_fwd + 20 * R * H)
     # adj, h, h0, W, theta, LSTM in; h and four residual slabs out
@@ -788,9 +810,12 @@ def mask_check(torch, dev) -> dict:
             "keep_fraction": kept / (nl * B * N * H)}
 
 
-def train_batch(torch, rng, dev, B=TRAIN_B, L=TRAIN_L) -> dict:
+def train_batch(torch, rng, dev, B=TRAIN_B, L=TRAIN_L,
+                labels_last=False) -> dict:
     """bench.py's make_batch recipe: lengths U[20, L], random speakers,
-    standard-normal features, random labels; on the card."""
+    standard-normal features, random labels; on the card.  The labels are
+    drawn before the features, or after them as bench.py draws them with
+    ``labels_last``."""
     import numpy as np
 
     lengths = rng.integers(20, L + 1, size=B)
@@ -801,69 +826,205 @@ def train_batch(torch, rng, dev, B=TRAIN_B, L=TRAIN_L) -> dict:
     qmask *= umask[..., None]
     feat = lambda D: (rng.standard_normal((B, L, D), dtype=np.float32)
                       * umask[..., None])
-    label = (rng.integers(0, 6, size=(B, L)) * umask).astype(np.int64)
+    label = lambda: (rng.integers(0, 6, size=(B, L)) * umask).astype(
+        np.int64)
+    first = None if labels_last else label()
     arrays = dict(text=feat(100), audio=feat(1582), visual=feat(342),
-                  qmask=qmask, umask=umask, label=label)
+                  qmask=qmask, umask=umask)
+    arrays["label"] = label() if labels_last else first
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
 
-def train_phase(torch, dev) -> dict:
-    """The flagship training step at bench.py's production settings."""
+def meld_batch(torch, rng, dev, B=MELD_B, L=MELD_L, speakers=9) -> dict:
+    """``benchmarks/bench_meld.py``'s make_batch recipe: lengths U[5, L],
+    speakers of 9, standard-normal features of MELD's widths (text 600,
+    audio 300, visual 342), then labels of 7 classes; on the card."""
     import numpy as np
+
+    lengths = rng.integers(5, L + 1, size=B)
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    spk = rng.integers(0, speakers, size=(B, L))
+    qmask = np.zeros((B, L, speakers), np.float32)
+    qmask[np.arange(B)[:, None], np.arange(L)[None, :], spk] = 1.0
+    qmask *= umask[..., None]
+    feat = lambda D: (rng.standard_normal((B, L, D), dtype=np.float32)
+                      * umask[..., None])
+    arrays = dict(text=feat(600), audio=feat(300), visual=feat(342),
+                  qmask=qmask, umask=umask)
+    arrays["label"] = (rng.integers(0, 7, size=(B, L)) * umask).astype(
+        np.int64)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+class StackRecorder:
+    """Within the block, keeps the operands of every GCNII stack call that
+    the model makes (``nn/gcn.py``'s ``gcnii_stack_fwd``), detached."""
+
+    def __enter__(self):
+        from mmdfn_torch.nn import gcn
+
+        self.calls, self._orig = [], gcn.gcnii_stack_fwd
+
+        def record(*args, **kw):
+            self.calls.append((tuple(None if a is None else a.detach()
+                                     for a in args), dict(kw)))
+            return self._orig(*args, **kw)
+        gcn.gcnii_stack_fwd = record
+        return self
+
+    def __exit__(self, *exc):
+        from mmdfn_torch.nn import gcn
+
+        gcn.gcnii_stack_fwd = self._orig
+
+
+def relu_decisions(torch, args, kw, plain_args):
+    """The kernels' ReLU decisions in the GCNII stack call ``(args, kw)``
+    (kernel B in training mode, then per layer kernel B's tiled F2 and F3
+    on the stored h1, which are kernel D's P2 and P3 on the same operands),
+    and where they differ from the plain recompute's ``pre > 0`` on the
+    plain step's operands ``plain_args``: (masks, flips, max |pre| among
+    the flips, the forward's tolerance)."""
+    from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
+    from mmdfn_torch.ops.gcnii import RESIDUALS, TILED, _forward
+
+    adj, h, h0, W, theta, ih, hh, lb = args
+    B, N, Hh = h.shape
+    nl = W.shape[0]
+    slabs = lambda: [torch.zeros(B, nl, N, Hh, device=h.device)
+                     for _ in RESIDUALS]
+    res, res_p = slabs(), slabs()
+    with torch.no_grad():
+        gcnii_stack_fwd(*args, residuals=res, **kw)
+        want = gcnii_stack_plain(*plain_args, residuals=res_p, **kw)
+        tol = KERNEL_B_RTOL * max(1.0, float(want.abs().max()))
+        adj_p, _, h0_p, W_p, theta_p = plain_args[:5]
+        alpha = kw["alpha"]
+        masks, flips, flip_pre = [], 0, 0.0
+        for l in range(nl):
+            masks.append(_forward(
+                adj, res[3][:, l].contiguous(), h0, W[l:l + 1],
+                theta[l:l + 1], None, None, None, alpha=alpha, reason=False,
+                rate=0.0, seed=None, residuals=None, design=TILED) > 0)
+            hi = adj_p @ res_p[3][:, l]
+            pre = theta_p[l] * (hi @ W_p[l, :Hh] + h0_p @ W_p[l, Hh:]) \
+                + (1.0 - theta_p[l]) * ((1.0 - alpha) * hi + alpha * h0_p)
+            differ = masks[l] != (pre > 0.0)
+            flips += int(differ.sum())
+            if bool(differ.any()):
+                flip_pre = max(flip_pre, float(pre[differ].abs().max()))
+    return masks, flips, flip_pre, tol
+
+
+def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
+    """One training step with the kernels and one under ``ops.plain_ops()``
+    from the same weights (``cfg.seed``) and step seed: the loss to
+    ``STEP_LOSS_RTOL`` relative and every parameter's gradient to
+    ``STEP_GRAD_RTOL`` of its max |.|; the kernel step must launch all four
+    kernels.
+
+    With ``hold_decisions`` it also counts the GCNII stack's ReLU decisions
+    that differ between the two steps; if the gradients then disagree, the
+    plain step runs again at the kernels' decisions (kernel D and the plain
+    backward recompute the ReLU's input in two f32 summation orders, and a
+    flipped decision moves a gradient by up to percents), which is allowed
+    only where every flipped decision's |pre| is within the forward's
+    tolerance of 0."""
+    import contextlib
+    import functools
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.ops import gcnii as gcnii_ops
+    from mmdfn_torch.train import Trainer
+
+    def one_step(plain, masks=None):
+        tr = Trainer(cfg, device=dev)
+        orig = gcnii_ops.gcnii_stack_plain
+        if masks is not None:
+            gcnii_ops.gcnii_stack_plain = functools.partial(
+                orig, relu_masks=masks)
+        try:
+            with StackRecorder() as rec, (ops.plain_ops() if plain
+                                          else contextlib.nullcontext()):
+                loss, _ = tr.train_step(batch, seed=1)
+            torch.cuda.synchronize()
+        finally:
+            gcnii_ops.gcnii_stack_plain = orig
+        grads = {n: p.grad for n, p in tr.model.named_parameters()}
+        return float(loss), grads, rec.calls
+
+    def compare(loss_k, grads_k, loss_p, grads_p):
+        errs = {}
+        for name, gp in grads_p.items():
+            gk = grads_k[name]
+            check(gk is not None and float(gk.abs().max()) > 0,
+                  f"no gradient reached {name}")
+            errs[name] = float((gk - gp).abs().max()) / float(gp.abs().max())
+        return abs(loss_k - loss_p) / abs(loss_p), errs
+
+    ops.reset_launch_counts()
+    loss_k, grads_k, calls_k = one_step(plain=False)
+    counts = ops.launch_counts()
+    check(all(v > 0 for v in counts.values()),
+          f"the kernel step did not launch every kernel: {counts}")
+    loss_p, grads_p, calls_p = one_step(plain=True)
+    loss_err, errs = compare(loss_k, grads_k, loss_p, grads_p)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": loss_err, "grad_max_rel_err": max(errs.values()),
+           "grad_rel_err_by_param_top": sorted(
+               errs.items(), key=lambda kv: -kv[1])[:5],
+           "launches": counts}
+    ok = loss_err <= STEP_LOSS_RTOL and max(errs.values()) <= STEP_GRAD_RTOL
+    if hold_decisions:
+        check(len(calls_k) == len(calls_p) == 1, "one GCNII stack call a step")
+        (args, kw), (plain_args, _) = calls_k[0], calls_p[0]
+        masks, flips, flip_pre, tol = relu_decisions(torch, args, kw,
+                                                     plain_args)
+        out.update(relu_decisions_differing=flips,
+                   max_abs_pre_where_they_differ=flip_pre,
+                   forward_tolerance=tol, held_at_kernel_decisions=not ok)
+        if not ok:
+            print(json.dumps({"step_check_at_plain_decisions": out}),
+                  flush=True)
+            check(flip_pre <= tol, f"ReLU decisions differ at |pre| = "
+                                   f"{flip_pre} > {tol}")
+            loss_p, grads_p, _ = one_step(plain=True, masks=masks)
+            loss_err, errs = compare(loss_k, grads_k, loss_p, grads_p)
+            out.update(loss_rel_err=loss_err,
+                       grad_max_rel_err=max(errs.values()),
+                       grad_rel_err_by_param_top=sorted(
+                           errs.items(), key=lambda kv: -kv[1])[:5])
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"step loss kernels {loss_k} vs plain {loss_p}")
+    for name, e in errs.items():
+        check(e <= STEP_GRAD_RTOL, f"gradient of {name}: {e} of its scale")
+    return out
+
+
+def timed_steps(torch, dev, cfg, batches, reps=10) -> dict:
+    """The training step's main path: 2 warm-up steps, then ``reps`` timed
+    steps with the launch counts zeroed just before and read just after
+    (all four kernels must show, kernel B with its documented launches),
+    the step's own peak memory, the stream time of chained steps, and a
+    torch.profiler window of 3 steps (device time by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmdfn_torch import ops
-    from mmdfn_torch.config import ExperimentConfig
     from mmdfn_torch.ops.bigru import _sm_count
     from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
     from mmdfn_torch.train import Trainer
 
-    cfg = ExperimentConfig(dataset="IEMOCAP", graph_type="GDF",
-                           reason_flag=True, class_weight=True,
-                           Deep_GCN_nlayers=NLAYERS, batch_size=TRAIN_B,
-                           speaker_weights="3-0-1", dropout=RATE, seed=SEED)
-    rng = np.random.default_rng(SEED)
-    batches = [train_batch(torch, rng, dev) for _ in range(4)]
-
-    # one step with the kernels, one with the plain versions: same weights
-    # (cfg.seed), same step seed
-    def one_step(plain):
-        tr = Trainer(cfg, device=dev)
-        if plain:
-            with ops.plain_ops():
-                loss, _ = tr.train_step(batches[0], seed=1)
-        else:
-            loss, _ = tr.train_step(batches[0], seed=1)
-        torch.cuda.synchronize()
-        return float(loss), {n: p.grad for n, p in
-                             tr.model.named_parameters()}
-    loss_k, grads_k = one_step(plain=False)
-    loss_p, grads_p = one_step(plain=True)
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    check(loss_err <= STEP_LOSS_RTOL, f"step loss kernels {loss_k} vs plain "
-                                      f"{loss_p}")
-    grad_err = 0.0
-    for name, gp in grads_p.items():
-        gk = grads_k[name]
-        check(gk is not None and float(gk.abs().max()) > 0,
-              f"no gradient reached {name}")
-        e = float((gk - gp).abs().max()) / float(gp.abs().max())
-        check(e <= STEP_GRAD_RTOL, f"gradient of {name}: {e} of its scale")
-        grad_err = max(grad_err, e)
-
-    # the main path: 2 warm-up steps, then 10 timed steps with the counts
-    # zeroed just before and read just after
     tr = Trainer(cfg, device=dev)
     for i in range(2):
-        tr.train_step(batches[i % 4], seed=100 + i)
+        tr.train_step(batches[i % len(batches)], seed=100 + i)
     torch.cuda.synchronize()
     script_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     wall, enqueue, losses = [], [], []
-    for i in range(10):
+    for i in range(reps):
         t0 = time.perf_counter()
-        loss, _ = tr.train_step(batches[i % 4], seed=200 + i)
+        loss, _ = tr.train_step(batches[i % len(batches)], seed=200 + i)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
@@ -871,12 +1032,11 @@ def train_phase(torch, dev) -> dict:
         losses.append(float(loss))
     counts = ops.launch_counts()
     step_peak = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {k: v / 10 for k, v in counts.items()}
     check(all(v > 0 for v in counts.values()),
           f"a kernel was not launched by the training step: {counts}")
-    N = 3 * TRAIN_L
-    want = 10 * gcnii_fwd_launches(NLAYERS, True,
-                                   _design(TRAIN_B, N, _sm_count(dev)))
+    B, L = batches[0]["umask"].shape
+    want = reps * gcnii_fwd_launches(cfg.Deep_GCN_nlayers, True,
+                                     _design(B, 3 * L, _sm_count(dev)))
     check(counts["gcnii_fwd"] == want,
           f"GCNII forward launches {counts['gcnii_fwd']} != {want}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
@@ -888,14 +1048,14 @@ def train_phase(torch, dev) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(K):
-        tr.train_step(batches[i % 4], seed=300 + i)
+        tr.train_step(batches[i % len(batches)], seed=300 + i)
     end.record()
     end.synchronize()
     stream_ms = start.elapsed_time(end) / K
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(3):
-            tr.train_step(batches[i % 4], seed=400 + i)
+            tr.train_step(batches[i % len(batches)], seed=400 + i)
         torch.cuda.synchronize()
     kern, notes = device_events(torch, prof)
     if kern:
@@ -918,6 +1078,38 @@ def train_phase(torch, dev) -> dict:
     else:
         profiled = {"device_busy_ms_per_step": "not measured",
                     "idle_share": "not measured"}
+    return {"launches": counts,
+            "launches_per_step": {k: v / reps for k, v in counts.items()},
+            "step_ms_median": step_ms, "step_ms_all": wall,
+            "dialogues_per_sec": B / (step_ms / 1e3),
+            "host_enqueue_ms_per_step": sorted(enqueue)[len(enqueue) // 2],
+            "stream_ms_per_step": stream_ms, **profiled,
+            "step_peak_mem_gb": step_peak,
+            "peak_mem_gb": max(script_peak,
+                               torch.cuda.max_memory_allocated()) / 1e9}
+
+
+def train_phase(torch, dev) -> dict:
+    """The flagship training step at bench.py's production settings."""
+    import numpy as np
+
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.train import Trainer
+
+    cfg = ExperimentConfig(dataset="IEMOCAP", graph_type="GDF",
+                           reason_flag=True, class_weight=True,
+                           Deep_GCN_nlayers=NLAYERS, batch_size=TRAIN_B,
+                           speaker_weights="3-0-1", dropout=RATE, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(4)]
+    checked = step_check(torch, dev, cfg, batches[0])
+    # bench.py draws the labels after the features: on that batch a few
+    # ReLU decisions of the stack lie within rounding of 0
+    bench_order = train_batch(torch, np.random.default_rng(SEED), dev,
+                              labels_last=True)
+    checked_bench = step_check(torch, dev, cfg, bench_order,
+                               hold_decisions=True)
+    timed = timed_steps(torch, dev, cfg, batches)
 
     # 20 steps on one fixed batch: the loss must fall
     tr = Trainer(cfg, device=dev)
@@ -927,17 +1119,171 @@ def train_phase(torch, dev) -> dict:
           f"the loss did not fall over 20 steps on one batch: {fit}")
     return {"shape": f"B={TRAIN_B} L<={TRAIN_L} layers={NLAYERS} "
                      f"dropout={RATE}",
-            "step_loss_rel_err_vs_plain": loss_err,
-            "step_grad_max_rel_err_vs_plain": grad_err,
-            "launches": counts, "launches_per_step": per_step,
-            "step_ms_median": step_ms, "step_ms_all": wall,
-            "dialogues_per_sec": TRAIN_B / (step_ms / 1e3),
-            "host_enqueue_ms_per_step": sorted(enqueue)[len(enqueue) // 2],
-            "stream_ms_per_step": stream_ms, **profiled,
-            "step_peak_mem_gb": step_peak,
-            "peak_mem_gb": max(script_peak,
-                               torch.cuda.max_memory_allocated()) / 1e9,
-            "fixed_batch_losses": fit}
+            "step_loss_rel_err_vs_plain": checked["loss_rel_err"],
+            "step_grad_max_rel_err_vs_plain": checked["grad_max_rel_err"],
+            "step_check_bench_order": checked_bench,
+            **timed, "fixed_batch_losses": fit}
+
+
+def meld_config():
+    """MELD at its published depth: GDF with the reason-LSTM, 64 GCNII
+    layers, the first combination of the reference's MELD grid
+    (``mmdfn_tpu/cli/sweep.py:40-44``)."""
+    from mmdfn_torch.config import ExperimentConfig
+
+    return ExperimentConfig(
+        dataset="MELD", graph_type="GDF", reason_flag=True,
+        Deep_GCN_nlayers=MELD_NLAYERS, batch_size=MELD_B,
+        speaker_weights="0.5-0.5-1.5", class_weight=False, lr=5e-4, l2=1e-4,
+        dropout=RATE, gamma=0.5, seed=SEED, buckets=(MELD_L,))
+
+
+def meld_serve(torch, dev, cfg) -> dict:
+    """The MELD model (fresh weights from the seed) answers every utterance
+    of three synthetic MELD dialogues through ``StreamingSession``, the
+    launch counts zeroed just before and read just after; every append's
+    log-probs against the same model run with the plain versions."""
+    from mmdfn_torch import ops
+    from mmdfn_torch.data.batching import bucket_length
+    from mmdfn_torch.data.datasets import MELDDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_meld_pickle
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
+    from mmdfn_torch.serve import StreamingSession
+    from mmdfn_torch.weights import build_model
+
+    model = build_model(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_meld_pickle(f"{tmp}/meld.pkl", n_train=1, n_test=3,
+                                   min_len=5, max_len=MELD_L, seed=SEED)
+        dialogues = MELDDataset(f"{tmp}/meld.pkl", train=False).dialogues()
+    session = StreamingSession(model, cfg, device=dev)
+    session.warmup()
+
+    def replay(sess):
+        out, lat, used = [], [], []
+        for d in dialogues:
+            sess.reset()
+            for t in range(len(d)):
+                t0 = time.perf_counter()
+                _, logp = sess.append(d.text[t], d.audio[t], d.visual[t],
+                                      int(d.qmask[t].argmax()))
+                lat.append((time.perf_counter() - t0) * 1e3)
+                used.append(bucket_length(t + 1, sess.buckets))
+                out.append(logp)
+        return out, lat, used
+
+    ops.reset_launch_counts()
+    logps, lat, used = replay(session)          # the main path
+    counts = ops.launch_counts()
+    n = len(logps)
+    check(counts["bigru_fwd"] == 4 * n,
+          f"MELD bi-GRU launches {counts['bigru_fwd']} != 4 x {n} appends")
+    sms = _sm_count(dev)
+    want = sum(gcnii_fwd_launches(cfg.Deep_GCN_nlayers, True,
+                                  _design(1, 3 * L, sms)) for L in used)
+    check(counts["gcnii_fwd"] == want,
+          f"MELD GCNII launches {counts['gcnii_fwd']} != {want}")
+    for lp in logps:
+        check(lp.shape == (7,) and bool(all(math.isfinite(v) for v in lp)),
+              "MELD log-probs not finite of shape (7,)")
+    with ops.plain_ops():
+        ref, _, _ = replay(StreamingSession(model, cfg, device=dev))
+    err = max(float(abs(a - b).max()) for a, b in zip(logps, ref))
+    check(err <= SERVE_TOL, f"MELD serve log-probs vs plain: {err}")
+    lat_sorted = sorted(lat)
+    pct = lambda q: lat_sorted[min(n - 1, int(round(q / 100 * (n - 1))))]
+    return {"appends": n, "dialogue_lengths": [len(d) for d in dialogues],
+            "launches": counts, "buckets_used": sorted(set(used)),
+            "wall_p50_ms": pct(50), "wall_p90_ms": pct(90),
+            "max_abs_err_vs_plain": err, "tolerance": SERVE_TOL,
+            "profile": profile_phase(torch, session, 64)}
+
+
+def run_cli(args, stdin=None, timeout=600):
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          input=stdin, capture_output=True, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, f"{args[0]} exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def meld_cli() -> dict:
+    """The user's commands on a synthetic MELD pickle, 64 layers on the
+    card: one epoch of training, ``--test_label`` on its directory, and the
+    server answering three requests from it."""
+    from mmdfn_torch.data.datasets import MELDDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_meld_pickle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl, ckpt, out = f"{tmp}/meld.pkl", f"{tmp}/ckpt", f"{tmp}/out"
+        make_synthetic_meld_pickle(pkl, n_train=MELD_B, n_test=8, min_len=5,
+                                   max_len=MELD_L, seed=SEED)
+        flags = ["--dataset", "MELD", "--data_dir", pkl, "--Deep_GCN_nlayers",
+                 str(MELD_NLAYERS), "--reason_flag", "--speaker_weights",
+                 "0.5-0.5-1.5", "--lr", "0.0005", "--buckets", str(MELD_L)]
+        t0 = time.perf_counter()
+        train_out = run_cli(["mmdfn_torch.cli.run_train_erc", *flags,
+                             "--epochs", "1", "--save_model_dir", ckpt])
+        train_s = time.perf_counter() - t0
+        check("epoch: 0, train_loss: " in train_out, "no MELD epoch line")
+        d = MELDDataset(pkl, train=False).dialogues()[0]
+        lines = [json.dumps({"text": d.text[t].tolist(),
+                             "audio": d.audio[t].tolist(),
+                             "visual": d.visual[t].tolist(),
+                             "speaker": int(d.qmask[t].argmax())})
+                 for t in range(3)]
+        # the evaluation and the server read the same directory: both at once
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(2) as pool:
+            tested = pool.submit(run_cli, [
+                "mmdfn_torch.cli.run_train_erc", *flags, "--test_label",
+                "--load_model", ckpt, "--save_model_dir", out])
+            serving = pool.submit(run_cli, [
+                "mmdfn_torch.cli.serve", "--load_model", ckpt, "--buckets",
+                "8,16,32,64"], "\n".join(lines) + "\n")
+            test_out, served = tested.result(), serving.result()
+        check("test_fscore:" in test_out, "no MELD test_fscore line")
+        import numpy as np
+        preds = np.load(f"{out}/test_pred.npy")
+        check(len(preds) == len(np.load(f"{out}/test_label.npy")) > 0
+              and Path(f"{out}/test_activations.npz").exists(),
+              "--test_label did not write its files")
+        resp = [json.loads(line) for line in served.splitlines()]
+        check(len(resp) == 4 and resp[0].get("ready") and all(
+            len(r["log_probs"]) == 7 for r in resp[1:]),
+            f"MELD serve CLI responses: {resp}")
+    return {"train_epoch_s": train_s, "cli_s": time.perf_counter() - t0,
+            "test_line": [l for l in test_out.splitlines()
+                          if l.startswith("test_acc")][0],
+            "serve_latency_ms": [r["latency_ms"] for r in resp[1:]]}
+
+
+def meld_phase(torch, dev) -> dict:
+    """MELD end to end at its published depth: the training step against
+    the plain step, its timing, serving, the kernels alone at MELD's shapes
+    and the command-line tools."""
+    import numpy as np
+
+    cfg = meld_config()
+    rng = np.random.default_rng(SEED)
+    batches = [meld_batch(torch, rng, dev) for _ in range(4)]
+    checked = step_check(torch, dev, cfg, batches[0], hold_decisions=True)
+    timed = timed_steps(torch, dev, cfg, batches)
+    serve = meld_serve(torch, dev, cfg)
+    streams = MELD_B * 9 * 3          # B x P x M party streams of the CRN
+    a = bigru_case(torch, dev, streams, MELD_L, train=True)
+    c = bigru_bwd_case(torch, dev, streams, MELD_L, a["train_ms"])
+    bd = gcnii_train_case(torch, dev, MELD_B, MELD_L, nl=MELD_NLAYERS, lo=5)
+    resident = gcnii_case(torch, dev, 64, nl=MELD_NLAYERS)
+    return {"config": f"MELD GDF reason {MELD_NLAYERS} layers, B={MELD_B} "
+                      f"L<={MELD_L}, 9 speakers, dropout {RATE}",
+            "step_check": checked, "train": timed, "serve": serve,
+            "kernels": {"bigru_fwd": a, "bigru_bwd": c,
+                        "gcnii_fwd_train": bd["fwd"], "gcnii_bwd": bd["bwd"],
+                        "gcnii_fwd_serve_N192": resident},
+            "cli": meld_cli()}
 
 
 def main() -> int:
@@ -988,6 +1334,8 @@ def main() -> int:
 
     # the kernel checks first, so that the serve and train lines stand near
     # the end of the output; their launches are zeroed before those runs
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     cases_a = {(B, L): bigru_case(torch, dev, B, L)
                for L in (32, 64, 200) for B in (1, 6)}
     for B in (TRAIN_B, 6 * TRAIN_B):     # lstm_l, and rnn_parties' streams
@@ -1013,10 +1361,16 @@ def main() -> int:
         "gcnii_bwd": case_bd["bwd"],
         "dropout mask vs plain Philox": mask}}), flush=True)
 
-    serve = serve_phase(torch, dev)
-    print(json.dumps({"serve": serve}), flush=True)
-    train = train_phase(torch, dev)
-    print(json.dumps({"train": train}), flush=True)
+    seconds["kernels"] = time.perf_counter() - t0
+    results = {}
+    for name, phase in (("serve", serve_phase), ("train", train_phase),
+                        ("meld", meld_phase)):
+        t0 = time.perf_counter()
+        results[name] = phase(torch, dev)
+        seconds[name] = time.perf_counter() - t0
+        print(json.dumps({name: results[name]}), flush=True)
+    print(json.dumps({"phase_s": seconds}), flush=True)
+    train = results["train"]
 
     # the line's numbers: the training step's shapes (the party streams'
     # B = 192 for the bi-GRU kernels; B = 32, N = 240 for the GCNII stack);

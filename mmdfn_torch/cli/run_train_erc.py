@@ -1,34 +1,61 @@
 """Train MM-DFN with the reference's flags (``mmdfn_tpu/cli/run_train_erc.py``)
-on the card, or on the CPU with ``--device cpu``:
+on the card, or on the CPU with ``--device cpu`` (or ``--no_cuda``):
 
     python -m mmdfn_torch.cli.run_train_erc --dataset IEMOCAP \\
         --data_dir IEMOCAP_features.pkl --Deep_GCN_nlayers 16 --lr 0.0003 \\
         --l2 0.0001 --dropout 0.4 --gamma 0.5 --speaker_weights 3-0-1 \\
         --class_weight --reason_flag
+    python -m mmdfn_torch.cli.run_train_erc --dataset MELD \\
+        --data_dir MELD_features_raw.pkl --Deep_GCN_nlayers 64 --lr 0.0005 \\
+        --l2 0.0001 --dropout 0.4 --gamma 0.5 --speaker_weights 0.5-0.5-1.5 \\
+        --reason_flag
 
-The flags are those of the JAX CLI that map onto this slice's fields (the
-base LSTM, the GF/GDF graph, IEMOCAP), with the same names and defaults.
-Flags of families the port does not have yet are accepted and raise
-``NotImplementedError`` naming the later slice, as ``DialogueGNN.from_config``
-does for the other graph families.  Per-epoch lines are the reference's.
+Every flag of the JAX CLI is accepted with the same name and default,
+except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`) and the
+word-level DailyDialogue flags (:data:`LATER_FLAGS`).  A value that selects
+a family the port does not have yet raises ``NotImplementedError`` naming
+the later slice; flags that the JAX package accepts and ignores on the
+GF/GDF path (the relation and DialogRNN families' settings) are accepted
+and ignored here.  ``--test_label`` restores ``best`` from ``--load_model``
+(else ``--save_model_dir``) and evaluates on test.  Per-epoch lines are the
+reference's.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
+import numpy as np
+
 _LATER = "a later slice of the port"
+
+# flags of the JAX CLI that tune XLA or the TPU and have no meaning here
+JAX_ONLY_FLAGS = (
+    "--tpu_fast", "--matmul_precision", "--transfer_dtype", "--param_dtype",
+    "--gcn_compute_dtype", "--rnn_compute_dtype", "--gcn_scan_unroll",
+    "--gcn_scan_remat", "--rnn_fuse_directions", "--rnn_scan_remat",
+    "--rnn_backend", "--gcn_backend", "--gcn_bwd_block", "--rng_impl",
+    "--n_data_devices", "--n_model_devices", "--profile_dir", "--debug_nans")
+# the word-level DailyDialogue flags, which come with that slice
+LATER_FLAGS = ("--vocab_size", "--max_words", "--embedding_dim",
+               "--cnn_filters", "--cnn_output_size")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="MM-DFN trainer on the card (reference-compatible flags)")
     add = p.add_argument
+    add("--no_cuda", action="store_true", default=False,
+        help="run on the CPU (the plain PyTorch versions); same as "
+             "--device cpu")
     add("--dataset", default="IEMOCAP")
     add("--data_dir", type=str,
         default="../data/iemocap/IEMOCAP_features.pkl")
+    add("--multi_modal", action="store_true", default=True)
+    add("--no_multi_modal", dest="multi_modal", action="store_false")
     add("--modals", default="avl")
     add("--mm_fusion_mthd", default="concat_subsequently")
     add("--use_modal", action="store_true", default=False)
@@ -36,9 +63,18 @@ def build_parser() -> argparse.ArgumentParser:
     add("--graph_model", action="store_true", default=True)
     add("--no_graph_model", dest="graph_model", action="store_false")
     add("--graph_type", default="GDF")
+    # the relation and GF2 families' settings, and DialogRNN's: accepted
+    # and, as in the JAX package, unread on the GF/GDF path with base LSTM
+    add("--graph_construct", default="direct")
+    add("--use_gcn", action="store_true", default=False)
+    add("--nodal_attention", action="store_true", default=True)
+    add("--no_nodal_attention", dest="nodal_attention", action="store_false")
+    add("--use_topic", action="store_true", default=False)
     add("--use_residue", action="store_true", default=True)
     add("--no_use_residue", dest="use_residue", action="store_false")
     add("--av_using_lstm", action="store_true", default=False)
+    add("--active_listener", action="store_true", default=False)
+    add("--attention", default="general")
     add("--use_crn_speaker", action="store_true", default=True)
     add("--no_use_crn_speaker", dest="use_crn_speaker", action="store_false")
     add("--speaker_weights", type=str, default="3-0-1")
@@ -51,23 +87,41 @@ def build_parser() -> argparse.ArgumentParser:
     add("--Deep_GCN_nlayers", type=int, default=16)
     add("--lr", type=float, default=0.0003, metavar="LR")
     add("--l2", type=float, default=0.0001, metavar="L2")
+    add("--rec_dropout", type=float, default=0.1, metavar="rec_dropout")
     add("--dropout", type=float, default=0.4, metavar="dropout")
     add("--alpha", type=float, default=0.2)
     add("--lamda", type=float, default=0.5)
     add("--gamma", type=float, default=0.5)
+    add("--windowp", type=int, default=10)
+    add("--windowf", type=int, default=10)
+    add("--multiheads", type=int, default=6)
     add("--loss", default="FocalLoss")
     add("--class_weight", action="store_true", default=False)
     add("--save_model_dir", type=str, default="outputs/iemocap_demo/")
+    add("--tensorboard", action="store_true", default=False,
+        help="write the epoch metrics to <save_model_dir>/tensorboard")
+    add("--test_label", action="store_true", default=False,
+        help="restore 'best' from --load_model (else --save_model_dir), "
+             "evaluate on test and write the labels, predictions and "
+             "activations")
+    add("--load_model", type=str, default="")
     add("--seed", type=int, default=2021)
     add("--patience", type=int, default=5)
     add("--log_jsonl", type=str, default=None,
         help="append per-epoch metric rows to this JSONL file")
+    add("--sort_batches_by_length", action="store_true", default=False,
+        help="training batches of dialogues of similar lengths (less "
+             "padding)")
     add("--resume", action="store_true", default=False,
         help="continue from save_model_dir's 'last' checkpoint")
     add("--faithful_epoch_reseed", action="store_true", default=True,
         help="reference parity: the same dropout seed stream every epoch")
     add("--no_faithful_epoch_reseed", dest="faithful_epoch_reseed",
         action="store_false")
+    add("--edge_attn_type", type=str, default="attn1",
+        choices=["attn1", "attn2", "attn3"],
+        help="the relation family's edge weights; only the default is "
+             "accepted until that family is ported")
     add("--buckets", type=str, default=None,
         help="comma-separated padding lengths, e.g. 16,32,64,128,200")
     add("--device", type=str, default=None,
@@ -76,13 +130,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args):
-    from mmdfn_torch.config import ExperimentConfig
-    if args.dataset != "IEMOCAP":
+    from mmdfn_torch.config import DATASET_INFO, ExperimentConfig
+    if args.dataset not in DATASET_INFO:
         raise NotImplementedError(f"--dataset {args.dataset}: {_LATER}")
     if not args.graph_model:
         raise NotImplementedError(f"--no_graph_model baselines: {_LATER}")
+    if not args.multi_modal:
+        raise NotImplementedError(f"--no_multi_modal: {_LATER}")
     if args.av_using_lstm:
         raise NotImplementedError(f"--av_using_lstm: {_LATER}")
+    if args.edge_attn_type != "attn1":
+        raise NotImplementedError(
+            f"--edge_attn_type {args.edge_attn_type} (the relation family):"
+            f" {_LATER}")
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     if args.buckets:
@@ -92,24 +152,79 @@ def config_from_args(args):
     return ExperimentConfig(**kw)
 
 
+def load_dialogues(cfg, data_dir: str):
+    """(train, valid, test) dialogues of the config's dataset (reference
+    ``run_train_erc.py:29-89``): valid is the first ``valid_rate`` of the
+    training split."""
+    from mmdfn_torch.data.datasets import (IEMOCAPDataset, MELDDataset,
+                                           train_valid_split)
+    if cfg.dataset == "DailyDialogue":
+        raise NotImplementedError(f"--dataset DailyDialogue: {_LATER}")
+    ds_cls = {"IEMOCAP": IEMOCAPDataset, "MELD": MELDDataset}[cfg.dataset]
+    train_all = ds_cls(data_dir, train=True).dialogues()
+    test = ds_cls(data_dir, train=False).dialogues()
+    tr_idx, va_idx = train_valid_split(len(train_all), cfg.valid_rate)
+    return ([train_all[i] for i in tr_idx], [train_all[i] for i in va_idx],
+            test)
+
+
+def _test_label(args, trainer, test) -> int:
+    """Restore ``best`` and evaluate it on test (reference
+    ``run_train_erc.py:531-549``)."""
+    from mmdfn_torch.runtime import checkpoint as ckpt_lib
+
+    load_dir = args.load_model or args.save_model_dir
+    if not ckpt_lib.has_checkpoint(load_dir):
+        print(f"no checkpoint found under {load_dir!r}", file=sys.stderr)
+        return 1
+    ckpt_lib.restore_checkpoint(load_dir, trainer.model)
+    m = trainer.evaluate(test)
+    os.makedirs(args.save_model_dir, exist_ok=True)
+    np.save(os.path.join(args.save_model_dir, "test_label.npy"), m.labels)
+    np.save(os.path.join(args.save_model_dir, "test_pred.npy"), m.preds)
+    trainer.dump_activations(
+        test, os.path.join(args.save_model_dir, "test_activations.npz"))
+    print(m.report)
+    print("test_acc:", m.acc, "test_fscore:", m.fscore)
+    return 0
+
+
+def _tensorboard_writer(save_dir: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("tensorboard not installed; epoch metrics go to stdout/JSONL, "
+              "gradient histograms are skipped")
+        return None
+    return SummaryWriter(log_dir=os.path.join(save_dir, "tensorboard"))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
     cfg = config_from_args(args)
+    device = "cpu" if args.no_cuda else args.device
 
-    from mmdfn_torch.data.datasets import IEMOCAPDataset, train_valid_split
     from mmdfn_torch.train import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
-    train_all = IEMOCAPDataset(args.data_dir, train=True).dialogues()
-    test = IEMOCAPDataset(args.data_dir, train=False).dialogues()
-    tr_idx, va_idx = train_valid_split(len(train_all), cfg.valid_rate)
+    trainer = Trainer(cfg, device=device)
+    train, valid, test = load_dialogues(cfg, args.data_dir)
+    if args.test_label:
+        return _test_label(args, trainer, test)
+
     print("The model have {} parameters in total".format(
         sum(p.numel() for p in trainer.model.parameters())))
-    trainer.fit([train_all[i] for i in tr_idx], test,
-                valid_dialogues=[train_all[i] for i in va_idx],
-                verbose=True, log_path=cfg.log_jsonl,
-                save_dir=args.save_model_dir, resume=args.resume)
+    writer = _tensorboard_writer(args.save_model_dir) if args.tensorboard \
+        else None
+    result = trainer.fit(train, test, valid_dialogues=valid, verbose=True,
+                         log_path=cfg.log_jsonl, save_dir=args.save_model_dir,
+                         resume=args.resume)
+    if writer is not None:
+        for row in result.history:
+            for k, v in row.items():
+                if isinstance(v, (int, float)) and v == v:
+                    writer.add_scalar(k, v, row["epoch"])
+        writer.close()
     return 0
 
 

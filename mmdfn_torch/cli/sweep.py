@@ -1,0 +1,131 @@
+"""The reference's hyperparameter sweeps (``script/run_train_ie.sh`` and
+``run_train_me.sh``: nested bash loops, one process per combination) as
+one process that trains the combinations one after another
+(``mmdfn_tpu/cli/sweep.py``'s sequential path):
+
+  IEMOCAP: layers {16,32} x lr {1e-4,3e-4} x l2 {1e-4,2e-4} x dp {0.2,0.4}
+           x gamma {0.5,1}, speaker_weights 3-0-1, --class_weight --reason_flag
+  MELD:    layers {64,32,16} x lr {5e-4,1e-3} x l2 {1e-4,5e-4} x dp {0.4,0.2}
+           x gamma {0.5,1}, speaker_weights 0.5-0.5-1.5, --reason_flag
+
+Each combination trains under ``<out_dir>/<tag>`` with resume, so a
+preempted one continues from its ``last`` checkpoint; a finished one holds
+a ``final`` checkpoint (its selected weights, the summary row as meta) and
+is skipped by later runs, and ``summary.jsonl`` gains a row only for a
+combination finished in this run.
+
+Usage:
+  python -m mmdfn_torch.cli.sweep --dataset MELD --data_dir .../features.pkl \\
+      [--epochs 30] [--out_dir outputs/sweep_meld] [--limit N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import os
+import sys
+import time
+
+GRIDS = {
+    "IEMOCAP": dict(
+        Deep_GCN_nlayers=[16, 32], lr=[1e-4, 3e-4], l2=[1e-4, 2e-4],
+        dropout=[0.2, 0.4], gamma=[0.5, 1.0],
+        fixed=dict(speaker_weights="3-0-1", class_weight=True,
+                   reason_flag=True, graph_type="GDF", valid_rate=0.0),
+    ),
+    "MELD": dict(
+        Deep_GCN_nlayers=[64, 32, 16], lr=[5e-4, 1e-3], l2=[1e-4, 5e-4],
+        dropout=[0.4, 0.2], gamma=[0.5, 1.0],
+        fixed=dict(speaker_weights="0.5-0.5-1.5", class_weight=False,
+                   reason_flag=True, graph_type="GDF", valid_rate=0.0),
+    ),
+}
+
+
+def combos(dataset: str):
+    grid = dict(GRIDS[dataset])
+    fixed = grid.pop("fixed")
+    keys = list(grid)
+    for values in itertools.product(*(grid[k] for k in keys)):
+        yield {**fixed, **dict(zip(keys, values))}
+
+
+def combo_tag(c: dict) -> str:
+    return ("L{Deep_GCN_nlayers}_lr{lr}_l2{l2}_dp{dropout}_g{gamma}"
+            .format(**c))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="IEMOCAP", choices=sorted(GRIDS))
+    ap.add_argument("--data_dir", type=str, required=True)
+    ap.add_argument("--epochs", type=int, default=30)
+    ap.add_argument("--batch-size", type=int, default=32, dest="batch_size")
+    ap.add_argument("--out_dir", type=str, default=None)
+    ap.add_argument("--limit", type=int, default=0,
+                    help="run only the first N combos (0 = all)")
+    ap.add_argument("--seed", type=int, default=2021)
+    ap.add_argument("--vmap", action="store_true", default=False,
+                    help="train same-shape combinations as one group "
+                         "(not ported yet)")
+    ap.add_argument("--device", type=str, default=None,
+                    help="'cuda' (the default) or 'cpu'")
+    args = ap.parse_args(argv)
+    if args.vmap:
+        raise NotImplementedError(
+            "--vmap (grouped training with a dropout rate per combination "
+            "in kernels B and D): a later slice of the port")
+    out_dir = args.out_dir or f"outputs/sweep_{args.dataset.lower()}"
+    os.makedirs(out_dir, exist_ok=True)
+
+    from mmdfn_torch.cli.run_train_erc import load_dialogues
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.runtime import checkpoint as ckpt_lib
+    from mmdfn_torch.train import Trainer
+
+    base = ExperimentConfig(dataset=args.dataset, epochs=args.epochs,
+                            batch_size=args.batch_size, seed=args.seed)
+    train, valid, test = load_dialogues(base, args.data_dir)
+
+    summary_path = os.path.join(out_dir, "summary.jsonl")
+    best = None
+    todo = list(combos(args.dataset))
+    if args.limit:
+        todo = todo[: args.limit]
+    for i, combo in enumerate(todo):
+        tag = combo_tag(combo)
+        save_dir = os.path.join(out_dir, tag)
+        if ckpt_lib.has_checkpoint(save_dir, name="final"):
+            print(f"[{i + 1}/{len(todo)}] {tag}: already complete, skipping")
+            continue
+        print(f"[{i + 1}/{len(todo)}] {tag}: training")
+        cfg = dataclasses.replace(base, **combo)
+        t0 = time.time()
+        trainer = Trainer(cfg, device=args.device)
+        # resume=True: a preempted combination continues from its 'last'
+        # checkpoint instead of restarting at epoch 0
+        result = trainer.fit(train, test, valid_dialogues=valid,
+                             verbose=False, save_dir=save_dir, resume=True)
+        row = dict(tag=tag, **combo,
+                   best_epoch=result.best_epoch,
+                   best_test_fscore=result.best_test_fscore,
+                   best_test_acc=result.best_test_acc,
+                   seconds=round(time.time() - t0, 1))
+        trainer.model.load_state_dict(result.state_dict)
+        ckpt_lib.save_checkpoint(save_dir, trainer.model, meta=row,
+                                 name="final")
+        with open(summary_path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        print("   ->", row)
+        if best is None or row["best_test_fscore"] > best["best_test_fscore"]:
+            best = row
+    if best:
+        print("BEST:", json.dumps(best))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

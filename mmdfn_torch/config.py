@@ -83,6 +83,8 @@ class ExperimentConfig:
     faithful_epoch_reseed: bool = True      # the same dropout seed stream
                                             # every epoch (reference
                                             # run_train_erc.py:164)
+    sort_batches_by_length: bool = False    # training batches of similar
+                                            # lengths (less padding)
     log_jsonl: Optional[str] = None
 
     @property

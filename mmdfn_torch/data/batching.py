@@ -77,22 +77,29 @@ class BucketBatcher:
 
     Train epochs shuffle dialogue order with a numpy ``Generator`` seeded
     from (seed, epoch), so runs are reproducible; eval keeps dataset order.
+    ``sort_by_length`` then orders the dialogues by length (stably, so ties
+    keep the shuffled order), which cuts the padding of each batch.
     """
 
     def __init__(self, dialogues: Sequence, batch_size: int, n_speakers: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 shuffle: bool = False, seed: int = 2021):
+                 shuffle: bool = False, seed: int = 2021,
+                 sort_by_length: bool = False):
         self.dialogues = list(dialogues)
         self.batch_size = batch_size
         self.n_speakers = n_speakers
         self.buckets = tuple(buckets)
         self.shuffle = shuffle
         self.seed = seed
+        self.sort_by_length = sort_by_length
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
         order = np.arange(len(self.dialogues))
         if self.shuffle:
             np.random.default_rng((self.seed, epoch_idx)).shuffle(order)
+        if self.sort_by_length:
+            order = order[np.argsort([len(self.dialogues[i]) for i in order],
+                                     kind="stable")]
         for s in range(0, len(order), self.batch_size):
             chunk = [self.dialogues[i] for i in order[s:s + self.batch_size]]
             L = bucket_length(max(len(d) for d in chunk), self.buckets)

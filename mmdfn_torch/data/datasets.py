@@ -1,8 +1,10 @@
-"""IEMOCAP feature pickles -> numpy dialogues (the serve and training
-paths' subset of ``mmdfn_tpu/data/datasets.py``).
+"""IEMOCAP and MELD feature pickles -> numpy dialogues (the serve and
+training paths' subset of ``mmdfn_tpu/data/datasets.py``).
 
-The pickle is the reference's 9-tuple of dicts keyed by dialogue id
+IEMOCAP's pickle is the reference's 9-tuple of dicts keyed by dialogue id
 (``dataloader.py:12-14``); speakers are 'M'/'F', one-hot as [1,0]/[0,1].
+MELD's is a 10-tuple whose speakers are already 9-way one-hots
+(``dataloader.py:40-52``).
 """
 
 from __future__ import annotations
@@ -72,6 +74,50 @@ class IEMOCAPDataset:
             qmask=qmask,
             label=np.asarray(self.videoLabels[vid], dtype=np.int32),
         )
+
+    def dialogues(self) -> List[Dialogue]:
+        return [self[i] for i in range(len(self))]
+
+
+class MELDDataset:
+    """MELD 7-way trimodal ERC (reference ``dataloader.py:37-68``).
+
+    The pickle carries a 10th field (unused, ``dataloader.py:42``); qmask is
+    already a 9-way one-hot matrix per utterance (``dataloader.py:52``).
+    """
+
+    n_speakers = 9
+    n_classes = 7
+    target_names = ["neu", "sur", "fea", "sad", "joy", "dis", "ang"]
+
+    def __init__(self, path: str, train: bool = True):
+        with open(path, "rb") as f:
+            (self.videoIDs, self.videoSpeakers, self.videoLabels,
+             self.videoText, self.videoAudio, self.videoVisual,
+             self.videoSentence, self.trainVid, self.testVid,
+             self._extra) = pickle.load(f, encoding="latin1")
+        self.keys = list(self.trainVid if train else self.testVid)
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, index: int) -> Dialogue:
+        vid = self.keys[index]
+        return Dialogue(
+            vid=str(vid),
+            text=_as2d(self.videoText[vid]),
+            visual=_as2d(self.videoVisual[vid]),
+            audio=_as2d(self.videoAudio[vid]),
+            qmask=np.asarray(self.videoSpeakers[vid], dtype=np.float32),
+            label=np.asarray(self.videoLabels[vid], dtype=np.int32),
+        )
+
+    def return_labels(self) -> List[int]:
+        """Every utterance's label, dialogue by dialogue."""
+        out: List[int] = []
+        for key in self.keys:
+            out += list(self.videoLabels[key])
+        return out
 
     def dialogues(self) -> List[Dialogue]:
         return [self[i] for i in range(len(self))]

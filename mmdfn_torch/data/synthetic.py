@@ -1,8 +1,9 @@
-"""Synthetic IEMOCAP pickles in the reference format.
+"""Synthetic IEMOCAP and MELD pickles in the reference formats.
 
 The same seed writes the same pickle as
-``mmdfn_tpu.data.synthetic.make_synthetic_iemocap_pickle`` (the draws are
-made in the same order from the same numpy generator).
+``mmdfn_tpu.data.synthetic.make_synthetic_iemocap_pickle`` and
+``make_synthetic_meld_pickle`` (the draws are made in the same order from
+the same numpy generator).
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ from typing import Tuple
 import numpy as np
 
 from mmdfn_torch.data.datasets import FEAT2DIM
+
+
+def _dialogue_lengths(rng, n, lo, hi):
+    return [int(rng.integers(lo, hi + 1)) for _ in range(n)]
 
 
 def make_synthetic_iemocap_pickle(
@@ -30,8 +35,7 @@ def make_synthetic_iemocap_pickle(
     videoIDs, videoSpeakers, videoLabels = {}, {}, {}
     videoText, videoAudio, videoVisual, videoSentence = {}, {}, {}, {}
     train_vids, test_vids = [], []
-    lengths = [int(rng.integers(min_len, max_len + 1))
-               for _ in range(n_train + n_test)]
+    lengths = _dialogue_lengths(rng, n_train + n_test, min_len, max_len)
     for i, L in enumerate(lengths):
         vid = f"Ses0{i}"
         videoIDs[vid] = [f"{vid}_utt{j}" for j in range(L)]
@@ -45,6 +49,44 @@ def make_synthetic_iemocap_pickle(
         (train_vids if i < n_train else test_vids).append(vid)
     payload = (videoIDs, videoSpeakers, videoLabels, videoText, videoAudio,
                videoVisual, videoSentence, train_vids, test_vids)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return train_vids, test_vids
+
+
+def make_synthetic_meld_pickle(
+    path: str,
+    n_train: int = 8,
+    n_test: int = 4,
+    min_len: int = 3,
+    max_len: int = 16,
+    n_classes: int = 7,
+    n_speakers: int = 9,
+    seed: int = 0,
+) -> Tuple[list, list]:
+    """Write a 10-tuple MELD-format pickle of random dialogues (qmask
+    already one-hot, integer dialogue ids)."""
+    rng = np.random.default_rng(seed)
+    D_t, D_a, D_v = (FEAT2DIM["MELD_text"], FEAT2DIM["MELD_audio"],
+                     FEAT2DIM["denseface"])
+    videoIDs, videoSpeakers, videoLabels = {}, {}, {}
+    videoText, videoAudio, videoVisual, videoSentence = {}, {}, {}, {}
+    train_vids, test_vids = [], []
+    lengths = _dialogue_lengths(rng, n_train + n_test, min_len, max_len)
+    for i, L in enumerate(lengths):
+        vid = i
+        videoIDs[vid] = [f"dia{i}_utt{j}" for j in range(L)]
+        spk = np.zeros((L, n_speakers), dtype=np.float32)
+        spk[np.arange(L), rng.integers(0, n_speakers, size=L)] = 1.0
+        videoSpeakers[vid] = spk
+        videoLabels[vid] = [int(rng.integers(0, n_classes)) for _ in range(L)]
+        videoText[vid] = rng.standard_normal((L, D_t)).astype(np.float32)
+        videoAudio[vid] = rng.standard_normal((L, D_a)).astype(np.float32)
+        videoVisual[vid] = rng.standard_normal((L, D_v)).astype(np.float32)
+        videoSentence[vid] = [f"utterance {j}" for j in range(L)]
+        (train_vids if i < n_train else test_vids).append(vid)
+    payload = (videoIDs, videoSpeakers, videoLabels, videoText, videoAudio,
+               videoVisual, videoSentence, train_vids, test_vids, None)
     with open(path, "wb") as f:
         pickle.dump(payload, f)
     return train_vids, test_vids

@@ -174,10 +174,16 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                       lstm_b: Optional[Tensor] = None, *, alpha: float,
                       reason: bool, rate: float = 0.0,
                       seed: Optional[Tensor] = None,
-                      residuals: Optional[Sequence[Tensor]] = None) -> Tensor:
+                      residuals: Optional[Sequence[Tensor]] = None,
+                      relu_masks: Optional[Sequence[Tensor]] = None
+                      ) -> Tensor:
     """Plain PyTorch version of :func:`gcnii_stack_fwd` (same contract);
     differentiable by autograd.  The dropout mask comes from
-    :mod:`mmdfn_torch.ops.philox`, bit-equal to the kernel's."""
+    :mod:`mmdfn_torch.ops.philox`, bit-equal to the kernel's.
+
+    ``relu_masks``, when given, are each layer's ReLU decisions (as in
+    :func:`gcnii_stack_bwd_plain`) in place of ``pre > 0``: a check holds
+    a training step at the kernels' decisions with them."""
     drop, inv_keep = _dropout_args(rate, seed)
     B, N, H = h.shape
     lh = torch.zeros_like(h)
@@ -196,7 +202,9 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
         hi = adj @ h
         support = hi @ W[l, :H] + h0 @ W[l, H:]
         r = (1.0 - alpha) * hi + alpha * h0
-        h = torch.relu(theta[l] * support + (1.0 - theta[l]) * r)
+        pre = theta[l] * support + (1.0 - theta[l]) * r
+        h = (torch.relu(pre) if relu_masks is None
+             else torch.where(relu_masks[l], pre, 0.0))
         if drop:
             keep = philox.keep_mask(seed, rate, B, l, N, H)
             h = torch.where(keep, h * inv_keep, 0.0)

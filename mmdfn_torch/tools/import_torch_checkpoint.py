@@ -1,0 +1,192 @@
+"""Import a reference (PyTorch) MM-DFN checkpoint into the port.
+
+The reference's only checkpoint format is a whole-module pickle (test mode
+loads ``model = torch.load(args.load_model)``, ``run_train_erc.py:532``);
+a user may also arrive with a ``state_dict`` extracted from one.  The
+port's parameter names are the reference ``DialogueGNNModel`` state_dict
+keys, so the import is a key check: the parameters the reference allocates
+but never runs on the GF/GDF path are dropped by prefix (those that
+``mmdfn_tpu/tools/import_torch_checkpoint.py:_dead_prefixes`` names for
+that family), and the rest loads strictly into the port's ``DialogueGNN``.
+A stray or a missing key is an error that names it.
+
+Scope: graph types GDF and GF with the base LSTM and the
+``concat_subsequently`` head, on IEMOCAP and MELD.  Every other family
+raises ``NotImplementedError``.
+
+CLI (writes a checkpoint directory that ``cli/serve.py --load_model`` and
+``cli/run_train_erc.py --test_label --load_model`` read):
+    python -m mmdfn_torch.tools.import_torch_checkpoint \\
+        --load_model reference_model.pkl --out ckpts/imported \\
+        --dataset MELD --Deep_GCN_nlayers 64
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pickle
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from mmdfn_torch.config import ExperimentConfig
+from mmdfn_torch.models import DialogueGNN
+from mmdfn_torch.runtime import checkpoint as ckpt_lib
+
+_LATER = "a later slice of the port"
+
+# allocated by the reference on the GF/GDF path and never run there
+# (model.py:983, model_mm.py:55-75): the relation family's edge attention,
+# the gated fusion head, and MM_GCN's unused projections and embeddings
+GDF_DEAD = ("att_model.", "gatedatt.", "graph_model.a_fc.",
+            "graph_model.v_fc.", "graph_model.l_fc.",
+            "graph_model.feature_fc.", "graph_model.final_fc.",
+            "graph_model.modal_embeddings.", "graph_model.speaker_embeddings.",
+            "graph_model.a_spk_embs.", "graph_model.v_spk_embs.",
+            "graph_model.l_spk_embs.")
+# GCNII_lyc allocates the reason-LSTM unconditionally (model_GCN.py:433);
+# without the reason flag it never runs
+REASON_LSTM = "graph_model.graph_net.rnn."
+
+
+def dead_prefixes(model: DialogueGNN) -> tuple:
+    """The state_dict prefixes that ``model``'s forward never reads."""
+    live = model.state_dict()
+    reason = any(k.startswith(REASON_LSTM) for k in live)
+    return GDF_DEAD + (() if reason else (REASON_LSTM,))
+
+
+def load_reference(obj_or_path) -> Mapping[str, Any]:
+    """A reference checkpoint's state_dict: from a ``torch.save`` file (a
+    state_dict, or a whole-module pickle whose classes can be imported),
+    or from an in-memory module or state_dict."""
+    obj = obj_or_path
+    if isinstance(obj, (str, bytes)):
+        try:
+            obj = torch.load(obj, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError:
+            # a whole-module pickle: unpickling runs the module's classes'
+            # code, so only a trusted file may be given
+            obj = torch.load(obj_or_path, map_location="cpu",
+                             weights_only=False)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return obj
+
+
+def import_state_dict(sd: Mapping[str, Any], cfg: ExperimentConfig
+                      ) -> DialogueGNN:
+    """The config's port model with the reference weights ``sd`` (tensors
+    or arrays) loaded strictly, the dead prefixes dropped first.
+
+    Raises:
+      NotImplementedError: the config selects a family the port lacks.
+      KeyError: a live key of ``sd`` the model lacks, or a key of the
+        model that ``sd`` lacks; the message names them.
+      ValueError: a key whose shape differs from the model's.
+    """
+    model = DialogueGNN.from_config(cfg)
+    dead = dead_prefixes(model)
+    live = {k: v for k, v in sd.items() if not k.startswith(dead)}
+    want = model.state_dict()
+    stray = sorted(set(live) - set(want))
+    missing = sorted(set(want) - set(live))
+    if stray:
+        raise KeyError(f"reference parameters the port's {cfg.graph_type} "
+                       f"model has no place for: {stray}")
+    if missing:
+        raise KeyError(f"parameters of the port's {cfg.graph_type} model "
+                       f"missing from the checkpoint: {missing}")
+    tensors = {}
+    for k, v in live.items():
+        t = torch.as_tensor(np.asarray(
+            v.detach().cpu() if isinstance(v, torch.Tensor) else v,
+            dtype=np.float32))
+        if t.shape != want[k].shape:
+            raise ValueError(
+                f"shape mismatch importing {k}: checkpoint "
+                f"{tuple(t.shape)} vs model {tuple(want[k].shape)}; the "
+                "architecture flags (Deep_GCN_nlayers, dataset) must match "
+                "the checkpoint's")
+        tensors[k] = t
+    model.load_state_dict(tensors, strict=True)
+    return model
+
+
+def import_reference_checkpoint(obj_or_path, cfg: ExperimentConfig
+                                ) -> DialogueGNN:
+    """:func:`load_reference` then :func:`import_state_dict`."""
+    return import_state_dict(load_reference(obj_or_path), cfg)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--load_model", required=True,
+                    help="reference torch.save file (whole-module pickle "
+                         "or state_dict)")
+    ap.add_argument("--out", required=True,
+                    help="checkpoint directory to write (serve it with "
+                         "mmdfn_torch.cli.serve --load_model)")
+    ap.add_argument("--dataset", default="IEMOCAP",
+                    choices=["IEMOCAP", "MELD"])
+    ap.add_argument("--graph_type", default="GDF",
+                    choices=["GDF", "GF", "GF2", "relation", "DeepGCN",
+                             "GCN3", "None"])
+    ap.add_argument("--Deep_GCN_nlayers", type=int, default=16)
+    ap.add_argument("--no_use_residue", action="store_true",
+                    help="the use_residue=False variant")
+    ap.add_argument("--speaker_weights", type=str, default="3-0-1")
+    ap.add_argument("--reason_flag", choices=["auto", "true", "false"],
+                    default="auto",
+                    help="reason-LSTM inside the GCNII stack; 'auto' = on "
+                         "for GDF, off otherwise")
+    ap.add_argument("--mm_fusion_mthd", default="concat_subsequently",
+                    choices=["concat_subsequently", "concat_only", "gated",
+                             "tfn_only", "lmf_only", "mfn_only", "mfn"],
+                    help="fusion head the checkpoint was trained with")
+    ap.add_argument("--av_using_lstm", action="store_true",
+                    help="checkpoint has lstm_a/lstm_v encoders")
+    ap.add_argument("--use_gcn", action="store_true",
+                    help="the relation family's conv3/conv4 linears "
+                         "(unread on the GF/GDF path)")
+    ap.add_argument("--no_graph_model", dest="graph_model",
+                    action="store_false", default=True,
+                    help="non-graph baseline checkpoint")
+    ap.add_argument("--base_model", default="LSTM",
+                    choices=["LSTM", "GRU", "DialogRNN"])
+    ap.add_argument("--active_listener", action="store_true",
+                    help="DialogRNN's listener state (unread with the base "
+                         "LSTM)")
+    ap.add_argument("--attention", default="general",
+                    choices=["simple", "general"],
+                    help="DialogRNN's context attention (unread with the "
+                         "base LSTM)")
+    args = ap.parse_args(argv)
+    if not args.graph_model:
+        raise NotImplementedError(f"--no_graph_model baselines: {_LATER}")
+    if args.av_using_lstm:
+        raise NotImplementedError(f"--av_using_lstm: {_LATER}")
+
+    reason = ((args.graph_type == "GDF") if args.reason_flag == "auto"
+              else args.reason_flag == "true")
+    cfg = ExperimentConfig(
+        dataset=args.dataset, graph_type=args.graph_type,
+        base_model=args.base_model, reason_flag=reason,
+        Deep_GCN_nlayers=args.Deep_GCN_nlayers,
+        use_residue=not args.no_use_residue,
+        speaker_weights=args.speaker_weights,
+        mm_fusion_mthd=args.mm_fusion_mthd)
+    model = import_reference_checkpoint(args.load_model, cfg)
+    path = ckpt_lib.save_checkpoint(
+        args.out, model, meta={"imported_from": args.load_model,
+                               "config": dataclasses.asdict(cfg)})
+    print(json.dumps({"imported": args.load_model, "checkpoint": path}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

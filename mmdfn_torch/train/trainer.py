@@ -146,7 +146,9 @@ class Trainer:
         cfg = self.cfg
         return BucketBatcher(dialogues, cfg.batch_size,
                              cfg.info["n_speakers"], cfg.buckets,
-                             shuffle=shuffle, seed=cfg.seed)
+                             shuffle=shuffle, seed=cfg.seed,
+                             sort_by_length=(cfg.sort_batches_by_length
+                                             and shuffle))
 
     # ------------------------------------------------------------------
     def run_epoch(self, batches: Sequence, train: bool = False,
@@ -196,6 +198,37 @@ class Trainer:
     def evaluate(self, dialogues) -> EpochMetrics:
         return self.run_epoch(list(self._batcher(dialogues).epoch()),
                               full_report=True)
+
+    def dump_activations(self, dialogues, out_path: str) -> str:
+        """Save every submodule's output for the first eval batch, keyed by
+        its module name (``<name>/k`` for the k-th tensor of a tuple
+        output; the whole model's as ``model``), as one ``.npz``: the
+        reference's ``test_label`` per-layer dumps (``model_GCN.py:474-480``),
+        as ``mmdfn_tpu``'s ``Trainer.dump_activations`` writes them by flax
+        module path."""
+        batch = next(iter(self._batcher(dialogues).epoch()))
+        inputs = prepare_inputs(batch, self.device)
+        out: Dict[str, np.ndarray] = {}
+
+        def hook(name):
+            def save(module, args, output):
+                if isinstance(output, Tensor):
+                    out[name] = output.detach().cpu().numpy()
+                else:
+                    for i, t in enumerate(output):
+                        out[f"{name}/{i}"] = t.detach().cpu().numpy()
+            return save
+
+        handles = [m.register_forward_hook(hook(name or "model"))
+                   for name, m in self.model.named_modules()]
+        try:
+            with torch.no_grad():
+                self._forward(inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        np.savez(out_path, **out)
+        return out_path
 
     # ------------------------------------------------------------------
     def _state_cpu(self) -> Dict[str, Tensor]:

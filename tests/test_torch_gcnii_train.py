@@ -171,9 +171,10 @@ def test_bwd_plain_with_live_dropout_equals_autograd(reason):
 
 @pytest.mark.parametrize("reason", [True, False])
 def test_bwd_plain_at_given_relu_decisions(reason):
-    """The plain backward's ReLU decisions can be given: its own recompute's
-    decisions give the same bits as without them, and the opposite decision
-    on one passing element changes the gradients."""
+    """The plain backward's and the plain forward's ReLU decisions can be
+    given: their own decisions give the same bits as without them, and the
+    opposite decision on one passing element changes the gradients and the
+    output."""
     rng, x, adj, jm, params, theta, dh = _inputs(3, reason)
     T = torch.from_numpy
     g = torch.Generator().manual_seed(3)
@@ -201,6 +202,11 @@ def test_bwd_plain_at_given_relu_decisions(reason):
     flipped = [m.clone() for m in masks]
     flipped[NL - 1][0, 0, int(masks[NL - 1][0, 0].int().argmax())] = False
     assert not torch.equal(run(flipped)[2], want[2])
+    fwd = lambda m: gcnii_stack_plain(T(adj), h, h0, W, T(theta), *lstm,
+                                      alpha=ALPHA, reason=reason,
+                                      relu_masks=m)
+    assert torch.equal(fwd(masks), fwd(None))
+    assert not torch.equal(fwd(flipped), fwd(None))
 
 
 def test_philox_known_answer_and_keep_fraction():

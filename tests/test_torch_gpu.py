@@ -41,9 +41,11 @@ def _bigru_args(dev, B, L, seed):
 
 # every rows-per-block variant of kernels A and C on an H100 (B = 1..66:
 # 1 row, 67: 2, 133 and 192: 4, 300: 4 in more than one wave), ragged
-# tails, L = 1, and the training shapes
+# tails, L = 1, and the training shapes: IEMOCAP's, and MELD's party
+# streams (32 dialogues x 9 speakers x 3 modalities = 864 rows, 4 a block,
+# 432 blocks in more than three waves)
 BIGRU_SHAPES = [(1, 200), (6, 64), (13, 9), (32, 80), (67, 1), (133, 7),
-                (192, 80), (300, 5)]
+                (192, 80), (300, 5), (864, 33)]
 
 
 @pytest.mark.gpu
@@ -137,11 +139,11 @@ def test_bigru_kernels_refuse_a_width_they_do_not_take():
 
 
 @pytest.mark.gpu
-def test_bigru_bwd_weight_gradients_are_deterministic():
+@pytest.mark.parametrize("B,L", [(192, 80), (864, 33)])
+def test_bigru_bwd_weight_gradients_are_deterministic(B, L):
     """Kernel C sums dW_hh and db_hh in a fixed order: two launches give
-    the same bits."""
+    the same bits (at MELD's 864 streams, over 112 row splits)."""
     dev = _card()
-    B, L = 192, 80
     args, g = _bigru_args(dev, B, L, 17)
     ys_hg = bigru_forward(*args, with_hg=True)
     dy = [torch.randn(B, L, H, generator=g).to(dev) for _ in range(2)]
@@ -188,15 +190,16 @@ def test_gcnii_kernel_matches_plain(B, L, reason):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nl", [2, 16])
 @pytest.mark.parametrize("reason", [True, False])
 @pytest.mark.parametrize("B", [1, 2])
-@pytest.mark.parametrize("L", [8, 43, 64, 200])
+@pytest.mark.parametrize("L,nl", [(L, nl) for L in (8, 43, 64, 200)
+                                  for nl in (2, 16)] + [(8, 64), (64, 64)])
 def test_gcnii_resident_matches_plain(L, B, reason, nl):
     """Kernel B's resident design (the whole stack in one launch, one
     cluster a dialogue) at N = 24, 129 (ragged), 192 and 600, one and two
-    dialogues (the second shorter, with masked nodes): against the plain
-    version, bit-equal over two launches, one launch a call."""
+    dialogues (the second shorter, with masked nodes), and at MELD's 64
+    layers: against the plain version, bit-equal over two launches, one
+    launch a call."""
     dev = _card()
     args, _ = _gcnii_args(dev, B, L, nl, reason, 17 * B + L + nl)
     if not reason:
@@ -258,15 +261,17 @@ def _kernel_d_decisions(args, res, reason, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("reason", [True, False])
-@pytest.mark.parametrize("B,L", [(32, 80), (1, 9), (3, 43)])
-def test_gcnii_train_kernels_match_plain(B, L, reason):
+@pytest.mark.parametrize("B,L,nl", [(32, 80, 16), (1, 9, 16), (3, 43, 16),
+                                    (32, 33, 64)])
+def test_gcnii_train_kernels_match_plain(B, L, nl, reason):
     """Kernel B's training mode (dropout 0.4, residuals) and kernel D at the
-    training shapes (B = 32, N = 240, 16 layers) and ragged ones (N = 27;
-    N = 129 crosses every tile edge of kernel D's products), both against
-    their plain versions on identical residuals; kernel D at its own ReLU
-    decisions (:func:`_kernel_d_decisions`)."""
+    training shapes (IEMOCAP's B = 32, N = 240, 16 layers; MELD's B = 32,
+    N = 99, 64 layers, whose second 64-row tile is ragged) and ragged ones
+    (N = 27; N = 129 crosses every tile edge of kernel D's products), both
+    against their plain versions on identical residuals; kernel D at its
+    own ReLU decisions (:func:`_kernel_d_decisions`)."""
     dev = _card()
-    args, g = _gcnii_args(dev, B, L, 16, reason, 31 * B + L)
+    args, g = _gcnii_args(dev, B, L, nl, reason, 31 * B + L)
     seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
     out, res = _train_fwd(args, reason, 0.4, seed, plain=False)
     torch.cuda.synchronize()
@@ -287,7 +292,7 @@ def test_gcnii_train_kernels_match_plain(B, L, reason):
                                 relu_masks=masks)
     for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh",
                            "db"), got, ref):
-        # f32; sums over up to B N rows and 16 layers in another order
+        # f32; sums over up to B N rows and nl layers in another order
         s = float(b.abs().max().clamp(min=1e-6))
         assert float((a - b).abs().max()) <= 1e-4 * s, name
 

@@ -215,7 +215,8 @@ def test_training_cli_runs_on_the_cpu(pickle_path, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "epoch: 0, train_loss: " in out and "Final Test performance" in out
     with pytest.raises(NotImplementedError, match="later slice"):
-        run_train_erc.main(["--device", "cpu", "--dataset", "MELD"])
+        run_train_erc.main(["--device", "cpu", "--dataset",
+                            "DailyDialogue"])
     with pytest.raises(NotImplementedError, match="later slice"):
         run_train_erc.main(["--device", "cpu", "--data_dir", pickle_path,
                             "--graph_type", "relation"])
