@@ -71,7 +71,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    mode) and D at B = 32, N = 99, 64 layers, kernel B's serve designs at
    N = 192, 64 layers; and the command lines: one epoch of
    ``run_train_erc --dataset MELD``, ``--test_label`` on its directory and
-   the server answering from it.
+   the server answering from it;
+7. families: every other multimodal graph family at the flagship's
+   widths and batch (GF2 at its fixed 64 layers on the raw-arccos graph,
+   DeepGCN at 16 layers with and without the reason-LSTM, GCN3, relation,
+   None, each with concat_subsequently): the training step against the
+   plain step (GF2's and DeepGCN's held at the kernels' ReLU decisions as
+   MELD's), 5 timed steps whose kernel B and D launches must equal the
+   documented counts of each GCNII stack call (none for GCN3, relation
+   and None), and one served dialogue against the plain model; the fusion
+   heads gated, mfn, tfn_only and lmf_only each serve it; kernels B
+   (training and serve mode) and D alone at GF2's and DeepGCN's shapes.
 
 It prints a line per phase, the seconds each took (``phase_s``), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -253,14 +263,10 @@ def toolchain(torch, _build) -> dict:
 
 
 def serve_phase(torch, dev) -> dict:
-    from mmdfn_torch import ops
     from mmdfn_torch.config import flagship_config
-    from mmdfn_torch.data.batching import bucket_length
     from mmdfn_torch.data.datasets import IEMOCAPDataset
     from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
-    from mmdfn_torch.ops.bigru import _sm_count
-    from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
-    from mmdfn_torch.serve import StreamingSession, measure_latency
+    from mmdfn_torch.serve import measure_latency
     from mmdfn_torch.weights import build_model
 
     cfg = flagship_config(seed=SEED)
@@ -269,56 +275,12 @@ def serve_phase(torch, dev) -> dict:
         make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=1, n_test=3,
                                       min_len=20, max_len=60, seed=SEED)
         dialogues = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
-    session = StreamingSession(model, cfg, device=dev)
-    session.warmup()
-
-    def replay(sess):
-        out, lat, used = [], [], []
-        for d in dialogues:
-            sess.reset()
-            for t in range(len(d)):
-                t0 = time.perf_counter()
-                _, logp = sess.append(d.text[t], d.audio[t], d.visual[t],
-                                      int(d.qmask[t].argmax()))
-                lat.append((time.perf_counter() - t0) * 1e3)
-                used.append(bucket_length(t + 1, sess.buckets))
-                out.append(logp)
-        return out, lat, used
-
-    ops.reset_launch_counts()
-    logps, lat, used = replay(session)          # the main path
-    counts = ops.launch_counts()
-    n = len(logps)
-    check(counts["bigru_fwd"] == 4 * n,
-          f"bi-GRU launches {counts['bigru_fwd']} != 4 x {n} appends")
-    # kernel B's CUDA launches: its design is picked by the bucket's shape
-    sms = _sm_count(dev)
-    want = sum(gcnii_fwd_launches(cfg.Deep_GCN_nlayers, cfg.reason_flag,
-                                  _design(1, 3 * L, sms)) for L in used)
-    check(counts["gcnii_fwd"] == want,
-          f"GCNII launches {counts['gcnii_fwd']} != {want} for {n} appends")
-    for lp in logps:
-        check(lp.shape == (6,) and bool(all(math.isfinite(v) for v in lp)),
-              "log-probs not finite of shape (6,)")
-        check(abs(math.log(sum(math.exp(v) for v in lp))) < 1e-4,
-              "log-probs do not normalize")
-
-    with ops.plain_ops():
-        ref_logps, _, _ = replay(StreamingSession(model, cfg, device=dev))
-    err = max(float(abs(a - b).max()) for a, b in zip(logps, ref_logps))
-    check(err <= SERVE_TOL, f"serve log-probs vs plain: {err} > {SERVE_TOL}")
-
-    lat_sorted = sorted(lat)
-    pct = lambda q: lat_sorted[min(n - 1, int(round(q / 100 * (n - 1))))]
+    session, logps, out = serve_check(torch, dev, cfg, model, dialogues)
     stats = measure_latency(model, cfg, dialogues, device=dev)
-    cli = cli_phase(dialogues[0], logps[:3])
-    return {"appends": n, "launches": counts,
-            "profile": profile_phase(torch, session, 64),
-            "wall_p50_ms": pct(50), "wall_p90_ms": pct(90),
-            "buckets_used": sorted(set(used)),
-            "max_abs_err_vs_plain": err, "tolerance": SERVE_TOL,
+    return {**out, "profile": profile_phase(torch, session, 64),
             "device_ms_by_bucket": stats["device_ms_by_bucket"],
-            "latency_bench_p50_ms": stats["p50_ms"], "cli": cli}
+            "latency_bench_p50_ms": stats["p50_ms"],
+            "cli": cli_phase(dialogues[0], logps[:3])}
 
 
 def device_events(torch, prof):
@@ -482,9 +444,11 @@ def bigru_case(torch, dev, B, L, train=False) -> dict:
             **bound(nbytes, flops)}
 
 
-def gcnii_case(torch, dev, L, reason=True, nl=NLAYERS) -> dict:
-    """Kernel B at bucket L: one dialogue, N = 3L nodes, ``nl`` layers;
-    every design checked and timed, ``ms`` the one the wrapper picks."""
+def gcnii_case(torch, dev, L, reason=True, nl=NLAYERS,
+               modalities=3) -> dict:
+    """Kernel B at bucket L: one dialogue, N = modalities x L nodes (one
+    modality: DeepGCN's block graph), ``nl`` layers; every design checked
+    and timed, ``ms`` the one the wrapper picks."""
     from mmdfn_torch.graph.adjacency import mm_big_adjacency
     from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
     from mmdfn_torch.ops.bigru import _sm_count
@@ -493,8 +457,8 @@ def gcnii_case(torch, dev, L, reason=True, nl=NLAYERS) -> dict:
     g = torch.Generator().manual_seed(L)
     umask = torch.ones(1, L)
     adj = mm_big_adjacency([torch.randn(1, L, 2 * H, generator=g)
-                            for _ in range(3)], umask).to(dev)
-    N = 3 * L
+                            for _ in range(modalities)], umask).to(dev)
+    N = modalities * L
     u = lambda *s: (torch.rand(*s, generator=g) * 0.2 - 0.1).to(dev)
     h = torch.relu(torch.randn(1, N, H, generator=g)).to(dev)
     theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
@@ -640,45 +604,67 @@ def bigru_bwd_case(torch, dev, B, L, a_train_ms) -> dict:
                 bound(old_bytes, old_flops)["bound_ms"]}
 
 
-def gcnii_train_inputs(torch, dev, B, L, seed=4, nl=NLAYERS, lo=20):
-    """The GCNII stack's operands for B dialogues of U[lo, L] turns."""
-    from mmdfn_torch.graph.adjacency import mm_big_adjacency
+def gcnii_train_inputs(torch, dev, B, L, seed=4, nl=NLAYERS, lo=20,
+                       wiring="GDF"):
+    """The GCNII stack's operands for B dialogues of U[lo, L] turns as a
+    wiring gives them: "GDF" (MM-DFN: the angular cross-modal graph, N =
+    3L, the reason-LSTM, h = dropout(h0)); "GF2" (the raw-arccos graph with
+    constant cross edges, N = 3L, no LSTM, h = dropout(h0)); "DeepGCN"
+    (one modality's angular block graph, N = L, no LSTM, h = h0)."""
+    from mmdfn_torch.graph.adjacency import (gcnii_block_adjacency,
+                                             mm_big_adjacency)
 
     g = torch.Generator().manual_seed(seed)
     lengths = torch.randint(lo, L + 1, (B,), generator=g)
     umask = (torch.arange(L)[None] < lengths[:, None]).float()
-    adj = mm_big_adjacency([torch.randn(B, L, 2 * H, generator=g)
-                            * umask[..., None] for _ in range(3)],
-                           umask).to(dev)
-    N = 3 * L
+    feats = [torch.randn(B, L, 2 * H, generator=g) * umask[..., None]
+             for _ in range(3)]
+    if wiring == "DeepGCN":
+        adj, N = gcnii_block_adjacency(feats[0], umask).to(dev), L
+    else:
+        kw = (dict(variant="arccos", cross_constant=0.99999)
+              if wiring == "GF2" else {})
+        adj, N = mm_big_adjacency(feats, umask, **kw).to(dev), 3 * L
     u = lambda *s: (torch.rand(*s, generator=g) * 0.2 - 0.1).to(dev)
     h0 = torch.relu(torch.randn(B, N, H, generator=g)).to(dev)
     h = h0 * (torch.rand(B, N, H, generator=g) < 1 - RATE).to(dev) \
         / (1 - RATE)
+    if wiring == "DeepGCN":
+        h = h0
     theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
-    args = (adj, h, h0, u(nl, 2 * H, H), theta, u(4 * H, H).t(),
-            u(4 * H, H).t(), u(4 * H))
-    return args, g
+    W = u(nl, 2 * H, H)           # drawn before the LSTM's, as always
+    lstm = ((u(4 * H, H).t(), u(4 * H, H).t(), u(4 * H)) if wiring == "GDF"
+            else (None,) * 3)
+    return (adj, h, h0, W, theta, *lstm), g
 
 
-def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20) -> dict:
+def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20,
+                     wiring="GDF") -> dict:
     """Kernel B's training mode (dropout, residuals) and kernel D at the
     training shapes (B dialogues of U[lo, L] turns, ``nl`` layers), each
     against its plain version; kernel D on the residuals kernel B wrote, at
-    its own ReLU decisions."""
+    its own ReLU decisions.  ``wiring`` as in :func:`gcnii_train_inputs`:
+    GF2's stack has no reason-LSTM and alpha 0.1, DeepGCN's also runs at
+    rate 0 with no seed."""
     from mmdfn_torch.ops import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
                                  gcnii_stack_fwd, gcnii_stack_plain)
     from mmdfn_torch.ops.gcnii import (ROWWISE, RESIDUALS, TILED, _forward,
                                        _lstm_step, gcnii_bwd_splits)
 
-    args, g = gcnii_train_inputs(torch, dev, B, L, nl=nl, lo=lo)
+    args, g = gcnii_train_inputs(torch, dev, B, L, nl=nl, lo=lo,
+                                 wiring=wiring)
     adj, h, h0, W, theta, ih, hh, lb = args
-    N = 3 * L
-    seed = torch.tensor([SEED + 12345], dtype=torch.int64, device=dev)
-    slabs = lambda: [torch.empty(B, nl, N, H, device=dev)
+    N = h.shape[1]
+    reason, r = wiring == "GDF", int(wiring == "GDF")
+    rate = 0.0 if wiring == "DeepGCN" else RATE
+    seed = (torch.tensor([SEED + 12345], dtype=torch.int64, device=dev)
+            if rate else None)
+    # the slabs without reason as GCNIIStackTrain gives them: lh, lc zero
+    slabs = lambda: [torch.zeros(B, nl, N, H, device=dev)
                      for _ in RESIDUALS]
     res, res_p = slabs(), slabs()
-    opts = dict(alpha=0.2, reason=True, rate=RATE, seed=seed)
+    opts = dict(alpha=0.2 if reason else 0.1, reason=reason, rate=rate,
+                seed=seed)
     fwd = lambda: gcnii_stack_fwd(*args, residuals=res, **opts)
     fwd_plain = lambda: gcnii_stack_plain(*args, residuals=res_p, **opts)
     out = fwd()
@@ -719,8 +705,8 @@ def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20) -> dict:
             adj, res[3][:, l].contiguous(), h0, W[l:l + 1], theta[l:l + 1],
             None, None, None, alpha=alpha, reason=False, rate=0.0,
             seed=None, residuals=None, design=TILED) > 0)
-        h1, _, _ = _lstm_step(res[0][:, l], res[1][:, l], res[2][:, l], ih,
-                              hh, lb)
+        h1 = (_lstm_step(res[0][:, l], res[1][:, l], res[2][:, l], ih, hh,
+                         lb)[0] if reason else res[0][:, l])
         hi = adj @ h1
         pre = theta[l] * (hi @ W[l, :H] + h0 @ W[l, H:]) \
             + (1.0 - theta[l]) * ((1.0 - alpha) * hi + alpha * h0)
@@ -734,7 +720,8 @@ def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20) -> dict:
     at_plain = bwd_plain()
     bwd_err, plain_rel = 0.0, {}
     names = ("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh", "db")
-    for name, a, b, c in zip(names, got, ref, at_plain):
+    for name, a, b, c in zip(names[:7 if reason else 4], got, ref,
+                             at_plain):
         e = float((a - b).abs().max())
         tol = KERNEL_D_RTOL * float(b.abs().max())
         check(e <= tol, f"GCNII bwd kernel vs plain, {name}: {e} > {tol}")
@@ -742,16 +729,21 @@ def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20) -> dict:
         plain_rel[name] = float((a - c).abs().max() / c.abs().max())
 
     R = B * N
-    layer_fwd = 2 * B * N * N * H + 4 * R * H * H + 16 * R * H * H
+    # with r = 1 for the reason-LSTM: per layer adj @ h1, the support
+    # products (4 B N H^2) and the LSTM step (16 B N H^2); elementwise
+    layer_fwd = 2 * B * N * N * H + (4 + 16 * r) * R * H * H
     fwd_flops = nl * (layer_fwd + 20 * R * H)
-    # adj, h, h0, W, theta, LSTM in; h and four residual slabs out
+    # adj, h, h0, W, theta, LSTM in; h and the residual slabs out (four
+    # with the LSTM, h and h1 without)
     fwd_bytes = 4 * (B * N * N + 2 * R * H + nl * (2 * H * H + 1)
-                     + 2 * 4 * H * H + 4 * H + R * H + 4 * nl * R * H)
+                     + r * (2 * 4 * H * H + 4 * H) + R * H
+                     + (2 + 2 * r) * nl * R * H)
     # per layer: adj @ h1, adj^T d_hi, d_hi h1^T (6 B N^2 H); the support
     # products, their transposes and dW (12 B N H^2); the LSTM recompute,
     # its input gradients and dW_ih, dW_hh (48 B N H^2 - not counting the
     # bias row); elementwise ~40 B N H
-    bwd_flops = nl * (6 * B * N * N * H + 60 * R * H * H + 40 * R * H)
+    bwd_flops = nl * (6 * B * N * N * H + (12 + 48 * r) * R * H * H
+                      + 40 * R * H)
     # adj, h0, W, the LSTM, four residual slabs and dh in; d_adj, d_h,
     # d_h0, dW and the LSTM gradients out; and what this design keeps
     # between its products, each written once and read once: the gates
@@ -759,20 +751,20 @@ def gcnii_train_case(torch, dev, B, L, nl=NLAYERS, lo=20) -> dict:
     # slab (nl, R, 4H), and the weight-gradient partials (no transposed
     # weight copies)
     splits_w, splits_l = gcnii_bwd_splits(R, nl)
-    scratch = (nl * R * 4 * H + 2 * nl * R * H + nl * R * 4 * H
-               + nl * splits_w * 2 * H * H + splits_l * (2 * H + 1) * 4 * H)
+    scratch = (r * nl * R * 4 * H + 2 * nl * R * H + r * nl * R * 4 * H
+               + nl * splits_w * 2 * H * H
+               + r * splits_l * (2 * H + 1) * 4 * H)
     bwd_bytes = 4 * (2 * B * N * N + 4 * R * H + 2 * nl * 2 * H * H
-                     + 2 * (8 * H * H + 4 * H) + 4 * nl * R * H
+                     + r * 2 * (8 * H * H + 4 * H) + (2 + 2 * r) * nl * R * H
                      + 2 * scratch)
+    shape = f"B={B} N={N} H={H} layers={nl} reason={reason} rate={rate}"
     return {
-        "fwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE} "
-                         "residuals", "max_abs_err": fwd_err,
+        "fwd": {"shape": f"{shape} residuals", "max_abs_err": fwd_err,
                 "tolerance": fwd_tol, "ms": time_ms(torch, fwd, 10),
                 "rowwise_ms": time_ms(torch, fwd_rowwise, 10),
                 "plain_ms": time_ms(torch, fwd_plain, 2),
                 "library_ms": None, **bound(fwd_bytes, fwd_flops)},
-        "bwd": {"shape": f"B={B} N={N} H={H} layers={nl} rate={RATE}",
-                "max_abs_err": bwd_err,
+        "bwd": {"shape": shape, "max_abs_err": bwd_err,
                 "relu_decisions_differing_from_plain": flips,
                 "max_abs_pre_where_they_differ": flip_pre,
                 "rel_err_vs_plain_at_plain_decisions": plain_rel,
@@ -916,12 +908,28 @@ def relu_decisions(torch, args, kw, plain_args):
     return masks, flips, flip_pre, tol
 
 
+def stack_calls(cfg, L: int) -> list:
+    """(layers, reason, nodes) of each GCNII stack call that the config's
+    model makes in a forward at length L: one over the 3L nodes of the
+    stacked modalities (GF, GDF; GF2 at its 64 layers), one per modality
+    (DeepGCN), or none."""
+    gt, M = cfg.graph_type, len(cfg.modals)
+    if gt == "GF2":
+        return [(64, False, M * L)]
+    if gt == "DeepGCN":
+        return [(cfg.Deep_GCN_nlayers, cfg.reason_flag, L)] * M
+    if gt in ("GF", "GDF"):
+        return [(cfg.Deep_GCN_nlayers, cfg.reason_flag and gt == "GDF",
+                 M * L)]
+    return []
+
+
 def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     """One training step with the kernels and one under ``ops.plain_ops()``
     from the same weights (``cfg.seed``) and step seed: the loss to
     ``STEP_LOSS_RTOL`` relative and every parameter's gradient to
-    ``STEP_GRAD_RTOL`` of its max |.|; the kernel step must launch all four
-    kernels.
+    ``STEP_GRAD_RTOL`` of its max |.|; the kernel step must launch kernels
+    A and C, and B and D where the model has a GCNII stack.
 
     With ``hold_decisions`` it also counts the GCNII stack's ReLU decisions
     that differ between the two steps; if the gradients then disagree, the
@@ -931,7 +939,6 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     only where every flipped decision's |pre| is within the forward's
     tolerance of 0."""
     import contextlib
-    import functools
 
     from mmdfn_torch import ops
     from mmdfn_torch.ops import gcnii as gcnii_ops
@@ -940,9 +947,10 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     def one_step(plain, masks=None):
         tr = Trainer(cfg, device=dev)
         orig = gcnii_ops.gcnii_stack_plain
-        if masks is not None:
-            gcnii_ops.gcnii_stack_plain = functools.partial(
-                orig, relu_masks=masks)
+        if masks is not None:      # one list of layer masks a stack call
+            held = iter(masks)
+            gcnii_ops.gcnii_stack_plain = lambda *a, **k: orig(
+                *a, relu_masks=next(held), **k)
         try:
             with StackRecorder() as rec, (ops.plain_ops() if plain
                                           else contextlib.nullcontext()):
@@ -965,8 +973,10 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     ops.reset_launch_counts()
     loss_k, grads_k, calls_k = one_step(plain=False)
     counts = ops.launch_counts()
-    check(all(v > 0 for v in counts.values()),
-          f"the kernel step did not launch every kernel: {counts}")
+    stack = bool(stack_calls(cfg, batch["umask"].shape[1]))
+    check(all((v > 0) == (stack or not k.startswith("gcnii"))
+              for k, v in counts.items()),
+          f"the kernel step did not launch its kernels: {counts}")
     loss_p, grads_p, calls_p = one_step(plain=True)
     loss_err, errs = compare(loss_k, grads_k, loss_p, grads_p)
     out = {"loss_kernels": loss_k, "loss_plain": loss_p,
@@ -976,10 +986,15 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
            "launches": counts}
     ok = loss_err <= STEP_LOSS_RTOL and max(errs.values()) <= STEP_GRAD_RTOL
     if hold_decisions:
-        check(len(calls_k) == len(calls_p) == 1, "one GCNII stack call a step")
-        (args, kw), (plain_args, _) = calls_k[0], calls_p[0]
-        masks, flips, flip_pre, tol = relu_decisions(torch, args, kw,
-                                                     plain_args)
+        want = len(stack_calls(cfg, batch["umask"].shape[1]))
+        check(len(calls_k) == len(calls_p) == want,
+              f"{want} GCNII stack calls a step")
+        per = [relu_decisions(torch, args, kw, plain_args)
+               for (args, kw), (plain_args, _) in zip(calls_k, calls_p)]
+        masks = [p[0] for p in per]
+        flips = sum(p[1] for p in per)
+        flip_pre = max(p[2] for p in per)
+        tol = min(p[3] for p in per)
         out.update(relu_decisions_differing=flips,
                    max_abs_pre_where_they_differ=flip_pre,
                    forward_tolerance=tol, held_at_kernel_decisions=not ok)
@@ -1004,14 +1019,16 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
 def timed_steps(torch, dev, cfg, batches, reps=10) -> dict:
     """The training step's main path: 2 warm-up steps, then ``reps`` timed
     steps with the launch counts zeroed just before and read just after
-    (all four kernels must show, kernel B with its documented launches),
+    (kernels A and C must show, and kernels B and D with their documented
+    launches for each GCNII stack call, or none),
     the step's own peak memory, the stream time of chained steps, and a
     torch.profiler window of 3 steps (device time by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmdfn_torch import ops
     from mmdfn_torch.ops.bigru import _sm_count
-    from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
+    from mmdfn_torch.ops.gcnii import (_design, gcnii_bwd_launches,
+                                       gcnii_fwd_launches)
     from mmdfn_torch.train import Trainer
 
     tr = Trainer(cfg, device=dev)
@@ -1032,13 +1049,18 @@ def timed_steps(torch, dev, cfg, batches, reps=10) -> dict:
         losses.append(float(loss))
     counts = ops.launch_counts()
     step_peak = torch.cuda.max_memory_allocated() / 1e9
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel was not launched by the training step: {counts}")
+    check(counts["bigru_fwd"] > 0 and counts["bigru_bwd"] > 0,
+          f"kernels A and C were not launched by the training step: {counts}")
     B, L = batches[0]["umask"].shape
-    want = reps * gcnii_fwd_launches(cfg.Deep_GCN_nlayers, True,
-                                     _design(B, 3 * L, _sm_count(dev)))
-    check(counts["gcnii_fwd"] == want,
-          f"GCNII forward launches {counts['gcnii_fwd']} != {want}")
+    calls = stack_calls(cfg, L)
+    sms = _sm_count(dev)
+    want = {"gcnii_fwd": reps * sum(
+                gcnii_fwd_launches(nl, reason, _design(B, N, sms))
+                for nl, reason, N in calls),
+            "gcnii_bwd": reps * sum(gcnii_bwd_launches(nl, reason)
+                                    for nl, reason, _ in calls)}
+    for k, v in want.items():
+        check(counts[k] == v, f"{k} launches {counts[k]} != {v}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     step_ms = sorted(wall)[len(wall) // 2]
 
@@ -1138,25 +1160,21 @@ def meld_config():
         dropout=RATE, gamma=0.5, seed=SEED, buckets=(MELD_L,))
 
 
-def meld_serve(torch, dev, cfg) -> dict:
-    """The MELD model (fresh weights from the seed) answers every utterance
-    of three synthetic MELD dialogues through ``StreamingSession``, the
-    launch counts zeroed just before and read just after; every append's
-    log-probs against the same model run with the plain versions."""
+def serve_check(torch, dev, cfg, model, dialogues):
+    """``model`` answers every utterance of ``dialogues`` through
+    ``StreamingSession``, the launch counts zeroed just before and read
+    just after: kernel A twice per bi-GRU a forward, kernel B its
+    documented launches per GCNII stack call; every append's log-probs
+    finite, normalized and within ``SERVE_TOL`` of the same model run with
+    the plain versions.  Returns (the session, the log-probs, a
+    summary)."""
     from mmdfn_torch import ops
     from mmdfn_torch.data.batching import bucket_length
-    from mmdfn_torch.data.datasets import MELDDataset
-    from mmdfn_torch.data.synthetic import make_synthetic_meld_pickle
+    from mmdfn_torch.nn.rnn import BiRNN
     from mmdfn_torch.ops.bigru import _sm_count
     from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
     from mmdfn_torch.serve import StreamingSession
-    from mmdfn_torch.weights import build_model
 
-    model = build_model(cfg)
-    with tempfile.TemporaryDirectory() as tmp:
-        make_synthetic_meld_pickle(f"{tmp}/meld.pkl", n_train=1, n_test=3,
-                                   min_len=5, max_len=MELD_L, seed=SEED)
-        dialogues = MELDDataset(f"{tmp}/meld.pkl", train=False).dialogues()
     session = StreamingSession(model, cfg, device=dev)
     session.warmup()
 
@@ -1177,27 +1195,48 @@ def meld_serve(torch, dev, cfg) -> dict:
     logps, lat, used = replay(session)          # the main path
     counts = ops.launch_counts()
     n = len(logps)
-    check(counts["bigru_fwd"] == 4 * n,
-          f"MELD bi-GRU launches {counts['bigru_fwd']} != 4 x {n} appends")
+    grus = sum(isinstance(m, BiRNN) for m in model.modules())
+    check(counts["bigru_fwd"] == 2 * grus * n,
+          f"bi-GRU launches {counts['bigru_fwd']} != 2 x {grus} x {n}")
     sms = _sm_count(dev)
-    want = sum(gcnii_fwd_launches(cfg.Deep_GCN_nlayers, True,
-                                  _design(1, 3 * L, sms)) for L in used)
+    want = sum(gcnii_fwd_launches(nl, reason, _design(1, N, sms))
+               for L in used for nl, reason, N in stack_calls(cfg, L))
     check(counts["gcnii_fwd"] == want,
-          f"MELD GCNII launches {counts['gcnii_fwd']} != {want}")
+          f"GCNII launches {counts['gcnii_fwd']} != {want}")
+    C = cfg.info["n_classes"]
     for lp in logps:
-        check(lp.shape == (7,) and bool(all(math.isfinite(v) for v in lp)),
-              "MELD log-probs not finite of shape (7,)")
+        check(lp.shape == (C,) and bool(all(math.isfinite(v) for v in lp)),
+              f"log-probs not finite of shape ({C},)")
+        check(abs(math.log(sum(math.exp(v) for v in lp))) < 1e-4,
+              "log-probs do not normalize")
     with ops.plain_ops():
         ref, _, _ = replay(StreamingSession(model, cfg, device=dev))
     err = max(float(abs(a - b).max()) for a, b in zip(logps, ref))
-    check(err <= SERVE_TOL, f"MELD serve log-probs vs plain: {err}")
+    check(err <= SERVE_TOL, f"served log-probs vs plain: {err}")
     lat_sorted = sorted(lat)
     pct = lambda q: lat_sorted[min(n - 1, int(round(q / 100 * (n - 1))))]
-    return {"appends": n, "dialogue_lengths": [len(d) for d in dialogues],
-            "launches": counts, "buckets_used": sorted(set(used)),
-            "wall_p50_ms": pct(50), "wall_p90_ms": pct(90),
-            "max_abs_err_vs_plain": err, "tolerance": SERVE_TOL,
-            "profile": profile_phase(torch, session, 64)}
+    return session, logps, {
+        "appends": n, "dialogue_lengths": [len(d) for d in dialogues],
+        "launches": counts, "buckets_used": sorted(set(used)),
+        "wall_p50_ms": pct(50), "wall_p90_ms": pct(90),
+        "max_abs_err_vs_plain": err, "tolerance": SERVE_TOL}
+
+
+def meld_serve(torch, dev, cfg) -> dict:
+    """The MELD model (fresh weights from the seed) answers every utterance
+    of three synthetic MELD dialogues (:func:`serve_check`); then a
+    profiled forward at bucket 64."""
+    from mmdfn_torch.data.datasets import MELDDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_meld_pickle
+    from mmdfn_torch.weights import build_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_meld_pickle(f"{tmp}/meld.pkl", n_train=1, n_test=3,
+                                   min_len=5, max_len=MELD_L, seed=SEED)
+        dialogues = MELDDataset(f"{tmp}/meld.pkl", train=False).dialogues()
+    session, _, out = serve_check(torch, dev, cfg, build_model(cfg),
+                                  dialogues)
+    return {**out, "profile": profile_phase(torch, session, 64)}
 
 
 def run_cli(args, stdin=None, timeout=600):
@@ -1286,6 +1325,95 @@ def meld_phase(torch, dev) -> dict:
             "cli": meld_cli()}
 
 
+# graph families at the flagship's widths, each with concat_subsequently;
+# DeepGCN at the flagship's 16 layers, GF2 at its fixed 64
+FAMILIES = (("GF2", dict(graph_type="GF2")),
+            ("DeepGCN", dict(graph_type="DeepGCN")),
+            ("DeepGCN reason", dict(graph_type="DeepGCN", reason_flag=True)),
+            ("GCN3", dict(graph_type="GCN3")),
+            ("relation", dict(graph_type="relation")),
+            ("None", dict(graph_type="None")))
+# the fusion heads, each on a family whose features it takes (MFN: GF's
+# fused 3 x 300; the others: DeepGCN's per-modality 300)
+HEADS = (("gated", dict(graph_type="DeepGCN", mm_fusion_mthd="gated")),
+         ("mfn", dict(graph_type="GF", mm_fusion_mthd="mfn")),
+         ("tfn_only", dict(graph_type="DeepGCN", mm_fusion_mthd="tfn_only")),
+         ("lmf_only", dict(graph_type="DeepGCN", mm_fusion_mthd="lmf_only")))
+TIMED_KEYS = ("launches_per_step", "step_ms_median", "dialogues_per_sec",
+              "host_enqueue_ms_per_step", "stream_ms_per_step",
+              "device_busy_ms_per_step", "idle_share", "device_ops_per_step",
+              "step_peak_mem_gb", "gcnii_fwd_kernels", "gcnii_bwd_kernels",
+              "top")
+
+
+def family_config(**kw):
+    """IEMOCAP at the flagship's settings (class weights, focal loss,
+    dropout 0.4, speaker weights 3-0-1, weights from the seed) with
+    another graph family or head."""
+    from mmdfn_torch.config import ExperimentConfig
+
+    return ExperimentConfig(dataset="IEMOCAP", class_weight=True,
+                            Deep_GCN_nlayers=NLAYERS, batch_size=TRAIN_B,
+                            speaker_weights="3-0-1", dropout=RATE, seed=SEED,
+                            **kw)
+
+
+def families_phase(torch, dev) -> dict:
+    """Every multimodal graph family at the flagship's widths: for each, the
+    training step against the plain step (held at the kernels' ReLU
+    decisions where GCNII stacks run, as the MELD step), 5 timed steps with
+    launch counts and a profile, and one served dialogue against the plain
+    model; each fusion head serves the dialogue; kernels B (training mode)
+    and D alone at GF2's and DeepGCN's training shapes, and B's serve
+    mode at their bucket-64 shapes."""
+    import numpy as np
+
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.weights import build_model
+
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=1, n_test=1,
+                                      min_len=30, max_len=40, seed=SEED)
+        dialogue = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
+    out = {"shape": f"IEMOCAP B={TRAIN_B} L<={TRAIN_L} dropout={RATE}; "
+                    f"serve one dialogue of {len(dialogue[0])} turns"}
+    for name, kw in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = family_config(**kw)
+        stack = bool(stack_calls(cfg, TRAIN_L))
+        checked = step_check(torch, dev, cfg, batches[0],
+                             hold_decisions=stack)
+        timed = timed_steps(torch, dev, cfg, batches, reps=5)
+        served = serve_check(torch, dev, cfg, build_model(cfg), dialogue)[2]
+        out[name] = {"step_check": checked,
+                     "train": {k: timed[k] for k in TIMED_KEYS
+                               if k in timed},
+                     "serve": served, "seconds": time.perf_counter() - t0}
+        print(json.dumps({"family": name, "step_ms_median":
+                          timed["step_ms_median"],
+                          "seconds": out[name]["seconds"]}), flush=True)
+    out["heads"] = {name: serve_check(torch, dev, family_config(**kw),
+                                      build_model(family_config(**kw)),
+                                      dialogue)[2]
+                    for name, kw in HEADS}
+    gf2 = gcnii_train_case(torch, dev, TRAIN_B, TRAIN_L, nl=64,
+                           wiring="GF2")
+    deep = gcnii_train_case(torch, dev, TRAIN_B, TRAIN_L, wiring="DeepGCN")
+    out["kernels"] = {
+        "gcnii_fwd_train_GF2": gf2["fwd"], "gcnii_bwd_GF2": gf2["bwd"],
+        "gcnii_fwd_train_DeepGCN": deep["fwd"],
+        "gcnii_bwd_DeepGCN": deep["bwd"],
+        # serve mode at bucket 64: GF2's N = 192, DeepGCN's N = 64 a call
+        "gcnii_fwd_serve_GF2": gcnii_case(torch, dev, 64, reason=False,
+                                          nl=64),
+        "gcnii_fwd_serve_DeepGCN": gcnii_case(torch, dev, 64, reason=False,
+                                              modalities=1)}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1364,7 +1492,7 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("serve", serve_phase), ("train", train_phase),
-                        ("meld", meld_phase)):
+                        ("meld", meld_phase), ("families", families_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0

@@ -12,12 +12,14 @@ on the card, or on the CPU with ``--device cpu`` (or ``--no_cuda``):
 
 Every flag of the JAX CLI is accepted with the same name and default,
 except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`) and the
-word-level DailyDialogue flags (:data:`LATER_FLAGS`).  A value that selects
-a family the port does not have yet raises ``NotImplementedError`` naming
-the later slice; flags that the JAX package accepts and ignores on the
-GF/GDF path (the relation and DialogRNN families' settings) are accepted
-and ignored here.  ``--test_label`` restores ``best`` from ``--load_model``
-(else ``--save_model_dir``) and evaluates on test.  Per-epoch lines are the
+word-level DailyDialogue flags (:data:`LATER_FLAGS`).  Every multimodal
+graph family (``--graph_type`` GDF, GF, GF2, DeepGCN, GCN3, relation,
+None) trains with any multimodal ``--mm_fusion_mthd``; a value that
+selects what the port does not have yet (the single-stream path, the
+non-graph baselines, DialogRNN) raises ``NotImplementedError`` naming the
+later slice, and DialogRNN's settings are accepted and ignored.
+``--test_label`` restores ``best`` from ``--load_model`` (else
+``--save_model_dir``) and evaluates on test.  Per-epoch lines are the
 reference's.
 """
 
@@ -63,8 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
     add("--graph_model", action="store_true", default=True)
     add("--no_graph_model", dest="graph_model", action="store_false")
     add("--graph_type", default="GDF")
-    # the relation and GF2 families' settings, and DialogRNN's: accepted
-    # and, as in the JAX package, unread on the GF/GDF path with base LSTM
     add("--graph_construct", default="direct")
     add("--use_gcn", action="store_true", default=False)
     add("--nodal_attention", action="store_true", default=True)
@@ -120,8 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_false")
     add("--edge_attn_type", type=str, default="attn1",
         choices=["attn1", "attn2", "attn3"],
-        help="the relation family's edge weights; only the default is "
-             "accepted until that family is ported")
+        help="the relation family's edge weights")
     add("--buckets", type=str, default=None,
         help="comma-separated padding lengths, e.g. 16,32,64,128,200")
     add("--device", type=str, default=None,
@@ -137,12 +136,6 @@ def config_from_args(args):
         raise NotImplementedError(f"--no_graph_model baselines: {_LATER}")
     if not args.multi_modal:
         raise NotImplementedError(f"--no_multi_modal: {_LATER}")
-    if args.av_using_lstm:
-        raise NotImplementedError(f"--av_using_lstm: {_LATER}")
-    if args.edge_attn_type != "attn1":
-        raise NotImplementedError(
-            f"--edge_attn_type {args.edge_attn_type} (the relation family):"
-            f" {_LATER}")
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     if args.buckets:

@@ -12,7 +12,9 @@ Each combination trains under ``<out_dir>/<tag>`` with resume, so a
 preempted one continues from its ``last`` checkpoint; a finished one holds
 a ``final`` checkpoint (its selected weights, the summary row as meta) and
 is skipped by later runs, and ``summary.jsonl`` gains a row only for a
-combination finished in this run.
+combination finished in this run.  ``--graph_type`` runs the grid on
+another multimodal graph family than the scripts' GDF (its tags then
+start with the family's name); ``mmdfn_tpu``'s sweep has no such flag.
 
 Usage:
   python -m mmdfn_torch.cli.sweep --dataset MELD --data_dir .../features.pkl \\
@@ -54,8 +56,9 @@ def combos(dataset: str):
 
 
 def combo_tag(c: dict) -> str:
-    return ("L{Deep_GCN_nlayers}_lr{lr}_l2{l2}_dp{dropout}_g{gamma}"
-            .format(**c))
+    tag = ("L{Deep_GCN_nlayers}_lr{lr}_l2{l2}_dp{dropout}_g{gamma}"
+           .format(**c))
+    return tag if c["graph_type"] == "GDF" else f"{c['graph_type']}_{tag}"
 
 
 def main(argv=None) -> int:
@@ -68,6 +71,10 @@ def main(argv=None) -> int:
     ap.add_argument("--limit", type=int, default=0,
                     help="run only the first N combos (0 = all)")
     ap.add_argument("--seed", type=int, default=2021)
+    ap.add_argument("--graph_type", default="GDF",
+                    choices=["GDF", "GF", "GF2", "DeepGCN", "GCN3",
+                             "relation", "None"],
+                    help="the graph family the grid trains")
     ap.add_argument("--vmap", action="store_true", default=False,
                     help="train same-shape combinations as one group "
                          "(not ported yet)")
@@ -92,7 +99,8 @@ def main(argv=None) -> int:
 
     summary_path = os.path.join(out_dir, "summary.jsonl")
     best = None
-    todo = list(combos(args.dataset))
+    todo = [dict(c, graph_type=args.graph_type)
+            for c in combos(args.dataset)]
     if args.limit:
         todo = todo[: args.limit]
     for i, combo in enumerate(todo):

@@ -17,6 +17,8 @@ from mmdfn_torch.data.datasets import FEAT2DIM
 D_E = 100              # encoder hidden size (run_train_erc.py:387-392)
 GRAPH_H = 100          # GCNII hidden size
 HIDDEN_MODALITY = 200  # per-modality projection width (model.py:847-849)
+MAX_SEQ_LEN = 200      # the relation edge attention's channels
+                       # (run_train_erc.py:421)
 
 # the reference's class weights (run_train_erc.py:398-414)
 IEMOCAP_CLASS_WEIGHTS = [
@@ -50,13 +52,20 @@ DATASET_INFO = {
 @dataclass
 class ExperimentConfig:
     """The serve- and training-path fields of the reference flag surface
-    (same names, same defaults)."""
+    (same names, same defaults).  A checkpoint's saved config that lacks
+    a field (one written before the field was added) takes its default."""
 
     dataset: str = "IEMOCAP"
+    multi_modal: bool = True
     modals: str = "avl"
     mm_fusion_mthd: str = "concat_subsequently"
     base_model: str = "LSTM"
+    graph_model: bool = True
     graph_type: str = "GDF"
+    graph_construct: str = "direct"         # GF2's cross-modal graph
+    use_gcn: bool = False                   # relation: conv3/conv4
+    nodal_attention: bool = True
+    av_using_lstm: bool = False             # bi-GRUs over audio and visual
     reason_flag: bool = False
     Deep_GCN_nlayers: int = 16
     alpha: float = 0.2
@@ -67,6 +76,9 @@ class ExperimentConfig:
     use_speaker: bool = False
     use_modal: bool = False
     use_crn_speaker: bool = True
+    windowp: int = 10                       # relation: the edge window
+    windowf: int = 10
+    edge_attn_type: str = "attn1"           # relation: edge weights
     seed: int = 2021
     # training (mmdfn_tpu/config.py:89-115)
     epochs: int = 30

@@ -1,4 +1,4 @@
-"""Models on the serve path."""
+"""The multimodal ERC model and its graph families."""
 
 from mmdfn_torch.models.dialogue_gnn import DialogueGNN
 

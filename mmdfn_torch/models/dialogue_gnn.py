@@ -1,105 +1,226 @@
-"""The ERC model on the serve path (``mmdfn_tpu/models/dialogue_gnn.py``):
-only ``base_model='LSTM'``, multimodal, graph type ``GF``/``GDF``
-(``dialogue_gnn.py:195-326``).
+"""The multimodal ERC model (``mmdfn_tpu/models/dialogue_gnn.py``,
+reference ``DialogueGNNModel``, ``model.py:784-1407``): base encoder x
+graph family x fusion head.
 
-Encoders: ``linear_a/v/l`` project each modality to 200; ``lstm_l`` (a
-bi-GRU) encodes the text; the shared ``rnn_parties`` bi-GRU runs over the
-three stacked modality projections at once and adds ``sw[m] * delta`` per
-modality (a weight of 0 is still multiplied).  Then ``MMGCN``, ReLU,
-``smax_fc`` and ``log_softmax``.  Submodule and parameter names are the
-reference ``DialogueGNNModel.state_dict()`` keys.
+Encoders (``base_model='LSTM'``): ``linear_a/v/l`` project each modality to
+200; ``lstm_l`` (a bi-GRU) encodes the text, and with ``av_using_lstm``
+``lstm_a`` and ``lstm_v`` the audio and visual; the shared ``rnn_parties``
+bi-GRU runs over the three stacked projections at once and adds
+``sw[m] * delta`` per modality (a weight of 0 is still multiplied).
+``base_model='None'`` keeps the projections alone.
 
-``forward(..., train=True, generator=g)`` is the training forward: the
-encoders' inter-layer dropout, the GCNII stack's dropouts and the head's
-``dropout_`` (``mmdfn_tpu/models/dialogue_gnn.py:322-323``), all drawn from
-``g``; without it every dropout is the identity.
+Graph families (``dialogue_gnn.py:303-441``):
+
+* ``GDF`` / ``GF``: :class:`MMGCN` (MM-DFN with the reason-LSTM / MMGCN);
+* ``GF2``: :class:`MMGCN2`, 64 layers, lamda 0.5, alpha 0.1 (hard-coded);
+* ``DeepGCN``: a :class:`DeepGCNII` per modality (lamda 0.5, alpha 0.1);
+* ``GCN3``: a :class:`GCN2Layers` per modality;
+* ``relation``: a :class:`GraphNetwork` per modality, the edge weights of
+  all three from the *last* modality's features (a reference quirk,
+  ``model.py:1183-1223``);
+* ``'None'``: a linear per modality beside its input.
+
+The per-modality families end in a fusion head (``_fuse``):
+concatenation, the gated attention, MFN, TFN or LMF; ``'mfn'`` also runs
+MFN over the fused features of GF, GDF and GF2.  Then dropout, ReLU
+(except after relation and ``'None'``), ``smax_fc`` and ``log_softmax``.
+Submodule and parameter names are the reference ``state_dict()`` keys.
+
+``forward(..., train=True, generator=g)`` is the training forward, every
+dropout drawn from ``g``; without it every dropout is the identity.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
-from mmdfn_torch.config import D_E, GRAPH_H, HIDDEN_MODALITY, ExperimentConfig
-from mmdfn_torch.models.mm_gcn import MMGCN
+from mmdfn_torch.config import (D_E, DATASET_INFO, GRAPH_H, HIDDEN_MODALITY,
+                                MAX_SEQ_LEN, ExperimentConfig)
+from mmdfn_torch.graph.relation import relation_type_ids, window_edge_mask
+from mmdfn_torch.models.mm_gcn import MMGCN, MMGCN2, DeepGCNII
+from mmdfn_torch.models.relation_net import GraphNetwork
+from mmdfn_torch.nn.attention import MaskedEdgeAttention, MMGatedAttention
 from mmdfn_torch.nn.dropout import dropout
-from mmdfn_torch.nn.gcn import GCNIIStack
+from mmdfn_torch.nn.fusion import LMF, MFN, TFN
+from mmdfn_torch.nn.gcn import GCN2Layers
+from mmdfn_torch.nn.init import reset_linear
 from mmdfn_torch.nn.rnn import BiRNN, crn_party_delta
 
 Tensor = torch.Tensor
 
-_LATER = "a later slice of the port (other graph families)"
+_LATER = ("a later slice of the port (the single-stream path with "
+          "MatchingAttention, the non-graph baselines, DialogRNN)")
+
+GRAPH_TYPES = ("GF", "GDF", "GF2", "DeepGCN", "GCN3", "relation", "None")
+FUSIONS = ("concat_subsequently", "concat_only", "gated", "mfn", "mfn_only",
+           "tfn_only", "lmf_only")
+GF2_NLAYERS = 64     # MMGCN2's depth, hard-coded upstream (model.py:956)
 
 
 class DialogueGNN(nn.Module):
     """Top-level ERC model; construct with :meth:`from_config`."""
 
-    def __init__(self, D_text: int, D_audio: int, D_visual: int,
-                 n_classes: int, modals: str = "avl", nlayers: int = 16,
-                 lamda: float = 0.5, alpha: float = 0.2,
-                 reason_flag: bool = False, speaker_weights: str = "3-0-1",
-                 use_crn_speaker: bool = True, use_residue: bool = True,
-                 modal_weight: float = 1.0, dropout: float = 0.0):
+    def __init__(self, cfg: ExperimentConfig):
         super().__init__()
-        self.modals = modals
-        self.dropout = dropout
-        self.use_crn_speaker = use_crn_speaker
-        sw = list(map(float, speaker_weights.split("-")))
+        info = cfg.info
+        self.order = [m for m in "avl" if m in cfg.modals]
+        self.graph_type = gt = cfg.graph_type
+        self.fusion = cfg.mm_fusion_mthd
+        self.dropout = cfg.dropout
+        self.windows = (cfg.windowp, cfg.windowf)
+        lstm = cfg.base_model == "LSTM"
+        self.use_crn_speaker = lstm and cfg.use_crn_speaker
+        sw = list(map(float, cfg.speaker_weights.split("-")))
         self.speaker_weight = {"a": sw[0], "v": sw[1], "l": sw[2]}
-        dims = {"a": D_audio, "v": D_visual, "l": D_text}
-        for m in "avl":
-            if m in modals:
-                setattr(self, f"linear_{m}", nn.Linear(dims[m], HIDDEN_MODALITY))
-        if "l" in modals:
-            self.lstm_l = BiRNN(HIDDEN_MODALITY, D_E, dropout=dropout)
-        if use_crn_speaker:
-            self.rnn_parties = BiRNN(HIDDEN_MODALITY, D_E, dropout=dropout)
-        self.graph_model = MMGCN(
-            2 * D_E, nlayers, GRAPH_H, lamda=lamda, alpha=alpha,
-            use_residue=use_residue, modals=modals, reason_flag=reason_flag,
-            modal_weight=modal_weight, dropout=dropout)
-        feat = len(modals) * (2 * D_E + GRAPH_H if use_residue else GRAPH_H)
-        self.smax_fc = nn.Linear(feat, n_classes)
+        dims = {"a": info["D_audio"], "v": info["D_visual"],
+                "l": info["D_text"]}
+        for m in self.order:
+            setattr(self, f"linear_{m}", nn.Linear(dims[m], HIDDEN_MODALITY))
+        for m in self.order:
+            if lstm and (m == "l" or cfg.av_using_lstm):
+                setattr(self, f"lstm_{m}", BiRNN(HIDDEN_MODALITY, D_E,
+                                                 dropout=cfg.dropout))
+        if self.use_crn_speaker:
+            self.rnn_parties = BiRNN(HIDDEN_MODALITY, D_E, dropout=cfg.dropout)
+
+        M, n_dim, res = len(self.order), 2 * D_E, cfg.use_residue
+        if gt in ("GF", "GDF"):
+            self.graph_model = MMGCN(
+                n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=cfg.lamda,
+                alpha=cfg.alpha, use_residue=res, modals=cfg.modals,
+                reason_flag=cfg.reason_flag and gt == "GDF",
+                modal_weight=cfg.modal_weight, dropout=cfg.dropout,
+                n_speakers=info["n_speakers"], use_speaker=cfg.use_speaker,
+                use_modal=cfg.use_modal)
+            feat = M * (n_dim + GRAPH_H if res else GRAPH_H)
+        elif gt == "GF2":
+            self.graph_model = MMGCN2(
+                n_dim, GF2_NLAYERS, GRAPH_H, lamda=0.5, alpha=0.1,
+                use_residue=res, modals=cfg.modals,
+                graph_construct=cfg.graph_construct, dropout=cfg.dropout)
+            feat = (n_dim if res else 0) + M * GRAPH_H
+        else:
+            if gt == "relation":
+                self.att_model = MaskedEdgeAttention(
+                    n_dim, MAX_SEQ_LEN, cfg.edge_attn_type)
+                net = lambda: GraphNetwork(
+                    n_dim, 2 * info["n_speakers"] ** 2, GRAPH_H, cfg.use_gcn)
+                width = n_dim + GRAPH_H * (2 if cfg.use_gcn else 1)
+            elif gt == "DeepGCN":
+                net = lambda: DeepGCNII(
+                    n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=0.5,
+                    alpha=0.1, use_residue=res, reason_flag=cfg.reason_flag,
+                    dropout=cfg.dropout)
+                width = n_dim + GRAPH_H if res else GRAPH_H
+            elif gt == "GCN3":
+                net = lambda: GCN2Layers(n_dim, GRAPH_H, info["n_classes"],
+                                         use_residue=res)
+                width = n_dim + GRAPH_H if res else info["n_classes"]
+            else:                                              # 'None'
+                net = lambda: nn.Linear(n_dim, GRAPH_H)
+                width = n_dim + GRAPH_H
+            for m in self.order:
+                setattr(self, f"graph_net_{m}", net())
+            feat = self._fusion_head(width, cfg.modals)
+        if self.fusion == "mfn" and gt in ("GF", "GDF", "GF2"):
+            feat = self._make_mfn(feat)
+        self.smax_fc = nn.Linear(feat, info["n_classes"])
+
+    def _make_mfn(self, width: int) -> int:
+        self.mfn = MFN()
+        if width != 3 * self.mfn.d:
+            raise ValueError(f"mm_fusion_mthd 'mfn' with graph_type "
+                             f"{self.graph_type!r}: MFN takes 3 x "
+                             f"{self.mfn.d} features, this family gives "
+                             f"{width}")
+        return 3 * self.mfn.dh + self.mfn.mem_dim
+
+    def _fusion_head(self, width: int, modals: str) -> int:
+        """The per-modality families' fusion head (``_fuse``); returns its
+        output width."""
+        f, M = self.fusion, len(self.order)
+        if f in ("concat_subsequently", "concat_only"):
+            return M * width
+        if f == "gated":
+            self.gatedatt = MMGatedAttention(width, GRAPH_H, modals)
+            return GRAPH_H * (3 if M == 3 else 1)
+        if M != 3:
+            raise ValueError(f"mm_fusion_mthd {f!r} fuses three modalities")
+        if f in ("mfn", "mfn_only"):
+            if f == "mfn" and self.graph_type in ("DeepGCN", "GCN3"):
+                raise ValueError(
+                    f"mm_fusion_mthd 'mfn' with graph_type "
+                    f"{self.graph_type!r}: the reference runs MFN on MFN's "
+                    "own output, which it does not take")
+            return self._make_mfn(3 * width)
+        head = (TFN if f == "tfn_only" else LMF)(width)
+        setattr(self, f[:3], head)
+        return head.output_dim
 
     @classmethod
     def from_config(cls, cfg: ExperimentConfig) -> "DialogueGNN":
-        if cfg.base_model != "LSTM":
+        if cfg.dataset not in DATASET_INFO:
+            raise NotImplementedError(f"dataset {cfg.dataset!r}: {_LATER}")
+        if not cfg.graph_model:
+            raise NotImplementedError(f"graph_model=False: {_LATER}")
+        if not cfg.multi_modal or cfg.mm_fusion_mthd not in FUSIONS:
+            raise NotImplementedError(
+                f"single-stream (multi_modal={cfg.multi_modal}, "
+                f"mm_fusion_mthd={cfg.mm_fusion_mthd!r}): {_LATER}")
+        if cfg.base_model not in ("LSTM", "None"):
             raise NotImplementedError(
                 f"base_model {cfg.base_model!r}: {_LATER}")
-        if cfg.graph_type not in ("GF", "GDF"):
-            raise NotImplementedError(
-                f"graph_type {cfg.graph_type!r}: {_LATER}")
-        if cfg.mm_fusion_mthd != "concat_subsequently":
-            raise NotImplementedError(
-                f"mm_fusion_mthd {cfg.mm_fusion_mthd!r}: {_LATER}")
-        if cfg.use_speaker or cfg.use_modal:
-            raise NotImplementedError(
-                f"use_speaker / use_modal embeddings: {_LATER}")
-        info = cfg.info
-        return cls(
-            D_text=info["D_text"], D_audio=info["D_audio"],
-            D_visual=info["D_visual"], n_classes=info["n_classes"],
-            modals=cfg.modals, nlayers=cfg.Deep_GCN_nlayers, lamda=cfg.lamda,
-            alpha=cfg.alpha,
-            reason_flag=cfg.reason_flag and cfg.graph_type == "GDF",
-            speaker_weights=cfg.speaker_weights,
-            use_crn_speaker=cfg.use_crn_speaker, use_residue=cfg.use_residue,
-            modal_weight=cfg.modal_weight, dropout=cfg.dropout)
+        if cfg.graph_type not in GRAPH_TYPES:
+            raise ValueError(f"unknown graph_type {cfg.graph_type!r}")
+        return cls(cfg)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Fresh torch-default weights drawn from ``generator``."""
-        for m in self.modules():
-            if isinstance(m, (BiRNN, GCNIIStack)):
-                m.reset_parameters(generator)
-        with torch.no_grad():
-            for name in ("linear_a", "linear_v", "linear_l", "smax_fc"):
-                lin = getattr(self, name, None)
-                if lin is not None:
-                    k = 1.0 / lin.in_features ** 0.5
-                    lin.weight.uniform_(-k, k, generator=generator)
-                    lin.bias.uniform_(-k, k, generator=generator)
+        """Fresh torch-default weights drawn from ``generator``: the
+        encoders, graph nets and heads child by child in registration
+        order, then the bare linears (the projections, 'None''s nets,
+        ``smax_fc``), the order in which a seed has always drawn the GF
+        and GDF models."""
+        children = list(self.children())
+        for child in children:
+            if not isinstance(child, nn.Linear):
+                child.reset_parameters(generator)
+        for child in children:
+            if isinstance(child, nn.Linear):
+                reset_linear(child, generator)
+
+    def _fuse(self, feats: List[Tensor], **kw) -> Tensor:
+        f = self.fusion
+        if f in ("concat_subsequently", "concat_only"):
+            return torch.cat(feats, dim=-1)
+        if f == "gated":
+            return self.gatedatt(dict(zip(self.order, feats)), **kw)
+        if f in ("mfn", "mfn_only"):                       # l, a, v
+            return self.mfn(torch.cat([feats[2], feats[0], feats[1]],
+                                      dim=-1), **kw)
+        return getattr(self, f[:3])(*feats, **kw)
+
+    def _mfn_maybe(self, feat: Tensor, **kw) -> Tensor:
+        return self.mfn(feat, **kw) if self.fusion == "mfn" else feat
+
+    def _encode(self, inputs: Dict[str, Tensor], qmask: Tensor,
+                umask: Tensor, **kw) -> Dict[str, Tensor]:
+        proj = {m: getattr(self, f"linear_{m}")(inputs[m])
+                for m in self.order}
+        base = {m: (getattr(self, f"lstm_{m}")(proj[m], umask, **kw)
+                    if hasattr(self, f"lstm_{m}") else proj[m])
+                for m in self.order}
+        if not self.use_crn_speaker:
+            return base
+        # one party-GRU batch for all modalities (the RNN is shared)
+        M, B = len(self.order), umask.shape[0]
+        delta = crn_party_delta(
+            self.rnn_parties, torch.cat([proj[m] for m in self.order], dim=0),
+            qmask.repeat(M, 1, 1), umask.repeat(M, 1), **kw)
+        return {m: base[m] + self.speaker_weight[m] * delta[i * B:(i + 1) * B]
+                for i, m in enumerate(self.order)}
 
     def forward(self, text: Tensor, qmask: Tensor, umask: Tensor,
                 audio: Optional[Tensor] = None,
@@ -108,25 +229,31 @@ class DialogueGNN(nn.Module):
         """Per-utterance log-probs (B, L, n_classes); pad rows are garbage.
         ``train`` turns every dropout on, drawn from ``generator``."""
         kw = dict(train=train, generator=generator)
-        inputs = {"a": audio, "v": visual, "l": text}
-        order = [m for m in "avl" if m in self.modals]
-        proj = {m: getattr(self, f"linear_{m}")(inputs[m]) for m in order}
-        base = dict(proj)
-        if "l" in proj:
-            base["l"] = self.lstm_l(proj["l"], umask, **kw)
-        if self.use_crn_speaker:
-            # one party-GRU batch for all modalities (the RNN is shared)
-            M, B = len(order), umask.shape[0]
-            delta = crn_party_delta(
-                self.rnn_parties, torch.cat([proj[m] for m in order], dim=0),
-                qmask.repeat(M, 1, 1), umask.repeat(M, 1), **kw)
-            emotions = {m: base[m] + self.speaker_weight[m]
-                        * delta[i * B:(i + 1) * B]
-                        for i, m in enumerate(order)}
-        else:
-            emotions = base
-        feat = self.graph_model(emotions, umask, **kw)
-        if train:
-            feat = dropout(feat, self.dropout, generator)
-        feat = torch.relu(feat)
+        drop = lambda x: dropout(x, self.dropout if train else 0.0, generator)
+        emotions = self._encode({"a": audio, "v": visual, "l": text}, qmask,
+                                umask, **kw)
+        nets = [getattr(self, f"graph_net_{m}", None) for m in self.order]
+        gt = self.graph_type
+        if gt in ("GF", "GDF", "GF2"):
+            feat = self.graph_model(emotions, qmask, umask, **kw)
+            feat = torch.relu(drop(self._mfn_maybe(feat, **kw)))
+        elif gt == "relation":
+            edge_mask = window_edge_mask(umask, *self.windows)
+            rel_ids = relation_type_ids(qmask)
+            edge_w = self.att_model(emotions[self.order[-1]], edge_mask)
+            feat = drop(self._fuse([
+                net(emotions[m], edge_w, rel_ids, edge_mask)
+                for m, net in zip(self.order, nets)], **kw))
+        elif gt == "DeepGCN":
+            feat = self._fuse([net(emotions[m], qmask, umask, **kw)
+                               for m, net in zip(self.order, nets)], **kw)
+            feat = torch.relu(drop(feat))
+        elif gt == "GCN3":
+            feat = self._fuse([net(emotions[m], qmask, umask)
+                               for m, net in zip(self.order, nets)], **kw)
+            feat = torch.relu(drop(feat))
+        else:                                                  # 'None'
+            feat = drop(self._fuse([
+                torch.cat([net(emotions[m]), emotions[m]], dim=-1)
+                for m, net in zip(self.order, nets)], **kw))
         return torch.log_softmax(self.smax_fc(feat), dim=-1)

@@ -1,1 +1,2 @@
-"""Layers: mask-gated bi-GRU encoders and the GCNII stack."""
+"""Layers: mask-gated bi-GRU encoders, the GCNII stack and the plain GCN
+layers, the edge attention, the fusion heads."""

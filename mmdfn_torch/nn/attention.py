@@ -1,0 +1,106 @@
+"""The gated fusion head and the relation graph's edge attention
+(``mmdfn_tpu/nn/attention.py`` ``MMGatedAttention`` and
+``MaskedEdgeAttention``), as plain tensor ops.  Parameter names are the
+reference's."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mmdfn_torch.nn.dropout import dropout
+from mmdfn_torch.nn.init import reset_linears
+
+Tensor = torch.Tensor
+
+
+class MMGatedAttention(nn.Module):
+    """Gated trimodal fusion, ``att_type='general'`` (``model.py:718-781``):
+    pairwise sigmoid gates ``z = sigma(W [x, y, x*y])`` blend the
+    tanh-projected modalities; the output concatenates the gated pairs
+    (one pair with two modalities).  In training the inputs are dropped at
+    the head's own rate, 0.5, not the model's."""
+
+    def __init__(self, mem_dim: int, cand_dim: int, modals: str = "avl",
+                 dropout: float = 0.5):
+        super().__init__()
+        self.modals = modals
+        self.dropout = dropout
+        for m in "avl":
+            if m in modals:
+                setattr(self, f"transform_{m}", nn.Linear(mem_dim, cand_dim))
+        for pair in ("av", "al", "vl"):
+            if pair[0] in modals and pair[1] in modals:
+                setattr(self, f"transform_{pair}",
+                        nn.Linear(3 * mem_dim, 1))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linears(self, generator)
+
+    def forward(self, feats: dict, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        x = {m: dropout(f, self.dropout if train else 0.0, generator)
+             for m, f in feats.items()}
+        h = {m: torch.tanh(getattr(self, f"transform_{m}")(x[m])) for m in x}
+        parts = []
+        for p, q in ("av", "al", "vl"):
+            if p in x and q in x:
+                z = torch.sigmoid(getattr(self, f"transform_{p}{q}")(
+                    torch.cat([x[p], x[q], x[p] * x[q]], dim=-1)))
+                parts.append(z * h[p] + (1 - z) * h[q])
+        return torch.cat(parts, dim=-1)
+
+
+class SimpleAttention(nn.Module):
+    """The reference's ``SimpleAttention`` weights: one scalar score per
+    node (``model.py:473-491``)."""
+
+    def __init__(self, input_dim: int):
+        super().__init__()
+        self.scalar = nn.Linear(input_dim, 1, bias=False)
+
+
+class MaskedEdgeAttention(nn.Module):
+    """The relation graph's dense edge weights ``w[b, src, dst]``
+    (``model.py:420-509``).
+
+    * ``attn1`` (the reference's): a linear map scores every (channel =
+      src, position = dst) pair, softmax over positions, the window's edge
+      set kept with ``1e-10`` leaking off it into the denominator, and the
+      rows renormalized;
+    * ``attn2``: each node's scalar score, softmaxed within each source
+      row's edge set;
+    * ``attn3``: all-ones weights on the edge set (degenerate upstream, as
+      the JAX package documents); no parameters.
+    """
+
+    def __init__(self, input_dim: int, max_seq_len: int,
+                 attn_type: str = "attn1"):
+        super().__init__()
+        if attn_type not in ("attn1", "attn2", "attn3"):
+            raise ValueError(f"edge_attn_type {attn_type!r}")
+        self.attn_type = attn_type
+        if attn_type == "attn1":
+            self.scalar = nn.Linear(input_dim, max_seq_len, bias=False)
+        elif attn_type == "attn2":
+            self.simpleatt = SimpleAttention(input_dim)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linears(self, generator)
+
+    def forward(self, M: Tensor, edge_mask: Tensor) -> Tensor:
+        L = M.shape[1]
+        edge = edge_mask > 0
+        if self.attn_type == "attn3":
+            return edge_mask
+        if self.attn_type == "attn2":
+            s = self.simpleatt.scalar(M)[..., 0]                # (B, dst)
+            logits = torch.where(edge, s[:, None, :], -1e30)
+            return torch.where(edge, torch.softmax(logits, dim=-1), 0.0)
+        # (B, pos, channel) -> (B, channel = src, pos = dst)
+        alpha = torch.softmax(self.scalar(M).transpose(1, 2), dim=-1)[:, :L]
+        masked = alpha * torch.where(edge, 1.0, 1e-10)
+        sums = masked.sum(dim=-1, keepdim=True)
+        return masked / sums.clamp(min=1e-30) * edge_mask

@@ -1,5 +1,5 @@
-"""The deep GCNII stack (``mmdfn_tpu/nn/gcn.py`` ``GCNIIStack`` with the
-GCNII_lyc wiring, reference ``model_GCN.py:412-488``).
+"""The deep GCNII stack (``mmdfn_tpu/nn/gcn.py`` ``GCNIIStack``) in its
+three reference wirings, and the plain two-layer GCN of the GCN3 baseline.
 
 ``fc_in`` and ReLU give ``h = h0``; then per layer l = 1..nlayers, with
 ``theta_l = log(lamda / l + 1)``: the shared reason-LSTM step (gates
@@ -9,7 +9,8 @@ the input x is dropped before ``fc_in`` and h after its ReLU, with h0 kept
 undropped (``mmdfn_tpu/nn/gcn.py:159-165``), and each layer's dropout bits
 come from Philox under a seed drawn from the step's generator.  The layer
 loop is :func:`mmdfn_torch.ops.gcnii_stack_fwd`: kernel B, and under
-autograd kernel B's training mode with kernel D for the backward.
+autograd kernel B's training mode with kernel D for the backward.  Every
+wiring runs the same kernels; only the dropouts around them differ.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from mmdfn_torch.graph.adjacency import directed_speaker_adjacency
 from mmdfn_torch.nn.dropout import dropout
+from mmdfn_torch.nn.init import reset_linear, reset_linears, reset_uniform
 from mmdfn_torch.ops import gcnii_stack_fwd
 
 Tensor = torch.Tensor
@@ -49,18 +52,42 @@ class ReasonLSTM(nn.Module):
 
 class GCNIIStack(nn.Module):
     """Deep GCNII stack; returns ``(x, h)`` (the input, for the residue
-    concat, and the final hidden state)."""
+    concat, and the final hidden state).
+
+    The wirings of the JAX ``GCNIIStack`` (``mmdfn_tpu/nn/gcn.py:61-80``):
+
+    * ``GCNII_lyc`` (MM-DFN's, the default): ``has_fc_in=True``,
+      ``dropout_mode='after'``, ``post_loop_dropout=False``;
+    * ``GCNII`` (the DeepGCN baseline): ``dropout_mode='none'``,
+      ``post_loop_dropout=True``: the kernels run at rate 0 and the
+      output is dropped after them;
+    * ``MM_GCN2``'s loop (GF2): ``has_fc_in=False``,
+      ``dropout_mode='before'``, ``post_loop_dropout=True``: h = h0 = x.
+    """
 
     def __init__(self, nfeat: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.2,
-                 reason_flag: bool = False, dropout: float = 0.0):
+                 reason_flag: bool = False, dropout: float = 0.0,
+                 has_fc_in: bool = True, dropout_mode: str = "after",
+                 post_loop_dropout: bool = False):
         super().__init__()
+        if dropout_mode not in ("after", "before", "none"):
+            raise ValueError(f"dropout_mode {dropout_mode!r}")
+        if dropout_mode == "before" and (reason_flag
+                                         or not post_loop_dropout):
+            # the kernels draw after each layer; see forward
+            raise ValueError("dropout_mode='before' runs with the post-loop "
+                             "dropout and without the reason-LSTM only")
         self.nhidden = nhidden
         self.alpha = alpha
         self.dropout = dropout
         self.reason_flag = reason_flag
+        self.has_fc_in = has_fc_in
+        self.dropout_mode = dropout_mode
+        self.post_loop_dropout = post_loop_dropout
         self._cache = None       # (parameter key, packed weights)
-        self.fcs = nn.ModuleList([nn.Linear(nfeat, nhidden)])
+        if has_fc_in:
+            self.fcs = nn.ModuleList([nn.Linear(nfeat, nhidden)])
         self.convs = nn.ModuleList(
             [GraphConvolution(2 * nhidden, nhidden) for _ in range(nlayers)])
         self.rnn = ReasonLSTM(nhidden) if reason_flag else None
@@ -68,22 +95,18 @@ class GCNIIStack(nn.Module):
             "theta", torch.log(lamda / torch.arange(1, nlayers + 1,
                                                     dtype=torch.float32) + 1.0),
             persistent=False)
-        self.reset_parameters()
+        # a subclass's own layers are initialised by their constructors
+        GCNIIStack.reset_parameters(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """torch defaults: Linear U(-1/sqrt(in), .); the GCNII conv
         U(-1/sqrt(H), .) (``model_GCN.py:172-174``); LSTM U(-1/sqrt(H), .)."""
         k = 1.0 / math.sqrt(self.nhidden)
-        fc = self.fcs[0]
-        kf = 1.0 / math.sqrt(fc.in_features)
-        with torch.no_grad():
-            fc.weight.uniform_(-kf, kf, generator=generator)
-            fc.bias.uniform_(-kf, kf, generator=generator)
-            for conv in self.convs:
-                conv.weight.uniform_(-k, k, generator=generator)
-            if self.rnn is not None:
-                for p in self.rnn.parameters():
-                    p.uniform_(-k, k, generator=generator)
+        if self.has_fc_in:
+            reset_linear(self.fcs[0], generator)
+        reset_uniform([c.weight for c in self.convs], k, generator)
+        if self.rnn is not None:
+            reset_uniform(self.rnn.parameters(), k, generator)
 
     def _packed(self) -> tuple:
         """The layer weights as kernel B takes them: W stacked to
@@ -117,14 +140,65 @@ class GCNIIStack(nn.Module):
         and the final hidden state."""
         W, *lstm = self._packed()
         rate = self.dropout if train else 0.0
-        x = dropout(x, rate, generator)
-        h0 = torch.relu(self.fcs[0](x))
-        h = dropout(h0, rate, generator)
+        if self.has_fc_in:
+            x = dropout(x, rate, generator)
+            h0 = torch.relu(self.fcs[0](x))
+            h = dropout(h0, rate, generator)
+        else:
+            h0 = h = x
+        if self.dropout_mode == "before":
+            # "drop before each layer, then after the loop" draws as "drop
+            # the entry, then after each layer": layer l's after-drop is
+            # layer l+1's before-drop and the last layer's is the post-loop
+            # drop.  So the kernels run in their after-mode on h = drop(x)
+            # beside h0 = x, and the entry's gradient reaches x through
+            # both.
+            h = dropout(h, rate, generator)
+        in_loop = 0.0 if self.dropout_mode == "none" else rate
         seed = None
-        if rate > 0.0:   # the kernels' Philox key, never read by the host
+        if in_loop > 0.0:   # the kernels' Philox key, never read by the host
             seed = torch.randint(0, 1 << 62, (1,), generator=generator,
                                  device=x.device)
         h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
                             alpha=self.alpha, reason=self.reason_flag,
-                            rate=rate, seed=seed)
+                            rate=in_loop, seed=seed)
+        if self.post_loop_dropout and self.dropout_mode != "before":
+            h = dropout(h, rate, generator)
         return x, h
+
+
+class GCNLayer1(nn.Module):
+    """Plain GCN layer over the directed speaker chain (reference
+    ``model_GCN.py:8-23`` with its default ``new_graph=True``): the chain
+    built from the inputs, unnormalized, then ``linear(adj @ x)``."""
+
+    def __init__(self, in_feats: int, out_feats: int):
+        super().__init__()
+        self.linear = nn.Linear(in_feats, out_feats)
+
+    def forward(self, x: Tensor, qmask: Tensor, umask: Tensor) -> Tensor:
+        adj = directed_speaker_adjacency(x, qmask, umask)
+        return self.linear(adj @ x)
+
+
+class GCN2Layers(nn.Module):
+    """Two GCNLayer1 and the residue concat (reference ``GCN_2Layers``,
+    ``model_GCN.py:121-154``, returning features).  Without the residue
+    the reference returns the second layer's log-probs over the classes,
+    which the port keeps."""
+
+    def __init__(self, in_feats: int, hidden: int, n_classes: int,
+                 use_residue: bool = True):
+        super().__init__()
+        self.use_residue = use_residue
+        self.gcn1 = GCNLayer1(in_feats, hidden)
+        self.gcn2 = GCNLayer1(hidden, hidden if use_residue else n_classes)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linears(self, generator)
+
+    def forward(self, x: Tensor, qmask: Tensor, umask: Tensor) -> Tensor:
+        g = self.gcn2(self.gcn1(x, qmask, umask), qmask, umask)
+        if not self.use_residue:
+            return torch.log_softmax(g, dim=-1)
+        return torch.cat([x, g], dim=-1)

@@ -102,6 +102,13 @@ def gcnii_fwd_launches(nl: int, reason: bool, design: int = TILED) -> int:
     return 1 + (3 if reason else 2) * nl
 
 
+def gcnii_bwd_launches(nl: int, reason: bool) -> int:
+    """The CUDA kernels one ``gcnii_bwd`` call launches: per layer the
+    products P2-P6, with reason also P1 and P7; after the walk dW's sum and
+    its reduce, with reason also the LSTM's."""
+    return nl * (7 if reason else 5) + (4 if reason else 2)
+
+
 def resident_slices(H: int) -> list:
     """The resident design's channel slices ``(c0, S)``, one per CTA of a
     dialogue's cluster: H split as evenly as the cluster allows."""

@@ -5,14 +5,16 @@ loads ``model = torch.load(args.load_model)``, ``run_train_erc.py:532``);
 a user may also arrive with a ``state_dict`` extracted from one.  The
 port's parameter names are the reference ``DialogueGNNModel`` state_dict
 keys, so the import is a key check: the parameters the reference allocates
-but never runs on the GF/GDF path are dropped by prefix (those that
-``mmdfn_tpu/tools/import_torch_checkpoint.py:_dead_prefixes`` names for
-that family), and the rest loads strictly into the port's ``DialogueGNN``.
-A stray or a missing key is an error that names it.
+but never runs on the configured path are dropped by prefix (those that
+``mmdfn_tpu/tools/import_torch_checkpoint.py:_dead_prefixes`` names, each
+dead exactly when the port's model has no key under it), and the rest
+loads strictly into the port's ``DialogueGNN``.  A stray or a missing key
+is an error that names it.
 
-Scope: graph types GDF and GF with the base LSTM and the
-``concat_subsequently`` head, on IEMOCAP and MELD.  Every other family
-raises ``NotImplementedError``.
+Scope: every multimodal graph family (GDF, GF, GF2, DeepGCN, GCN3,
+relation, 'None') with the base LSTM or 'None' and any fusion head, on
+IEMOCAP and MELD.  The single-stream path and the non-graph baselines
+raise ``NotImplementedError``.
 
 CLI (writes a checkpoint directory that ``cli/serve.py --load_model`` and
 ``cli/run_train_erc.py --test_label --load_model`` read):
@@ -49,13 +51,24 @@ GDF_DEAD = ("att_model.", "gatedatt.", "graph_model.a_fc.",
 # GCNII_lyc allocates the reason-LSTM unconditionally (model_GCN.py:433);
 # without the reason flag it never runs
 REASON_LSTM = "graph_model.graph_net.rnn."
+# the other families' (mmdfn_tpu's _dead_prefixes): the edge attention's
+# other branches, MFN's output layers, and per modality the GCNII
+# baseline's reason-LSTM and the classifiers of nets that return features
+# (GCN_2Layers' linear, the relation net's linear and matchatt)
+OTHER_DEAD = ("att_model.scalar.", "att_model.simpleatt.",
+              "att_model.matchatt.", "att_model.att.", "mfn.out_fc1.",
+              "mfn.out_fc2.") + tuple(
+    f"graph_net_{m}.{part}." for m in "avl"
+    for part in ("rnn", "linear", "matchatt"))
 
 
 def dead_prefixes(model: DialogueGNN) -> tuple:
-    """The state_dict prefixes that ``model``'s forward never reads."""
+    """The state_dict prefixes that the reference allocates and
+    ``model``'s forward never reads: each candidate under which the model
+    has no key."""
     live = model.state_dict()
-    reason = any(k.startswith(REASON_LSTM) for k in live)
-    return GDF_DEAD + (() if reason else (REASON_LSTM,))
+    return tuple(p for p in GDF_DEAD + (REASON_LSTM,) + OTHER_DEAD
+                 if not any(k.startswith(p) for k in live))
 
 
 def load_reference(obj_or_path) -> Mapping[str, Any]:
@@ -151,8 +164,16 @@ def main(argv=None) -> int:
     ap.add_argument("--av_using_lstm", action="store_true",
                     help="checkpoint has lstm_a/lstm_v encoders")
     ap.add_argument("--use_gcn", action="store_true",
-                    help="the relation family's conv3/conv4 linears "
-                         "(unread on the GF/GDF path)")
+                    help="relation: checkpoint trained with --use_gcn "
+                         "(conv3/conv4 linears)")
+    ap.add_argument("--graph_construct", default="direct",
+                    choices=["direct", "single", "window", "fc"],
+                    help="GF2's cross-modal graph (no parameters of its "
+                         "own)")
+    ap.add_argument("--edge_attn_type", default="attn1",
+                    choices=["attn1", "attn2", "attn3"],
+                    help="relation: the edge attention the checkpoint was "
+                         "trained with")
     ap.add_argument("--no_graph_model", dest="graph_model",
                     action="store_false", default=True,
                     help="non-graph baseline checkpoint")
@@ -168,8 +189,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.graph_model:
         raise NotImplementedError(f"--no_graph_model baselines: {_LATER}")
-    if args.av_using_lstm:
-        raise NotImplementedError(f"--av_using_lstm: {_LATER}")
 
     reason = ((args.graph_type == "GDF") if args.reason_flag == "auto"
               else args.reason_flag == "true")
@@ -179,7 +198,10 @@ def main(argv=None) -> int:
         Deep_GCN_nlayers=args.Deep_GCN_nlayers,
         use_residue=not args.no_use_residue,
         speaker_weights=args.speaker_weights,
-        mm_fusion_mthd=args.mm_fusion_mthd)
+        mm_fusion_mthd=args.mm_fusion_mthd,
+        av_using_lstm=args.av_using_lstm, use_gcn=args.use_gcn,
+        graph_construct=args.graph_construct,
+        edge_attn_type=args.edge_attn_type)
     model = import_reference_checkpoint(args.load_model, cfg)
     path = ckpt_lib.save_checkpoint(
         args.out, model, meta={"imported_from": args.load_model,

@@ -85,7 +85,7 @@ def prepare_inputs(batch: Batch, device: torch.device) -> Dict[str, Tensor]:
 
 
 class Trainer:
-    """Trains the port's ``DialogueGNN`` (base LSTM, GF/GDF) with the
+    """Trains the port's ``DialogueGNN`` (any multimodal family) with the
     reference's loss, optimiser and selection rules.
 
     ``model`` defaults to the config's model with fresh weights from

@@ -42,38 +42,117 @@ def gru_from_jax(p: Mapping) -> "OrderedDict":
 
 def _linear(sd: "OrderedDict", prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(p["kernel"]).t()
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def gcnii_from_jax(g: Mapping) -> "OrderedDict":
+def _convs(sd: "OrderedDict", prefix: str, conv_w) -> None:
+    for i, w in enumerate(np.asarray(conv_w)):   # torch.mm's orientation
+        sd[f"{prefix}convs.{i}.weight"] = _t(w)
+
+
+def gcnii_from_jax(g: Mapping, prefix: str = "") -> "OrderedDict":
     """A JAX ``GCNIIStack`` parameter dict -> the port's ``GCNIIStack``
-    state_dict keys (``fcs.0``, ``convs.{i}``, ``rnn``)."""
+    state_dict keys (``fcs.0``, ``convs.{i}``, ``rnn``) under ``prefix``."""
     sd: "OrderedDict" = OrderedDict()
-    _linear(sd, "fcs.0", g["fc_in"])
-    for i, w in enumerate(np.asarray(g["conv_w"])):
-        sd[f"convs.{i}.weight"] = _t(w)
+    _linear(sd, f"{prefix}fcs.0", g["fc_in"])
+    _convs(sd, prefix, g["conv_w"])
     if "reason_w_ih" in g:
-        sd["rnn.weight_ih_l0"] = _t(g["reason_w_ih"]).t()
-        sd["rnn.weight_hh_l0"] = _t(g["reason_w_hh"]).t()
-        sd["rnn.bias_ih_l0"] = _t(g["reason_b_ih"])
-        sd["rnn.bias_hh_l0"] = _t(g["reason_b_hh"])
+        sd[f"{prefix}rnn.weight_ih_l0"] = _t(g["reason_w_ih"]).t()
+        sd[f"{prefix}rnn.weight_hh_l0"] = _t(g["reason_w_hh"]).t()
+        sd[f"{prefix}rnn.bias_ih_l0"] = _t(g["reason_b_ih"])
+        sd[f"{prefix}rnn.bias_hh_l0"] = _t(g["reason_b_hh"])
     return sd
 
 
+def _relation_net(sd: "OrderedDict", prefix: str, g: Mapping) -> None:
+    """torch-geometric's orientations: ``basis``, ``att``, ``root`` and
+    GraphConv's ``weight`` are (in, out) like the JAX kernels; only
+    ``conv2.lin`` is an ``nn.Linear``."""
+    c1 = g["conv1"]
+    for ours, theirs in (("basis", "basis"), ("comp", "att"),
+                         ("root", "root"), ("bias", "bias")):
+        sd[f"{prefix}conv1.{theirs}"] = _t(c1[ours])
+    sd[f"{prefix}conv2.weight"] = _t(g["conv2"]["nbr"]["kernel"])
+    _linear(sd, f"{prefix}conv2.lin", g["conv2"]["root"])
+    for conv in ("conv3", "conv4"):
+        if conv in g:
+            _linear(sd, f"{prefix}{conv}.linear", g[conv])
+
+
+def _mfn(sd: "OrderedDict", p: Mapping) -> None:
+    for m in "lav":
+        sd[f"mfn.lstm_{m}.weight_ih"] = _t(p[f"lstm_{m}_w_ih"]).t()
+        sd[f"mfn.lstm_{m}.weight_hh"] = _t(p[f"lstm_{m}_w_hh"]).t()
+        sd[f"mfn.lstm_{m}.bias_ih"] = _t(p[f"lstm_{m}_b_ih"])
+        sd[f"mfn.lstm_{m}.bias_hh"] = _t(p[f"lstm_{m}_b_hh"])
+    for fc in ("att1_fc1", "att1_fc2", "att2_fc1", "att2_fc2",
+               "gamma1_fc1", "gamma1_fc2", "gamma2_fc1", "gamma2_fc2"):
+        _linear(sd, f"mfn.{fc}", {"kernel": p[f"{fc}_kernel"],
+                                  "bias": p[f"{fc}_bias"]})
+
+
+def _dense_tree(sd: "OrderedDict", prefix: str, tree: Mapping) -> None:
+    """Subtrees whose names match the reference's: ``{kernel, bias}``
+    children are ``nn.Linear``s, bare leaves map as they are."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and "kernel" in v:
+            _linear(sd, f"{prefix}{k}", v)
+        elif isinstance(v, Mapping):
+            _dense_tree(sd, f"{prefix}{k}.", v)
+        else:
+            sd[f"{prefix}{k}"] = _t(v)
+
+
 def params_from_jax(params: Mapping[str, Any]) -> "OrderedDict":
-    """Map the JAX ``DialogueGNN`` (GF/GDF, base LSTM) parameter tree, a
-    nested dict of arrays as ``Trainer.init_state().params`` holds it, onto
-    the port's state_dict."""
+    """Map the JAX ``DialogueGNN`` parameter tree of any multimodal
+    family, a nested dict of arrays as ``Trainer.init_state().params``
+    holds it, onto the port's state_dict (the reference's keys, as
+    ``mmdfn_tpu/tools/import_torch_checkpoint.py`` reads them)."""
     sd: "OrderedDict" = OrderedDict()
     for m in "avl":
         if f"linear_{m}" in params:
             _linear(sd, f"linear_{m}", params[f"linear_{m}"])
-    for name in ("lstm_l", "rnn_parties"):
+    for name in ("lstm_a", "lstm_v", "lstm_l", "rnn_parties"):
         if name in params:
             for k, v in gru_from_jax(params[name]).items():
                 sd[f"{name}.{k}"] = v
-    for k, v in gcnii_from_jax(params["graph_model"]["graph_net"]).items():
-        sd[f"graph_model.graph_net.{k}"] = v
+    gm = params.get("graph_model", {})
+    if "graph_net" in gm:                                   # GF / GDF
+        sd.update(gcnii_from_jax(gm["graph_net"], "graph_model.graph_net."))
+        for name in ("speaker_embeddings", "modal_embeddings"):
+            if name in gm:
+                sd[f"graph_model.{name}.weight"] = _t(gm[name])
+    elif "convs" in gm:                                     # GF2
+        for idx, m in ((0, "a"), (1, "l"), (2, "v")):
+            if f"fc_{m}" in gm:
+                _linear(sd, f"graph_model.fcs.{idx}", gm[f"fc_{m}"])
+        _convs(sd, "graph_model.", gm["convs"]["conv_w"])
+    if "att_model" in params:
+        att = params["att_model"]
+        if "scalar" in att:
+            _linear(sd, "att_model.scalar", att["scalar"])
+        if "simpleatt_scalar" in att:
+            _linear(sd, "att_model.simpleatt.scalar", att["simpleatt_scalar"])
+    for m in "avl":
+        g = params.get(f"graph_net_{m}")
+        pre = f"graph_net_{m}."
+        if g is None:
+            continue
+        if "stack" in g:                                    # DeepGCN
+            sd.update(gcnii_from_jax(g["stack"], pre))
+        elif "gcn1" in g:                                   # GCN3
+            for layer in ("gcn1", "gcn2"):
+                _linear(sd, f"{pre}{layer}.linear", g[layer]["TorchDense_0"])
+        elif "conv1" in g:                                  # relation
+            _relation_net(sd, pre, g)
+        else:                                               # 'None'
+            _linear(sd, f"graph_net_{m}", g)
+    for head in ("gatedatt", "tfn", "lmf"):
+        if head in params:
+            _dense_tree(sd, f"{head}.", params[head])
+    if "mfn" in params:
+        _mfn(sd, params["mfn"])
     _linear(sd, "smax_fc", params["smax_fc"])
     return OrderedDict((k, v.contiguous()) for k, v in sd.items())
 

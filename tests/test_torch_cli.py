@@ -49,25 +49,46 @@ def test_parser_takes_every_jax_flag_with_its_default():
 
 
 def test_flags_unread_on_the_gdf_path_leave_the_config_as_it_was():
+    """The other families' settings reach the config under their JAX
+    names and leave the GDF model as it was; DialogRNN's and the topic
+    flag are not fields."""
+    import dataclasses
+
+    from mmdfn_torch.weights import build_model
+
     parse = lambda argv: run_train_erc.config_from_args(
         run_train_erc.build_parser().parse_args(argv))
-    base = parse(["--dataset", "MELD", "--Deep_GCN_nlayers", "64"])
-    assert base.dataset == "MELD" and base.Deep_GCN_nlayers == 64
-    assert parse([
-        "--dataset", "MELD", "--Deep_GCN_nlayers", "64", "--use_gcn",
+    base = parse(["--dataset", "MELD", "--Deep_GCN_nlayers", "2"])
+    assert base.dataset == "MELD" and base.Deep_GCN_nlayers == 2
+    other = parse([
+        "--dataset", "MELD", "--Deep_GCN_nlayers", "2", "--use_gcn",
         "--graph_construct", "full", "--no_nodal_attention", "--use_topic",
         "--active_listener", "--attention", "simple", "--rec_dropout", "0.3",
         "--windowp", "3", "--windowf", "4", "--multiheads", "2",
-        "--multi_modal", "--tensorboard", "--no_cuda"]) == base
+        "--edge_attn_type", "attn3", "--multi_modal", "--tensorboard",
+        "--no_cuda"])
+    family = {"use_gcn": True, "graph_construct": "full",
+              "nodal_attention": False, "windowp": 3, "windowf": 4,
+              "edge_attn_type": "attn3"}
+    assert other == dataclasses.replace(base, **family)
+    a, b = build_model(base).state_dict(), build_model(other).state_dict()
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)
     assert parse(["--sort_batches_by_length"]).sort_batches_by_length
 
 
+# the values that select what the port does not have yet: the single-stream
+# path (--no_multi_modal, or a fusion that is not multimodal), the
+# non-graph baselines, DialogRNN and GRU as base models, DailyDialogue
 @pytest.mark.parametrize("argv", [
     ["--dataset", "DailyDialogue"], ["--no_graph_model"],
-    ["--no_multi_modal"], ["--av_using_lstm"],
-    ["--edge_attn_type", "attn2"], ["--graph_type", "relation"],
-    ["--graph_type", "GF2"], ["--base_model", "DialogRNN"],
-    ["--mm_fusion_mthd", "gated"], ["--use_speaker"], ["--use_modal"]])
+    ["--no_multi_modal"], ["--mm_fusion_mthd", "concat"],
+    ["--base_model", "GRU"], ["--no_multi_modal", "--graph_type", "relation"],
+    ["--mm_fusion_mthd", "concat", "--graph_type", "GF2"],
+    ["--base_model", "DialogRNN"],
+    ["--no_multi_modal", "--mm_fusion_mthd", "gated"],
+    ["--base_model", "GRU", "--graph_type", "DeepGCN"],
+    ["--mm_fusion_mthd", "concat", "--graph_type", "None"]])
 def test_family_selecting_values_name_the_later_slice(argv, tmp_path):
     with pytest.raises(NotImplementedError, match="later slice"):
         run_train_erc.main(["--device", "cpu", "--data_dir",
@@ -111,3 +132,65 @@ def test_sequential_sweep_trains_each_combination_once(tmp_path, capsys):
     assert len((out / "summary.jsonl").read_text().splitlines()) == 2
     with pytest.raises(NotImplementedError, match="later slice"):
         sweep.main([*argv, "--vmap"])
+
+
+@pytest.mark.parametrize("graph_type", ["GF2", "relation"])
+def test_one_epoch_of_a_family_trains_and_serves(graph_type, tmp_path,
+                                                 monkeypatch, capsys):
+    """One epoch of the training CLI with another family than GDF; the
+    server rebuilds the family from the directory's config and answers
+    with the weights the restored model answers with."""
+    import io
+
+    import numpy as np
+
+    from mmdfn_torch.cli import serve
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.models import DialogueGNN
+    from mmdfn_torch.serve import StreamingSession
+
+    pkl, save = str(tmp_path / "iem.pkl"), str(tmp_path / "ckpts")
+    make_synthetic_iemocap_pickle(pkl, n_train=4, n_test=2, min_len=3,
+                                  max_len=8, seed=6)
+    assert run_train_erc.main([
+        "--device", "cpu", "--epochs", "1", "--data_dir", pkl,
+        "--graph_type", graph_type, "--batch-size", "4", "--buckets", "8",
+        "--edge_attn_type", "attn2", "--save_model_dir", save]) == 0
+    assert "epoch: 0, train_loss: " in capsys.readouterr().out
+    meta = ckpt_lib.read_meta(save)
+    assert meta["config"]["graph_type"] == graph_type
+    d = IEMOCAPDataset(pkl, train=False).dialogues()[0]
+    utts = [(d.text[t], d.audio[t], d.visual[t], int(d.qmask[t].argmax()))
+            for t in range(2)]
+    lines = [json.dumps({"text": x.tolist(), "audio": a.tolist(),
+                         "visual": v.tolist(), "speaker": s})
+             for x, a, v, s in utts]
+    monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(lines) + "\n"))
+    assert serve.main(["--load_model", save, "--device", "cpu",
+                       "--buckets", "4"]) == 0
+    out = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert out[0]["ready"] and len(out) == 3
+    cfg = ExperimentConfig(**meta["config"])
+    model, _ = ckpt_lib.restore_checkpoint(save, DialogueGNN.from_config(cfg))
+    session = StreamingSession(model, cfg, buckets=(4,), device="cpu")
+    for (x, a, v, s), got in zip(utts, out[1:]):
+        _, logp = session.append(x, a, v, s)
+        # the server rounds log-probs to 4 decimals
+        np.testing.assert_allclose(got["log_probs"], logp, atol=5e-5 + 1e-6)
+
+
+def test_sweep_runs_its_grid_on_another_family(tmp_path, capsys):
+    pkl = str(tmp_path / "iem.pkl")
+    make_synthetic_iemocap_pickle(pkl, n_train=4, n_test=2, min_len=3,
+                                  max_len=8, seed=2)
+    out = tmp_path / "sweep"
+    assert sweep.main(["--dataset", "IEMOCAP", "--data_dir", pkl, "--limit",
+                       "1", "--epochs", "1", "--batch-size", "4", "--device",
+                       "cpu", "--graph_type", "DeepGCN", "--out_dir",
+                       str(out)]) == 0
+    row = json.loads((out / "summary.jsonl").read_text())
+    first = list(sweep.combos("IEMOCAP"))[0]
+    assert row["tag"] == "DeepGCN_" + sweep.combo_tag(first)
+    assert row["graph_type"] == "DeepGCN"
+    assert ckpt_lib.read_meta(str(out / row["tag"]), "final") == row

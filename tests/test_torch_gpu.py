@@ -16,7 +16,7 @@ from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
                              plain_ops)
 from mmdfn_torch.ops.bigru import _forward as bigru_forward, _sm_count
 from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, _design, _lstm_step,
-                                   gcnii_fwd_launches,
+                                   gcnii_bwd_launches, gcnii_fwd_launches,
                                    _forward as gcnii_forward)
 
 H = 100
@@ -526,6 +526,143 @@ def test_backward_on_the_card_reaches_every_parameter():
 
     loss, grads, used = step(plain=False)
     assert all(v > 0 for v in used.values()), used
+    for name, g in grads.items():
+        assert g is not None and bool(g.abs().max() > 0), name
+    ref_loss, ref, used = step(plain=True)
+    assert not any(used.values())
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, g in grads.items():
+        scale = float(ref[name].abs().max())
+        assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name
+
+
+def _gf2_stack_args(dev, B, L, nl, seed):
+    """The GCNII stack's operands as GF2 gives them: the raw-arccos graph
+    with constant cross edges, no reason-LSTM, and an entry h that differs
+    from the anchor h0 (here independent of it)."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(20, L + 1, (B,), generator=g)
+    lengths[0] = L
+    umask = (torch.arange(L)[None] < lengths[:, None]).float()
+    feats = [torch.randn(B, L, 200, generator=g) * umask[..., None]
+             for _ in range(3)]
+    adj = mm_big_adjacency(feats, umask, variant="arccos",
+                           cross_constant=0.99999).to(dev)
+    N = 3 * L
+    h = torch.relu(torch.randn(B, N, H, generator=g)).to(dev)
+    h0 = torch.relu(torch.randn(B, N, H, generator=g)).to(dev)
+    W = (torch.rand(nl, 2 * H, H, generator=g) * 0.2 - 0.1).to(dev)
+    theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
+    return (adj, h, h0, W, theta, None, None, None), g
+
+
+@pytest.mark.gpu
+def test_gcnii_kernels_at_gf2s_wiring_match_plain():
+    """Kernels B (training mode) and D at GF2's shapes: 64 layers without
+    the reason-LSTM, B = 32, N = 240, dropout 0.4, with independent h and
+    h0, against their plain versions: the output, the residuals and every
+    gradient, d_h0 included; kernel D at its own ReLU decisions."""
+    dev = _card()
+    args, g = _gf2_stack_args(dev, 32, 80, 64, 9)
+    seed = torch.tensor([0x2545F4914F6CDD1D], dtype=torch.int64, device=dev)
+    out, res = _train_fwd(args, False, 0.4, seed, plain=False)
+    torch.cuda.synchronize()
+    want, want_res = _train_fwd(args, False, 0.4, seed, plain=True)
+    scale = float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(out, want, atol=1e-5 * scale, rtol=0)
+    for a, b in zip(res, want_res):
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0)
+    adj, _, h0, W, theta = args[:5]
+    dh = torch.randn(out.shape, generator=g).to(dev)
+    got = gcnii_stack_bwd(adj, h0, W, theta, None, None, None, res, dh,
+                          alpha=0.2, reason=False, rate=0.4, seed=seed)
+    torch.cuda.synchronize()
+    masks = _kernel_d_decisions(args, res, False, 1e-5 * scale)
+    ref = gcnii_stack_bwd_plain(adj, h0, W, theta, None, None, None, res, dh,
+                                alpha=0.2, reason=False, rate=0.4, seed=seed,
+                                relu_masks=masks)
+    for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW"), got, ref):
+        s = float(b.abs().max().clamp(min=1e-6))
+        assert float((a - b).abs().max()) <= 1e-4 * s, name
+
+
+@pytest.mark.gpu
+def test_gcnii_training_call_at_rate_0_takes_no_seed():
+    """DeepGCN's wiring: kernel B's training mode and kernel D at rate 0
+    with ``seed=None`` under autograd (entry and anchor distinct), against
+    autograd through the plain version."""
+    dev = _card()
+    args, g = _gf2_stack_args(dev, 4, 30, 16, 5)
+    leaves = [a.clone().requires_grad_() for a in args[:4]]
+    before = (gcnii_stack_fwd.launches, gcnii_stack_bwd.launches)
+    out = gcnii_stack_fwd(*leaves, args[4], alpha=0.1, reason=False,
+                          rate=0.0, seed=None)
+    dh = torch.randn(out.shape, generator=g).to(dev)
+    got = torch.autograd.grad(out, leaves, dh)
+    torch.cuda.synchronize()
+    assert gcnii_stack_fwd.launches - before[0] == gcnii_fwd_launches(
+        16, False, _design(4, 90, _sm_count(dev)))
+    assert gcnii_stack_bwd.launches - before[1] == gcnii_bwd_launches(
+        16, False)
+    ref_leaves = [a.clone().requires_grad_() for a in args[:4]]
+    with plain_ops():
+        want = gcnii_stack_fwd(*ref_leaves, args[4], alpha=0.1,
+                               reason=False, rate=0.0, seed=None)
+        ref = torch.autograd.grad(want, ref_leaves, dh)
+    out, want = out.detach(), want.detach()
+    scale = float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(out, want, atol=1e-5 * scale, rtol=0)
+    for name, a, b in zip(("adj", "h", "h0", "W"), got, ref):
+        s = float(b.abs().max().clamp(min=1e-6))
+        assert float((a - b).abs().max()) <= 1e-4 * s, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(graph_type="GF2"), dict(graph_type="DeepGCN", reason_flag=True),
+    dict(graph_type="GCN3"), dict(graph_type="relation"),
+    dict(graph_type="None", mm_fusion_mthd="gated")],
+    ids=["GF2", "DeepGCN-reason", "GCN3", "relation", "None-gated"])
+def test_family_training_step_on_the_card_matches_plain(kw):
+    """One training step of each family on the card (dropout 0.4) against
+    the same step with the plain versions: the loss and every parameter's
+    gradient, each parameter reached; the families with a GCNII stack
+    launch kernels B and D."""
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import collate
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.train.trainer import prepare_inputs
+
+    dev = _card()
+    cfg = ExperimentConfig(Deep_GCN_nlayers=4, dropout=0.4, seed=3,
+                           class_weight=True, **kw)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=3, n_test=1,
+                                      min_len=5, max_len=9, seed=3)
+        dias = IEMOCAPDataset(f"{tmp}/iem.pkl", train=True).dialogues()
+    inputs = prepare_inputs(collate(dias, 3, 9, 2), dev)
+
+    def step(plain):
+        tr = Trainer(cfg, device=dev)
+        before = dict(ops.launch_counts())
+        if plain:
+            with ops.plain_ops():
+                loss, _ = tr.train_step(inputs, seed=11)
+        else:
+            loss, _ = tr.train_step(inputs, seed=11)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return float(loss), {n: p.grad for n, p in
+                             tr.model.named_parameters()}, used
+
+    loss, grads, used = step(plain=False)
+    assert used["bigru_fwd"] > 0 and used["bigru_bwd"] > 0, used
+    stack = kw["graph_type"] in ("GF2", "DeepGCN")
+    assert (used["gcnii_fwd"] > 0 and used["gcnii_bwd"] > 0) == stack, used
     for name, g in grads.items():
         assert g is not None and bool(g.abs().max() > 0), name
     ref_loss, ref, used = step(plain=True)

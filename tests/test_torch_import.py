@@ -117,8 +117,9 @@ def test_reason_lstm_is_dead_without_the_reason_flag():
     assert any(k.startswith(REASON_LSTM) for k in sd)
     model = import_state_dict(sd, cfg)
     assert not any(k.startswith(REASON_LSTM) for k in model.state_dict())
+    # another family's model has no place for the GDF stack's keys
     for family in ("GF2", "relation", "DeepGCN"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(KeyError, match="graph_model.graph_net"):
             import_state_dict(sd, ExperimentConfig(
                 **dict(_cfg("MELD"), graph_type=family)))
 
@@ -155,3 +156,45 @@ def test_import_cli_writes_a_directory_the_port_serves(tmp_path, monkeypatch,
     assert resp[0]["ready"] and len(resp[1]["log_probs"]) == 7
     with pytest.raises(NotImplementedError, match="later slice"):
         main(["--load_model", pkl, "--out", out, "--no_graph_model"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(graph_type="GF2"), dict(graph_type="DeepGCN"),
+    dict(graph_type="GCN3", mm_fusion_mthd="gated"),
+    dict(graph_type="relation", use_gcn=True, av_using_lstm=True),
+    dict(graph_type="None", mm_fusion_mthd="mfn")],
+    ids=["GF2", "DeepGCN", "GCN3-gated", "relation-use_gcn-av_lstm",
+         "None-mfn"])
+def test_every_family_imports_strictly_with_its_dead_keys(kw):
+    """A reference-keyed state_dict of each family, with a tensor under
+    every prefix that the JAX package's importer counts dead for it, loads
+    strictly into the port's model; the JAX importer takes the same dict,
+    so the two drop the same keys."""
+    from mmdfn_tpu.tools.import_torch_checkpoint import (_dead_prefixes,
+                                                         _detect_family)
+
+    rng = np.random.default_rng(4)
+    jcfg = JConfig(dataset="IEMOCAP", Deep_GCN_nlayers=NL, **kw)
+    cfg = ExperimentConfig(dataset="IEMOCAP", Deep_GCN_nlayers=NL, seed=3,
+                           **kw)
+    source = build_model(cfg)
+    jm = JDialogueGNN.from_config(jcfg)
+    (text, audio, visual), qmask, umask = _inputs(rng, "IEMOCAP", [6, 4], 6)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), text, qmask, umask, audio, visual,
+        deterministic=True))["params"]
+    template = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes)
+    dead = _dead_prefixes(_detect_family(template), template)
+    assert dead
+    sd = {k: v.numpy().copy() for k, v in source.state_dict().items()}
+    for prefix in dead:
+        sd[prefix + "weight"] = rng.standard_normal((3, 5)).astype(
+            np.float32)
+    model = import_state_dict(sd, cfg)
+    for k, v in source.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    state_dict_to_params(sd, template)      # no stray key on its side
+    with pytest.raises(KeyError, match="smax_fc.weight"):
+        import_state_dict({k: v for k, v in sd.items()
+                           if k != "smax_fc.weight"}, cfg)

@@ -87,8 +87,8 @@ def test_other_graph_types_name_the_later_slice():
     from mmdfn_torch.config import ExperimentConfig
     from mmdfn_torch.models import DialogueGNN
 
-    for kw in (dict(graph_type="GF2"), dict(graph_type="relation"),
-               dict(base_model="GRU"), dict(mm_fusion_mthd="gated"),
-               dict(use_speaker=True)):
+    for kw in (dict(multi_modal=False), dict(mm_fusion_mthd="concat"),
+               dict(base_model="GRU"), dict(base_model="DialogRNN"),
+               dict(graph_model=False), dict(dataset="DailyDialogue")):
         with pytest.raises(NotImplementedError, match="later slice"):
             DialogueGNN.from_config(ExperimentConfig(**kw))

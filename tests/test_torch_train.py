@@ -219,7 +219,7 @@ def test_training_cli_runs_on_the_cpu(pickle_path, tmp_path, capsys):
                             "DailyDialogue"])
     with pytest.raises(NotImplementedError, match="later slice"):
         run_train_erc.main(["--device", "cpu", "--data_dir", pickle_path,
-                            "--graph_type", "relation"])
+                            "--graph_type", "relation", "--no_multi_modal"])
 
 
 def _utterances(pickle_path, n):
