@@ -81,7 +81,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    documented counts of each GCNII stack call (none for GCN3, relation
    and None), and one served dialogue against the plain model; the fusion
    heads gated, mfn, tfn_only and lmf_only each serve it; kernels B
-   (training and serve mode) and D alone at GF2's and DeepGCN's shapes.
+   (training and serve mode) and D alone at GF2's and DeepGCN's shapes;
+8. single: the single-stream path and the non-graph baselines at the
+   flagship's batch and settings: early-fusion DeepGCN (a,v,l
+   concatenated, 2024 wide, into ``linear_`` and the LSTM base with the
+   CRN, 16 layers with the reason-LSTM) against its plain step (held at
+   the kernels' ReLU decisions as MELD's) and 10 timed steps with kernels
+   A, C, B and D launched and profiled; the GRU, LSTM and DialogRNN
+   baselines (general attention) each against its plain step, 5 timed
+   steps and one served dialogue of 37 utterances against the plain
+   model; the single-stream DeepGCN of the text served (kernel B's serve
+   mode); a step check each of the single-stream relation, GCN3 and None
+   heads and of relation on the DialogRNN base; and the plain bi-LSTM
+   (beside cuDNN's ``nn.LSTM``) and bidirectional DialogueRNN recurrences
+   alone at B = 32, L = 80.
 
 It prints a line per phase, the seconds each took (``phase_s``), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -912,16 +925,29 @@ def stack_calls(cfg, L: int) -> list:
     """(layers, reason, nodes) of each GCNII stack call that the config's
     model makes in a forward at length L: one over the 3L nodes of the
     stacked modalities (GF, GDF; GF2 at its 64 layers), one per modality
-    (DeepGCN), or none."""
+    (DeepGCN; one for its single stream), or none."""
     gt, M = cfg.graph_type, len(cfg.modals)
+    if not cfg.graph_model:
+        return []
     if gt == "GF2":
         return [(64, False, M * L)]
     if gt == "DeepGCN":
-        return [(cfg.Deep_GCN_nlayers, cfg.reason_flag, L)] * M
+        return [(cfg.Deep_GCN_nlayers, cfg.reason_flag, L)] * (
+            M if cfg.multi_modal_path else 1)
     if gt in ("GF", "GDF"):
         return [(cfg.Deep_GCN_nlayers, cfg.reason_flag and gt == "GDF",
                  M * L)]
     return []
+
+
+def gru_encoders(model) -> int:
+    """The model's bi-GRU encoders: each launches kernel A (C in
+    training) twice a forward; the bi-LSTM and the DialogueRNN launch no
+    kernel."""
+    from mmdfn_torch.nn.rnn import BiRNN
+
+    return sum(isinstance(m, BiRNN) and m.cell == "gru"
+               for m in model.modules())
 
 
 def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
@@ -970,11 +996,14 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
             errs[name] = float((gk - gp).abs().max()) / float(gp.abs().max())
         return abs(loss_k - loss_p) / abs(loss_p), errs
 
+    from mmdfn_torch.weights import build_model
+
     ops.reset_launch_counts()
     loss_k, grads_k, calls_k = one_step(plain=False)
     counts = ops.launch_counts()
     stack = bool(stack_calls(cfg, batch["umask"].shape[1]))
-    check(all((v > 0) == (stack or not k.startswith("gcnii"))
+    gru = gru_encoders(build_model(cfg)) > 0
+    check(all((v > 0) == (stack if k.startswith("gcnii") else gru)
               for k, v in counts.items()),
           f"the kernel step did not launch its kernels: {counts}")
     loss_p, grads_p, calls_p = one_step(plain=True)
@@ -1049,8 +1078,9 @@ def timed_steps(torch, dev, cfg, batches, reps=10) -> dict:
         losses.append(float(loss))
     counts = ops.launch_counts()
     step_peak = torch.cuda.max_memory_allocated() / 1e9
-    check(counts["bigru_fwd"] > 0 and counts["bigru_bwd"] > 0,
-          f"kernels A and C were not launched by the training step: {counts}")
+    grus = gru_encoders(tr.model)
+    check(counts["bigru_fwd"] == counts["bigru_bwd"] == 2 * grus * reps,
+          f"kernels A and C: {counts}, {grus} bi-GRUs a step")
     B, L = batches[0]["umask"].shape
     calls = stack_calls(cfg, L)
     sms = _sm_count(dev)
@@ -1170,7 +1200,6 @@ def serve_check(torch, dev, cfg, model, dialogues):
     summary)."""
     from mmdfn_torch import ops
     from mmdfn_torch.data.batching import bucket_length
-    from mmdfn_torch.nn.rnn import BiRNN
     from mmdfn_torch.ops.bigru import _sm_count
     from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
     from mmdfn_torch.serve import StreamingSession
@@ -1195,7 +1224,7 @@ def serve_check(torch, dev, cfg, model, dialogues):
     logps, lat, used = replay(session)          # the main path
     counts = ops.launch_counts()
     n = len(logps)
-    grus = sum(isinstance(m, BiRNN) for m in model.modules())
+    grus = gru_encoders(model)
     check(counts["bigru_fwd"] == 2 * grus * n,
           f"bi-GRU launches {counts['bigru_fwd']} != 2 x {grus} x {n}")
     sms = _sm_count(dev)
@@ -1414,6 +1443,147 @@ def families_phase(torch, dev) -> dict:
     return out
 
 
+# the single stream and the non-graph baselines: early fusion at full
+# width, the three baselines (IEMOCAP text, D_e = D_h = 100, D_g = D_p =
+# 150, general context attention), the single-stream heads on the LSTM
+# base and DialogRNN as relation's base (DialogueGCN's pairing)
+EARLY = dict(graph_type="DeepGCN", mm_fusion_mthd="concat", reason_flag=True)
+BASELINES = ("GRU", "LSTM", "DialogRNN")
+SINGLE_HEADS = (("relation", dict(graph_type="relation")),
+                ("GCN3", dict(graph_type="GCN3")),
+                ("None", dict(graph_type="None")),
+                ("relation on DialogRNN", dict(graph_type="relation",
+                                               base_model="DialogRNN")))
+SINGLE_SERVE_LEN = 37
+
+
+def baseline_config(base: str):
+    """A non-graph baseline at the flagship's training settings."""
+    return family_config(graph_model=False, base_model=base,
+                         attention="general")
+
+
+def recurrence_times(torch, dev, B=TRAIN_B, L=TRAIN_L) -> dict:
+    """The plain recurrences the JAX package runs as scans, at the
+    training batch: the 2-layer bi-LSTM (H = 100, beside cuDNN's
+    ``nn.LSTM`` on the same weights, all-valid mask) and the bidirectional
+    DialogueRNN (D_m = 100, general attention), forward alone and forward
+    + backward; stream time over chained calls, and the host's time to
+    enqueue one."""
+    from mmdfn_torch.config import D_A, D_E, D_G, D_P
+    from mmdfn_torch.models.baselines import (DialogueRNN,
+                                              bidirectional_dialogue_rnn)
+    from mmdfn_torch.nn.rnn import BiRNN
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(B, L, 100, device=dev, generator=g)
+    qmask = torch.nn.functional.one_hot(torch.randint(
+        0, 2, (B, L), device=dev, generator=g), 2).float()
+    umask = torch.ones(B, L, device=dev)
+    lstm = BiRNN(100, D_E, cell="lstm").to(dev)
+    cudnn = torch.nn.LSTM(100, D_E, num_layers=2, batch_first=True,
+                          bidirectional=True).to(dev)
+    cudnn.load_state_dict(lstm.state_dict())
+    f, r = (DialogueRNN(100, D_G, D_P, D_E, False, "general", D_A).to(dev)
+            for _ in range(2))
+    fwds = {"bilstm": lambda: lstm(x, umask),
+            "bilstm_cudnn": lambda: cudnn(x)[0],
+            "dialogue_rnn": lambda: bidirectional_dialogue_rnn(
+                f, r, x, qmask, umask)}
+    with torch.no_grad():
+        err = float((fwds["bilstm"]() - fwds["bilstm_cudnn"]()).abs().max())
+    check(err <= 1e-4, f"the plain bi-LSTM vs cuDNN's: {err}")
+    out = {"shape": f"B={B} L={L}", "bilstm_vs_cudnn_max_abs_err": err}
+    for name, fwd in fwds.items():
+        def step(fwd=fwd):
+            fwd().sum().backward()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            fwd()
+            enqueue = (time.perf_counter() - t0) * 1e3
+            fwd_ms = time_ms(torch, fwd, 5)
+            busy = device_ms(torch, fwd, 3)
+        out[name] = {"fwd_ms": fwd_ms, "fwd_host_enqueue_ms": enqueue,
+                     "fwd_device_busy_ms": busy,
+                     "fwd_idle_share": 1.0 - busy / fwd_ms,
+                     "fwd_bwd_ms": time_ms(torch, step, 3)}
+    return out
+
+
+def single_phase(torch, dev) -> dict:
+    """The single-stream path and the non-graph baselines at the flagship's
+    batch: early-fusion DeepGCN (a,v,l concatenated, 2024 wide, the LSTM
+    base with the CRN, 16 layers with the reason-LSTM) against its plain
+    step (held at the kernels' ReLU decisions as MELD's), 10 timed steps
+    with kernels A, C, B and D launched and profiled; the GRU, LSTM and
+    DialogRNN baselines each against its plain step, 5 timed steps and a
+    served dialogue of 37 utterances against the plain model; the
+    single-stream DeepGCN of the text served (kernel B's serve mode); one
+    step check each for the single-stream relation, GCN3 and None heads
+    and for relation on the DialogRNN base; and the plain recurrences
+    alone."""
+    import numpy as np
+
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.weights import build_model
+
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(
+            f"{tmp}/iem.pkl", n_train=1, n_test=1, min_len=SINGLE_SERVE_LEN,
+            max_len=SINGLE_SERVE_LEN, seed=SEED)
+        dialogue = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
+    check(len(dialogue[0]) == SINGLE_SERVE_LEN, "the served dialogue")
+    out = {"shape": f"IEMOCAP B={TRAIN_B} L<={TRAIN_L} dropout={RATE}; "
+                    f"serve one dialogue of {SINGLE_SERVE_LEN} turns"}
+
+    t0 = time.perf_counter()
+    cfg = family_config(**EARLY)
+    check(cfg.D_m == 2024 and not cfg.multi_modal_path, "early fusion")
+    checked = step_check(torch, dev, cfg, batches[0], hold_decisions=True)
+    timed = timed_steps(torch, dev, cfg, batches)
+    for k in ("bigru_fwd", "bigru_bwd", "gcnii_fwd", "gcnii_bwd"):
+        check(timed["launches"][k] > 0, f"early fusion launched no {k}")
+    out["early_fusion_DeepGCN"] = {
+        "config": "DeepGCN concat a,v,l (D_m 2024 -> linear_ 250), LSTM "
+                  f"base + CRN, {NLAYERS} layers, reason-LSTM",
+        "step_check": checked,
+        "train": {k: timed[k] for k in TIMED_KEYS + ("bigru_kernels",)
+                  if k in timed},
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps({"single": "early fusion", "step_ms_median":
+                      timed["step_ms_median"]}), flush=True)
+
+    for base in BASELINES:
+        t0 = time.perf_counter()
+        cfg = baseline_config(base)
+        checked = step_check(torch, dev, cfg, batches[0])
+        timed = timed_steps(torch, dev, cfg, batches, reps=5)
+        served = serve_check(torch, dev, cfg, build_model(cfg), dialogue)[2]
+        out[base] = {"step_check": checked,
+                     "train": {k: timed[k] for k in TIMED_KEYS
+                               if k in timed},
+                     "serve": served, "seconds": time.perf_counter() - t0}
+        print(json.dumps({"single": base, "step_ms_median":
+                          timed["step_ms_median"],
+                          "seconds": out[base]["seconds"]}), flush=True)
+
+    cfg = family_config(graph_type="DeepGCN", multi_modal=False, modals="l",
+                        reason_flag=True)
+    out["serve_DeepGCN_text"] = serve_check(torch, dev, cfg,
+                                            build_model(cfg), dialogue)[2]
+    check(out["serve_DeepGCN_text"]["launches"]["gcnii_fwd"]
+          >= SINGLE_SERVE_LEN, "kernel B's serve mode")
+    out["heads"] = {
+        name: step_check(torch, dev, family_config(
+            multi_modal=False, modals="l", **kw), batches[0])
+        for name, kw in SINGLE_HEADS}
+    out["recurrences"] = recurrence_times(torch, dev)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1492,7 +1662,8 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("serve", serve_phase), ("train", train_phase),
-                        ("meld", meld_phase), ("families", families_phase)):
+                        ("meld", meld_phase), ("families", families_phase),
+                        ("single", single_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0

@@ -10,17 +10,23 @@ on the card, or on the CPU with ``--device cpu`` (or ``--no_cuda``):
         --l2 0.0001 --dropout 0.4 --gamma 0.5 --speaker_weights 0.5-0.5-1.5 \\
         --reason_flag
 
+    python -m mmdfn_torch.cli.run_train_erc --no_graph_model \
+        --base_model DialogRNN --attention general --data_dir ...
+    python -m mmdfn_torch.cli.run_train_erc --graph_type DeepGCN \
+        --mm_fusion_mthd concat --reason_flag --data_dir ...
+
 Every flag of the JAX CLI is accepted with the same name and default,
 except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`) and the
-word-level DailyDialogue flags (:data:`LATER_FLAGS`).  Every multimodal
-graph family (``--graph_type`` GDF, GF, GF2, DeepGCN, GCN3, relation,
-None) trains with any multimodal ``--mm_fusion_mthd``; a value that
-selects what the port does not have yet (the single-stream path, the
-non-graph baselines, DialogRNN) raises ``NotImplementedError`` naming the
-later slice, and DialogRNN's settings are accepted and ignored.
-``--test_label`` restores ``best`` from ``--load_model`` (else
-``--save_model_dir``) and evaluates on test.  Per-epoch lines are the
-reference's.
+word-level DailyDialogue flags (:data:`LATER_FLAGS`).  Every graph family
+trains with any multimodal ``--mm_fusion_mthd``; relation, DeepGCN, GCN3
+and None also on one stream (``--no_multi_modal --modals l``, or
+``--mm_fusion_mthd concat``: early fusion) over the bases LSTM, GRU,
+DialogRNN and None; ``--no_graph_model`` trains the GRU, LSTM or
+DialogRNN baseline (``--active_listener``, ``--attention``,
+``--rec_dropout``) with the masked NLL loss.  ``--dataset DailyDialogue``
+raises ``NotImplementedError`` naming the later slice.  ``--test_label``
+restores ``best`` from ``--load_model`` (else ``--save_model_dir``) and
+evaluates on test.  Per-epoch lines are the reference's.
 """
 
 from __future__ import annotations
@@ -132,10 +138,6 @@ def config_from_args(args):
     from mmdfn_torch.config import DATASET_INFO, ExperimentConfig
     if args.dataset not in DATASET_INFO:
         raise NotImplementedError(f"--dataset {args.dataset}: {_LATER}")
-    if not args.graph_model:
-        raise NotImplementedError(f"--no_graph_model baselines: {_LATER}")
-    if not args.multi_modal:
-        raise NotImplementedError(f"--no_multi_modal: {_LATER}")
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     if args.buckets:

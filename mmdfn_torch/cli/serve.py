@@ -13,7 +13,10 @@ the model rebuilt from the config in its meta and the checkpoint's epoch
 reported as ``ckpt_epoch``), or a ``weights.save_model`` file.  Without
 it they are fresh from ``--seed`` for the flagship model (16 GCNII
 layers).  A directory with no checkpoint, or whose meta holds no config,
-exits 1.
+exits 1, as does a model that reads another input than the text vector
+(early fusion, or one other modality; see ``serve/streaming.py``).  The
+non-graph baselines and single-stream models of the text serve as any
+other.
 
 Example:
   python -m mmdfn_torch.cli.serve --load_model ckpts/ < utterances.jsonl
@@ -57,8 +60,12 @@ def main(argv=None) -> int:
         model = build_model(cfg)
     names = cfg.info["target_names"]
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    session = StreamingSession(model, cfg, buckets=buckets,
-                               device=args.device)
+    try:
+        session = StreamingSession(model, cfg, buckets=buckets,
+                                   device=args.device)
+    except ValueError as e:         # a model whose input the server lacks
+        print(e, file=sys.stderr)
+        return 1
     if args.warmup:
         t0 = time.perf_counter()
         session.warmup()

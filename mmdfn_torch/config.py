@@ -14,7 +14,11 @@ import numpy as np
 
 from mmdfn_torch.data.datasets import FEAT2DIM
 
-D_E = 100              # encoder hidden size (run_train_erc.py:387-392)
+# fixed model widths (run_train_erc.py:387-392)
+D_G = D_P = 150        # DialogueRNN's global and party states
+D_E = 100              # encoder hidden size (DialogueRNN's emotion state)
+D_H = D_A = 100        # the baselines' classifier and DialogueRNN's
+                       # attention widths
 GRAPH_H = 100          # GCNII hidden size
 HIDDEN_MODALITY = 200  # per-modality projection width (model.py:847-849)
 MAX_SEQ_LEN = 200      # the relation edge attention's channels
@@ -30,6 +34,12 @@ MELD_CLASS_WEIGHTS = [
     1.0 / 0.071544422, 1.0 / 0.171742656, 1.0 / 0.026401153,
     1.0 / 0.113714183,
 ]
+
+# the fusion heads of the multimodal path; any other ``mm_fusion_mthd``
+# (the reference's 'concat': early fusion) runs one stream
+# (``mmdfn_tpu/models/dialogue_gnn.py:107-109``)
+MM_FUSIONS = ("concat_subsequently", "concat_only", "gated", "mfn",
+              "mfn_only", "tfn_only", "lmf_only")
 
 DATASET_INFO = {
     "IEMOCAP": dict(
@@ -66,6 +76,9 @@ class ExperimentConfig:
     use_gcn: bool = False                   # relation: conv3/conv4
     nodal_attention: bool = True
     av_using_lstm: bool = False             # bi-GRUs over audio and visual
+    active_listener: bool = False           # DialogRNN: the listener state
+    attention: str = "general"              # DialogRNN: context attention
+    rec_dropout: float = 0.1                # DialogRNN: the cells' dropout
     reason_flag: bool = False
     Deep_GCN_nlayers: int = 16
     alpha: float = 0.2
@@ -102,6 +115,42 @@ class ExperimentConfig:
     @property
     def info(self) -> dict:
         return DATASET_INFO[self.dataset]
+
+    @property
+    def multi_modal_path(self) -> bool:
+        """``multi_modal`` as the model reads it: on only with one of the
+        multimodal fusion heads; 'concat' falls back to one stream."""
+        return self.multi_modal and self.mm_fusion_mthd in MM_FUSIONS
+
+    @property
+    def input_modals(self) -> str:
+        """The modalities that the model's ``text`` argument carries, in
+        their order along the features (``mmdfn_tpu/train/trainer.py:
+        88-113``): the text features for the multimodal heads and the
+        non-graph models (which read the text alone), the concatenation
+        a,v / a,v,l / v,l / a,l for 'concat', else the one modality."""
+        if not self.graph_model:
+            return "l"
+        if self.multi_modal:
+            if self.mm_fusion_mthd != "concat":
+                return "l"
+            if self.modals not in ("avl", "av", "vl", "al"):
+                raise ValueError(f"mm_fusion_mthd 'concat' with modals "
+                                 f"{self.modals!r}")
+            return self.modals
+        if self.modals not in ("a", "v", "l"):
+            raise ValueError(f"multi_modal=False takes one modality, not "
+                             f"modals={self.modals!r}")
+        return self.modals
+
+    @property
+    def D_m(self) -> int:
+        """The width of the model's ``text`` argument
+        (``run_train_erc.py:364-386``)."""
+        info = self.info
+        dims = {"a": info["D_audio"], "v": info["D_visual"],
+                "l": info["D_text"]}
+        return sum(dims[m] for m in self.input_modals)
 
     def class_weights_or_none(self) -> Optional[np.ndarray]:
         if self.class_weight:

@@ -9,6 +9,19 @@ bi-GRU runs over the three stacked projections at once and adds
 ``sw[m] * delta`` per modality (a weight of 0 is still multiplied).
 ``base_model='None'`` keeps the projections alone.
 
+The single stream (``multi_modal`` off, or ``mm_fusion_mthd='concat'``,
+early fusion: ``ExperimentConfig.multi_modal_path``) reads one input, the
+text features, another modality or their concatenation
+(``ExperimentConfig.input_modals``), through one of four bases
+(``dialogue_gnn.py:171-289``): ``LSTM`` (``linear_`` to 250/150/100 by
+the number of modals, the ``lstm`` bi-GRU and the CRN's ``rnn_parties``
+at the text speaker weight), ``GRU`` (``gru``), ``DialogRNN``
+(``dialog_rnn_f`` and, on the reversed valid prefix, ``dialog_rnn_r``)
+or ``None`` (``base_linear``); then one ``graph_net`` that classifies:
+relation (the nodal-attention classifier), DeepGCN (the configured lamda
+and alpha, ``fcs[1]``), GCN3 (its ``linear``) or 'None' (a linear to the
+classes).  GF, GDF and GF2 fuse modalities and take no single stream.
+
 Graph families (``dialogue_gnn.py:303-441``):
 
 * ``GDF`` / ``GF``: :class:`MMGCN` (MM-DFN with the reason-LSTM / MMGCN);
@@ -37,9 +50,11 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from mmdfn_torch.config import (D_E, DATASET_INFO, GRAPH_H, HIDDEN_MODALITY,
-                                MAX_SEQ_LEN, ExperimentConfig)
+from mmdfn_torch.config import (D_A, D_E, D_G, D_P, DATASET_INFO, GRAPH_H,
+                                HIDDEN_MODALITY, MAX_SEQ_LEN, ExperimentConfig)
 from mmdfn_torch.graph.relation import relation_type_ids, window_edge_mask
+from mmdfn_torch.models.baselines import (DialogueRNN,
+                                          bidirectional_dialogue_rnn)
 from mmdfn_torch.models.mm_gcn import MMGCN, MMGCN2, DeepGCNII
 from mmdfn_torch.models.relation_net import GraphNetwork
 from mmdfn_torch.nn.attention import MaskedEdgeAttention, MMGatedAttention
@@ -51,12 +66,8 @@ from mmdfn_torch.nn.rnn import BiRNN, crn_party_delta
 
 Tensor = torch.Tensor
 
-_LATER = ("a later slice of the port (the single-stream path with "
-          "MatchingAttention, the non-graph baselines, DialogRNN)")
-
 GRAPH_TYPES = ("GF", "GDF", "GF2", "DeepGCN", "GCN3", "relation", "None")
-FUSIONS = ("concat_subsequently", "concat_only", "gated", "mfn", "mfn_only",
-           "tfn_only", "lmf_only")
+BASES = ("LSTM", "GRU", "DialogRNN", "None")
 GF2_NLAYERS = 64     # MMGCN2's depth, hard-coded upstream (model.py:956)
 
 
@@ -66,8 +77,10 @@ class DialogueGNN(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
         info = cfg.info
+        self.multi_modal = cfg.multi_modal_path
         self.order = [m for m in "avl" if m in cfg.modals]
         self.graph_type = gt = cfg.graph_type
+        self.base_model = cfg.base_model
         self.fusion = cfg.mm_fusion_mthd
         self.dropout = cfg.dropout
         self.windows = (cfg.windowp, cfg.windowf)
@@ -75,6 +88,14 @@ class DialogueGNN(nn.Module):
         self.use_crn_speaker = lstm and cfg.use_crn_speaker
         sw = list(map(float, cfg.speaker_weights.split("-")))
         self.speaker_weight = {"a": sw[0], "v": sw[1], "l": sw[2]}
+        if not self.multi_modal:
+            self._single_stream(cfg)
+            return
+        if cfg.base_model not in ("LSTM", "None"):
+            raise ValueError(f"base_model {cfg.base_model!r} feeds one "
+                             "stream: it takes mm_fusion_mthd 'concat' or "
+                             "multi_modal off, not the multimodal "
+                             f"{cfg.mm_fusion_mthd!r} head")
         dims = {"a": info["D_audio"], "v": info["D_visual"],
                 "l": info["D_text"]}
         for m in self.order:
@@ -129,6 +150,51 @@ class DialogueGNN(nn.Module):
             feat = self._make_mfn(feat)
         self.smax_fc = nn.Linear(feat, info["n_classes"])
 
+    def _single_stream(self, cfg: ExperimentConfig) -> None:
+        """The single-stream encoder and classifying graph net."""
+        info, gt, base = cfg.info, cfg.graph_type, cfg.base_model
+        if gt in ("GF", "GDF", "GF2"):
+            raise ValueError(
+                f"graph_type {gt!r} fuses the modalities and takes no single "
+                f"stream (multi_modal={cfg.multi_modal}, mm_fusion_mthd="
+                f"{cfg.mm_fusion_mthd!r})")
+        D_m, n_dim, res = cfg.D_m, 2 * D_E, cfg.use_residue
+        n_classes = info["n_classes"]
+        if base == "LSTM":
+            M = len(cfg.modals)
+            hidden = 250 if M == 3 else (150 if cfg.modals in ("al", "vl")
+                                         else 100)
+            self.linear_ = nn.Linear(D_m, hidden)
+            self.lstm = BiRNN(hidden, D_E, dropout=cfg.dropout)
+            if self.use_crn_speaker:
+                self.rnn_parties = BiRNN(hidden, D_E, dropout=cfg.dropout)
+        elif base == "GRU":
+            self.gru = BiRNN(D_m, D_E, dropout=cfg.dropout)
+        elif base == "DialogRNN":
+            rnn = lambda: DialogueRNN(D_m, D_G, D_P, D_E, cfg.active_listener,
+                                      cfg.attention, D_A, cfg.rec_dropout)
+            self.dialog_rnn_f = rnn()
+            self.dialog_rnn_r = rnn()
+        else:                                                  # 'None'
+            self.base_linear = nn.Linear(D_m, n_dim)
+        if gt == "relation":
+            self.att_model = MaskedEdgeAttention(n_dim, MAX_SEQ_LEN,
+                                                 cfg.edge_attn_type)
+            self.graph_net = GraphNetwork(
+                n_dim, 2 * info["n_speakers"] ** 2, GRAPH_H, cfg.use_gcn,
+                n_classes=n_classes, nodal_attention=cfg.nodal_attention,
+                dropout=cfg.dropout)
+        elif gt == "DeepGCN":
+            self.graph_net = DeepGCNII(
+                n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=cfg.lamda,
+                alpha=cfg.alpha, use_residue=res, reason_flag=cfg.reason_flag,
+                dropout=cfg.dropout, n_classes=n_classes)
+        elif gt == "GCN3":
+            self.graph_net = GCN2Layers(n_dim, GRAPH_H, n_classes,
+                                        use_residue=res, return_feature=False)
+        else:                                                  # 'None'
+            self.graph_net = nn.Linear(n_dim, n_classes)
+
     def _make_mfn(self, width: int) -> int:
         self.mfn = MFN()
         if width != 3 * self.mfn.d:
@@ -163,18 +229,19 @@ class DialogueGNN(nn.Module):
     @classmethod
     def from_config(cls, cfg: ExperimentConfig) -> "DialogueGNN":
         if cfg.dataset not in DATASET_INFO:
-            raise NotImplementedError(f"dataset {cfg.dataset!r}: {_LATER}")
+            raise NotImplementedError(
+                f"dataset {cfg.dataset!r}: a later slice of the port")
         if not cfg.graph_model:
-            raise NotImplementedError(f"graph_model=False: {_LATER}")
-        if not cfg.multi_modal or cfg.mm_fusion_mthd not in FUSIONS:
-            raise NotImplementedError(
-                f"single-stream (multi_modal={cfg.multi_modal}, "
-                f"mm_fusion_mthd={cfg.mm_fusion_mthd!r}): {_LATER}")
-        if cfg.base_model not in ("LSTM", "None"):
-            raise NotImplementedError(
-                f"base_model {cfg.base_model!r}: {_LATER}")
+            raise ValueError("graph_model=False selects a baseline: build "
+                             "it with mmdfn_torch.models.from_config")
         if cfg.graph_type not in GRAPH_TYPES:
             raise ValueError(f"unknown graph_type {cfg.graph_type!r}")
+        if cfg.base_model not in BASES:
+            raise ValueError(f"unknown base_model {cfg.base_model!r}")
+        if cfg.base_model == "DialogRNN" and cfg.multi_modal_path:
+            raise NotImplementedError(
+                "base_model='DialogRNN' is single-stream only (as in the "
+                "reference)")
         return cls(cfg)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -229,6 +296,8 @@ class DialogueGNN(nn.Module):
         """Per-utterance log-probs (B, L, n_classes); pad rows are garbage.
         ``train`` turns every dropout on, drawn from ``generator``."""
         kw = dict(train=train, generator=generator)
+        if not self.multi_modal:
+            return self._forward_single(text, qmask, umask, **kw)
         drop = lambda x: dropout(x, self.dropout if train else 0.0, generator)
         emotions = self._encode({"a": audio, "v": visual, "l": text}, qmask,
                                 umask, **kw)
@@ -257,3 +326,32 @@ class DialogueGNN(nn.Module):
                 torch.cat([net(emotions[m]), emotions[m]], dim=-1)
                 for m, net in zip(self.order, nets)], **kw))
         return torch.log_softmax(self.smax_fc(feat), dim=-1)
+
+    def _forward_single(self, x: Tensor, qmask: Tensor, umask: Tensor,
+                        **kw) -> Tensor:
+        base = self.base_model
+        if base == "LSTM":
+            U = self.linear_(x)
+            u = self.lstm(U, umask, **kw)
+            if self.use_crn_speaker:
+                u = u + self.speaker_weight["l"] * crn_party_delta(
+                    self.rnn_parties, U, qmask, umask, **kw)
+        elif base == "GRU":
+            u = self.gru(x, umask, **kw)
+        elif base == "DialogRNN":
+            u = bidirectional_dialogue_rnn(self.dialog_rnn_f,
+                                           self.dialog_rnn_r, x, qmask,
+                                           umask, **kw)
+        else:
+            u = self.base_linear(x)
+        gt = self.graph_type
+        if gt == "relation":
+            edge_mask = window_edge_mask(umask, *self.windows)
+            feat = self.graph_net(u, self.att_model(u, edge_mask),
+                                  relation_type_ids(qmask), edge_mask)
+            return self.graph_net.classify(feat, umask, **kw)
+        if gt == "DeepGCN":
+            return self.graph_net(u, qmask, umask, **kw)
+        if gt == "GCN3":
+            return self.graph_net(u, qmask, umask)
+        return torch.log_softmax(self.graph_net(u), dim=-1)

@@ -16,7 +16,7 @@ from mmdfn_torch.graph.adjacency import (gcnii_block_adjacency,
                                          mm_wo_speaker_adjacency)
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.gcn import GCNIIStack
-from mmdfn_torch.nn.init import reset_linears
+from mmdfn_torch.nn.init import reset_linear, reset_linears
 
 Tensor = torch.Tensor
 
@@ -144,22 +144,36 @@ class MMGCN2(GCNIIStack):
 
 
 class DeepGCNII(GCNIIStack):
-    """One modality's GCNII network (graph type DeepGCN): the angular block
+    """One stream's GCNII network (graph type DeepGCN): the angular block
     graph of its own utterances, the stack in the GCNII wiring (no dropout
-    inside the layer loop, one after it) and the residue concat."""
+    inside the layer loop, one after it) and the residue concat; with
+    ``n_classes`` (the single-stream head) then the classifier, the
+    reference's ``fcs[1]`` (``mmdfn_tpu``'s ``fc_out``), and log-softmax."""
 
     def __init__(self, nfeat: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.1,
                  use_residue: bool = True, reason_flag: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, n_classes: Optional[int] = None):
         super().__init__(nfeat, nlayers, nhidden, lamda=lamda, alpha=alpha,
                          reason_flag=reason_flag, dropout=dropout,
                          dropout_mode="none", post_loop_dropout=True)
         self.use_residue = use_residue
+        if n_classes is not None:
+            self.fcs.append(nn.Linear(
+                nfeat + nhidden if use_residue else nhidden, n_classes))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        super().reset_parameters(generator)
+        if len(self.fcs) > 1:
+            reset_linear(self.fcs[1], generator)
 
     def forward(self, x: Tensor, qmask: Tensor, umask: Tensor, *,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Tensor:
         adj = gcnii_block_adjacency(x, umask)
         x_resid, h = super().forward(x, adj, train=train, generator=generator)
-        return torch.cat([x_resid, h], dim=-1) if self.use_residue else h
+        if self.use_residue:
+            h = torch.cat([x_resid, h], dim=-1)
+        if len(self.fcs) > 1:
+            return torch.log_softmax(self.fcs[1](h), dim=-1)
+        return h

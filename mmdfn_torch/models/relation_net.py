@@ -12,6 +12,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mmdfn_torch.nn.attention import MatchingAttention
+from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.gcn import GCNLayer1
 from mmdfn_torch.nn.init import reset_linears, reset_uniform
 
@@ -77,21 +79,33 @@ class DenseGraphConv(nn.Module):
 
 
 class GraphNetwork(nn.Module):
-    """RGCN, GraphConv and the residue concat, returning the features
-    (the multimodal path's ``return_feature=True``).
+    """RGCN, GraphConv and the residue concat: the features (the
+    multimodal path's ``return_feature=True``); with ``n_classes`` (the
+    single-stream head) also the nodal-attention classifier,
+    :meth:`classify` (``mmdfn_tpu/models/relation_net.py:131-145``).
 
     ``use_GCN`` keeps a reference quirk: its conv3 and conv4 are
     ``GCNLayer1`` called with an empty speaker list, whose graph is then
     the identity (``model.py:691-701``), so each is its plain linear."""
 
     def __init__(self, num_features: int, num_relations: int,
-                 hidden_size: int = 64, use_GCN: bool = False):
+                 hidden_size: int = 64, use_GCN: bool = False,
+                 n_classes: Optional[int] = None,
+                 nodal_attention: bool = True, dropout: float = 0.0):
         super().__init__()
         self.conv1 = DenseRGCNConv(num_features, hidden_size, num_relations)
         self.conv2 = DenseGraphConv(hidden_size, hidden_size)
         if use_GCN:
             self.conv3 = GCNLayer1(num_features, hidden_size)
             self.conv4 = GCNLayer1(hidden_size, hidden_size)
+        if n_classes is not None:
+            self.dropout = dropout
+            width = num_features + hidden_size * (2 if use_GCN else 1)
+            if nodal_attention:
+                self.matchatt = MatchingAttention(width, width,
+                                                  att_type="general2")
+            self.linear = nn.Linear(width, hidden_size)
+            self.smax_fc = nn.Linear(hidden_size, n_classes)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.conv1.reset_parameters(generator)
@@ -99,6 +113,10 @@ class GraphNetwork(nn.Module):
         if hasattr(self, "conv3"):
             reset_linears(self.conv3, generator)
             reset_linears(self.conv4, generator)
+        if hasattr(self, "smax_fc"):
+            for name in ("matchatt", "linear", "smax_fc"):
+                if hasattr(self, name):
+                    reset_linears(getattr(self, name), generator)
 
     def forward(self, x: Tensor, edge_weight: Tensor, rel_ids: Tensor,
                 edge_mask: Tensor) -> Tensor:
@@ -108,3 +126,16 @@ class GraphNetwork(nn.Module):
             return torch.cat([x, out, self.conv4.linear(
                 self.conv3.linear(x))], dim=-1)
         return torch.cat([x, out], dim=-1)
+
+    def classify(self, emotions: Tensor, umask: Tensor, *,
+                 train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """Per-utterance log-probs from the features:
+        ``MatchingAttention('general2')`` of every utterance
+        over the dialogue (without nodal attention the features
+        themselves), a ReLU linear, dropout and ``smax_fc``."""
+        if hasattr(self, "matchatt"):
+            emotions, _ = self.matchatt(emotions, emotions, umask)
+        hidden = dropout(torch.relu(self.linear(emotions)),
+                         self.dropout if train else 0.0, generator)
+        return torch.log_softmax(self.smax_fc(hidden), dim=-1)

@@ -1,7 +1,8 @@
-"""The gated fusion head and the relation graph's edge attention
-(``mmdfn_tpu/nn/attention.py`` ``MMGatedAttention`` and
-``MaskedEdgeAttention``), as plain tensor ops.  Parameter names are the
-reference's."""
+"""The gated fusion head, the relation graph's edge attention and the
+sequence attentions of the single-stream heads and the baselines
+(``mmdfn_tpu/nn/attention.py`` ``MMGatedAttention``,
+``MaskedEdgeAttention``, ``SimpleAttention``, ``MatchingAttention``), as
+plain tensor ops.  Parameter names are the reference's."""
 
 from __future__ import annotations
 
@@ -54,12 +55,87 @@ class MMGatedAttention(nn.Module):
 
 
 class SimpleAttention(nn.Module):
-    """The reference's ``SimpleAttention`` weights: one scalar score per
-    node (``model.py:473-491``)."""
+    """Scalar-scored softmax pooling over a sequence (``model.py:14-29``);
+    its ``scalar`` is also the relation graph's attn2 score."""
 
     def __init__(self, input_dim: int):
         super().__init__()
         self.scalar = nn.Linear(input_dim, 1, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linears(self, generator)
+
+    def forward(self, M: Tensor, mask: Optional[Tensor] = None):
+        """M (B, L, D) -> (pooled (B, D), alpha (B, L)); with ``mask`` the
+        softmax is renormalised over the valid positions."""
+        alpha = torch.softmax(self.scalar(M)[..., 0], dim=-1)
+        if mask is not None:
+            alpha = alpha * mask
+            alpha = alpha / alpha.sum(-1, keepdim=True).clamp(min=1e-12)
+        return torch.einsum("bl,bld->bd", alpha, M), alpha
+
+
+class MatchingAttention(nn.Module):
+    """Candidate-conditioned attention over a memory, the reference's four
+    score types (``model.py:32-85``), batched over every candidate at
+    once: x is (B, D_cand) or (B, T, D_cand), the scores (B, T, L).
+
+    * ``dot``: x . M; ``general``: transform(x) . M (no bias); softmax;
+    * ``general2`` (the nodal attention and the baselines' head):
+      transform(x) with a bias against the masked memory, the scores
+      masked by multiplication before the tanh, softmaxed, masked again
+      and renormalised by ``max(sum, 1e-12)``;
+    * ``concat``: ``vector_prod(tanh(transform([M, x])))``, softmax.
+    """
+
+    def __init__(self, mem_dim: int, cand_dim: int,
+                 alpha_dim: Optional[int] = None, att_type: str = "general"):
+        super().__init__()
+        if att_type not in ("dot", "general", "general2", "concat"):
+            raise ValueError(f"att_type {att_type!r}")
+        self.att_type = att_type
+        if att_type in ("general", "general2"):
+            self.transform = nn.Linear(cand_dim, mem_dim,
+                                       bias=att_type == "general2")
+        elif att_type == "concat":
+            self.transform = nn.Linear(cand_dim + mem_dim, alpha_dim,
+                                       bias=False)
+            self.vector_prod = nn.Linear(alpha_dim, 1, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linears(self, generator)
+
+    def forward(self, M: Tensor, x: Tensor, mask: Optional[Tensor] = None):
+        """M (B, L, D_mem), x (B, [T,] D_cand), mask (B, L) -> (pooled
+        (B, [T,] D_mem), alpha (B, [T,] L))."""
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, None]
+        if self.att_type == "dot":
+            alpha = torch.softmax(x @ M.transpose(1, 2), dim=-1)
+        elif self.att_type == "general":
+            alpha = torch.softmax(self.transform(x) @ M.transpose(1, 2),
+                                  dim=-1)
+        elif self.att_type == "general2":
+            if mask is None:
+                mask = M.new_ones(M.shape[:2])
+            m = mask[:, None, :]
+            scores = self.transform(x) @ (M * mask[..., None]).transpose(
+                1, 2) * m
+            alpha = torch.softmax(torch.tanh(scores), dim=-1) * m
+            alpha = alpha / alpha.sum(-1, keepdim=True).clamp(min=1e-12)
+        else:                                                  # concat
+            B, L, _ = M.shape
+            T = x.shape[1]
+            Mx = torch.cat([M[:, None].expand(B, T, L, M.shape[-1]),
+                            x[:, :, None].expand(B, T, L, x.shape[-1])],
+                           dim=-1)
+            alpha = torch.softmax(self.vector_prod(torch.tanh(
+                self.transform(Mx)))[..., 0], dim=-1)
+        pooled = alpha @ M
+        if squeeze:
+            return pooled[:, 0], alpha[:, 0]
+        return pooled, alpha
 
 
 class MaskedEdgeAttention(nn.Module):

@@ -19,11 +19,13 @@ Tensor = torch.Tensor
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]
             ) -> Tensor:
     """``where(rand < keep, x / keep, 0)`` with ``keep = 1 - rate``; the
-    identity at rate 0."""
+    identity at rate 0 and zeros at rate 1, as flax's."""
     if rate == 0.0:
         return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
     if not 0.0 < rate < 1.0:
-        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+        raise ValueError(f"dropout rate {rate} outside [0, 1]")
     keep = 1.0 - rate
     rand = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(rand < keep, x / keep, 0.0)

@@ -183,16 +183,19 @@ class GCNLayer1(nn.Module):
 
 class GCN2Layers(nn.Module):
     """Two GCNLayer1 and the residue concat (reference ``GCN_2Layers``,
-    ``model_GCN.py:121-154``, returning features).  Without the residue
-    the reference returns the second layer's log-probs over the classes,
-    which the port keeps."""
+    ``model_GCN.py:121-154``): the features, or with ``return_feature``
+    off (the single-stream head) the classifier ``linear`` and
+    log-softmax.  Without the residue the reference returns the second
+    layer's log-probs over the classes, which the port keeps."""
 
     def __init__(self, in_feats: int, hidden: int, n_classes: int,
-                 use_residue: bool = True):
+                 use_residue: bool = True, return_feature: bool = True):
         super().__init__()
         self.use_residue = use_residue
         self.gcn1 = GCNLayer1(in_feats, hidden)
         self.gcn2 = GCNLayer1(hidden, hidden if use_residue else n_classes)
+        if use_residue and not return_feature:
+            self.linear = nn.Linear(in_feats + hidden, n_classes)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_linears(self, generator)
@@ -201,4 +204,7 @@ class GCN2Layers(nn.Module):
         g = self.gcn2(self.gcn1(x, qmask, umask), qmask, umask)
         if not self.use_residue:
             return torch.log_softmax(g, dim=-1)
-        return torch.cat([x, g], dim=-1)
+        feat = torch.cat([x, g], dim=-1)
+        if hasattr(self, "linear"):
+            return torch.log_softmax(self.linear(feat), dim=-1)
+        return feat

@@ -1,9 +1,12 @@
-"""Mask-gated bidirectional GRU encoders (``mmdfn_tpu/nn/rnn.py``).
+"""Mask-gated bidirectional GRU and LSTM encoders and the GRU cell of the
+DialogueRNN (``mmdfn_tpu/nn/rnn.py``).
 
 The input projection ``x @ W_ih + b_ih`` for the whole sequence is one
 ``torch.matmul``, outside the kernel, as the JAX package computes it
-(``nn/rnn.py:306-309``); the hidden recurrence of each layer, both
-directions, is kernel A (:func:`mmdfn_torch.ops.bigru_layer_fwd`).
+(``nn/rnn.py:306-309``); the hidden recurrence of each GRU layer, both
+directions, is kernel A (:func:`mmdfn_torch.ops.bigru_layer_fwd`).  The
+LSTM's recurrence, which the JAX package runs as a ``lax.scan`` and no
+kernel, is a step loop of plain ops over both directions at once.
 
 The recurrence is gated per (batch, time) by a mask with a select: a masked
 frame carries the state unchanged, so outputs are padding-invariant and a
@@ -15,7 +18,7 @@ In training, the output of every layer but the last goes through dropout
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,35 +29,67 @@ from mmdfn_torch.ops import bigru_layer_fwd
 Tensor = torch.Tensor
 
 
-class BiRNN(nn.Module):
-    """2-layer bidirectional GRU, batch-first, mask-gated.
+def _lstm_layer(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor, b_hh_f: Tensor,
+                w_hh_b: Tensor, b_hh_b: Tensor, mask: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """One masked bidirectional LSTM layer's recurrence from the projected
+    gates xg (B, L, 4H) and W_hh (H, 4H), gates i, f, g, o
+    (``mmdfn_tpu/nn/rnn.py:143-175``):
+    the two directions stacked on a leading axis, the backward one over
+    reversed time, h and c kept by a select at masked frames."""
+    L = xg_f.shape[1]
+    xg = torch.stack([xg_f, xg_b.flip(1)])                    # (2, B, L, 4H)
+    keep = torch.stack([mask, mask.flip(1)])[..., None] > 0   # (2, B, L, 1)
+    W = torch.stack([w_hh_f, w_hh_b])                         # (2, H, 4H)
+    bias = torch.stack([b_hh_f, b_hh_b])[:, None]             # (2, 1, 4H)
+    h = c = xg.new_zeros(2, xg.shape[1], W.shape[1])
+    ys = []
+    for t in range(L):
+        i, f, g, o = (xg[:, :, t] + torch.baddbmm(bias, h, W)).chunk(4, -1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        h = torch.where(keep[:, :, t], h_new, h)
+        c = torch.where(keep[:, :, t], c_new, c)
+        ys.append(h)
+    ys = torch.stack(ys, dim=2)
+    return ys[0], ys[1].flip(1)
 
-    Parameters carry torch ``nn.GRU`` names and shapes
+
+class BiRNN(nn.Module):
+    """2-layer bidirectional GRU (``cell='gru'``, kernel A) or LSTM
+    (``cell='lstm'``), batch-first, mask-gated.
+
+    Parameters carry torch ``nn.GRU`` / ``nn.LSTM`` names and shapes
     (``weight_ih_l0``, ``weight_hh_l0_reverse``, ...), so a reference
-    ``nn.GRU`` state_dict loads as is.
+    state_dict loads as is.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 2, dropout: float = 0.0):
+                 num_layers: int = 2, dropout: float = 0.0,
+                 cell: str = "gru"):
         super().__init__()
+        if cell not in ("gru", "lstm"):
+            raise ValueError(f"cell {cell!r}")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dropout = dropout
+        self.cell = cell
         H = hidden_size
+        G = (3 if cell == "gru" else 4) * H
         for layer in range(num_layers):
             in_dim = input_size if layer == 0 else 2 * H
             for suf in ("", "_reverse"):
-                for name, shape in (("weight_ih", (3 * H, in_dim)),
-                                    ("weight_hh", (3 * H, H)),
-                                    ("bias_ih", (3 * H,)),
-                                    ("bias_hh", (3 * H,))):
+                for name, shape in (("weight_ih", (G, in_dim)),
+                                    ("weight_hh", (G, H)),
+                                    ("bias_ih", (G,)),
+                                    ("bias_hh", (G,))):
                     self.register_parameter(
                         f"{name}_l{layer}{suf}",
                         nn.Parameter(torch.empty(shape)))
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """torch GRU init: every parameter U(-1/sqrt(H), 1/sqrt(H))."""
+        """torch RNN init: every parameter U(-1/sqrt(H), 1/sqrt(H))."""
         k = 1.0 / math.sqrt(self.hidden_size)
         with torch.no_grad():
             for p in self.parameters():
@@ -68,11 +103,12 @@ class BiRNN(nn.Module):
         if umask is None:
             umask = x.new_ones(x.shape[:2])
         out = x
+        recurrence = bigru_layer_fwd if self.cell == "gru" else _lstm_layer
         for layer in range(self.num_layers):
             w = lambda n, suf="": getattr(self, f"{n}_l{layer}{suf}")
             xg_f = out @ w("weight_ih").t() + w("bias_ih")
             xg_b = out @ w("weight_ih", "_reverse").t() + w("bias_ih", "_reverse")
-            ys_f, ys_b = bigru_layer_fwd(
+            ys_f, ys_b = recurrence(
                 xg_f, xg_b, w("weight_hh").t(), w("bias_hh"),
                 w("weight_hh", "_reverse").t(), w("bias_hh", "_reverse"),
                 umask)
@@ -80,6 +116,34 @@ class BiRNN(nn.Module):
             if train and layer < self.num_layers - 1:
                 out = dropout(out, self.dropout, generator)
         return out
+
+
+class GRUCellStep(nn.Module):
+    """One GRU cell step with ``nn.GRUCell``'s names and gate math (r, z,
+    n), in plain ops (``mmdfn_tpu/nn/rnn.py:355-380``)."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        H = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(3 * H, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(3 * H, H))
+        self.bias_ih = nn.Parameter(torch.empty(3 * H))
+        self.bias_hh = nn.Parameter(torch.empty(3 * H))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        k = 1.0 / math.sqrt(self.weight_hh.shape[1])
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-k, k, generator=generator)
+
+    def forward(self, x: Tensor, h: Tensor) -> Tensor:
+        xr, xz, xn = (x @ self.weight_ih.t() + self.bias_ih).chunk(3, -1)
+        hr, hz, hn = (h @ self.weight_hh.t() + self.bias_hh).chunk(3, -1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1.0 - z) * n + z * h
 
 
 def crn_party_delta(rnn: BiRNN, x: Tensor, qmask: Tensor,

@@ -48,9 +48,10 @@ def run(cfg: Optional[ExperimentConfig] = None, n_dialogues: int = 6,
         dialogues = IEMOCAPDataset(path, train=False).dialogues()
     summary = measure_latency(model, cfg, dialogues, buckets=buckets,
                               warmup_dialogues=1, device=device)
+    name = (f"MM-DFN {cfg.graph_type} {cfg.Deep_GCN_nlayers}L"
+            if cfg.graph_model else f"{cfg.base_model} baseline")
     summary.update(
-        model=f"MM-DFN {cfg.graph_type} {cfg.Deep_GCN_nlayers}L "
-              f"({cfg.dataset})",
+        model=f"{name} ({cfg.dataset})",
         buckets=list(buckets), n_dialogues=n_dialogues,
         dialogue_len=[min_len, max_len], ckpt_epoch=epoch)
     return summary
@@ -73,8 +74,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default="cuda",
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
-    from mmdfn_torch.weights import CheckpointError
-
     try:
         summary = run(cfg=flagship_config(args.nlayers, seed=args.seed),
                       n_dialogues=args.n_dialogues, min_len=args.min_len,
@@ -82,8 +81,8 @@ def main(argv=None) -> int:
                       buckets=tuple(int(b) for b in args.buckets.split(",")),
                       seed=args.seed, load_model=args.load_model,
                       device=args.device)
-    except CheckpointError as e:
-        print(e, file=sys.stderr)
+    except ValueError as e:   # a directory it cannot serve (CheckpointError),
+        print(e, file=sys.stderr)  # or a model whose input it cannot build
         return 1
     line = json.dumps(summary)
     print(line)

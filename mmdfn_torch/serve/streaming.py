@@ -7,6 +7,12 @@ utterance), so each arrival re-runs the whole prefix: one deterministic
 forward over ``[:, :L]`` with ``L = bucket_length(t + 1)`` and
 ``umask = arange(L) <= t``.  The prediction for utterance t equals the
 offline model's on the length-(t+1) prefix.
+
+The model's ``text`` argument is the text vector, as ``mmdfn_tpu``'s
+session feeds it: right for every multimodal head, the non-graph
+baselines and a single-stream model of the text (``modals='l'``).  A
+model that reads another modality alone, or the early-fusion
+concatenation, is refused: neither server builds that input.
 """
 
 from __future__ import annotations
@@ -28,6 +34,14 @@ class StreamingSession:
 
     def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig,
                  buckets: Sequence[int] = SERVE_BUCKETS, device=None):
+        if cfg.input_modals != "l":
+            what = ("the concatenation of modals "
+                    f"{','.join(cfg.input_modals)} (mm_fusion_mthd 'concat')"
+                    if len(cfg.input_modals) > 1
+                    else f"modality {cfg.input_modals!r} alone")
+            raise ValueError(f"this model reads {what}; the server feeds a "
+                             "model the text vector and builds no other "
+                             "input")
         self.device = resolve_device(device)
         info = cfg.info
         self.model = model.to(self.device).eval()

@@ -11,10 +11,14 @@ dead exactly when the port's model has no key under it), and the rest
 loads strictly into the port's ``DialogueGNN``.  A stray or a missing key
 is an error that names it.
 
-Scope: every multimodal graph family (GDF, GF, GF2, DeepGCN, GCN3,
-relation, 'None') with the base LSTM or 'None' and any fusion head, on
-IEMOCAP and MELD.  The single-stream path and the non-graph baselines
-raise ``NotImplementedError``.
+Scope: the families ``mmdfn_tpu``'s importer detects
+(``_detect_family``), on IEMOCAP and MELD: every multimodal graph family
+(GDF, GF, GF2, DeepGCN, GCN3, relation, 'None') with the base LSTM or
+'None' and any fusion head; the single-stream relation net
+(``mm_fusion_mthd='concat'`` or ``multi_modal`` off) on the LSTM base with
+the attn1 edge weights; and the non-graph baselines GRU, LSTM and
+DialogRNN (simple or general context attention).  Any other single-stream
+model raises ``ValueError``, as the JAX importer does.
 
 CLI (writes a checkpoint directory that ``cli/serve.py --load_model`` and
 ``cli/run_train_erc.py --test_label --load_model`` read):
@@ -33,11 +37,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from mmdfn_torch import models
 from mmdfn_torch.config import ExperimentConfig
-from mmdfn_torch.models import DialogueGNN
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
-
-_LATER = "a later slice of the port"
 
 # allocated by the reference on the GF/GDF path and never run there
 # (model.py:983, model_mm.py:55-75): the relation family's edge attention,
@@ -62,10 +64,12 @@ OTHER_DEAD = ("att_model.scalar.", "att_model.simpleatt.",
     for part in ("rnn", "linear", "matchatt"))
 
 
-def dead_prefixes(model: DialogueGNN) -> tuple:
+def dead_prefixes(model: torch.nn.Module) -> tuple:
     """The state_dict prefixes that the reference allocates and
     ``model``'s forward never reads: each candidate under which the model
-    has no key."""
+    has no key; none for the baselines, which run every parameter."""
+    if not isinstance(model, models.DialogueGNN):
+        return ()
     live = model.state_dict()
     return tuple(p for p in GDF_DEAD + (REASON_LSTM,) + OTHER_DEAD
                  if not any(k.startswith(p) for k in live))
@@ -89,28 +93,54 @@ def load_reference(obj_or_path) -> Mapping[str, Any]:
     return obj
 
 
+def _name(cfg: ExperimentConfig) -> str:
+    return cfg.graph_type if cfg.graph_model else f"{cfg.base_model} baseline"
+
+
+def check_family(cfg: ExperimentConfig) -> None:
+    """Raise ``ValueError`` for a model that ``mmdfn_tpu``'s importer has
+    no family for: a single-stream model other than the relation net on
+    the LSTM base with attn1 edge weights, or a DialogRNN baseline whose
+    context attention is neither simple nor general."""
+    if not cfg.graph_model:
+        if cfg.base_model == "DialogRNN" and cfg.attention not in (
+                "simple", "general"):
+            raise ValueError(f"DialogRNN with attention {cfg.attention!r}: "
+                             "the importer maps simple and general only")
+    elif not cfg.multi_modal_path and (
+            cfg.graph_type, cfg.base_model, cfg.edge_attn_type) != (
+            "relation", "LSTM", "attn1"):
+        raise ValueError(
+            f"single-stream graph_type {cfg.graph_type!r} on base_model "
+            f"{cfg.base_model!r} (edge_attn_type {cfg.edge_attn_type!r}): "
+            "the importer takes the single-stream relation net on the LSTM "
+            "base with attn1 edge weights only")
+
+
 def import_state_dict(sd: Mapping[str, Any], cfg: ExperimentConfig
-                      ) -> DialogueGNN:
+                      ) -> torch.nn.Module:
     """The config's port model with the reference weights ``sd`` (tensors
     or arrays) loaded strictly, the dead prefixes dropped first.
 
     Raises:
       NotImplementedError: the config selects a family the port lacks.
+      ValueError: a family the importer does not take (:func:`check_family`).
       KeyError: a live key of ``sd`` the model lacks, or a key of the
         model that ``sd`` lacks; the message names them.
       ValueError: a key whose shape differs from the model's.
     """
-    model = DialogueGNN.from_config(cfg)
+    check_family(cfg)
+    model = models.from_config(cfg)
     dead = dead_prefixes(model)
     live = {k: v for k, v in sd.items() if not k.startswith(dead)}
     want = model.state_dict()
     stray = sorted(set(live) - set(want))
     missing = sorted(set(want) - set(live))
     if stray:
-        raise KeyError(f"reference parameters the port's {cfg.graph_type} "
+        raise KeyError(f"reference parameters the port's {_name(cfg)} "
                        f"model has no place for: {stray}")
     if missing:
-        raise KeyError(f"parameters of the port's {cfg.graph_type} model "
+        raise KeyError(f"parameters of the port's {_name(cfg)} model "
                        f"missing from the checkpoint: {missing}")
     tensors = {}
     for k, v in live.items():
@@ -129,7 +159,7 @@ def import_state_dict(sd: Mapping[str, Any], cfg: ExperimentConfig
 
 
 def import_reference_checkpoint(obj_or_path, cfg: ExperimentConfig
-                                ) -> DialogueGNN:
+                                ) -> torch.nn.Module:
     """:func:`load_reference` then :func:`import_state_dict`."""
     return import_state_dict(load_reference(obj_or_path), cfg)
 
@@ -159,8 +189,15 @@ def main(argv=None) -> int:
                          "for GDF, off otherwise")
     ap.add_argument("--mm_fusion_mthd", default="concat_subsequently",
                     choices=["concat_subsequently", "concat_only", "gated",
-                             "tfn_only", "lmf_only", "mfn_only", "mfn"],
-                    help="fusion head the checkpoint was trained with")
+                             "tfn_only", "lmf_only", "mfn_only", "mfn",
+                             "concat"],
+                    help="fusion head the checkpoint was trained with "
+                         "('concat': the single-stream relation net)")
+    ap.add_argument("--modals", default="avl",
+                    help="the modalities the checkpoint was trained on")
+    ap.add_argument("--no_multi_modal", dest="multi_modal",
+                    action="store_false", default=True,
+                    help="single-stream relation checkpoint of one modality")
     ap.add_argument("--av_using_lstm", action="store_true",
                     help="checkpoint has lstm_a/lstm_v encoders")
     ap.add_argument("--use_gcn", action="store_true",
@@ -180,21 +217,20 @@ def main(argv=None) -> int:
     ap.add_argument("--base_model", default="LSTM",
                     choices=["LSTM", "GRU", "DialogRNN"])
     ap.add_argument("--active_listener", action="store_true",
-                    help="DialogRNN's listener state (unread with the base "
-                         "LSTM)")
+                    help="DialogRNN: the listener-state variant")
     ap.add_argument("--attention", default="general",
                     choices=["simple", "general"],
-                    help="DialogRNN's context attention (unread with the "
-                         "base LSTM)")
+                    help="DialogRNN: the context attention")
     args = ap.parse_args(argv)
-    if not args.graph_model:
-        raise NotImplementedError(f"--no_graph_model baselines: {_LATER}")
 
     reason = ((args.graph_type == "GDF") if args.reason_flag == "auto"
               else args.reason_flag == "true")
     cfg = ExperimentConfig(
         dataset=args.dataset, graph_type=args.graph_type,
-        base_model=args.base_model, reason_flag=reason,
+        graph_model=args.graph_model, base_model=args.base_model,
+        multi_modal=args.multi_modal, modals=args.modals,
+        active_listener=args.active_listener, attention=args.attention,
+        reason_flag=reason,
         Deep_GCN_nlayers=args.Deep_GCN_nlayers,
         use_residue=not args.no_use_residue,
         speaker_weights=args.speaker_weights,

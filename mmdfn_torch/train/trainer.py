@@ -8,8 +8,14 @@ and D, and one Adam update.  The host never waits for the card inside an
 epoch: losses and predictions stay on the device until the epoch ends.
 
 Reference-parity details, as the JAX trainer keeps them:
-* graph-path loss = mean over valid utterances; epoch loss = mean of the
-  batch losses, rounded to 4 places (``run_train_erc.py:202,222``);
+* the model's input: the text features, or for the single stream the
+  chosen modality or the concatenation ``ExperimentConfig.input_modals``
+  names (``mmdfn_tpu/train/trainer.py:88-113``), built on the device;
+* graph-path loss = ``cfg.loss`` (focal by default), mean over valid
+  utterances; epoch loss = mean of the batch losses, rounded to 4 places
+  (``run_train_erc.py:202,222``); the non-graph baselines always take the
+  masked NLL, and their epoch loss weights each batch by its valid
+  utterances (``mmdfn_tpu/train/trainer.py:131-132,381-385``);
 * accuracy and sklearn-weighted F1 (``run_train_erc.py:229-236``);
 * selection on test when ``valid_rate == 0`` and the dual patience of
   early stopping (``run_train_erc.py:609-638``);
@@ -84,9 +90,21 @@ def prepare_inputs(batch: Batch, device: torch.device) -> Dict[str, Tensor]:
                 umask=put(batch.umask), label=put(batch.label))
 
 
+def model_text(cfg: ExperimentConfig, inputs: Dict[str, Tensor]) -> Tensor:
+    """The model's ``text`` argument from a batch's features: the
+    modalities of ``cfg.input_modals``, concatenated in that order."""
+    feats = {"a": inputs["audio"], "v": inputs["visual"],
+             "l": inputs["text"]}
+    modals = cfg.input_modals
+    if len(modals) == 1:
+        return feats[modals]
+    return torch.cat([feats[m] for m in modals], dim=-1)
+
+
 class Trainer:
-    """Trains the port's ``DialogueGNN`` (any multimodal family) with the
-    reference's loss, optimiser and selection rules.
+    """Trains the port's ``DialogueGNN`` (any graph family, multimodal or
+    single-stream) or a non-graph baseline with the reference's loss,
+    optimiser and selection rules.
 
     ``model`` defaults to the config's model with fresh weights from
     ``cfg.seed``; ``device`` to the card (it raises without one unless
@@ -106,14 +124,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _loss(self, log_probs: Tensor, label: Tensor, umask: Tensor) -> Tensor:
-        if self.cfg.loss == "FocalLoss":
+        if self.cfg.graph_model and self.cfg.loss == "FocalLoss":
             return focal_loss(log_probs, label, umask, gamma=self.cfg.gamma,
                               alpha=self.alpha)
         return masked_nll_loss(log_probs, label, umask, weight=self.alpha)
 
     def _forward(self, inputs: Dict[str, Tensor], **kw) -> Tensor:
-        return self.model(inputs["text"], inputs["qmask"], inputs["umask"],
-                          inputs["audio"], inputs["visual"], **kw)
+        return self.model(model_text(self.cfg, inputs), inputs["qmask"],
+                          inputs["umask"], inputs["audio"], inputs["visual"],
+                          **kw)
 
     def step_seed(self, epoch: int, i: int) -> int:
         """The seed of step i of an epoch: the same stream every epoch with
@@ -156,7 +175,7 @@ class Trainer:
         """One pass over ``batches`` (``Batch`` objects, or (Batch, inputs)
         pairs prepared once); mirrors ``train_or_eval_graph_model``."""
         cfg = self.cfg
-        losses, preds, masks, labels = [], [], [], []
+        losses, preds, masks, labels, mask_sums = [], [], [], [], []
         n_dia = n_utt = 0
         t0 = time.perf_counter()
         for i, item in enumerate(batches):
@@ -172,18 +191,23 @@ class Trainer:
             losses.append(loss)
             preds.append(pred)
             masks.append(m)
+            mask_sums.append(float(m.sum()))
             labels.append(batch.label.reshape(-1)[m])
         if not losses:
             nan, empty = float("nan"), np.zeros((0,), np.int64)
             return EpochMetrics(nan, nan, nan, empty, empty)
         # one copy back per epoch, not one wait per step
-        losses = torch.stack(losses).cpu().numpy()
+        losses = torch.stack(losses).cpu().numpy().astype(np.float64)
         preds = [p.reshape(-1).cpu().numpy()[m] for p, m in zip(preds, masks)]
         dt = time.perf_counter() - t0
         labels, preds = np.concatenate(labels), np.concatenate(preds)
         n_classes = cfg.info["n_classes"]
+        if cfg.graph_model:
+            loss = np.sum(losses) / len(losses)
+        else:
+            loss = np.sum(losses * np.asarray(mask_sums)) / np.sum(mask_sums)
         result = EpochMetrics(
-            loss=round(float(np.sum(losses) / len(losses)), 4),
+            loss=round(float(loss), 4),
             acc=M.reference_rounding(M.accuracy(labels, preds)),
             fscore=M.reference_rounding(M.f1_score(labels, preds, n_classes)),
             labels=labels, preds=preds,

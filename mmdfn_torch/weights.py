@@ -17,8 +17,8 @@ from typing import Any, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from mmdfn_torch import models
 from mmdfn_torch.config import ExperimentConfig
-from mmdfn_torch.models import DialogueGNN
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
 
 
@@ -27,7 +27,8 @@ def _t(a) -> torch.Tensor:
 
 
 def gru_from_jax(p: Mapping) -> "OrderedDict":
-    """A JAX ``BiRNN`` (GRU) parameter dict -> ``nn.GRU`` state_dict keys."""
+    """A JAX ``BiRNN`` (GRU or LSTM) parameter dict -> ``nn.GRU`` /
+    ``nn.LSTM`` state_dict keys."""
     sd: "OrderedDict" = OrderedDict()
     layers = sorted({int(k.split("_l")[1].split("_")[0]) for k in p})
     for layer in layers:
@@ -104,19 +105,68 @@ def _dense_tree(sd: "OrderedDict", prefix: str, tree: Mapping) -> None:
             sd[f"{prefix}{k}"] = _t(v)
 
 
+# the JAX DialogueRNN cell's attention parameters -> the reference's
+_DIALOGUE_ATT = {"att_scalar": "scalar", "att_transform": "transform",
+                 "att_vector": "vector_prod"}
+
+
+def _dialogue_rnn(sd: "OrderedDict", name: str, p: Mapping) -> None:
+    """A JAX ``DialogueRNN`` (its ``nn.scan`` step named ``cell``) ->
+    ``{name}.dialogue_cell.{g,p,e,l}_cell`` (``nn.GRUCell`` keys) and
+    ``.attention``."""
+    pre = f"{name}.dialogue_cell."
+    for k, v in p["cell"].items():
+        if k.endswith("_cell"):
+            sd[f"{pre}{k}.weight_ih"] = _t(v["w_ih"]).t()
+            sd[f"{pre}{k}.weight_hh"] = _t(v["w_hh"]).t()
+            sd[f"{pre}{k}.bias_ih"] = _t(v["b_ih"])
+            sd[f"{pre}{k}.bias_hh"] = _t(v["b_hh"])
+        else:
+            _linear(sd, f"{pre}attention.{_DIALOGUE_ATT[k]}", v)
+
+
+def _single_graph_net(sd: "OrderedDict", g: Mapping) -> None:
+    """The single-stream ``graph_net``: a relation net with its
+    classifier, a GCNII network with ``fc_out`` (the reference's
+    ``fcs.1``), a GCN3 with its ``linear``, or a bare linear."""
+    pre = "graph_net."
+    if "stack" in g:                                        # DeepGCN
+        sd.update(gcnii_from_jax(g["stack"], pre))
+        _linear(sd, f"{pre}fcs.1", g["fc_out"])
+    elif "gcn1" in g:                                       # GCN3
+        for layer in ("gcn1", "gcn2"):
+            _linear(sd, f"{pre}{layer}.linear", g[layer]["TorchDense_0"])
+        if "linear" in g:
+            _linear(sd, f"{pre}linear", g["linear"])
+    elif "conv1" in g:                                      # relation
+        _relation_net(sd, pre, g)
+        _dense_tree(sd, pre, {k: g[k] for k in ("matchatt", "linear",
+                                                "smax_fc") if k in g})
+    else:                                                   # 'None'
+        _linear(sd, "graph_net", g)
+
+
 def params_from_jax(params: Mapping[str, Any]) -> "OrderedDict":
-    """Map the JAX ``DialogueGNN`` parameter tree of any multimodal
-    family, a nested dict of arrays as ``Trainer.init_state().params``
+    """Map the JAX parameter tree of any model the port builds (every
+    ``DialogueGNN`` family, multimodal or single-stream, and the non-graph
+    baselines), a nested dict of arrays as ``Trainer.init_state().params``
     holds it, onto the port's state_dict (the reference's keys, as
     ``mmdfn_tpu/tools/import_torch_checkpoint.py`` reads them)."""
     sd: "OrderedDict" = OrderedDict()
+    for name in ("linear_", "base_linear"):
+        if name in params:
+            _linear(sd, name, params[name])
     for m in "avl":
         if f"linear_{m}" in params:
             _linear(sd, f"linear_{m}", params[f"linear_{m}"])
-    for name in ("lstm_a", "lstm_v", "lstm_l", "rnn_parties"):
+    for name in ("lstm_a", "lstm_v", "lstm_l", "lstm", "gru",
+                 "rnn_parties"):
         if name in params:
             for k, v in gru_from_jax(params[name]).items():
                 sd[f"{name}.{k}"] = v
+    for name in ("dialog_rnn_f", "dialog_rnn_r"):
+        if name in params:
+            _dialogue_rnn(sd, name, params[name])
     gm = params.get("graph_model", {})
     if "graph_net" in gm:                                   # GF / GDF
         sd.update(gcnii_from_jax(gm["graph_net"], "graph_model.graph_net."))
@@ -153,7 +203,12 @@ def params_from_jax(params: Mapping[str, Any]) -> "OrderedDict":
             _dense_tree(sd, f"{head}.", params[head])
     if "mfn" in params:
         _mfn(sd, params["mfn"])
-    _linear(sd, "smax_fc", params["smax_fc"])
+    if "graph_net" in params:
+        _single_graph_net(sd, params["graph_net"])
+    if "head" in params:                          # the baselines' classifier
+        _dense_tree(sd, "", params["head"])
+    if "smax_fc" in params:
+        _linear(sd, "smax_fc", params["smax_fc"])
     return OrderedDict((k, v.contiguous()) for k, v in sd.items())
 
 
@@ -181,7 +236,7 @@ class CheckpointError(ValueError):
     """A trainer's directory that holds no servable checkpoint."""
 
 
-def load_served(path: str) -> Tuple[ExperimentConfig, DialogueGNN,
+def load_served(path: str) -> Tuple[ExperimentConfig, torch.nn.Module,
                                       Optional[int]]:
     """The model to serve from ``path``: a directory that
     ``Trainer.fit(save_dir=...)`` wrote (its ``best`` checkpoint, rebuilt
@@ -205,14 +260,14 @@ def load_served(path: str) -> Tuple[ExperimentConfig, DialogueGNN,
         raise CheckpointError(f"the checkpoint under {path!r} has no config in "
                          "its meta; cannot rebuild its model")
     cfg = _config(meta["config"])
-    model, _ = ckpt_lib.restore_checkpoint(path, DialogueGNN.from_config(cfg))
+    model, _ = ckpt_lib.restore_checkpoint(path, models.from_config(cfg))
     return cfg, model, meta.get("epoch")
 
 
 def build_model(cfg: ExperimentConfig, state_dict: Optional[Mapping] = None):
     """The config's model: fresh weights drawn from ``cfg.seed``, or
     ``state_dict`` loaded strictly (no missing or extra keys)."""
-    model = DialogueGNN.from_config(cfg)
+    model = models.from_config(cfg)
     if state_dict is None:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     else:

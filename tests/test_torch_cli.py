@@ -49,9 +49,9 @@ def test_parser_takes_every_jax_flag_with_its_default():
 
 
 def test_flags_unread_on_the_gdf_path_leave_the_config_as_it_was():
-    """The other families' settings reach the config under their JAX
-    names and leave the GDF model as it was; DialogRNN's and the topic
-    flag are not fields."""
+    """The other families' settings and DialogRNN's reach the config under
+    their JAX names and leave the GDF model as it was; the topic flag is
+    not a field."""
     import dataclasses
 
     from mmdfn_torch.weights import build_model
@@ -69,7 +69,8 @@ def test_flags_unread_on_the_gdf_path_leave_the_config_as_it_was():
         "--no_cuda"])
     family = {"use_gcn": True, "graph_construct": "full",
               "nodal_attention": False, "windowp": 3, "windowf": 4,
-              "edge_attn_type": "attn3"}
+              "edge_attn_type": "attn3", "active_listener": True,
+              "attention": "simple", "rec_dropout": 0.3}
     assert other == dataclasses.replace(base, **family)
     a, b = build_model(base).state_dict(), build_model(other).state_dict()
     assert a.keys() == b.keys()
@@ -77,20 +78,33 @@ def test_flags_unread_on_the_gdf_path_leave_the_config_as_it_was():
     assert parse(["--sort_batches_by_length"]).sort_batches_by_length
 
 
-# the values that select what the port does not have yet: the single-stream
-# path (--no_multi_modal, or a fusion that is not multimodal), the
-# non-graph baselines, DialogRNN and GRU as base models, DailyDialogue
-@pytest.mark.parametrize("argv", [
-    ["--dataset", "DailyDialogue"], ["--no_graph_model"],
-    ["--no_multi_modal"], ["--mm_fusion_mthd", "concat"],
-    ["--base_model", "GRU"], ["--no_multi_modal", "--graph_type", "relation"],
-    ["--mm_fusion_mthd", "concat", "--graph_type", "GF2"],
-    ["--base_model", "DialogRNN"],
-    ["--no_multi_modal", "--mm_fusion_mthd", "gated"],
-    ["--base_model", "GRU", "--graph_type", "DeepGCN"],
-    ["--mm_fusion_mthd", "concat", "--graph_type", "None"]])
-def test_family_selecting_values_name_the_later_slice(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
+# the values that select another family than the flagship's: DailyDialogue
+# names the later slice; what the JAX package cannot run either (GF, GDF
+# and GF2 on one stream, a multimodal GRU or DialogRNN base, one stream of
+# three modalities) is refused by name; the non-graph baselines and early
+# fusion on 'None' build their model and stop at the missing pickle
+@pytest.mark.parametrize("argv,error,match", [
+    (["--dataset", "DailyDialogue"], NotImplementedError, "later slice"),
+    (["--no_graph_model"], FileNotFoundError, "none.pkl"),
+    (["--no_multi_modal"], ValueError, "no single stream"),
+    (["--mm_fusion_mthd", "concat"], ValueError, "no single stream"),
+    (["--base_model", "GRU"], ValueError, "feeds one stream"),
+    (["--no_multi_modal", "--graph_type", "relation"], ValueError,
+     "one modality"),
+    (["--mm_fusion_mthd", "concat", "--graph_type", "GF2"], ValueError,
+     "no single stream"),
+    (["--base_model", "DialogRNN"], NotImplementedError,
+     "single-stream only"),
+    (["--no_multi_modal", "--mm_fusion_mthd", "gated"], ValueError,
+     "no single stream"),
+    (["--base_model", "GRU", "--graph_type", "DeepGCN"], ValueError,
+     "feeds one stream"),
+    (["--mm_fusion_mthd", "concat", "--graph_type", "None"],
+     FileNotFoundError, "none.pkl")],
+    ids=[f"argv{i}" for i in range(11)])
+def test_family_selecting_values_name_the_later_slice(argv, error, match,
+                                                      tmp_path):
+    with pytest.raises(error, match=match):
         run_train_erc.main(["--device", "cpu", "--data_dir",
                             str(tmp_path / "none.pkl"), *argv])
 

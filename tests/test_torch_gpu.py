@@ -671,3 +671,76 @@ def test_family_training_step_on_the_card_matches_plain(kw):
     for name, g in grads.items():
         scale = float(ref[name].abs().max())
         assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,rows", [
+    (dict(graph_type="DeepGCN", mm_fusion_mthd="concat", reason_flag=True),
+     {32, 64}),
+    (dict(graph_model=False, base_model="GRU"), {32}),
+    (dict(graph_model=False, base_model="LSTM"), set()),
+    (dict(graph_model=False, base_model="DialogRNN", active_listener=True),
+     set())],
+    ids=["early-DeepGCN-reason", "GRU", "LSTM", "DialogRNN-listener"])
+def test_single_stream_and_baseline_steps_on_the_card_match_plain(kw, rows,
+                                                                  monkeypatch):
+    """One training step of early-fusion DeepGCN (a,v,l concatenated, the
+    LSTM base with the CRN) and of each baseline on the card (B = 32
+    dialogues, dropout 0.4) against the same step with the plain versions:
+    the loss and every parameter's gradient.  Kernels A and C run at the
+    rows each bi-GRU gives them: the text's 32 and the single-stream
+    CRN's 64 party streams (B x P); the bi-LSTM and the DialogueRNN launch
+    no kernel; early fusion launches kernels B and D."""
+    import tempfile
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import collate
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.nn import rnn
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.train.trainer import prepare_inputs
+
+    dev = _card()
+    cfg = ExperimentConfig(Deep_GCN_nlayers=4, dropout=0.4, seed=3,
+                           class_weight=True, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=32,
+                                      n_test=1, min_len=5, max_len=9, seed=3)
+        dias = IEMOCAPDataset(f"{tmp}/iem.pkl", train=True).dialogues()
+    inputs = prepare_inputs(collate(dias, 32, 9, 2), dev)
+    seen = set()
+    launch = rnn.bigru_layer_fwd
+
+    def record(xg_f, *args):
+        seen.add(xg_f.shape[0])
+        return launch(xg_f, *args)
+    monkeypatch.setattr(rnn, "bigru_layer_fwd", record)
+
+    def step(plain):
+        tr = Trainer(cfg, device=dev)
+        before = dict(ops.launch_counts())
+        if plain:
+            with ops.plain_ops():
+                loss, _ = tr.train_step(inputs, seed=11)
+        else:
+            loss, _ = tr.train_step(inputs, seed=11)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return float(loss), {n: p.grad for n, p in
+                             tr.model.named_parameters()}, used
+
+    loss, grads, used = step(plain=False)
+    assert seen == rows
+    assert (used["bigru_fwd"] > 0 and used["bigru_bwd"] > 0) == bool(rows)
+    stack = cfg.graph_model
+    assert (used["gcnii_fwd"] > 0 and used["gcnii_bwd"] > 0) == stack, used
+    for name, g in grads.items():
+        assert g is not None and bool(g.abs().max() > 0), name
+    ref_loss, ref, used = step(plain=True)
+    assert not any(used.values())
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, g in grads.items():
+        scale = float(ref[name].abs().max())
+        assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name

@@ -154,7 +154,8 @@ def test_import_cli_writes_a_directory_the_port_serves(tmp_path, monkeypatch,
                        "--buckets", "4"]) == 0
     resp = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert resp[0]["ready"] and len(resp[1]["log_probs"]) == 7
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # a GDF checkpoint given as a baseline's: its keys have no place
+    with pytest.raises(KeyError, match="LSTM baseline model has no place"):
         main(["--load_model", pkl, "--out", out, "--no_graph_model"])
 
 

@@ -87,8 +87,14 @@ def test_other_graph_types_name_the_later_slice():
     from mmdfn_torch.config import ExperimentConfig
     from mmdfn_torch.models import DialogueGNN
 
-    for kw in (dict(multi_modal=False), dict(mm_fusion_mthd="concat"),
-               dict(base_model="GRU"), dict(base_model="DialogRNN"),
-               dict(graph_model=False), dict(dataset="DailyDialogue")):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for kw, error, match in (
+            (dict(multi_modal=False), ValueError, "no single stream"),
+            (dict(mm_fusion_mthd="concat"), ValueError, "no single stream"),
+            (dict(base_model="GRU"), ValueError, "feeds one stream"),
+            (dict(base_model="DialogRNN"), NotImplementedError,
+             "single-stream only"),
+            (dict(graph_model=False), ValueError, "selects a baseline"),
+            (dict(dataset="DailyDialogue"), NotImplementedError,
+             "later slice")):
+        with pytest.raises(error, match=match):
             DialogueGNN.from_config(ExperimentConfig(**kw))

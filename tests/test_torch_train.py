@@ -217,7 +217,8 @@ def test_training_cli_runs_on_the_cpu(pickle_path, tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="later slice"):
         run_train_erc.main(["--device", "cpu", "--dataset",
                             "DailyDialogue"])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # one stream of three modalities: the JAX package has no such input
+    with pytest.raises(ValueError, match="one modality"):
         run_train_erc.main(["--device", "cpu", "--data_dir", pickle_path,
                             "--graph_type", "relation", "--no_multi_modal"])
 
