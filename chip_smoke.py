@@ -94,7 +94,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    mode); a step check each of the single-stream relation, GCN3 and None
    heads and of relation on the DialogRNN base; and the plain bi-LSTM
    (beside cuDNN's ``nn.LSTM``) and bidirectional DialogueRNN recurrences
-   alone at B = 32, L = 80.
+   alone at B = 32, L = 80;
+9. learn: ``tests/test_torch_learning.py``'s whole run through kernels
+   A-D with dropout 0.4 (the flagship, 12 epochs at B = 8 on 96 dialogues
+   of a separable synthetic task): best test F1 >= 95, train F1 at the
+   best epoch >= 95, epoch-0 train F1 < 60; the per-epoch history, then
+   the step alone timed and profiled on the run's batches (median wall,
+   device busy and idle share, launches a step);
+10. sweep: the grouped sweep (``train/vmap_sweep.py``) at the flagship's
+   widths on 64 dialogues of U[20, 80] turns: the first group of the
+   IEMOCAP grid cut to K = 4 (dropout 0.2 and 0.4 at two learning rates)
+   trains 2 epochs at B = 32; one combination trained alone twice says
+   whether a run repeats itself bit for bit on the card, and two configs
+   of the group (one at each dropout) are held against their runs alone
+   to that bar (else equal test F-scores and losses within 1e-5
+   relative); the group's batch is timed beside the solo step (launches
+   a batch K times the solo step's, peak memory, device busy and idle
+   share); and ``cli.sweep --vmap --limit 4 --epochs 1`` runs twice on
+   one directory, the second skipping the finished group with the same
+   ``summary.jsonl``.
 
 It prints a line per phase, the seconds each took (``phase_s``), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -1584,6 +1602,259 @@ def single_phase(torch, dev) -> dict:
     return out
 
 
+LEARN = dict(n_train=96, n_test=24, min_len=6, max_len=12, seed=11)
+SWEEP_REPS = 4           # timed group batches and solo steps
+SWEEP_DATA = dict(n_train=64, n_test=32, min_len=20, max_len=TRAIN_L,
+                  seed=SEED)   # 2 train batches of B = 32 an epoch
+
+
+def learn_phase(torch, dev) -> dict:
+    """``tests/test_torch_learning.py``'s whole run on the card, through
+    kernels A-D with dropout 0.4 (kernels B's and D's Philox dropout
+    live): the flagship must learn the separable task (best test F1 >= 95,
+    train F1 at the best epoch >= 95, epoch-0 train F1 < 60); then its
+    step alone, timed and profiled on the run's own batches."""
+    from collections import Counter
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import BucketBatcher
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_separable_iemocap_pickle
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.train.trainer import prepare_inputs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_separable_iemocap_pickle(f"{tmp}/sep.pkl", **LEARN)
+        train = IEMOCAPDataset(f"{tmp}/sep.pkl", train=True).dialogues()
+        test = IEMOCAPDataset(f"{tmp}/sep.pkl", train=False).dialogues()
+    cfg = ExperimentConfig(
+        dataset="IEMOCAP", graph_type="GDF", reason_flag=True,
+        class_weight=True, Deep_GCN_nlayers=NLAYERS, speaker_weights="3-0-1",
+        batch_size=8, buckets=(8,), lr=1e-3, epochs=12, patience=12)
+    check(cfg.dropout == RATE, f"the run's dropout is {cfg.dropout}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = Trainer(cfg, device=dev).fit(train, test, verbose=False)
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(all(v > 0 for v in counts.values()),
+          f"the run did not launch every kernel: {counts}")
+    hist = res.history
+    train_f_at_best = hist[res.best_epoch]["train_fscore"]
+    check(res.best_test_fscore >= 95.0,
+          f"best test F1 {res.best_test_fscore} < 95: {hist}")
+    check(train_f_at_best >= 95.0,
+          f"train F1 at the best epoch {train_f_at_best} < 95")
+    check(hist[0]["train_fscore"] < 60.0,
+          f"epoch-0 train F1 {hist[0]['train_fscore']} >= 60")
+    # the step alone on the run's batches of their commonest length
+    batches = [prepare_inputs(b, dev) for b in BucketBatcher(
+        train, cfg.batch_size, 2, cfg.buckets, shuffle=True,
+        seed=cfg.seed).epoch(0)]
+    L = Counter(b["umask"].shape[1] for b in batches).most_common(1)[0][0]
+    timed = timed_steps(torch, dev, cfg,
+                        [b for b in batches if b["umask"].shape[1] == L])
+    steps = len(hist) * len(batches)
+    return {"config": f"IEMOCAP GDF reason {NLAYERS} layers, B=8, "
+                      f"dropout {RATE}, lr 1e-3, 12 epochs, separable task "
+                      f"{LEARN}",
+            "history": [[h["epoch"], h["train_loss"], h["train_fscore"],
+                         h["test_loss"], h["test_fscore"]] for h in hist],
+            "history_columns": ["epoch", "train_loss", "train_fscore",
+                                "test_loss", "test_fscore"],
+            "best_epoch": res.best_epoch,
+            "best_test_fscore": res.best_test_fscore,
+            "train_fscore_at_best": train_f_at_best,
+            "fit_s": fit_s, "train_steps": steps,
+            "fit_launches": counts,     # training steps and evaluations
+            "timed_step_L": L, **timed}
+
+
+def sweep_phase(torch, dev) -> dict:
+    """The grouped sweep at the flagship's widths: the first group of the
+    IEMOCAP grid cut to K = 4 (both dropouts at two learning rates), 2
+    epochs at B = 32 through kernels A-D; two of its configs against
+    ``Trainer.fit`` of the combo alone (bit for bit if one run alone
+    repeats itself bit for bit on the card, else equal test F-scores and
+    losses within 1e-5 relative); the group's batch timed and profiled
+    beside the solo step; and ``cli.sweep --vmap`` run twice on one
+    directory (the second skips the finished group)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.cli.sweep import combos
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import BucketBatcher
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.train.trainer import prepare_inputs
+    from mmdfn_torch.train.vmap_sweep import VmapSweep, group_combos
+
+    tmp = tempfile.mkdtemp()
+    try:
+        pkl = f"{tmp}/iem.pkl"
+        make_synthetic_iemocap_pickle(pkl, **SWEEP_DATA)
+        train = IEMOCAPDataset(pkl, train=True).dialogues()
+        test = IEMOCAPDataset(pkl, train=False).dialogues()
+        static, group = group_combos(list(combos("IEMOCAP")))[0]
+        picked = [c for c in group if c["l2"] == 1e-4 and c["gamma"] == 0.5]
+        K = len(picked)
+        check(K == 4 and {c["dropout"] for c in picked} == {0.2, 0.4}
+              and len({c["lr"] for c in picked}) == 2, f"combos {picked}")
+        base = ExperimentConfig(dataset="IEMOCAP", epochs=2,
+                                batch_size=TRAIN_B)
+        batches = [prepare_inputs(b, dev) for b in BucketBatcher(
+            train, TRAIN_B, 2, base.buckets, shuffle=True,
+            seed=base.seed).epoch(0)]
+        everyone = [True] * K
+
+        def timed(step):
+            """Median wall, launches and peak memory of ``SWEEP_REPS``
+            calls (after one warm-up), then the stream time and device busy
+            of 2 chained calls."""
+            step(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            wall = []
+            for i in range(SWEEP_REPS):
+                t1 = time.perf_counter()
+                step(i)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t1) * 1e3)
+            out = {"ms_median": sorted(wall)[len(wall) // 2], "ms_all": wall,
+                   "launches": {k: v / SWEEP_REPS
+                                for k, v in ops.launch_counts().items()},
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(2):
+                step(i)
+            end.record()
+            end.synchronize()
+            out["stream_ms"] = start.elapsed_time(end) / 2
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(2):
+                    step(i)
+                torch.cuda.synchronize()
+            kern, _ = device_events(torch, prof)
+            if kern:
+                busy = sum(e.self_device_time_total for e in kern) / 1e3 / 2
+                out.update(device_busy_ms=busy,
+                           idle_share=1.0 - busy / out["stream_ms"])
+            else:
+                out.update(device_busy_ms="not measured",
+                           idle_share="not measured")
+            return out
+
+        # the solo step alone on the card, then the group's batch on the
+        # same batches: each peak holds its own weights and Adam states
+        solo_tr = Trainer(dataclasses.replace(base, **picked[0]),
+                          device=dev)
+        solo_t = timed(
+            lambda i: solo_tr.train_step(batches[i % len(batches)], seed=i))
+        del solo_tr
+        torch.cuda.empty_cache()
+        sweep = VmapSweep(base, picked, device=dev)
+        group_t = timed(
+            lambda i: sweep.step(batches[i % len(batches)], 0, i, everyone))
+        check(all(group_t["launches"][k] == K * v
+                  for k, v in solo_t["launches"].items()),
+              f"group launches {group_t['launches']} != {K} x solo "
+              f"{solo_t['launches']}")
+
+        # the command line's first run beside the checks below, which
+        # time nothing
+        out = f"{tmp}/sweep"
+        argv = [sys.executable, "-m", "mmdfn_torch.cli.sweep", "--vmap",
+                "--dataset", "IEMOCAP", "--data_dir", pkl, "--limit", "4",
+                "--epochs", "1", "--out_dir", out]
+        t0 = time.perf_counter()
+        cli = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            res = sweep.run(train, test, verbose=False)
+            group_s = time.perf_counter() - t1
+            group_run_peak = torch.cuda.max_memory_allocated() / 1e9
+            keys = ("epoch", "train_loss", "test_fscore", "test_acc",
+                    "test_loss")
+
+            def solo(combo):
+                tr = Trainer(dataclasses.replace(sweep.cfg, **combo),
+                             device=dev)
+                rows = tr.fit(train, test, verbose=False).history
+                return tr, [{k: r[k] for k in keys} for r in rows]
+
+            def same_weights(a, b):
+                sa, sb = a.state_dict(), b.state_dict()
+                return all(torch.equal(sa[n], sb[n]) for n in sa)
+
+            # one run alone, twice: does the card repeat it bit for bit?
+            held = [0, next(k for k, c in enumerate(picked)
+                            if c["dropout"] != picked[0]["dropout"]
+                            and c["lr"] != picked[0]["lr"])]
+            tr_a, rows_a = solo(picked[0])
+            tr_b, rows_b = solo(picked[0])
+            exact = rows_a == rows_b and same_weights(tr_a.model, tr_b.model)
+            comparisons = []
+            for k in held:
+                tr_k, rows_k = (tr_a, rows_a) if k == 0 else solo(picked[k])
+                got = res.history[k]
+                if exact:
+                    ok = got == rows_k and same_weights(
+                        sweep.trainers[k].model, tr_k.model)
+                else:
+                    ok = len(got) == len(rows_k) and all(
+                        g["test_fscore"] == w["test_fscore"] and all(
+                            abs(g[x] - w[x]) <= 1e-5 * abs(w[x])
+                            for x in ("train_loss", "test_loss"))
+                        for g, w in zip(got, rows_k))
+                comparisons.append({"combo": picked[k], "group": got,
+                                    "solo": rows_k, "equal": ok})
+                check(ok, f"config {k} in the group differs from its run "
+                          f"alone (bit for bit: {exact}): {got} vs {rows_k}")
+            first, err = cli.communicate(timeout=600)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        check(cli.returncode == 0, f"cli.sweep --vmap exited "
+                                   f"{cli.returncode}: {err[-2000:]}")
+        summary = Path(f"{out}/summary.jsonl").read_text()
+        second = run_cli(argv[2:])
+        cli_s = time.perf_counter() - t0
+        check(summary.count("\n") == 4 and "BEST:" in first,
+              f"the --vmap CLI's summary: {summary}")
+        check("group already complete" in second
+              and Path(f"{out}/summary.jsonl").read_text() == summary,
+              "the second --vmap run did not skip the finished group")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"config": f"IEMOCAP GDF reason {NLAYERS} layers, B={TRAIN_B} "
+                      f"L<={TRAIN_L}, group {static} cut to K={K}, 2 epochs",
+            "combos": picked, "group_run_s": group_s,
+            "group_run_peak_mem_gb": group_run_peak,
+            "best_test_fscore": res.best_test_fscore,
+            "solo_repeats_bit_for_bit": exact,
+            "group_vs_solo": comparisons,
+            "group_batch": group_t, "solo_step": solo_t,
+            "group_ms_per_config_step": group_t["ms_median"] / K,
+            "group_over_solo_wall": group_t["ms_median"]
+            / solo_t["ms_median"],
+            "group_peak_over_solo_gb": group_t["peak_mem_gb"]
+            - solo_t["peak_mem_gb"],
+            "cli_two_runs_s": cli_s,
+            "cli_summary": [json.loads(l) for l in summary.splitlines()]}
+
+
 def main() -> int:
     import torch
 
@@ -1663,7 +1934,8 @@ def main() -> int:
     results = {}
     for name, phase in (("serve", serve_phase), ("train", train_phase),
                         ("meld", meld_phase), ("families", families_phase),
-                        ("single", single_phase)):
+                        ("single", single_phase), ("learn", learn_phase),
+                        ("sweep", sweep_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0

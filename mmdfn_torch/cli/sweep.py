@@ -1,24 +1,28 @@
 """The reference's hyperparameter sweeps (``script/run_train_ie.sh`` and
 ``run_train_me.sh``: nested bash loops, one process per combination) as
-one process that trains the combinations one after another
-(``mmdfn_tpu/cli/sweep.py``'s sequential path):
+one process (``mmdfn_tpu/cli/sweep.py``):
 
   IEMOCAP: layers {16,32} x lr {1e-4,3e-4} x l2 {1e-4,2e-4} x dp {0.2,0.4}
            x gamma {0.5,1}, speaker_weights 3-0-1, --class_weight --reason_flag
   MELD:    layers {64,32,16} x lr {5e-4,1e-3} x l2 {1e-4,5e-4} x dp {0.4,0.2}
            x gamma {0.5,1}, speaker_weights 0.5-0.5-1.5, --reason_flag
 
-Each combination trains under ``<out_dir>/<tag>`` with resume, so a
-preempted one continues from its ``last`` checkpoint; a finished one holds
-a ``final`` checkpoint (its selected weights, the summary row as meta) and
-is skipped by later runs, and ``summary.jsonl`` gains a row only for a
-combination finished in this run.  ``--graph_type`` runs the grid on
-another multimodal graph family than the scripts' GDF (its tags then
-start with the family's name); ``mmdfn_tpu``'s sweep has no such flag.
+By default the combinations train one after another.  Each trains under
+``<out_dir>/<tag>`` with resume, so a preempted one continues from its
+``last`` checkpoint; a finished one holds a ``final`` checkpoint (its
+selected weights, the summary row as meta) and is skipped by later runs,
+and ``summary.jsonl`` gains a row only for a combination finished in this
+run.  With ``--vmap`` the combinations of one layer count train as one
+group (``train/vmap_sweep.py``: IEMOCAP as 2 groups of 16, MELD as 3)
+under ``<out_dir>/group_<slug>``, resumed and skipped the same way, and
+``summary.jsonl`` is rewritten with every group's rows.
+``--graph_type`` runs the grid on another multimodal graph family than the
+scripts' GDF (its tags then start with the family's name);
+``mmdfn_tpu``'s sweep has no such flag.
 
 Usage:
   python -m mmdfn_torch.cli.sweep --dataset MELD --data_dir .../features.pkl \\
-      [--epochs 30] [--out_dir outputs/sweep_meld] [--limit N]
+      [--epochs 30] [--out_dir outputs/sweep_meld] [--limit N] [--vmap]
 """
 
 from __future__ import annotations
@@ -61,7 +65,9 @@ def combo_tag(c: dict) -> str:
     return tag if c["graph_type"] == "GDF" else f"{c['graph_type']}_{tag}"
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """``mmdfn_tpu/cli/sweep.py``'s flags with their defaults, and the
+    port's ``--graph_type`` and ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="IEMOCAP", choices=sorted(GRIDS))
     ap.add_argument("--data_dir", type=str, required=True)
@@ -76,15 +82,25 @@ def main(argv=None) -> int:
                              "relation", "None"],
                     help="the graph family the grid trains")
     ap.add_argument("--vmap", action="store_true", default=False,
-                    help="train same-shape combinations as one group "
-                         "(not ported yet)")
+                    help="train the combinations of one layer count as one "
+                         "group, each combination's model stepped in turn "
+                         "on every batch (lr, l2, gamma and dropout vary "
+                         "inside a group): IEMOCAP 2x16, MELD 3x16")
+    ap.add_argument("--n_data_devices", type=int, default=0,
+                    help="with --vmap: spread a group's combinations over "
+                         "this many devices; above 1 is multi-device work, "
+                         "a later slice of the port")
+    ap.add_argument("--tpu_fast", action="store_true", default=False,
+                    help="accepted for mmdfn_tpu's command lines; changes "
+                         "nothing, since the port runs at the parity "
+                         "defaults")
     ap.add_argument("--device", type=str, default=None,
                     help="'cuda' (the default) or 'cpu'")
-    args = ap.parse_args(argv)
-    if args.vmap:
-        raise NotImplementedError(
-            "--vmap (grouped training with a dropout rate per combination "
-            "in kernels B and D): a later slice of the port")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     out_dir = args.out_dir or f"outputs/sweep_{args.dataset.lower()}"
     os.makedirs(out_dir, exist_ok=True)
 
@@ -103,6 +119,30 @@ def main(argv=None) -> int:
             for c in combos(args.dataset)]
     if args.limit:
         todo = todo[: args.limit]
+
+    if args.vmap:
+        from mmdfn_torch.train.vmap_sweep import run_grouped_sweep
+        results = run_grouped_sweep(base, todo, train, test, verbose=True,
+                                    device=args.device,
+                                    n_data_devices=args.n_data_devices,
+                                    save_dir=out_dir, resume=True)
+        # mode "w", not "a": resume returns every group's rows on every
+        # invocation (finished groups from their 'final' checkpoints), so
+        # rewriting keeps summary.jsonl the same across re-runs
+        with open(summary_path, "w") as f:
+            for res in results:
+                for k, combo in enumerate(res.combos):
+                    row = dict(tag=combo_tag(combo), **combo,
+                               best_epoch=res.best_epoch[k],
+                               best_test_fscore=res.best_test_fscore[k],
+                               best_test_acc=res.best_test_acc[k])
+                    f.write(json.dumps(row) + "\n")
+                    if best is None or (row["best_test_fscore"]
+                                        > best["best_test_fscore"]):
+                        best = row
+        if best:
+            print("BEST:", json.dumps(best))
+        return 0
     for i, combo in enumerate(todo):
         tag = combo_tag(combo)
         save_dir = os.path.join(out_dir, tag)

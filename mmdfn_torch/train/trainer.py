@@ -101,6 +101,18 @@ def model_text(cfg: ExperimentConfig, inputs: Dict[str, Tensor]) -> Tensor:
     return torch.cat([feats[m] for m in modals], dim=-1)
 
 
+def epoch_loss(cfg: ExperimentConfig, losses: np.ndarray,
+               mask_sums: Sequence[float]) -> float:
+    """An epoch's loss from its batch losses (float64), rounded to 4
+    places: their mean on the graph path, else weighted by each batch's
+    valid utterances."""
+    if cfg.graph_model:
+        loss = np.sum(losses) / len(losses)
+    else:
+        loss = np.sum(losses * np.asarray(mask_sums)) / np.sum(mask_sums)
+    return round(float(loss), 4)
+
+
 class Trainer:
     """Trains the port's ``DialogueGNN`` (any graph family, multimodal or
     single-stream) or a non-graph baseline with the reference's loss,
@@ -202,12 +214,8 @@ class Trainer:
         dt = time.perf_counter() - t0
         labels, preds = np.concatenate(labels), np.concatenate(preds)
         n_classes = cfg.info["n_classes"]
-        if cfg.graph_model:
-            loss = np.sum(losses) / len(losses)
-        else:
-            loss = np.sum(losses * np.asarray(mask_sums)) / np.sum(mask_sums)
         result = EpochMetrics(
-            loss=round(float(loss), 4),
+            loss=epoch_loss(cfg, losses, mask_sums),
             acc=M.reference_rounding(M.accuracy(labels, preds)),
             fscore=M.reference_rounding(M.f1_score(labels, preds, n_classes)),
             labels=labels, preds=preds,

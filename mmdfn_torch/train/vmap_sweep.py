@@ -1,0 +1,372 @@
+"""The grouped hyperparameter sweep (``mmdfn_tpu/train/vmap_sweep.py``):
+the combinations of a grid that share their shapes train as one group,
+epoch by epoch over one batcher, each with its own selection and early
+stop, behind one resumable checkpoint.
+
+The reference runs its grids as nested bash loops, one process per
+combination (``script/run_train_ie.sh:26-60``).  The JAX package stacks
+the K configurations' parameters on a leading axis and ``jax.vmap``s one
+step over them.  The port gives each configuration its own model, Adam and
+loss, and on each batch (copied to the device once) steps them one after
+another through the same kernels as a run alone.  What may vary inside a
+group is what JAX stacks: ``lr``, ``l2``, ``gamma`` and, on the graph path,
+``dropout``; any other key must be equal across the group and folds into
+the shared config, and the layer count splits a grid into groups
+(:func:`group_combos`: IEMOCAP's 32 combinations are 2 groups of 16,
+MELD's 48 are 3).
+
+Where the port departs from the JAX group, and why:
+
+* Dropout is seeded per configuration as its run alone would seed it:
+  step i of epoch e draws from ``Trainer.step_seed(e, i)``, so
+  configuration k in a group reproduces configuration k trained alone, bit
+  for bit, with dropout on too.  JAX splits one key over the K
+  configurations (``vmap_sweep.py:266``); its threefry draws cannot be
+  matched anyway, and the reference seeds every run with 2021.
+* ``nn/drop_override.py`` has no counterpart.  Each configuration's model
+  is built from ``dataclasses.replace(cfg, dropout=rate)``, and kernels B
+  and D take their keep threshold as a host scalar on every call
+  (``ops/gcnii.py:340,496``), so a rate per configuration needs no
+  override.  JAX's override reaches only the sites tagged
+  ``rate_tag="dropout"``; its untagged ones (``nn/attention.py:163,233``,
+  ``nn/fusion.py:142``) take rates that no graph family builds from
+  ``cfg.dropout`` (the gated head's 0.5, TFN's 0.4, MFN's 0.2, unused
+  multi-head attention), so replacing ``cfg.dropout`` changes the same
+  sites as the override does.
+* A frozen (early-stopped) configuration takes no step at all, so torch
+  Adam does not advance its step count, as JAX's freeze mask keeps ``t``
+  (``vmap_sweep.py:92-117``).  It is still evaluated and still gets its
+  history rows, with ``train_loss`` None: it computed none.
+* Each configuration's loss is its ``Trainer``'s (focal loss with its
+  ``gamma``; the masked NLL for a non-graph baseline), and the epoch's
+  train loss is aggregated as ``Trainer.run_epoch`` aggregates it.
+* The batcher is JAX's group batcher: shuffled with ``cfg.seed`` and never
+  sorted by length, even where ``sort_batches_by_length`` would sort a
+  run alone (``mmdfn_tpu/train/trainer.py:211``).
+* Sharding a group's configurations over devices (``n_data_devices`` > 1)
+  is multi-device work, a later slice; the padding mask that sharding
+  would need is kept, so the counters have JAX's shape.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mmdfn_torch.config import ExperimentConfig
+from mmdfn_torch.data.batching import BucketBatcher
+from mmdfn_torch.device import resolve_device
+from mmdfn_torch.runtime import checkpoint as ckpt_lib
+from mmdfn_torch.train.optim import torch_adam
+from mmdfn_torch.train.trainer import Trainer, epoch_loss, prepare_inputs
+from mmdfn_torch.weights import build_model
+
+
+def _canon_combos(combos):
+    """A combo list as the checkpoint's meta holds it (JSON's model:
+    tuples become lists), so that a group compares with its own save."""
+    return json.loads(json.dumps(list(combos)))
+
+
+@dataclass
+class GroupResult:
+    """Per-config outcomes of one group run."""
+
+    combos: List[dict]
+    best_epoch: List[int]
+    best_test_fscore: List[float]
+    best_test_acc: List[float]
+    history: List[List[dict]]           # [config][epoch] metric rows
+
+
+def group_combos(combos: Sequence[dict],
+                 static_keys: Sequence[str] = ("Deep_GCN_nlayers",)
+                 ) -> List[Tuple[dict, List[dict]]]:
+    """Partition combos by the hyperparameters that must stay static."""
+    groups: Dict[tuple, List[dict]] = {}
+    for c in combos:
+        key = tuple((k, c[k]) for k in static_keys if k in c)
+        groups.setdefault(key, []).append(c)
+    return [(dict(k), v) for k, v in groups.items()]
+
+
+class _GroupOptimizers:
+    """The group's K optimisers as the one optimiser that
+    ``runtime/checkpoint.py`` saves and restores."""
+
+    def __init__(self, trainers: Sequence[Trainer]):
+        self.trainers = trainers
+
+    def state_dict(self) -> dict:
+        return {"per_config": [tr.optimizer.state_dict()
+                               for tr in self.trainers]}
+
+    def load_state_dict(self, state: dict) -> None:
+        for tr, s in zip(self.trainers, state["per_config"]):
+            tr.optimizer.load_state_dict(s)
+
+
+class VmapSweep:
+    """Train K same-shape configs as one group, each config's model stepped
+    in turn on every batch.
+
+    ``model`` gives every config its starting weights (default: the shared
+    config's model, fresh from ``cfg.seed``: one init for all, as JAX
+    broadcasts one); ``device`` defaults to the card."""
+
+    def __init__(self, base_cfg: ExperimentConfig, combos: Sequence[dict],
+                 device=None, model: Optional[torch.nn.Module] = None,
+                 n_data_devices: int = 0):
+        # only lr/l2/gamma/dropout may vary across a group; any other key
+        # must be identical (it folds into the shared config), since a key
+        # that varied would train K copies of the base value while the
+        # results report the asked-for grid.  A non-graph baseline keeps
+        # JAX's rule that dropout is static there (identical -> folded,
+        # varying -> refused)
+        STACKABLE = (("lr", "l2", "gamma", "dropout")
+                     if base_cfg.graph_model else ("lr", "l2", "gamma"))
+        static = {}
+        keys = {k for c in combos for k in c}
+        for k in keys:
+            vals = [c.get(k) for c in combos]
+            if k in STACKABLE:
+                if k in ("lr", "l2") and any(k not in c for c in combos):
+                    raise ValueError(
+                        f"stackable combo key {k!r} is missing from "
+                        f"{sum(k not in c for c in combos)} of "
+                        f"{len(combos)} combos; every combo needs it")
+                continue
+            if any(v != vals[0] for v in vals):
+                raise ValueError(
+                    f"combo key {k!r} varies across the group but only "
+                    f"{STACKABLE} can be stacked; run it as a separate "
+                    "group (run_grouped_sweep splits on static_keys)")
+            static[k] = vals[0]
+        if n_data_devices > 1:
+            raise NotImplementedError(
+                f"n_data_devices={n_data_devices}: a group sharded over "
+                "several devices is multi-device work, a later slice of the "
+                "port")
+        self.combos = list(combos)
+        self.real_K = self.K = len(self.combos)
+        self._pad_mask = np.zeros(self.K, bool)   # no padding on one device
+        self.cfg = dataclasses.replace(base_cfg, **static)
+        if ("dropout" in STACKABLE
+                and any("dropout" in c for c in self.combos)):
+            self.droprate = [float(c.get("dropout", self.cfg.dropout))
+                             for c in self.combos]
+        else:
+            self.droprate = None
+        self.device = resolve_device(device)
+        base = model if model is not None else build_model(self.cfg)
+        self._init = {k: v.detach().cpu().clone()
+                      for k, v in base.state_dict().items()}
+        self.trainers: List[Trainer] = []
+        for k, c in enumerate(self.combos):
+            over = dict(lr=c["lr"], l2=c["l2"],
+                        gamma=c.get("gamma", base_cfg.gamma))
+            if self.droprate is not None:
+                over["dropout"] = self.droprate[k]
+            cfg_k = dataclasses.replace(self.cfg, **over)
+            self.trainers.append(Trainer(cfg_k, device=self.device,
+                                         model=build_model(cfg_k, self._init)))
+        self._models = torch.nn.ModuleList([tr.model for tr in self.trainers])
+        self._optimizers = _GroupOptimizers(self.trainers)
+
+    # ------------------------------------------------------------------
+    def init_states(self) -> None:
+        """Every config back at the group's starting weights, with a fresh
+        Adam."""
+        for tr in self.trainers:
+            tr.model.load_state_dict(self._init)
+            tr.optimizer = torch_adam(tr.model.parameters(), tr.cfg.lr,
+                                      tr.cfg.l2)
+
+    def step(self, inputs: Dict[str, torch.Tensor], epoch: int, i: int,
+             active: Sequence[bool]) -> List[Optional[torch.Tensor]]:
+        """Batch i of an epoch for the group: each active config's train
+        step, seeded as its run alone seeds that step; each config's loss,
+        on the device (None where the config is frozen)."""
+        return [tr.train_step(inputs, tr.step_seed(epoch, i))[0] if on
+                else None for tr, on in zip(self.trainers, active)]
+
+    def _result(self, best_epoch, all_f, all_a, history) -> GroupResult:
+        R = self.real_K
+        return GroupResult(
+            combos=self.combos,
+            best_epoch=[int(b) for b in best_epoch[:R]],
+            best_test_fscore=[all_f[k][best_epoch[k]] for k in range(R)],
+            best_test_acc=[all_a[k][best_epoch[k]] for k in range(R)],
+            history=history[:R])
+
+    def run(self, train_dialogues, test_dialogues, verbose: bool = True,
+            save_dir: Optional[str] = None,
+            resume: bool = False) -> GroupResult:
+        """Train the group from its starting weights; with ``save_dir``,
+        resumable.
+
+        Every epoch writes a ``last`` checkpoint (the K models, the K Adam
+        states and the selection counters) and the end a ``final`` one
+        carrying the :class:`GroupResult`.  ``resume=True`` skips a group
+        whose ``final`` exists, and otherwise continues from ``last`` at
+        the next epoch, step for step as a run that was not cut (the seeds
+        and the batcher's order depend on the epoch and step only)."""
+        cfg = self.cfg
+        info = cfg.info
+        K = self.K
+        canon = _canon_combos(self.combos)
+        batcher = BucketBatcher(train_dialogues, cfg.batch_size,
+                                info["n_speakers"], cfg.buckets,
+                                shuffle=True, seed=cfg.seed)
+        if resume and save_dir and ckpt_lib.has_checkpoint(save_dir, "final"):
+            meta = ckpt_lib.read_meta(save_dir, "final")
+            if meta.get("combos") != canon:
+                raise ValueError(
+                    f"final checkpoint under {save_dir!r} was written for a "
+                    "different combo group; point each group at its own "
+                    "save_dir")
+            if verbose:
+                print(f"group already complete under {save_dir!r} — skipping")
+            return GroupResult(combos=self.combos,
+                               best_epoch=meta["best_epoch"],
+                               best_test_fscore=meta["best_test_fscore"],
+                               best_test_acc=meta["best_test_acc"],
+                               history=meta["history"])
+        self.init_states()
+        test_batches = [(b, prepare_inputs(b, self.device)) for b in
+                        BucketBatcher(test_dialogues, cfg.batch_size,
+                                      info["n_speakers"],
+                                      cfg.buckets).epoch()]
+
+        best_f = np.full(K, -1.0)
+        best_epoch = np.full(K, -1, dtype=int)
+        best_loss = np.full(K, np.inf)
+        patience = np.zeros(K, dtype=int)
+        patience2 = np.zeros(K, dtype=int)
+        all_f: List[List[float]] = [[] for _ in range(K)]
+        all_a: List[List[float]] = [[] for _ in range(K)]
+        history: List[List[dict]] = [[] for _ in range(K)]
+        stop = self._pad_mask.copy()
+        start_epoch = 0
+
+        if resume and save_dir and ckpt_lib.has_checkpoint(save_dir, "last"):
+            # the group is checked before its weights load: another
+            # group's may not even fit these models
+            if ckpt_lib.read_meta(save_dir, "last").get("combos") != canon:
+                raise ValueError(
+                    f"'last' checkpoint under {save_dir!r} was written for a "
+                    "different combo group")
+            _, meta = ckpt_lib.restore_checkpoint(
+                save_dir, self._models, self._optimizers, name="last")
+            r = meta["counters"]
+            start_epoch = int(meta["epoch"]) + 1
+            best_f = np.asarray(r["best_f"])
+            best_epoch = np.asarray(r["best_epoch"], dtype=int)
+            best_loss = np.asarray(r["best_loss"], dtype=np.float64)
+            patience = np.asarray(r["patience"], dtype=int)
+            patience2 = np.asarray(r["patience2"], dtype=int)
+            all_f = [list(x) for x in r["all_f"]]
+            all_a = [list(x) for x in r["all_a"]]
+            history = [list(x) for x in r["history"]]
+            stop = np.asarray(r["stop"], dtype=bool)
+            if verbose:
+                print(f"resumed group from epoch {start_epoch - 1} "
+                      f"({int(K - stop.sum())}/{K} configs active)")
+            if stop.all():
+                start_epoch = cfg.epochs    # had fully early-stopped already
+
+        for e in range(start_epoch, cfg.epochs):
+            frozen = stop.copy()
+            losses: List[List[torch.Tensor]] = [[] for _ in range(K)]
+            mask_sums: List[float] = []
+            for i, batch in enumerate(batcher.epoch(e)):
+                inputs = prepare_inputs(batch, self.device)
+                for k, loss in enumerate(self.step(inputs, e, i, ~frozen)):
+                    if loss is not None:
+                        losses[k].append(loss)
+                mask_sums.append(float((batch.umask > 0).sum()))
+            for k, tr in enumerate(self.trainers):
+                te = tr.run_epoch(test_batches, epoch=e)
+                train_loss = (epoch_loss(tr.cfg, torch.stack(losses[k]).cpu()
+                                         .numpy().astype(np.float64),
+                                         mask_sums)
+                              if losses[k] else None)
+                all_f[k].append(te.fscore)
+                all_a[k].append(te.acc)
+                history[k].append(dict(
+                    epoch=e, train_loss=train_loss, test_fscore=te.fscore,
+                    test_acc=te.acc, test_loss=te.loss))
+                if frozen[k]:
+                    continue
+                if e == 0 or te.fscore > best_f[k]:
+                    best_f[k], best_epoch[k], patience[k] = te.fscore, e, 0
+                else:
+                    patience[k] += 1
+                if e == 0 or te.loss < best_loss[k]:
+                    best_loss[k], patience2[k] = te.loss, 0
+                else:
+                    patience2[k] += 1
+            stop = ((patience >= cfg.patience) & (patience2 >= cfg.patience)
+                    ) | self._pad_mask
+            if save_dir:
+                ckpt_lib.save_checkpoint(
+                    save_dir, self._models, self._optimizers, name="last",
+                    meta=dict(epoch=e, combos=canon, counters=dict(
+                        best_f=best_f.tolist(),
+                        best_epoch=best_epoch.tolist(),
+                        best_loss=best_loss.tolist(),
+                        patience=patience.tolist(),
+                        patience2=patience2.tolist(),
+                        all_f=all_f, all_a=all_a, history=history,
+                        stop=stop.tolist())))
+            if verbose:
+                print(f"epoch {e}: fscores "
+                      f"{[all_f[k][-1] for k in range(K)]} "
+                      f"active {int(K - stop.sum())}/{K}")
+            if stop.all():
+                break
+
+        result = self._result(best_epoch, all_f, all_a, history)
+        if save_dir:
+            # 'final' makes a finished group skip on the next invocation
+            ckpt_lib.save_checkpoint(
+                save_dir, self._models, self._optimizers, name="final",
+                meta=dict(combos=canon, best_epoch=result.best_epoch,
+                          best_test_fscore=result.best_test_fscore,
+                          best_test_acc=result.best_test_acc,
+                          history=result.history))
+        return result
+
+
+def run_grouped_sweep(base_cfg: ExperimentConfig, combos: Sequence[dict],
+                      train_dialogues, test_dialogues,
+                      verbose: bool = True, device=None,
+                      n_data_devices: int = 0,
+                      save_dir: Optional[str] = None,
+                      resume: bool = False) -> List[GroupResult]:
+    """Partition a sweep grid into static groups and train each as one.
+
+    With ``save_dir``, each group checkpoints under
+    ``<save_dir>/group_<slug>`` (named by its static keys), so a cut sweep
+    resumes mid-group and skips finished groups."""
+    results = []
+    for static, group in group_combos(combos):
+        if verbose:
+            print(f"group {static}: {len(group)} configs, stepped in turn")
+        group_dir = None
+        if save_dir:
+            slug = "_".join(f"{k}{v}" for k, v in sorted(static.items())) \
+                or "base"
+            group_dir = os.path.join(save_dir, f"group_{slug}")
+        cfg = dataclasses.replace(base_cfg, **static)
+        sweep = VmapSweep(cfg, group, device=device,
+                          n_data_devices=n_data_devices)
+        results.append(sweep.run(train_dialogues, test_dialogues, verbose,
+                                 save_dir=group_dir, resume=resume))
+    return results

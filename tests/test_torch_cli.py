@@ -144,8 +144,10 @@ def test_sequential_sweep_trains_each_combination_once(tmp_path, capsys):
     assert second.count("already complete, skipping") == 2
     assert ": training" not in second
     assert len((out / "summary.jsonl").read_text().splitlines()) == 2
+    # --vmap trains (tests/test_torch_learning.py); a group spread over
+    # several devices is the later slice
     with pytest.raises(NotImplementedError, match="later slice"):
-        sweep.main([*argv, "--vmap"])
+        sweep.main([*argv, "--vmap", "--n_data_devices", "2"])
 
 
 @pytest.mark.parametrize("graph_type", ["GF2", "relation"])

@@ -744,3 +744,65 @@ def test_single_stream_and_baseline_steps_on_the_card_match_plain(kw, rows,
     for name, g in grads.items():
         scale = float(ref[name].abs().max())
         assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name
+
+
+def _history(rows):
+    keys = ("epoch", "train_loss", "test_fscore", "test_acc", "test_loss")
+    return [{k: r[k] for k in keys} for r in rows]
+
+
+def _same_run(a, b, exact):
+    """Histories equal; or, where two runs alone already differ on the
+    card, equal test F-scores and accuracies and losses within 1e-5
+    relative."""
+    if exact:
+        return a == b
+    return len(a) == len(b) and all(
+        x["test_fscore"] == y["test_fscore"] and x["test_acc"] == y["test_acc"]
+        and all(abs(x[k] - y[k]) <= 1e-5 * abs(y[k])
+                for k in ("train_loss", "test_loss"))
+        for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_group_on_the_card_equals_its_solo_runs():
+    """A group of 2 (dropout 0.2 and 0.4, two learning rates; 4 layers,
+    B = 8, 2 epochs) through kernels A-D against each combo's
+    ``Trainer.fit``: bit for bit where one run alone repeats itself bit for
+    bit on the card."""
+    import dataclasses
+    import tempfile
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.train.vmap_sweep import VmapSweep
+
+    dev = _card()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=16,
+                                      n_test=8, min_len=5, max_len=20,
+                                      seed=5)
+        train = IEMOCAPDataset(f"{tmp}/iem.pkl", True).dialogues()
+        test = IEMOCAPDataset(f"{tmp}/iem.pkl", False).dialogues()
+    cfg = ExperimentConfig(Deep_GCN_nlayers=4, reason_flag=True,
+                           class_weight=True, batch_size=8, epochs=2)
+    combos = [dict(lr=3e-3, l2=1e-4, dropout=0.2),
+              dict(lr=1e-3, l2=2e-4, dropout=0.4)]
+    before = dict(ops.launch_counts())
+    group = VmapSweep(cfg, combos, device=dev).run(train, test,
+                                                   verbose=False)
+    used = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert all(v > 0 for v in used.values()), used
+
+    def solo(combo):
+        tr = Trainer(dataclasses.replace(cfg, **combo), device=dev)
+        return _history(tr.fit(train, test, verbose=False).history)
+    first = solo(combos[0])
+    exact = first == solo(combos[0])
+    for k, combo in enumerate(combos):
+        want = first if k == 0 else solo(combo)
+        assert _same_run(group.history[k], want, exact), (
+            exact, group.history[k], want)
