@@ -112,7 +112,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    a batch K times the solo step's, peak memory, device busy and idle
    share); and ``cli.sweep --vmap --limit 4 --epochs 1`` runs twice on
    one directory, the second skipping the finished group with the same
-   ``summary.jsonl``.
+   ``summary.jsonl``;
+11. daily: DailyDialogue at the JAX package's default widths (the
+   TextCNN over 20 words of a 5000-word table, 300-wide embeddings, 50
+   filters of widths 3, 4, 5; D_e 100, D_g = D_p 150, windows 10/10) on
+   ``make_synthetic_daily_pickle``'s token batches (B = 32 dialogues of
+   U[3, 35] turns, bucket 48): the GRU base's step against its plain step
+   and 10 timed steps (launches a step exactly A 2, C 2, B 0, D 0; the
+   convolutions and the embedding backward named in the profile),
+   kernels A and C alone at that shape; the LSTM, None and DialogRNN
+   bases each one step on the card against the same step on the CPU
+   (dropout off, the TextCNN's included: the card's and the CPU's
+   generators draw different bits), and 3 timed LSTM steps; the command
+   lines (one epoch of ``run_train_erc --dataset DailyDialogue
+   --base_model GRU``, ``--test_label`` on its directory, whose
+   predictions must equal ``DailyTrainer.evaluate``'s of the saved
+   weights); a frozen pretrained table bit-equal after a step that moved
+   ``fc``.
 
 It prints a line per phase, the seconds each took (``phase_s``), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -945,7 +961,7 @@ def stack_calls(cfg, L: int) -> list:
     stacked modalities (GF, GDF; GF2 at its 64 layers), one per modality
     (DeepGCN; one for its single stream), or none."""
     gt, M = cfg.graph_type, len(cfg.modals)
-    if not cfg.graph_model:
+    if not cfg.graph_model or cfg.dataset == "DailyDialogue":
         return []
     if gt == "GF2":
         return [(64, False, M * L)]
@@ -968,6 +984,15 @@ def gru_encoders(model) -> int:
                for m in model.modules())
 
 
+def trainer_for(cfg, dev):
+    """The trainer a user of the config runs: ``DailyTrainer`` for
+    DailyDialogue's token batches, else ``Trainer``."""
+    from mmdfn_torch.train import DailyTrainer, Trainer
+
+    cls = DailyTrainer if cfg.dataset == "DailyDialogue" else Trainer
+    return cls(cfg, device=dev)
+
+
 def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     """One training step with the kernels and one under ``ops.plain_ops()``
     from the same weights (``cfg.seed``) and step seed: the loss to
@@ -986,10 +1011,9 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
 
     from mmdfn_torch import ops
     from mmdfn_torch.ops import gcnii as gcnii_ops
-    from mmdfn_torch.train import Trainer
 
     def one_step(plain, masks=None):
-        tr = Trainer(cfg, device=dev)
+        tr = trainer_for(cfg, dev)
         orig = gcnii_ops.gcnii_stack_plain
         if masks is not None:      # one list of layer masks a stack call
             held = iter(masks)
@@ -1063,22 +1087,23 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     return out
 
 
-def timed_steps(torch, dev, cfg, batches, reps=10) -> dict:
+def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=()) -> dict:
     """The training step's main path: 2 warm-up steps, then ``reps`` timed
     steps with the launch counts zeroed just before and read just after
     (kernels A and C must show, and kernels B and D with their documented
     launches for each GCNII stack call, or none),
     the step's own peak memory, the stream time of chained steps, and a
-    torch.profiler window of 3 steps (device time by kernel)."""
+    torch.profiler window of 3 steps (device time by kernel; for each
+    operator of ``named_ops``, the device time of the kernels it launched
+    and its calls, a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmdfn_torch import ops
     from mmdfn_torch.ops.bigru import _sm_count
     from mmdfn_torch.ops.gcnii import (_design, gcnii_bwd_launches,
                                        gcnii_fwd_launches)
-    from mmdfn_torch.train import Trainer
 
-    tr = Trainer(cfg, device=dev)
+    tr = trainer_for(cfg, dev)
     for i in range(2):
         tr.train_step(batches[i % len(batches)], seed=100 + i)
     torch.cuda.synchronize()
@@ -1145,6 +1170,10 @@ def timed_steps(torch, dev, cfg, batches, reps=10) -> dict:
                     "top": [[kernel_label(e.key),
                              e.self_device_time_total / 1e3 / 3,
                              e.count / 3] for e in top]}
+        if named_ops:
+            profiled["named_ops"] = {
+                e.key: [e.device_time_total / 1e3 / 3, e.count / 3]
+                for e in prof.key_averages() if e.key in named_ops}
     else:
         profiled = {"device_busy_ms_per_step": "not measured",
                     "idle_share": "not measured"}
@@ -1855,6 +1884,196 @@ def sweep_phase(torch, dev) -> dict:
             "cli_summary": [json.loads(l) for l in summary.splitlines()]}
 
 
+# DailyDialogue: 64 + 16 + 32 dialogues of U[3, 35] turns, 20 words of a
+# 5000-word table (the JAX package's defaults): 2 train batches of B = 32
+# at bucket 48
+DAILY_DATA = dict(n_per_split=(64, 16, 32), min_len=3, max_len=35,
+                  max_words=20, vocab_size=5000, seed=SEED)
+DAILY_OTHER_BASES = ("LSTM", "None", "DialogRNN")
+# the operators of the TextCNN (forward and backward) whose device time the
+# profile names
+DAILY_OPS = ("aten::embedding", "aten::embedding_dense_backward",
+             "aten::cudnn_convolution", "aten::convolution_backward",
+             "aten::amax")
+
+
+def daily_config(base="GRU", **kw):
+    """DailyDialogue at the JAX package's defaults, the flagship's
+    training settings (B = 32, dropout 0.4)."""
+    from mmdfn_torch.config import ExperimentConfig
+
+    return ExperimentConfig(dataset="DailyDialogue", base_model=base,
+                            batch_size=TRAIN_B, dropout=RATE, seed=SEED, **kw)
+
+
+def grads_close(loss_a, grads_a, loss_b, grads_b, what) -> dict:
+    """Two steps' losses to ``STEP_LOSS_RTOL`` relative and each
+    gradient to ``STEP_GRAD_RTOL`` of its max |.| in b."""
+    loss_err = abs(loss_a - loss_b) / abs(loss_b)
+    errs = {}
+    for name, gb in grads_b.items():
+        ga = grads_a[name].to(gb.device)
+        check(float(gb.abs().max()) > 0, f"{what}: no gradient at {name}")
+        errs[name] = float((ga - gb).abs().max()) / float(gb.abs().max())
+    check(loss_err <= STEP_LOSS_RTOL, f"{what}: loss {loss_a} vs {loss_b}")
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= STEP_GRAD_RTOL,
+          f"{what}: gradient of {worst} {errs[worst]} of its scale")
+    return {"loss": loss_a, "loss_rel_err": loss_err,
+            "grad_max_rel_err": errs[worst], "worst_param": worst}
+
+
+def daily_card_vs_cpu(torch, dev, cfg, batch) -> dict:
+    """One training step on the card against the same step on the CPU from
+    the same weights (``cfg.seed``) and batch, every dropout off (the
+    TextCNN's fixed 0.5 set to 0 on both models: the two devices'
+    generators draw different bits)."""
+    import dataclasses
+
+    from mmdfn_torch import ops
+
+    cfg = dataclasses.replace(cfg, dropout=0.0, rec_dropout=0.0)
+
+    def step(where):
+        tr = trainer_for(cfg, where)
+        tr.model.cnn_feat_extractor.dropout = 0.0
+        t0 = time.perf_counter()
+        loss, _ = tr.train_step({k: v.to(tr.device) for k, v in batch.items()},
+                                seed=1)
+        loss = float(loss)
+        return (loss, {n: p.grad for n, p in tr.model.named_parameters()},
+                time.perf_counter() - t0)
+
+    loss_k, grads_k, card_s = step(dev)
+    before = ops.launch_counts()
+    loss_c, grads_c, cpu_s = step("cpu")
+    check(ops.launch_counts() == before, "the CPU step launched a kernel")
+    out = grads_close(loss_k, grads_k, loss_c, grads_c,
+                      f"{cfg.base_model} card vs CPU")
+    return {**out, "card_step_s": card_s, "cpu_step_s": cpu_s}
+
+
+def daily_cli(pkl: str, tmp: str, dev) -> dict:
+    """The user's commands on the card: one epoch of ``run_train_erc
+    --dataset DailyDialogue --base_model GRU``, then ``--test_label`` on its
+    directory; the saved predictions must be ``DailyTrainer.evaluate``'s
+    of the saved weights."""
+    import numpy as np
+
+    from mmdfn_torch.cli import run_train_erc
+    from mmdfn_torch.data.datasets import DailyDialogueDataset
+    from mmdfn_torch.runtime import checkpoint as ckpt_lib
+    from mmdfn_torch.train import DailyTrainer
+
+    ckpt, out = f"{tmp}/ckpt", f"{tmp}/out"
+    flags = ["--dataset", "DailyDialogue", "--data_dir", pkl,
+             "--base_model", "GRU"]
+    t0 = time.perf_counter()
+    train_out = run_cli(["mmdfn_torch.cli.run_train_erc", *flags,
+                         "--epochs", "1", "--save_model_dir", ckpt])
+    train_s = time.perf_counter() - t0
+    check("epoch: 0, train_loss: " in train_out, "no DailyDialogue epoch line")
+    test_out = run_cli(["mmdfn_torch.cli.run_train_erc", *flags,
+                        "--test_label", "--load_model", ckpt,
+                        "--save_model_dir", out])
+    check("test_fscore:" in test_out, "no DailyDialogue test_fscore line")
+    cfg = run_train_erc.config_from_args(
+        run_train_erc.build_parser().parse_args(flags))
+    tr = DailyTrainer(cfg, device=dev)
+    ckpt_lib.restore_checkpoint(ckpt, tr.model)
+    m = tr.evaluate(DailyDialogueDataset("test", pkl).dialogues())
+    preds = np.load(f"{out}/test_pred.npy")
+    check(np.array_equal(preds, m.preds) and np.array_equal(
+        np.load(f"{out}/test_label.npy"), m.labels),
+        "--test_label's predictions differ from DailyTrainer.evaluate's")
+    check(Path(f"{out}/test_activations.npz").exists(),
+          "--test_label wrote no activations")
+    return {"train_epoch_s": train_s, "cli_s": time.perf_counter() - t0,
+            "test_line": [l for l in test_out.splitlines()
+                          if l.startswith("test_acc")][0],
+            "test_predictions": len(preds)}
+
+
+def daily_phase(torch, dev) -> dict:
+    """DailyDialogue end to end at the JAX package's default widths: the
+    GRU base's step against its plain step, 10 timed steps (A 2, C 2, B 0,
+    D 0 a step) with the TextCNN's operators named in the profile, kernels
+    A and C alone at its shape; the other bases' steps on the card against
+    the CPU's and 3 timed LSTM steps; the command lines; the frozen
+    pretrained table."""
+    import numpy as np
+
+    from mmdfn_torch.data.datasets import DailyDialogueDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_daily_pickle
+    from mmdfn_torch.train import DailyTrainer
+
+    tmp = tempfile.mkdtemp()
+    try:
+        pkl = f"{tmp}/daily.pkl"
+        make_synthetic_daily_pickle(pkl, **DAILY_DATA)
+        cfg = daily_config()
+        check((cfg.vocab_size, cfg.max_words, cfg.embedding_dim,
+               cfg.cnn_filters, cfg.cnn_output_size) == (5000, 20, 300, 50,
+                                                        100),
+              "the JAX package's default word-level widths")
+        tr = DailyTrainer(cfg, device=dev)
+        train = DailyDialogueDataset("train", pkl).dialogues()
+        batches = [tr._prepare(b) for b in tr._batcher(train,
+                                                       shuffle=True).epoch(0)]
+        B, L, W = batches[0]["tokens"].shape
+        check(len(batches) == 2 and B == TRAIN_B and W == 20,
+              f"DailyDialogue batches {[b['tokens'].shape for b in batches]}")
+        out = {"shape": f"B={B} L={L} W={W} (bucket of U[3, 35] turns), "
+                        f"dropout {RATE}, TextCNN dropout 0.5"}
+
+        t0 = time.perf_counter()
+        checked = step_check(torch, dev, cfg, batches[0])
+        timed = timed_steps(torch, dev, cfg, batches, named_ops=DAILY_OPS)
+        per = timed["launches_per_step"]
+        check(per == {"bigru_fwd": 2, "bigru_bwd": 2, "gcnii_fwd": 0,
+                      "gcnii_bwd": 0}, f"launches a DailyDialogue step: {per}")
+        a = bigru_case(torch, dev, B, L, train=True)
+        c = bigru_bwd_case(torch, dev, B, L, a["train_ms"])
+        out["GRU"] = {"step_check": checked,
+                      "train": {k: timed[k] for k in TIMED_KEYS + (
+                          "bigru_kernels", "named_ops", "step_ms_all")
+                                if k in timed},
+                      "kernels_at_this_shape": {"bigru_fwd": a,
+                                                "bigru_bwd": c},
+                      "seconds": time.perf_counter() - t0}
+        print(json.dumps({"daily": "GRU", "step_ms_median":
+                          timed["step_ms_median"]}), flush=True)
+
+        t0 = time.perf_counter()
+        out["card_vs_cpu"] = {base: daily_card_vs_cpu(
+            torch, dev, daily_config(base), batches[0])
+            for base in DAILY_OTHER_BASES}
+        timed = timed_steps(torch, dev, daily_config("LSTM"), batches, reps=3)
+        out["LSTM"] = {"train": {k: timed[k] for k in TIMED_KEYS
+                                 if k in timed},
+                       "seconds": time.perf_counter() - t0}
+        print(json.dumps({"daily": "other bases", "seconds":
+                          out["LSTM"]["seconds"]}), flush=True)
+
+        out["cli"] = daily_cli(pkl, tmp, dev)
+
+        tr = DailyTrainer(cfg, device=dev)
+        vectors = np.random.default_rng(SEED).standard_normal(
+            (cfg.vocab_size, cfg.embedding_dim)).astype(np.float32)
+        tr.init_pretrained_embeddings(vectors, freeze=True)
+        cnn = tr.model.cnn_feat_extractor
+        fc = cnn.fc.weight.detach().clone()
+        tr.train_step(batches[0], seed=1)
+        table = cnn.embedding.weight.detach().cpu().numpy()
+        check(np.array_equal(table, vectors),
+              "the frozen pretrained table moved")
+        check(not torch.equal(cnn.fc.weight, fc), "fc did not move")
+        out["frozen_table_bit_equal"] = True
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1935,7 +2154,7 @@ def main() -> int:
     for name, phase in (("serve", serve_phase), ("train", train_phase),
                         ("meld", meld_phase), ("families", families_phase),
                         ("single", single_phase), ("learn", learn_phase),
-                        ("sweep", sweep_phase)):
+                        ("sweep", sweep_phase), ("daily", daily_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0

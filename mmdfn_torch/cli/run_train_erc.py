@@ -14,19 +14,23 @@ on the card, or on the CPU with ``--device cpu`` (or ``--no_cuda``):
         --base_model DialogRNN --attention general --data_dir ...
     python -m mmdfn_torch.cli.run_train_erc --graph_type DeepGCN \
         --mm_fusion_mthd concat --reason_flag --data_dir ...
+    python -m mmdfn_torch.cli.run_train_erc --dataset DailyDialogue \
+        --base_model GRU --data_dir dailydialog.pkl
 
 Every flag of the JAX CLI is accepted with the same name and default,
-except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`) and the
-word-level DailyDialogue flags (:data:`LATER_FLAGS`).  Every graph family
-trains with any multimodal ``--mm_fusion_mthd``; relation, DeepGCN, GCN3
-and None also on one stream (``--no_multi_modal --modals l``, or
-``--mm_fusion_mthd concat``: early fusion) over the bases LSTM, GRU,
-DialogRNN and None; ``--no_graph_model`` trains the GRU, LSTM or
+except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`).  Every graph
+family trains with any multimodal ``--mm_fusion_mthd``; relation,
+DeepGCN, GCN3 and None also on one stream (``--no_multi_modal --modals
+l``, or ``--mm_fusion_mthd concat``: early fusion) over the bases LSTM,
+GRU, DialogRNN and None; ``--no_graph_model`` trains the GRU, LSTM or
 DialogRNN baseline (``--active_listener``, ``--attention``,
 ``--rec_dropout``) with the masked NLL loss.  ``--dataset DailyDialogue``
-raises ``NotImplementedError`` naming the later slice.  ``--test_label``
-restores ``best`` from ``--load_model`` (else ``--save_model_dir``) and
-evaluates on test.  Per-epoch lines are the reference's.
+trains the token model (``DailyTrainer``: the TextCNN at ``--vocab_size``,
+``--max_words``, ``--embedding_dim``, ``--cnn_filters``,
+``--cnn_output_size``, then the base and the relation graph net) on the
+pickle's own train/valid/test splits.  ``--test_label`` restores
+``best`` from ``--load_model`` (else ``--save_model_dir``) and evaluates
+on test.  Per-epoch lines are the reference's.
 """
 
 from __future__ import annotations
@@ -47,9 +51,6 @@ JAX_ONLY_FLAGS = (
     "--gcn_scan_remat", "--rnn_fuse_directions", "--rnn_scan_remat",
     "--rnn_backend", "--gcn_backend", "--gcn_bwd_block", "--rng_impl",
     "--n_data_devices", "--n_model_devices", "--profile_dir", "--debug_nans")
-# the word-level DailyDialogue flags, which come with that slice
-LATER_FLAGS = ("--vocab_size", "--max_words", "--embedding_dim",
-               "--cnn_filters", "--cnn_output_size")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -131,6 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="comma-separated padding lengths, e.g. 16,32,64,128,200")
     add("--device", type=str, default=None,
         help="'cuda' (the default) or 'cpu' for the plain PyTorch versions")
+    # DailyDialogue's token frontend
+    add("--vocab_size", type=int, default=5000)
+    add("--max_words", type=int, default=20,
+        help="the word axis of every utterance (DailyDialogue)")
+    add("--embedding_dim", type=int, default=300)
+    add("--cnn_filters", type=int, default=50)
+    add("--cnn_output_size", type=int, default=100)
     return p
 
 
@@ -150,11 +158,14 @@ def config_from_args(args):
 def load_dialogues(cfg, data_dir: str):
     """(train, valid, test) dialogues of the config's dataset (reference
     ``run_train_erc.py:29-89``): valid is the first ``valid_rate`` of the
-    training split."""
-    from mmdfn_torch.data.datasets import (IEMOCAPDataset, MELDDataset,
+    training split; DailyDialogue's pickle carries its own three splits
+    (``dataloader.py:82-89``), and ``valid_rate`` does not apply."""
+    from mmdfn_torch.data.datasets import (DailyDialogueDataset,
+                                           IEMOCAPDataset, MELDDataset,
                                            train_valid_split)
     if cfg.dataset == "DailyDialogue":
-        raise NotImplementedError(f"--dataset DailyDialogue: {_LATER}")
+        return tuple(DailyDialogueDataset(split, data_dir).dialogues()
+                     for split in ("train", "valid", "test"))
     ds_cls = {"IEMOCAP": IEMOCAPDataset, "MELD": MELDDataset}[cfg.dataset]
     train_all = ds_cls(data_dir, train=True).dialogues()
     test = ds_cls(data_dir, train=False).dialogues()
@@ -200,9 +211,10 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     device = "cpu" if args.no_cuda else args.device
 
-    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.train import DailyTrainer, Trainer
 
-    trainer = Trainer(cfg, device=device)
+    cls = DailyTrainer if cfg.dataset == "DailyDialogue" else Trainer
+    trainer = cls(cfg, device=device)
     train, valid, test = load_dialogues(cfg, args.data_dir)
     if args.test_label:
         return _test_label(args, trainer, test)

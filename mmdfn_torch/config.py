@@ -56,6 +56,14 @@ DATASET_INFO = {
         D_audio=FEAT2DIM["MELD_audio"], D_visual=FEAT2DIM["denseface"],
         D_text=FEAT2DIM["MELD_text"],
     ),
+    # token ids through the trainable TextCNN (``models/daily.py``); the
+    # labels follow the DailyDialog annotation scheme
+    "DailyDialogue": dict(
+        n_speakers=2, n_classes=7,
+        target_names=["no_emo", "ang", "dis", "fea", "hap", "sad", "sur"],
+        class_weights=[1.0] * 7,
+        D_audio=0, D_visual=0, D_text=100,
+    ),
 }
 
 
@@ -111,6 +119,12 @@ class ExperimentConfig:
     sort_batches_by_length: bool = False    # training batches of similar
                                             # lengths (less padding)
     log_jsonl: Optional[str] = None
+    # DailyDialogue's token frontend (mmdfn_tpu/config.py:190-194)
+    vocab_size: int = 5000
+    max_words: int = 20                     # the word axis, fixed per epoch
+    embedding_dim: int = 300
+    cnn_filters: int = 50
+    cnn_output_size: int = 100
 
     @property
     def info(self) -> dict:

@@ -1,5 +1,6 @@
 """Length-bucketed, statically padded batches (``mmdfn_tpu/data/batching.py``
-``Batch``, ``collate`` and ``BucketBatcher``), numpy only.
+``Batch``, ``collate``, ``BucketBatcher`` and their token-id versions),
+numpy only.
 
 Streaming pads each dialogue prefix up to the next bucket length; training
 pads each batch's longest dialogue up to the next bucket and the batch axis
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -72,6 +73,47 @@ def collate(dialogues: Sequence, batch_size: int, bucket: int,
         umask=umask, label=label, vids=[d.vid for d in dialogues])
 
 
+@dataclass
+class TokenBatch:
+    """One statically shaped batch of token-id dialogues (DailyDialogue)."""
+
+    tokens: np.ndarray  # (B, L, W) int32, 0 at pads
+    qmask: np.ndarray   # (B, L, n_speakers)
+    umask: np.ndarray   # (B, L) float32: 1 = real utterance
+    label: np.ndarray   # (B, L) int64 (0 at pads)
+    vids: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.umask.sum())
+
+
+def collate_tokens(dialogues: Sequence, batch_size: int, bucket: int,
+                   n_speakers: int = 2,
+                   max_words: Optional[int] = None) -> TokenBatch:
+    """Pad token dialogues into one static (batch_size, bucket, W) batch:
+    W is ``max_words`` (each utterance's words cut or zero-padded to it),
+    else the widest utterance's."""
+    if not 0 < len(dialogues) <= batch_size:
+        raise ValueError(f"{len(dialogues)} dialogues for a batch of "
+                         f"{batch_size}")
+    W = max_words or max(d.tokens.shape[1] for d in dialogues)
+    B, L = batch_size, bucket
+    tokens = np.zeros((B, L, W), dtype=np.int32)
+    umask = np.zeros((B, L), dtype=np.float32)
+    label = np.zeros((B, L), dtype=np.int64)
+    for i, d in enumerate(dialogues):
+        n, w = d.tokens.shape
+        tokens[i, :n, :min(w, W)] = d.tokens[:, :W]
+        umask[i, :n] = 1.0
+        label[i, :n] = d.label
+    return TokenBatch(tokens=tokens,
+                      qmask=_pack([d.qmask for d in dialogues], B, L,
+                                  n_speakers),
+                      umask=umask, label=label,
+                      vids=[d.vid for d in dialogues])
+
+
 class BucketBatcher:
     """Epoch iterator over bucketed static batches.
 
@@ -103,4 +145,24 @@ class BucketBatcher:
         for s in range(0, len(order), self.batch_size):
             chunk = [self.dialogues[i] for i in order[s:s + self.batch_size]]
             L = bucket_length(max(len(d) for d in chunk), self.buckets)
-            yield collate(chunk, self.batch_size, L, self.n_speakers)
+            yield self._collate(chunk, L)
+
+    def _collate(self, chunk, L):
+        return collate(chunk, self.batch_size, L, self.n_speakers)
+
+
+class TokenBucketBatcher(BucketBatcher):
+    """:class:`BucketBatcher` over :class:`TokenDialogue` samples; the word
+    axis is ``max_words`` in every batch of the epoch."""
+
+    def __init__(self, dialogues: Sequence, batch_size: int, max_words: int,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 shuffle: bool = False, seed: int = 2021,
+                 sort_by_length: bool = False, n_speakers: int = 2):
+        super().__init__(dialogues, batch_size, n_speakers, buckets,
+                         shuffle, seed, sort_by_length)
+        self.max_words = max_words
+
+    def _collate(self, chunk, L):
+        return collate_tokens(chunk, self.batch_size, L, self.n_speakers,
+                              max_words=self.max_words)

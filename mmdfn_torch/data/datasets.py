@@ -1,10 +1,12 @@
-"""IEMOCAP and MELD feature pickles -> numpy dialogues (the serve and
-training paths' subset of ``mmdfn_tpu/data/datasets.py``).
+"""IEMOCAP, MELD and DailyDialogue pickles -> numpy dialogues (the serve
+and training paths' subset of ``mmdfn_tpu/data/datasets.py``).
 
 IEMOCAP's pickle is the reference's 9-tuple of dicts keyed by dialogue id
 (``dataloader.py:12-14``); speakers are 'M'/'F', one-hot as [1,0]/[0,1].
 MELD's is a 10-tuple whose speakers are already 9-way one-hots
-(``dataloader.py:40-52``).
+(``dataloader.py:40-52``).  DailyDialogue's is a 7-tuple of token ids
+with its own train/test/valid id lists (``dataloader.py:71-101``);
+speaker "0" is [1,0], any other [0,1].
 """
 
 from __future__ import annotations
@@ -120,6 +122,55 @@ class MELDDataset:
         return out
 
     def dialogues(self) -> List[Dialogue]:
+        return [self[i] for i in range(len(self))]
+
+
+@dataclass
+class TokenDialogue:
+    """One DailyDialogue conversation: token ids for the trainable
+    TextCNN, speaker one-hots, labels."""
+
+    vid: str
+    tokens: np.ndarray   # (len, max_words) int32 token ids
+    qmask: np.ndarray    # (len, 2)
+    label: np.ndarray    # (len,) int32
+
+    def __len__(self) -> int:
+        return self.tokens.shape[0]
+
+
+class DailyDialogueDataset:
+    """DailyDialogue 7-way ERC on token ids (reference
+    ``dataloader.py:71-101``); ``split`` is 'train', 'valid' or 'test'."""
+
+    n_speakers = 2
+    n_classes = 7
+
+    def __init__(self, split: str, path: str):
+        with open(path, "rb") as f:
+            (self.Speakers, self.Features, self.ActLabels, self.EmotionLabels,
+             self.trainId, self.testId, self.validId) = pickle.load(f)
+        ids = {"train": self.trainId, "test": self.testId,
+               "valid": self.validId}
+        if split not in ids:
+            raise ValueError(f"unknown split {split!r}")
+        self.keys = list(ids[split])
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, index: int) -> TokenDialogue:
+        conv = self.keys[index]
+        qmask = np.array([[1.0, 0.0] if s == "0" else [0.0, 1.0]
+                          for s in self.Speakers[conv]], dtype=np.float32)
+        return TokenDialogue(
+            vid=str(conv),
+            tokens=np.asarray(self.Features[conv], dtype=np.int32),
+            qmask=qmask,
+            label=np.asarray(self.EmotionLabels[conv], dtype=np.int32),
+        )
+
+    def dialogues(self) -> List[TokenDialogue]:
         return [self[i] for i in range(len(self))]
 
 

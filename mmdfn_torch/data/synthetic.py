@@ -1,9 +1,11 @@
-"""Synthetic IEMOCAP and MELD pickles in the reference formats.
+"""Synthetic IEMOCAP, MELD and DailyDialogue pickles in the reference
+formats.
 
 The same seed writes the same pickle as
 ``mmdfn_tpu.data.synthetic.make_synthetic_iemocap_pickle``,
-``make_separable_iemocap_pickle`` and ``make_synthetic_meld_pickle`` (the
-draws are made in the same order from the same numpy generator).
+``make_separable_iemocap_pickle``, ``make_synthetic_meld_pickle`` and
+``make_synthetic_daily_pickle`` (the draws are made in the same order from
+the same numpy generator).
 """
 
 from __future__ import annotations
@@ -148,3 +150,38 @@ def make_synthetic_meld_pickle(
     with open(path, "wb") as f:
         pickle.dump(payload, f)
     return train_vids, test_vids
+
+
+def make_synthetic_daily_pickle(
+    path: str,
+    n_per_split: Tuple[int, int, int] = (6, 2, 2),
+    min_len: int = 3,
+    max_len: int = 12,
+    max_words: int = 20,
+    vocab_size: int = 200,
+    n_classes: int = 7,
+    seed: int = 0,
+):
+    """Write a 7-tuple DailyDialogue-format pickle of random token ids
+    (1 ... vocab_size - 1; 0 is the pad); returns the (train, valid, test)
+    id lists."""
+    rng = np.random.default_rng(seed)
+    Speakers, Features, ActLabels, EmotionLabels = {}, {}, {}, {}
+    ids = [[], [], []]
+    n_total = sum(n_per_split)
+    for i, L in enumerate(_dialogue_lengths(rng, n_total, min_len, max_len)):
+        conv = f"conv{i}"
+        Speakers[conv] = [str(int(rng.integers(0, 2))) for _ in range(L)]
+        Features[conv] = rng.integers(1, vocab_size,
+                                      size=(L, max_words)).astype(np.int64)
+        ActLabels[conv] = [int(rng.integers(0, 4)) for _ in range(L)]
+        EmotionLabels[conv] = [int(rng.integers(0, n_classes))
+                               for _ in range(L)]
+        split = (0 if i < n_per_split[0]
+                 else 1 if i < n_per_split[0] + n_per_split[1] else 2)
+        ids[split].append(conv)
+    payload = (Speakers, Features, ActLabels, EmotionLabels, ids[0], ids[1],
+               ids[2])
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return tuple(ids)

@@ -231,6 +231,11 @@ class DialogueGNN(nn.Module):
         if cfg.dataset not in DATASET_INFO:
             raise NotImplementedError(
                 f"dataset {cfg.dataset!r}: a later slice of the port")
+        if cfg.dataset == "DailyDialogue":
+            raise ValueError(
+                "dataset 'DailyDialogue' reads token ids: its model is "
+                "DialogueGCNDailyModel (mmdfn_torch.models.from_config), "
+                "trained by DailyTrainer")
         if not cfg.graph_model:
             raise ValueError("graph_model=False selects a baseline: build "
                              "it with mmdfn_torch.models.from_config")

@@ -129,13 +129,16 @@ class GraphNetwork(nn.Module):
 
     def classify(self, emotions: Tensor, umask: Tensor, *,
                  train: bool = False,
-                 generator: Optional[torch.Generator] = None) -> Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 avec: bool = False) -> Tensor:
         """Per-utterance log-probs from the features:
         ``MatchingAttention('general2')`` of every utterance
         over the dialogue (without nodal attention the features
-        themselves), a ReLU linear, dropout and ``smax_fc``."""
+        themselves), a ReLU linear, dropout and ``smax_fc``; with
+        ``avec`` the raw scores, before the log-softmax."""
         if hasattr(self, "matchatt"):
             emotions, _ = self.matchatt(emotions, emotions, umask)
         hidden = dropout(torch.relu(self.linear(emotions)),
                          self.dropout if train else 0.0, generator)
-        return torch.log_softmax(self.smax_fc(hidden), dim=-1)
+        scores = self.smax_fc(hidden)
+        return scores if avec else torch.log_softmax(scores, dim=-1)

@@ -34,6 +34,11 @@ class StreamingSession:
 
     def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig,
                  buckets: Sequence[int] = SERVE_BUCKETS, device=None):
+        if cfg.dataset == "DailyDialogue":
+            raise ValueError("a DailyDialogue model reads token ids; the "
+                             "server feeds a model the text vector (the "
+                             "JAX package serves no DailyDialogue model "
+                             "either)")
         if cfg.input_modals != "l":
             what = ("the concatenation of modals "
                     f"{','.join(cfg.input_modals)} (mm_fusion_mthd 'concat')"

@@ -100,8 +100,12 @@ def _name(cfg: ExperimentConfig) -> str:
 def check_family(cfg: ExperimentConfig) -> None:
     """Raise ``ValueError`` for a model that ``mmdfn_tpu``'s importer has
     no family for: a single-stream model other than the relation net on
-    the LSTM base with attn1 edge weights, or a DialogRNN baseline whose
-    context attention is neither simple nor general."""
+    the LSTM base with attn1 edge weights, a DialogRNN baseline whose
+    context attention is neither simple nor general, or DailyDialogue's
+    model."""
+    if cfg.dataset == "DailyDialogue":
+        raise ValueError("dataset 'DailyDialogue': the importer has no "
+                         "family for its token model")
     if not cfg.graph_model:
         if cfg.base_model == "DialogRNN" and cfg.attention not in (
                 "simple", "general"):

@@ -77,14 +77,18 @@ class FitResult:
     history: List[Dict] = field(default_factory=list)
 
 
+def to_device(a: np.ndarray, device: torch.device) -> Tensor:
+    """An array as a tensor on ``device``: on the card from a pinned host
+    copy, so that the copy does not block the host."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def prepare_inputs(batch: Batch, device: torch.device) -> Dict[str, Tensor]:
-    """The batch's arrays as tensors on ``device`` (pinned host copies, so
-    that the copies to the card do not block the host)."""
-    def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
+    """The batch's arrays as tensors on ``device`` (:func:`to_device`)."""
+    put = lambda a: to_device(a, device)
     return dict(text=put(batch.text), audio=put(batch.audio),
                 visual=put(batch.visual), qmask=put(batch.qmask),
                 umask=put(batch.umask), label=put(batch.label))
@@ -123,8 +127,14 @@ class Trainer:
     ``device="cpu"``).
     """
 
+    _token_inputs = False        # DailyTrainer's token-id batches
+
     def __init__(self, cfg: ExperimentConfig, device=None,
                  model: Optional[torch.nn.Module] = None):
+        if (cfg.dataset == "DailyDialogue") != self._token_inputs:
+            raise ValueError(
+                f"dataset {cfg.dataset!r}: DailyDialogue's token batches "
+                "train with DailyTrainer, every other dataset with Trainer")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = (model if model is not None
@@ -173,6 +183,10 @@ class Trainer:
             loss = self._loss(logp, inputs["label"], inputs["umask"])
         return loss, logp.argmax(dim=-1)
 
+    def _prepare(self, batch) -> Dict[str, Tensor]:
+        """A batch's arrays as tensors on the trainer's device."""
+        return prepare_inputs(batch, self.device)
+
     def _batcher(self, dialogues, shuffle: bool = False) -> BucketBatcher:
         cfg = self.cfg
         return BucketBatcher(dialogues, cfg.batch_size,
@@ -192,7 +206,7 @@ class Trainer:
         t0 = time.perf_counter()
         for i, item in enumerate(batches):
             batch, inputs = (item if isinstance(item, tuple)
-                             else (item, prepare_inputs(item, self.device)))
+                             else (item, self._prepare(item)))
             n_dia += int((batch.umask.sum(-1) > 0).sum())
             n_utt += batch.n_valid
             if train:
@@ -239,7 +253,7 @@ class Trainer:
         as ``mmdfn_tpu``'s ``Trainer.dump_activations`` writes them by flax
         module path."""
         batch = next(iter(self._batcher(dialogues).epoch()))
-        inputs = prepare_inputs(batch, self.device)
+        inputs = self._prepare(batch)
         out: Dict[str, np.ndarray] = {}
 
         def hook(name):
@@ -280,7 +294,7 @@ class Trainer:
         cfg = self.cfg
         train_batcher = self._batcher(train_dialogues, shuffle=True)
         # the fixed eval splits are copied to the device once
-        prep = lambda dias: [(b, prepare_inputs(b, self.device))
+        prep = lambda dias: [(b, self._prepare(b))
                              for b in self._batcher(dias).epoch()]
         valid_batches = prep(valid_dialogues)
         test_batches = prep(test_dialogues)

@@ -146,13 +146,28 @@ def _single_graph_net(sd: "OrderedDict", g: Mapping) -> None:
         _linear(sd, "graph_net", g)
 
 
+def _text_cnn(sd: "OrderedDict", prefix: str, p: Mapping) -> None:
+    """DailyDialogue's TextCNN: the table, each flax ``Conv`` kernel (K, E,
+    F) as a ``Conv1d`` weight (F, E, K) in the order of K, and ``fc``."""
+    sd[f"{prefix}embedding.weight"] = _t(p["embedding"])
+    widths = sorted(int(k[4:]) for k in p if k.startswith("conv"))
+    for i, K in enumerate(widths):
+        conv = p[f"conv{K}"]
+        sd[f"{prefix}convs.{i}.weight"] = _t(conv["kernel"]).permute(2, 1, 0)
+        sd[f"{prefix}convs.{i}.bias"] = _t(conv["bias"])
+    _linear(sd, f"{prefix}fc", p["fc"])
+
+
 def params_from_jax(params: Mapping[str, Any]) -> "OrderedDict":
     """Map the JAX parameter tree of any model the port builds (every
-    ``DialogueGNN`` family, multimodal or single-stream, and the non-graph
-    baselines), a nested dict of arrays as ``Trainer.init_state().params``
-    holds it, onto the port's state_dict (the reference's keys, as
+    ``DialogueGNN`` family, multimodal or single-stream, the non-graph
+    baselines and DailyDialogue's model), a nested dict of arrays as
+    ``Trainer.init_state().params`` holds it, onto the port's state_dict
+    (the reference's keys, as
     ``mmdfn_tpu/tools/import_torch_checkpoint.py`` reads them)."""
     sd: "OrderedDict" = OrderedDict()
+    if "cnn_feat_extractor" in params:
+        _text_cnn(sd, "cnn_feat_extractor.", params["cnn_feat_extractor"])
     for name in ("linear_", "base_linear"):
         if name in params:
             _linear(sd, name, params[name])

@@ -32,13 +32,11 @@ def _options(parser):
 
 
 def test_parser_takes_every_jax_flag_with_its_default():
-    """Every option string of the JAX parser but the XLA/TPU knobs and the
-    DailyDialogue word flags, with the same destination and default; the
-    port adds ``--device`` only."""
+    """Every option string of the JAX parser but the XLA/TPU knobs, with
+    the same destination and default; the port adds ``--device`` only."""
     want, got = (_options(j_run_train_erc.build_parser()),
                  _options(run_train_erc.build_parser()))
-    left_out = set(run_train_erc.JAX_ONLY_FLAGS) | set(
-        run_train_erc.LATER_FLAGS)
+    left_out = set(run_train_erc.JAX_ONLY_FLAGS)
     assert left_out <= set(want)
     assert set(got) == (set(want) - left_out) | {"--device"}
     for opt, action in got.items():
@@ -79,12 +77,13 @@ def test_flags_unread_on_the_gdf_path_leave_the_config_as_it_was():
 
 
 # the values that select another family than the flagship's: DailyDialogue
-# names the later slice; what the JAX package cannot run either (GF, GDF
-# and GF2 on one stream, a multimodal GRU or DialogRNN base, one stream of
-# three modalities) is refused by name; the non-graph baselines and early
-# fusion on 'None' build their model and stop at the missing pickle
+# builds its token model and stops at the missing pickle; what the JAX
+# package cannot run either (GF, GDF and GF2 on one stream, a multimodal
+# GRU or DialogRNN base, one stream of three modalities) is refused by
+# name; the non-graph baselines and early fusion on 'None' build their
+# model and stop at the missing pickle
 @pytest.mark.parametrize("argv,error,match", [
-    (["--dataset", "DailyDialogue"], NotImplementedError, "later slice"),
+    (["--dataset", "DailyDialogue"], FileNotFoundError, "none.pkl"),
     (["--no_graph_model"], FileNotFoundError, "none.pkl"),
     (["--no_multi_modal"], ValueError, "no single stream"),
     (["--mm_fusion_mthd", "concat"], ValueError, "no single stream"),

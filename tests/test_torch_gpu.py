@@ -806,3 +806,56 @@ def test_group_on_the_card_equals_its_solo_runs():
         want = first if k == 0 else solo(combo)
         assert _same_run(group.history[k], want, exact), (
             exact, group.history[k], want)
+
+
+@pytest.mark.gpu
+def test_daily_step_on_the_card_matches_its_plain_step():
+    """One DailyDialogue training step on the GRU base (JAX's default
+    widths, B = 32 token batches, dropout 0.4, the TextCNN's 0.5) against
+    the same step with the plain versions: the loss and every parameter's
+    gradient; kernels A and C launch once for each of the bi-GRU's two
+    layers, kernels B and D not at all."""
+    import tempfile
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import collate_tokens
+    from mmdfn_torch.data.datasets import DailyDialogueDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_daily_pickle
+    from mmdfn_torch.train import DailyTrainer
+
+    dev = _card()
+    cfg = ExperimentConfig(dataset="DailyDialogue", base_model="GRU",
+                           dropout=0.4, seed=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_daily_pickle(f"{tmp}/daily.pkl", (32, 1, 1),
+                                    min_len=3, max_len=35, vocab_size=5000,
+                                    seed=3)
+        dias = DailyDialogueDataset("train", f"{tmp}/daily.pkl").dialogues()
+
+    def step(plain):
+        tr = DailyTrainer(cfg, device=dev)
+        inputs = tr._prepare(collate_tokens(dias, 32, 48,
+                                            max_words=cfg.max_words))
+        before = dict(ops.launch_counts())
+        if plain:
+            with ops.plain_ops():
+                loss, _ = tr.train_step(inputs, seed=11)
+        else:
+            loss, _ = tr.train_step(inputs, seed=11)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return float(loss), {n: p.grad for n, p in
+                             tr.model.named_parameters()}, used
+
+    loss, grads, used = step(plain=False)
+    assert used == {"bigru_fwd": 2, "bigru_bwd": 2, "gcnii_fwd": 0,
+                    "gcnii_bwd": 0}, used
+    for name, g in grads.items():
+        assert g is not None and bool(g.abs().max() > 0), name
+    ref_loss, ref, used = step(plain=True)
+    assert not any(used.values())
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, g in grads.items():
+        scale = float(ref[name].abs().max())
+        assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name

@@ -94,7 +94,6 @@ def test_other_graph_types_name_the_later_slice():
             (dict(base_model="DialogRNN"), NotImplementedError,
              "single-stream only"),
             (dict(graph_model=False), ValueError, "selects a baseline"),
-            (dict(dataset="DailyDialogue"), NotImplementedError,
-             "later slice")):
+            (dict(dataset="DailyDialogue"), ValueError, "DailyTrainer")):
         with pytest.raises(error, match=match):
             DialogueGNN.from_config(ExperimentConfig(**kw))

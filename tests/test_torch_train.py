@@ -214,9 +214,10 @@ def test_training_cli_runs_on_the_cpu(pickle_path, tmp_path, capsys):
         "--buckets", "12", "--save_model_dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "epoch: 0, train_loss: " in out and "Final Test performance" in out
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_train_erc.main(["--device", "cpu", "--dataset",
-                            "DailyDialogue"])
+    # DailyDialogue trains (tests/test_torch_daily.py): it reaches the data
+    with pytest.raises(FileNotFoundError, match="none.pkl"):
+        run_train_erc.main(["--device", "cpu", "--dataset", "DailyDialogue",
+                            "--data_dir", str(tmp_path / "none.pkl")])
     # one stream of three modalities: the JAX package has no such input
     with pytest.raises(ValueError, match="one modality"):
         run_train_erc.main(["--device", "cpu", "--data_dir", pickle_path,
