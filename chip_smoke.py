@@ -44,8 +44,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    append's log-probs must match the same model run with
    the plain versions on the card (``ops.plain_ops()``); a torch.profiler
    window shows where one forward's time goes (device busy sums the
-   kernels, not the GPU-side user annotations around them); then the stdio
-   server answers a few requests;
+   kernels, not the GPU-side user annotations around them);
+   ``serve/latency_bench.py`` over two 200-utterance dialogues gives the
+   wall p50 / p90 / p99 an append and each bucket's stream and busy time a
+   forward (``profiling.device_busy_ms``); then the stdio server answers a
+   few requests;
 5. train: the flagship training step at ``bench.py``'s production settings
    (B = 32 dialogues of U[20, 80] turns, class weights, focal loss, dropout
    0.4, Adam) through ``Trainer.train_step``: one step with the kernels and
@@ -128,7 +131,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    --base_model GRU``, ``--test_label`` on its directory, whose
    predictions must equal ``DailyTrainer.evaluate``'s of the saved
    weights); a frozen pretrained table bit-equal after a step that moved
-   ``fc``.
+   ``fc``;
+12. raw: the raw-input model (``RawInputDialogueGNN``: a log-mel
+   frontend over 3 s of 16 kHz audio and a DenseNet-BC over 48 x 48 x 3
+   face crops, in front of the flagship at its widths, 16 layers with the
+   reason-LSTM, dropout 0.4) on the train phase's batch recipe (B = 32, L
+   <= 80): its log-probs with the kernels against the plain versions, the
+   step against the plain step (held at the kernels' ReLU decisions as
+   MELD's), 10 timed steps (exactly A 4, C 4, B 49, D 116 a step; cuDNN's
+   convolutions, GroupNorm and the products by operator), the busy time
+   and idle share of 3 steps (``profiling.device_time_ms``), the log-mel
+   spectrogram alone at the step's 2560 waveforms (before the model runs
+   and after the steps, by kernel), both frontends' gradients nonzero, one
+   step's gradient histograms (64 bins, reduced on the card) against
+   numpy's of the same gradients on the host, and 6 Adam steps without
+   dropout at the flagship's lr 3e-4 whose loss must fall (and 6 at 3e-3,
+   with the kernels and with the plain versions, reported).
 
 It prints a line per phase, the seconds each took (``phase_s``), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -327,7 +345,35 @@ def serve_phase(torch, dev) -> dict:
     return {**out, "profile": profile_phase(torch, session, 64),
             "device_ms_by_bucket": stats["device_ms_by_bucket"],
             "latency_bench_p50_ms": stats["p50_ms"],
+            "latency_bench_200": latency_200(dev),
             "cli": cli_phase(dialogues[0], logps[:3])}
+
+
+def latency_200(dev) -> dict:
+    """``serve/latency_bench.py`` on the flagship (weights from SEED) over
+    two dialogues of 200 utterances (a third warms up): the wall p50 / p90
+    / p99 per append against PERF.md's p99 <= 50 ms (reported, not held),
+    and per bucket the stream time and the busy time of a forward
+    (``profiling.device_busy_ms``)."""
+    from mmdfn_torch.config import flagship_config
+    from mmdfn_torch.data.batching import SERVE_BUCKETS
+    from mmdfn_torch.serve import latency_bench
+
+    bench = latency_bench.run(cfg=flagship_config(seed=SEED), n_dialogues=2,
+                              min_len=200, max_len=200, seed=SEED,
+                              device=dev)
+    busy = bench["device_busy_ms_by_bucket"]
+    check(bench["n"] == 400 and bench["buckets_used"] == list(SERVE_BUCKETS)
+          and sorted(map(int, busy)) == list(SERVE_BUCKETS),
+          f"latency bench over 200-utterance dialogues: {bench}")
+    check(all(math.isfinite(bench[k]) and bench[k] > 0 for k in
+              ("p50_ms", "p99_ms", "device_busy_p50_ms"))
+          and all(v > 0 for v in busy.values()),
+          f"latency bench readings: {bench}")
+    keys = ("p50_ms", "p90_ms", "p99_ms", "mean_ms", "device_p50_ms",
+            "device_p99_ms", "device_busy_p50_ms", "device_ms_by_bucket",
+            "device_busy_ms_by_bucket", "model", "n")
+    return {k: bench[k] for k in keys}
 
 
 def device_events(torch, prof):
@@ -984,18 +1030,21 @@ def gru_encoders(model) -> int:
                for m in model.modules())
 
 
-def trainer_for(cfg, dev):
+def trainer_for(cfg, dev, build=None):
     """The trainer a user of the config runs: ``DailyTrainer`` for
-    DailyDialogue's token batches, else ``Trainer``."""
+    DailyDialogue's token batches, else ``Trainer``; on the model that
+    ``build(cfg)`` makes, else on the config's own."""
     from mmdfn_torch.train import DailyTrainer, Trainer
 
     cls = DailyTrainer if cfg.dataset == "DailyDialogue" else Trainer
-    return cls(cfg, device=dev)
+    return cls(cfg, device=dev, model=None if build is None else build(cfg))
 
 
-def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
+def step_check(torch, dev, cfg, batch, hold_decisions=False,
+               build=None) -> dict:
     """One training step with the kernels and one under ``ops.plain_ops()``
-    from the same weights (``cfg.seed``) and step seed: the loss to
+    from the same weights (``cfg.seed``; ``build`` as in
+    :func:`trainer_for`) and step seed: the loss to
     ``STEP_LOSS_RTOL`` relative and every parameter's gradient to
     ``STEP_GRAD_RTOL`` of its max |.|; the kernel step must launch kernels
     A and C, and B and D where the model has a GCNII stack.
@@ -1013,7 +1062,7 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     from mmdfn_torch.ops import gcnii as gcnii_ops
 
     def one_step(plain, masks=None):
-        tr = trainer_for(cfg, dev)
+        tr = trainer_for(cfg, dev, build)
         orig = gcnii_ops.gcnii_stack_plain
         if masks is not None:      # one list of layer masks a stack call
             held = iter(masks)
@@ -1044,7 +1093,7 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     loss_k, grads_k, calls_k = one_step(plain=False)
     counts = ops.launch_counts()
     stack = bool(stack_calls(cfg, batch["umask"].shape[1]))
-    gru = gru_encoders(build_model(cfg)) > 0
+    gru = gru_encoders((build or build_model)(cfg)) > 0
     check(all((v > 0) == (stack if k.startswith("gcnii") else gru)
               for k, v in counts.items()),
           f"the kernel step did not launch its kernels: {counts}")
@@ -1087,7 +1136,8 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False) -> dict:
     return out
 
 
-def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=()) -> dict:
+def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=(),
+                build=None) -> dict:
     """The training step's main path: 2 warm-up steps, then ``reps`` timed
     steps with the launch counts zeroed just before and read just after
     (kernels A and C must show, and kernels B and D with their documented
@@ -1095,7 +1145,7 @@ def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=()) -> dict:
     the step's own peak memory, the stream time of chained steps, and a
     torch.profiler window of 3 steps (device time by kernel; for each
     operator of ``named_ops``, the device time of the kernels it launched
-    and its calls, a step)."""
+    and its calls, a step).  ``build`` as in :func:`trainer_for`."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmdfn_torch import ops
@@ -1103,7 +1153,7 @@ def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=()) -> dict:
     from mmdfn_torch.ops.gcnii import (_design, gcnii_bwd_launches,
                                        gcnii_fwd_launches)
 
-    tr = trainer_for(cfg, dev)
+    tr = trainer_for(cfg, dev, build)
     for i in range(2):
         tr.train_step(batches[i % len(batches)], seed=100 + i)
     torch.cuda.synchronize()
@@ -2074,6 +2124,213 @@ def daily_phase(torch, dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the raw-input model's inputs: a 3 s waveform at 16 kHz and a 48 x 48 x 3
+# face crop (FER2013's size) per utterance
+RAW_SAMPLES, FACE = 48_000, 48
+# the operators of the raw step named in its profile: cuDNN's convolutions
+# forward and backward, GroupNorm, the DenseNet's concatenations and
+# pooling, ReLU's backward, the products
+RAW_OPS = ("aten::cudnn_convolution", "aten::convolution_backward",
+           "aten::native_group_norm", "aten::native_group_norm_backward",
+           "aten::cat", "aten::avg_pool2d", "aten::avg_pool2d_backward",
+           "aten::threshold_backward", "aten::mm", "aten::bmm")
+HIST_BINS = 64           # the CLI's --tensorboard histograms
+
+
+def raw_batch(torch, rng, dev, B=TRAIN_B, L=TRAIN_L) -> dict:
+    """:func:`train_batch`'s recipe, then from the same generator a
+    standard-normal waveform (zero at pad utterances) and face crop per
+    utterance: ``audio`` (B, L, 48000) and ``visual`` (B, L, 48, 48, 3) in
+    place of the precomputed features; on the card."""
+    import numpy as np
+
+    batch = train_batch(torch, rng, dev, B, L)
+    umask = batch["umask"].cpu().numpy()
+    wav = rng.standard_normal((B, L, RAW_SAMPLES), dtype=np.float32)
+    wav *= umask[..., None]
+    faces = rng.standard_normal((B, L, FACE, FACE, 3), dtype=np.float32)
+    batch.update(audio=torch.from_numpy(wav).to(dev),
+                 visual=torch.from_numpy(faces).to(dev))
+    return batch
+
+
+def check_histogram(name, values, row, bins) -> dict:
+    """One :func:`grad_histograms_device` row against ``np.histogram`` of
+    the same values on the host: the counts sum to ``num``, the edges
+    agree within 1e-6 of the range's magnitude, and the counts are equal
+    but for values that lie between the two computations of an edge where
+    they round apart (the row's f32 ``start (1 - t) + stop t``, numpy's
+    ``start + i step``: a few ulps of the range's magnitude), each of
+    which moves one count between neighbouring bins."""
+    import numpy as np
+
+    counts, edges = np.histogram(values, bins=bins)
+    scale = max(float(np.abs(edges).max()), 1e-30)
+    edge_err = float(np.abs(row["edges"] - edges).max()) / scale
+    check(int(row["counts"].sum()) == row["num"] == values.size,
+          f"histogram of {name}: counts do not sum to num")
+    check(edge_err <= 1e-6, f"histogram of {name}: edges {edge_err}")
+    apart = row["edges"] != edges
+    between = sum(int(((values >= min(a, b)) & (values <= max(a, b))).sum())
+                  for a, b in zip(row["edges"][apart], edges[apart]))
+    moved = int(np.abs(row["counts"] - counts).sum())
+    check(moved <= 2 * between, f"histogram of {name}: {moved} counts "
+                                f"moved, {between} values between two "
+                                "edges that round apart")
+    return {"moved": moved, "edge_err": edge_err}
+
+
+def log_mel_reading(torch, wav, warm=3, reps=20) -> dict:
+    """The log-mel spectrogram alone on ``wav`` after ``warm`` calls: the
+    stream time of each of ``reps`` calls (CUDA events), and in a profile
+    of ``reps`` more the device time a call (the union of its kernels) and
+    each kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmdfn_torch.frontends import log_mel_spectrogram
+
+    run = lambda: log_mel_spectrogram(wav)
+    for _ in range(warm):
+        run()
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        each.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    kern, _ = device_events(torch, prof)
+    each.sort()
+    return {"stream_ms_min_median_max": [each[0], each[reps // 2],
+                                         each[-1]],
+            "device_ms": sum(e.self_device_time_total for e in kern)
+            / 1e3 / reps,
+            "kernels": [[kernel_label(e.key),
+                         e.self_device_time_total / 1e3 / reps,
+                         e.count / reps]
+                        for e in sorted(kern, key=lambda e:
+                                        -e.self_device_time_total)[:6]]}
+
+
+def raw_phase(torch, dev) -> dict:
+    """The raw-input model (``RawInputDialogueGNN``: log-mel and DenseNet
+    frontends into the flagship, text features as they are) at the
+    flagship's widths and training settings on :func:`raw_batch`: the
+    log-probs with the kernels against the plain versions, the step
+    against the plain step, 10 timed steps (A 4, C 4, B 49, D 116 a step;
+    the convolutions, GroupNorm and the products by operator), the busy
+    and idle share of 3 steps (``profiling.device_time_ms``), the log-mel
+    alone before the model runs and after the steps, one step's gradient
+    histograms against numpy's, and 6 Adam steps on one batch whose loss
+    must fall (lr 3e-4; lr 3e-3 reported, with the plain versions'
+    steps)."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.runtime.profiling import (device_time_ms,
+                                               grad_histograms_device,
+                                               histograms_to_host)
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.weights import build_raw_model
+
+    cfg = family_config(graph_type="GDF", reason_flag=True)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    batches = [raw_batch(torch, rng, dev) for _ in range(2)]
+    b0 = batches[0]
+    B, L = b0["umask"].shape
+    out = {"shape": f"B={B} L<={L}: {RAW_SAMPLES} samples (3 s at 16 kHz) "
+                    f"and a {FACE}x{FACE}x3 crop an utterance; GDF reason "
+                    f"{NLAYERS} layers, dropout {RATE}",
+           "batch_s": time.perf_counter() - t0}
+
+    out["log_mel_first"] = log_mel_reading(torch, b0["audio"])
+    model = build_raw_model(cfg).to(dev).eval()
+    args = [b0[k] for k in ("text", "qmask", "umask", "audio", "visual")]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        logp = model(*args)
+        launches = ops.launch_counts()
+        with ops.plain_ops():
+            logp_plain = model(*args)
+    valid = b0["umask"] > 0
+    err = float((logp - logp_plain)[valid].abs().max())
+    check(logp.shape == (B, L, 6) and bool(torch.isfinite(logp).all())
+          and float((logp.exp().sum(-1) - 1)[valid].abs().max()) < 1e-4,
+          "raw log-probs not finite, normalized, (B, L, 6)")
+    check(err <= SERVE_TOL, f"raw log-probs, kernels vs plain: {err}")
+    check(all(v > 0 for k, v in launches.items() if "fwd" in k),
+          f"the raw forward did not launch kernels A and B: {launches}")
+    out["log_probs"] = {"max_abs_err_vs_plain": err,
+                        "tolerance": SERVE_TOL, "launches": launches}
+    del model, logp, logp_plain
+
+    out["step_check"] = step_check(torch, dev, cfg, b0, hold_decisions=True,
+                                   build=build_raw_model)
+    timed = timed_steps(torch, dev, cfg, batches, named_ops=RAW_OPS,
+                        build=build_raw_model)
+    per = timed["launches_per_step"]
+    check(per == {"bigru_fwd": 4, "bigru_bwd": 4, "gcnii_fwd": 49,
+                  "gcnii_bwd": 116}, f"launches a raw step: {per}")
+    out["train"] = {k: timed[k] for k in TIMED_KEYS + (
+        "bigru_kernels", "named_ops", "step_ms_all", "peak_mem_gb")
+        if k in timed}
+
+    tr = Trainer(cfg, device=dev, model=build_raw_model(cfg))
+    tr.train_step(b0, seed=1)
+    busy, total = device_time_ms(lambda: [
+        tr.train_step(batches[i % 2], seed=600 + i) for i in range(3)])
+    out["device_time"] = {"busy_ms_per_step": busy / 3,
+                          "window_ms_per_step": total / 3,
+                          "idle_share": 1.0 - busy / total}
+    out["log_mel_after_steps"] = log_mel_reading(torch, b0["audio"])
+
+    grads = {n: p.grad for n, p in tr.model.named_parameters()}
+    for front in ("audio_frontend", "visual_frontend"):
+        top = max(float(g.abs().max()) for n, g in grads.items()
+                  if n.startswith(front))
+        check(top > 0, f"no gradient reached the {front}")
+        out[f"{front}_grad_max"] = top
+    rows = histograms_to_host([grad_histograms_device(grads, HIST_BINS)])[0]
+    hist = [check_histogram(n, g.cpu().numpy().ravel(), rows[n], HIST_BINS)
+            for n, g in grads.items()]
+    out["histograms"] = {"parameters": len(hist),
+                         "counts_moved": sum(h["moved"] for h in hist),
+                         "max_edge_err": max(h["edge_err"] for h in hist)}
+    del tr, grads
+
+    # 6 Adam steps on one batch, dropout 0, the focal loss without class
+    # weights (tests/test_raw_input.py's step), held at the flagship's lr.
+    # At that test's lr of 3e-3 the 16-layer graph model overshoots, in the
+    # JAX package too (tests/test_torch_raw_lr_witness.py): reported, with
+    # the plain versions' steps from the same weights beside the kernels'
+    for lr, plain in ((3e-4, False), (3e-3, False), (3e-3, True)):
+        fit_cfg = dataclasses.replace(cfg, lr=lr, l2=0.0, dropout=0.0,
+                                      class_weight=False)
+        tr = Trainer(fit_cfg, device=dev, model=build_raw_model(fit_cfg))
+        with ops.plain_ops() if plain else contextlib.nullcontext():
+            losses = [float(tr.train_step(b0, seed=700 + i)[0])
+                      for i in range(6)]
+        check(all(map(math.isfinite, losses)), f"losses {losses}")
+        out[f"fixed_batch_losses_lr{lr}" + ("_plain" if plain else "")] = \
+            losses
+        del tr
+    losses = out["fixed_batch_losses_lr0.0003"]
+    check(losses[-1] < losses[0],
+          f"6 Adam steps on one batch did not lower the loss: {losses}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2154,7 +2411,8 @@ def main() -> int:
     for name, phase in (("serve", serve_phase), ("train", train_phase),
                         ("meld", meld_phase), ("families", families_phase),
                         ("single", single_phase), ("learn", learn_phase),
-                        ("sweep", sweep_phase), ("daily", daily_phase)):
+                        ("sweep", sweep_phase), ("daily", daily_phase),
+                        ("raw", raw_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0

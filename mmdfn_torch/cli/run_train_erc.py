@@ -30,7 +30,9 @@ trains the token model (``DailyTrainer``: the TextCNN at ``--vocab_size``,
 ``--cnn_output_size``, then the base and the relation graph net) on the
 pickle's own train/valid/test splits.  ``--test_label`` restores
 ``best`` from ``--load_model`` (else ``--save_model_dir``) and evaluates
-on test.  Per-epoch lines are the reference's.
+on test.  Per-epoch lines are the reference's.  ``--profile_dir`` traces
+the run with torch.profiler, ``--debug_nans`` turns on autograd's anomaly
+mode, and ``--tensorboard`` also writes each batch's gradient histograms.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ JAX_ONLY_FLAGS = (
     "--gcn_compute_dtype", "--rnn_compute_dtype", "--gcn_scan_unroll",
     "--gcn_scan_remat", "--rnn_fuse_directions", "--rnn_scan_remat",
     "--rnn_backend", "--gcn_backend", "--gcn_bwd_block", "--rng_impl",
-    "--n_data_devices", "--n_model_devices", "--profile_dir", "--debug_nans")
+    "--n_data_devices", "--n_model_devices")
+# the TensorBoard histograms' bins (mmdfn_tpu: 64 under --tensorboard)
+GRAD_HIST_BINS = 64
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--class_weight", action="store_true", default=False)
     add("--save_model_dir", type=str, default="outputs/iemocap_demo/")
     add("--tensorboard", action="store_true", default=False,
-        help="write the epoch metrics to <save_model_dir>/tensorboard")
+        help="write the epoch metrics and each batch's gradient "
+             "histograms to <save_model_dir>/tensorboard")
     add("--test_label", action="store_true", default=False,
         help="restore 'best' from --load_model (else --save_model_dir), "
              "evaluate on test and write the labels, predictions and "
@@ -119,6 +124,11 @@ def build_parser() -> argparse.ArgumentParser:
     add("--sort_batches_by_length", action="store_true", default=False,
         help="training batches of dialogues of similar lengths (less "
              "padding)")
+    add("--profile_dir", type=str, default=None,
+        help="write a torch.profiler trace of training to this dir")
+    add("--debug_nans", action="store_true", default=False,
+        help="raise at the first NaN a backward makes, naming the forward "
+             "operator behind it (autograd's anomaly mode)")
     add("--resume", action="store_true", default=False,
         help="continue from save_model_dir's 'last' checkpoint")
     add("--faithful_epoch_reseed", action="store_true", default=True,
@@ -205,6 +215,22 @@ def _tensorboard_writer(save_dir: str):
     return SummaryWriter(log_dir=os.path.join(save_dir, "tensorboard"))
 
 
+def _grad_hist_sink(writer):
+    """Per-batch per-parameter gradient histograms (reference
+    ``run_train_erc.py:120-122,209-211``), fed from the rows the trainer
+    reduced on the device (``mmdfn_tpu/cli/run_train_erc.py:329-344``):
+    the tag is ``grad/`` and the parameter's name, ``/`` for ``.``."""
+    def sink(step: int, hists: dict):
+        for name, h in hists.items():
+            writer.add_histogram_raw(
+                "grad/" + name.replace(".", "/"), min=float(h["min"]),
+                max=float(h["max"]), num=int(h["num"]), sum=float(h["sum"]),
+                sum_squares=float(h["sum_sq"]),
+                bucket_limits=h["edges"][1:].tolist(),
+                bucket_counts=h["counts"].tolist(), global_step=step)
+    return sink
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
@@ -219,13 +245,24 @@ def main(argv=None) -> int:
     if args.test_label:
         return _test_label(args, trainer, test)
 
+    from mmdfn_torch.runtime.profiling import debug_numerics, trace
+
     print("The model have {} parameters in total".format(
         sum(p.numel() for p in trainer.model.parameters())))
     writer = _tensorboard_writer(args.save_model_dir) if args.tensorboard \
         else None
-    result = trainer.fit(train, test, valid_dialogues=valid, verbose=True,
-                         log_path=cfg.log_jsonl, save_dir=args.save_model_dir,
-                         resume=args.resume)
+    if writer is not None:
+        trainer.grad_hist_bins = GRAD_HIST_BINS
+        trainer.grad_hist_sink = _grad_hist_sink(writer)
+    debug_numerics(args.debug_nans)
+    try:
+        with trace(args.profile_dir):
+            result = trainer.fit(train, test, valid_dialogues=valid,
+                                 verbose=True, log_path=cfg.log_jsonl,
+                                 save_dir=args.save_model_dir,
+                                 resume=args.resume)
+    finally:
+        debug_numerics(False)
     if writer is not None:
         for row in result.history:
             for k, v in row.items():

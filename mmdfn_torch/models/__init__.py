@@ -1,14 +1,16 @@
 """The ERC models: ``DialogueGNN`` with its graph families and single
-stream, the non-graph baselines, and DailyDialogue's token model."""
+stream, the non-graph baselines, DailyDialogue's token model, and the
+raw-input model (frontends in front of ``DialogueGNN``)."""
 
 from mmdfn_torch.config import (D_A, D_E, D_G, D_H, D_P, DATASET_INFO,
                                 GRAPH_H, MAX_SEQ_LEN, ExperimentConfig)
 from mmdfn_torch.models.baselines import DialogRNNModel, GRUModel, LSTMModel
 from mmdfn_torch.models.daily import DialogueGCNDailyModel
 from mmdfn_torch.models.dialogue_gnn import DialogueGNN
+from mmdfn_torch.models.raw_input import RawInputDialogueGNN
 
 __all__ = ["DialogRNNModel", "DialogueGCNDailyModel", "DialogueGNN",
-           "GRUModel", "LSTMModel", "from_config"]
+           "GRUModel", "LSTMModel", "RawInputDialogueGNN", "from_config"]
 
 
 def from_config(cfg: ExperimentConfig):

@@ -74,7 +74,11 @@ GF2_NLAYERS = 64     # MMGCN2's depth, hard-coded upstream (model.py:956)
 class DialogueGNN(nn.Module):
     """Top-level ERC model; construct with :meth:`from_config`."""
 
-    def __init__(self, cfg: ExperimentConfig):
+    def __init__(self, cfg: ExperimentConfig, D_m_a: Optional[int] = None,
+                 D_m_v: Optional[int] = None):
+        """``D_m_a`` / ``D_m_v``: the widths of the audio and visual
+        features, when not the dataset's (the raw-input model's frontends
+        give 300 and 342)."""
         super().__init__()
         info = cfg.info
         self.multi_modal = cfg.multi_modal_path
@@ -96,7 +100,7 @@ class DialogueGNN(nn.Module):
                              "stream: it takes mm_fusion_mthd 'concat' or "
                              "multi_modal off, not the multimodal "
                              f"{cfg.mm_fusion_mthd!r} head")
-        dims = {"a": info["D_audio"], "v": info["D_visual"],
+        dims = {"a": D_m_a or info["D_audio"], "v": D_m_v or info["D_visual"],
                 "l": info["D_text"]}
         for m in self.order:
             setattr(self, f"linear_{m}", nn.Linear(dims[m], HIDDEN_MODALITY))
@@ -227,7 +231,7 @@ class DialogueGNN(nn.Module):
         return head.output_dim
 
     @classmethod
-    def from_config(cls, cfg: ExperimentConfig) -> "DialogueGNN":
+    def from_config(cls, cfg: ExperimentConfig, **widths) -> "DialogueGNN":
         if cfg.dataset not in DATASET_INFO:
             raise NotImplementedError(
                 f"dataset {cfg.dataset!r}: a later slice of the port")
@@ -247,7 +251,7 @@ class DialogueGNN(nn.Module):
             raise NotImplementedError(
                 "base_model='DialogRNN' is single-stream only (as in the "
                 "reference)")
-        return cls(cfg)
+        return cls(cfg, **widths)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Fresh torch-default weights drawn from ``generator``: the

@@ -1,5 +1,6 @@
-"""torch's default initialisations, drawn from an explicit generator, so
-that a model's fresh weights follow from its seed alone."""
+"""torch's default initialisations (and flax's, for the frontends'
+convolutions), drawn from an explicit generator, so that a model's fresh
+weights follow from its seed alone."""
 
 from __future__ import annotations
 
@@ -37,3 +38,19 @@ def reset_uniform(params, bound: float,
     with torch.no_grad():
         for p in params:
             p.uniform_(-bound, bound, generator=generator)
+
+
+def reset_conv(conv: nn.Module, generator: Optional[torch.Generator]
+               ) -> None:
+    """flax's ``Conv`` default: LeCun normal (truncated at two standard
+    deviations, fan-in = in channels x window) for the kernel, zeros for
+    the bias."""
+    fan_in = conv.weight[0].numel()
+    # variance_scaling's truncated normal: the std of the truncated draw
+    # is sqrt(1 / fan_in)
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        if conv.bias is not None:
+            conv.bias.zero_()

@@ -1,0 +1,208 @@
+"""Profiling, throughput metering and debug instrumentation
+(``mmdfn_tpu/runtime/profiling.py``) on torch.profiler and CUDA events.
+
+* :class:`ThroughputMeter`: dialogues/s and utterances/s of a region;
+* :func:`trace`: a torch.profiler trace of a region, written for
+  TensorBoard's profile plugin or Perfetto;
+* :func:`device_time_ms` / :func:`device_busy_ms`: what a callable keeps
+  the card busy, and the window it spans;
+* :func:`debug_numerics`: autograd's anomaly mode with NaN checks;
+* :func:`grad_histograms_device`: per-parameter gradient histograms
+  reduced on the device (the ``--tensorboard`` histograms).
+
+``mmdfn_tpu``'s ``enable_compilation_cache`` has no counterpart: it is
+XLA's cache, and the kernels' build directory already keeps what nvcc
+built.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+from dataclasses import dataclass
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
+
+import numpy as np
+import torch
+
+
+@dataclass
+class ThroughputMeter:
+    """Accumulates step timings into dialogues/sec and utterances/sec."""
+
+    dialogues: int = 0
+    utterances: int = 0
+    seconds: float = 0.0
+    _t0: Optional[float] = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, n_dialogues: int, n_utterances: int):
+        if self._t0 is None:
+            raise RuntimeError("stop() without start()")
+        self.seconds += time.perf_counter() - self._t0
+        self.dialogues += n_dialogues
+        self.utterances += n_utterances
+        self._t0 = None
+
+    @contextlib.contextmanager
+    def step(self, n_dialogues: int, n_utterances: int):
+        self.start()
+        try:
+            yield
+        finally:
+            self.stop(n_dialogues, n_utterances)
+
+    @property
+    def dialogues_per_sec(self) -> float:
+        return self.dialogues / self.seconds if self.seconds else 0.0
+
+    @property
+    def utterances_per_sec(self) -> float:
+        return self.utterances / self.seconds if self.seconds else 0.0
+
+    def summary(self) -> Dict[str, float]:
+        return dict(dialogues=self.dialogues, utterances=self.utterances,
+                    seconds=round(self.seconds, 3),
+                    dialogues_per_sec=round(self.dialogues_per_sec, 2),
+                    utterances_per_sec=round(self.utterances_per_sec, 2))
+
+
+def _activities():
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """A torch.profiler trace of the region (host operators, and the card's
+    kernels where there is one), written under ``log_dir`` as
+    ``<host>_<pid>.<time>.pt.trace.json`` when the region ends; nothing
+    when ``log_dir`` is None.  View it with TensorBoard's profile plugin
+    or Perfetto."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import profile, tensorboard_trace_handler
+
+    with profile(activities=_activities(),
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def _union_ms(spans) -> float:
+    """The length of the union of (start, end) microsecond intervals, in
+    ms: kernels that overlap on several streams count once."""
+    busy, until = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > until:
+            busy += b - max(a, until)
+            until = b
+    return busy / 1e3
+
+
+def device_time_ms(run: Callable[[], object]) -> Optional[Tuple[float, float]]:
+    """``(busy_ms, total_ms)`` of what ``run()`` puts on the card: busy is
+    the union of the intervals in which its kernels ran (torch.profiler;
+    the GPU-side user annotations that cover kernels are left out), total
+    the stream time between CUDA events recorded around it in the same
+    traced run, so ``total - busy`` is the traced window's idle.  None
+    where there is no card (no device reading); a ``run`` that launched
+    nothing reads (0.0, total).  It synchronizes after ``run()``."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    return _union_ms(spans), start.elapsed_time(end)
+
+
+def device_busy_ms(run: Callable[[], object]) -> Optional[float]:
+    """The card's busy time (ms) of ``run()``; see :func:`device_time_ms`."""
+    t = device_time_ms(run)
+    return None if t is None else t[0]
+
+
+def debug_numerics(enable: bool = True) -> None:
+    """Autograd's anomaly mode, with its NaN check: a backward that makes a
+    NaN raises, naming the forward operator that led to it."""
+    torch.autograd.set_detect_anomaly(enable, check_nan=enable)
+
+
+def grad_histograms_device(grads: Mapping[str, torch.Tensor],
+                           bins: int = 64) -> Dict[str, Dict]:
+    """Per-parameter gradient histograms, reduced where the gradients are.
+
+    The ``--tensorboard`` histograms of the reference's per-batch
+    ``writer.add_histogram(name, param.grad)``: instead of copying every
+    gradient to the host each batch, each row is ``bins + 1`` edges and
+    ``bins`` counts plus the moments tensorboard wants, as
+    ``jnp.histogram`` bins them (edges from min to max, a half unit either
+    side when they are equal; each bin closed on the left, the last also
+    on the right).  Nothing here waits for the card.
+
+    Returns ``{name: {counts, edges, min, max, sum, sum_sq, num}}``, tensors
+    on the gradients' device (``num`` an int).
+    """
+    out = {}
+    for name, g in grads.items():
+        flat = g.detach().reshape(-1).to(torch.float32)
+        lo, hi = torch.aminmax(flat)
+        same = lo == hi
+        first = torch.where(same, lo - 0.5, lo)
+        last = torch.where(same, hi + 0.5, hi)
+        # jnp.linspace's f32 arithmetic: start (1 - t) + stop t, t = i / bins
+        t = torch.arange(bins, device=flat.device,
+                         dtype=torch.float32) / bins
+        edges = torch.cat([first * (1 - t) + last * t, last[None]])
+        idx = torch.searchsorted(edges, flat, right=True)
+        idx = torch.where(flat == edges[-1], bins, idx)
+        counts = torch.zeros(bins + 1, dtype=torch.int64,
+                             device=flat.device).index_add_(
+            0, idx, torch.ones_like(idx))[1:]
+        out[name] = dict(counts=counts, edges=edges, min=lo, max=hi,
+                         sum=flat.sum(), sum_sq=(flat * flat).sum(),
+                         num=flat.numel())
+    return out
+
+
+_ROW_KEYS = ("counts", "edges", "min", "max", "sum", "sum_sq")
+
+
+def histograms_to_host(rows: List[Dict[str, Dict]]) -> List[Dict[str, Dict]]:
+    """:func:`grad_histograms_device` rows (one dict a step) as host numpy
+    arrays, in one copy from the device: counts int64, the rest float32."""
+    flat = [row[k].reshape(-1).to(torch.float64)
+            for hists in rows for row in hists.values() for k in _ROW_KEYS]
+    if not flat:
+        return [{} for _ in rows]
+    host = torch.cat(flat).cpu().numpy()
+    out, at = [], 0
+    for hists in rows:
+        step = {}
+        for name, row in hists.items():
+            step[name] = {"num": row["num"]}
+            for k in _ROW_KEYS:
+                n = row[k].numel()
+                v = host[at:at + n].reshape(row[k].shape)
+                step[name][k] = v.astype(np.int64 if k == "counts"
+                                         else np.float32)
+                at += n
+        out.append(step)
+    return out

@@ -1,4 +1,5 @@
-"""Streaming latency benchmark of the port: p50/p90/p99 as one JSON line.
+"""Streaming latency benchmark of the port: p50/p90/p99 as one JSON line,
+with the card's stream and busy time per forward at each bucket.
 
 Builds the flagship MM-DFN (IEMOCAP GDF with the reason-LSTM, 16 GCNII
 layers, the model ``mmdfn_tpu/serve/latency_bench.py`` measures), feeds

@@ -26,6 +26,7 @@ import torch
 from mmdfn_torch.config import ExperimentConfig
 from mmdfn_torch.data.batching import SERVE_BUCKETS, bucket_length
 from mmdfn_torch.device import resolve_device
+from mmdfn_torch.runtime import profiling
 
 
 class StreamingSession:
@@ -116,6 +117,10 @@ def measure_latency(model: torch.nn.Module, cfg: ExperimentConfig, dialogues,
     ``device_ms_by_bucket`` is the stream time between two CUDA events
     around K = 20 chained forwards at that bucket, over K; it includes any
     gap in which the card waits for the host to enqueue work.
+    ``device_busy_ms_by_bucket`` is the time the card's kernels ran in K
+    more such forwards, over K (``profiling.device_busy_ms``: no host gap
+    counts), and ``device_busy_p50_ms`` its median over the appends
+    (``mmdfn_tpu/serve/streaming.py:170-216``).
     """
     session = StreamingSession(model, cfg, buckets, device)
     session.warmup()
@@ -145,19 +150,30 @@ def measure_latency(model: torch.nn.Module, cfg: ExperimentConfig, dialogues,
     if dev.type == "cuda":
         K = 20
         by_bucket: Dict[int, float] = {}
+        busy_by_bucket: Dict[int, float] = {}
+
+        def chained(b):
+            for _ in range(K):
+                session._forward(b, 0)
+
         for b in sorted(set(used)):
             session._forward(b, 0)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(K):
-                session._forward(b, 0)
+            chained(b)
             end.record()
             end.synchronize()
             by_bucket[b] = start.elapsed_time(end) / K
+            busy_by_bucket[b] = profiling.device_busy_ms(
+                lambda: chained(b)) / K
         dev_ms = np.asarray([by_bucket[b] for b in used])
+        busy_ms = np.asarray([busy_by_bucket[b] for b in used])
         out.update(device_p50_ms=pct(dev_ms, 50),
                    device_p99_ms=pct(dev_ms, 99),
                    device_ms_by_bucket={str(k): v
-                                        for k, v in by_bucket.items()})
+                                        for k, v in by_bucket.items()},
+                   device_busy_p50_ms=pct(busy_ms, 50),
+                   device_busy_ms_by_bucket={
+                       str(k): v for k, v in busy_by_bucket.items()})
     return out

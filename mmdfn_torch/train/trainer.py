@@ -22,6 +22,11 @@ Reference-parity details, as the JAX trainer keeps them:
 * the per-epoch reseed quirk (``run_train_erc.py:164``): with
   ``faithful_epoch_reseed`` every epoch draws the same per-step seed stream,
   as ``_epoch_key`` returns the same key (``trainer.py:294-298``).
+
+With ``grad_hist_bins`` set (64 under the CLI's ``--tensorboard``), every
+training step also reduces each parameter's gradient to a histogram row on
+the device, and the epoch hands the rows to ``grad_hist_sink`` once its
+losses are copied back (``mmdfn_tpu/train/trainer.py:133-138,264-270``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +45,9 @@ from mmdfn_torch.data.batching import Batch, BucketBatcher
 from mmdfn_torch.device import resolve_device
 from mmdfn_torch.losses import focal_loss, masked_nll_loss
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
+from mmdfn_torch.runtime.profiling import (ThroughputMeter,
+                                           grad_histograms_device,
+                                           histograms_to_host)
 from mmdfn_torch.train import metrics as M
 from mmdfn_torch.train.optim import torch_adam
 from mmdfn_torch.weights import build_model
@@ -143,6 +151,11 @@ class Trainer:
         alpha = cfg.class_weights_or_none()
         self.alpha = (None if alpha is None
                       else torch.as_tensor(alpha, device=self.device))
+        # bins of each training step's gradient histograms (0: none), and
+        # the callback (global step, {parameter: row of host arrays}) that
+        # receives them at the end of each epoch
+        self.grad_hist_bins = 0
+        self.grad_hist_sink: Optional[Callable[[int, Dict], None]] = None
 
     # ------------------------------------------------------------------
     def _loss(self, log_probs: Tensor, label: Tensor, umask: Tensor) -> Tensor:
@@ -202,8 +215,10 @@ class Trainer:
         pairs prepared once); mirrors ``train_or_eval_graph_model``."""
         cfg = self.cfg
         losses, preds, masks, labels, mask_sums = [], [], [], [], []
+        hist_rows = []
         n_dia = n_utt = 0
-        t0 = time.perf_counter()
+        meter = ThroughputMeter()
+        meter.start()
         for i, item in enumerate(batches):
             batch, inputs = (item if isinstance(item, tuple)
                              else (item, self._prepare(item)))
@@ -211,6 +226,10 @@ class Trainer:
             n_utt += batch.n_valid
             if train:
                 loss, pred = self.train_step(inputs, self.step_seed(epoch, i))
+                if self.grad_hist_bins:
+                    hist_rows.append(grad_histograms_device(
+                        {n: p.grad for n, p in self.model.named_parameters()
+                         if p.grad is not None}, self.grad_hist_bins))
             else:
                 loss, pred = self.eval_step(inputs)
             m = batch.umask.reshape(-1) > 0
@@ -225,21 +244,32 @@ class Trainer:
         # one copy back per epoch, not one wait per step
         losses = torch.stack(losses).cpu().numpy().astype(np.float64)
         preds = [p.reshape(-1).cpu().numpy()[m] for p, m in zip(preds, masks)]
-        dt = time.perf_counter() - t0
+        meter.stop(n_dia, n_utt)
+        if hist_rows and self.grad_hist_sink is not None:
+            # the rows' global step numbers, from the optimiser's step
+            # count after the epoch (one step a batch; a resumed run's
+            # restored count included)
+            last = self._optimizer_steps()
+            for k, hists in enumerate(histograms_to_host(hist_rows)):
+                self.grad_hist_sink(last - len(hist_rows) + k + 1, hists)
         labels, preds = np.concatenate(labels), np.concatenate(preds)
         n_classes = cfg.info["n_classes"]
         result = EpochMetrics(
             loss=epoch_loss(cfg, losses, mask_sums),
             acc=M.reference_rounding(M.accuracy(labels, preds)),
             fscore=M.reference_rounding(M.f1_score(labels, preds, n_classes)),
-            labels=labels, preds=preds,
-            throughput=dict(seconds=dt, dialogues_per_sec=n_dia / dt,
-                            utterances_per_sec=n_utt / dt))
+            labels=labels, preds=preds, throughput=meter.summary())
         if full_report:
             names = cfg.info["target_names"]
             result.report = M.classification_report(labels, preds, names)
             result.per_class_acc = M.per_class_accuracy(labels, preds, names)
         return result
+
+    def _optimizer_steps(self) -> int:
+        """Adam's step count (``TrainState.step`` in the JAX trainer)."""
+        for state in self.optimizer.state.values():
+            return int(state["step"])
+        return 0
 
     def evaluate(self, dialogues) -> EpochMetrics:
         return self.run_epoch(list(self._batcher(dialogues).epoch()),

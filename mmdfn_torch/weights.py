@@ -227,6 +227,44 @@ def params_from_jax(params: Mapping[str, Any]) -> "OrderedDict":
     return OrderedDict((k, v.contiguous()) for k, v in sd.items())
 
 
+def _conv_from_jax(sd: "OrderedDict", prefix: str, p: Mapping) -> None:
+    """A flax ``Conv``: kernel (k, in, out) -> ``Conv1d`` (out, in, k), or
+    HWIO -> ``Conv2d`` OIHW; the bias as it is."""
+    w = _t(p["kernel"])
+    sd[f"{prefix}.weight"] = w.permute(w.dim() - 1, w.dim() - 2,
+                                       *range(w.dim() - 2))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _frontend_from_jax(sd: "OrderedDict", prefix: str, p: Mapping) -> None:
+    """A frontend's subtree: flax ``Conv`` kernels, the adaptive GroupNorms
+    (their scale and bias one level down, under ``gn``), ``TorchDense``
+    heads; the port's submodules carry the JAX names."""
+    for k, v in p.items():
+        name = f"{prefix}{k}"
+        if "gn" in v:
+            sd[f"{name}.weight"] = _t(v["gn"]["scale"])
+            sd[f"{name}.bias"] = _t(v["gn"]["bias"])
+        elif "kernel" in v and np.ndim(v["kernel"]) > 2:
+            _conv_from_jax(sd, name, v)
+        elif "kernel" in v:
+            _linear(sd, name, v)
+        else:
+            _frontend_from_jax(sd, f"{name}.", v)
+
+
+def raw_params_from_jax(params: Mapping[str, Any]) -> "OrderedDict":
+    """The JAX ``RawInputDialogueGNN`` parameter tree -> the port's
+    state_dict: ``model`` through :func:`params_from_jax`, and the
+    ``audio_frontend`` and ``visual_frontend`` subtrees."""
+    sd: "OrderedDict" = OrderedDict(
+        (f"model.{k}", v) for k, v in params_from_jax(params["model"]).items())
+    for front in ("audio_frontend", "visual_frontend"):
+        _frontend_from_jax(sd, f"{front}.", params[front])
+    return OrderedDict((k, v.contiguous()) for k, v in sd.items())
+
+
 def save_model(path: str, cfg: ExperimentConfig, model: torch.nn.Module) -> None:
     """Write ``{config, state_dict}`` with ``torch.save``."""
     torch.save({"config": dataclasses.asdict(cfg),
@@ -283,6 +321,21 @@ def build_model(cfg: ExperimentConfig, state_dict: Optional[Mapping] = None):
     """The config's model: fresh weights drawn from ``cfg.seed``, or
     ``state_dict`` loaded strictly (no missing or extra keys)."""
     model = models.from_config(cfg)
+    if state_dict is None:
+        model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    else:
+        model.load_state_dict(state_dict)
+    return model
+
+
+def build_raw_model(cfg: ExperimentConfig,
+                    state_dict: Optional[Mapping] = None, **frontend):
+    """The raw-input model of the config (``RawInputDialogueGNN``: the
+    config's multimodal ``DialogueGNN`` behind the log-mel and DenseNet
+    frontends; ``frontend`` as its ``from_config`` takes): fresh weights
+    drawn from ``cfg.seed``, the graph model's first, or ``state_dict``
+    loaded strictly."""
+    model = models.RawInputDialogueGNN.from_config(cfg, **frontend)
     if state_dict is None:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     else:

@@ -859,3 +859,62 @@ def test_daily_step_on_the_card_matches_its_plain_step():
     for name, g in grads.items():
         scale = float(ref[name].abs().max())
         assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.gpu
+def test_raw_input_step_on_the_card_matches_its_plain_step():
+    """One training step of the raw-input model (the flagship, 16 layers
+    with the reason-LSTM, dropout 0.4, behind the log-mel and DenseNet
+    frontends at their default widths) on 4 dialogues of up to 24 turns,
+    1 s of 16 kHz audio and a 32 x 32 crop an utterance, against the same
+    step with the plain versions: the loss and every parameter's gradient
+    (both frontends' included); kernels A-D launch, none in the plain
+    step."""
+    import numpy as np
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import flagship_config
+    from mmdfn_torch.train import Trainer
+    from mmdfn_torch.weights import build_raw_model
+
+    dev = _card()
+    cfg = flagship_config(seed=5)
+    rng = np.random.default_rng(5)
+    B, L = 4, 24
+    umask = (np.arange(L)[None] < rng.integers(8, L + 1, (B, 1))).astype(
+        np.float32)
+    qmask = np.eye(2, dtype=np.float32)[rng.integers(0, 2, (B, L))] \
+        * umask[..., None]
+    arrays = dict(
+        text=rng.standard_normal((B, L, 100), dtype=np.float32)
+        * umask[..., None],
+        audio=rng.standard_normal((B, L, 16000), dtype=np.float32)
+        * umask[..., None],
+        visual=rng.standard_normal((B, L, 32, 32, 3), dtype=np.float32),
+        qmask=qmask, umask=umask,
+        label=(rng.integers(0, 6, (B, L)) * umask).astype(np.int64))
+    inputs = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+    def step(plain):
+        tr = Trainer(cfg, device=dev, model=build_raw_model(cfg))
+        before = dict(ops.launch_counts())
+        if plain:
+            with ops.plain_ops():
+                loss, _ = tr.train_step(inputs, seed=11)
+        else:
+            loss, _ = tr.train_step(inputs, seed=11)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return float(loss), {n: p.grad for n, p in
+                             tr.model.named_parameters()}, used
+
+    loss, grads, used = step(plain=False)
+    assert all(v > 0 for v in used.values()), used
+    for name, g in grads.items():
+        assert g is not None and bool(g.abs().max() > 0), name
+    ref_loss, ref, used = step(plain=True)
+    assert not any(used.values())
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, g in grads.items():
+        scale = float(ref[name].abs().max())
+        assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name
