@@ -146,7 +146,28 @@ Phases, in order; any failure raises and the script exits nonzero:
    step's gradient histograms (64 bins, reduced on the card) against
    numpy's of the same gradients on the host, and 6 Adam steps without
    dropout at the flagship's lr 3e-4 whose loss must fall (and 6 at 3e-3,
-   with the kernels and with the plain versions, reported).
+   with the kernels and with the plain versions, reported);
+13. parallel: the multi-device layer on the one card, its ranks started
+   by ``runtime/launch.py`` (two ranks share the card over gloo, so their
+   walls measure sharing, not scaling): (a) the flagship at the train
+   phase's settings, dropout 0, on 2 data ranks of 16 dialogues (B = 32
+   global), 2 steps each through kernels A-D (exactly A 4, C 4, B 49, D
+   116 a step on each rank), held against the one-process step on the
+   same batches (loss, and every gradient of the first step); (b) the same
+   at dropout 0.4: finite losses, and on a batch whose two halves hold the
+   same dialogues the two data ranks' training forwards differ (each draws
+   its own dropout masks, kernel B's among them); (c) 2 model ranks,
+   the GCNII stack node-sharded (its plain version with the sharded
+   product; kernels A and C only), one step against the one-process plain
+   step, held at the sharded step's ReLU decisions only where the
+   gradients disagree and every differing decision lies within the
+   forward's tolerance of 0; each rank's step wall, device busy and host
+   ms in collectives; (d) one epoch of ``run_train_erc --n_data_devices
+   1`` (NCCL, one rank) whose lines must equal the flagless run's; (e)
+   ``cli.sweep --vmap`` on the first IEMOCAP group cut to K = 4, one
+   epoch, over 2 ranks of the card (``--device cuda:0 --n_data_devices
+   2``), whose configs' histories must equal the one-process group's, bit
+   for bit.
 
 It prints a line per phase, the seconds each took (``phase_s``), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -1956,21 +1977,35 @@ def daily_config(base="GRU", **kw):
                             batch_size=TRAIN_B, dropout=RATE, seed=SEED, **kw)
 
 
-def grads_close(loss_a, grads_a, loss_b, grads_b, what) -> dict:
-    """Two steps' losses to ``STEP_LOSS_RTOL`` relative and each
-    gradient to ``STEP_GRAD_RTOL`` of its max |.| in b."""
+def step_errs(loss_a, grads_a, loss_b, grads_b, what) -> dict:
+    """Two steps' loss error relative to b's, and the largest of each
+    gradient's error over its max |.| in b."""
     loss_err = abs(loss_a - loss_b) / abs(loss_b)
     errs = {}
     for name, gb in grads_b.items():
         ga = grads_a[name].to(gb.device)
         check(float(gb.abs().max()) > 0, f"{what}: no gradient at {name}")
         errs[name] = float((ga - gb).abs().max()) / float(gb.abs().max())
-    check(loss_err <= STEP_LOSS_RTOL, f"{what}: loss {loss_a} vs {loss_b}")
     worst = max(errs, key=errs.get)
-    check(errs[worst] <= STEP_GRAD_RTOL,
-          f"{what}: gradient of {worst} {errs[worst]} of its scale")
     return {"loss": loss_a, "loss_rel_err": loss_err,
             "grad_max_rel_err": errs[worst], "worst_param": worst}
+
+
+def steps_agree(errs: dict) -> bool:
+    return (errs["loss_rel_err"] <= STEP_LOSS_RTOL
+            and errs["grad_max_rel_err"] <= STEP_GRAD_RTOL)
+
+
+def grads_close(loss_a, grads_a, loss_b, grads_b, what) -> dict:
+    """Two steps' losses to ``STEP_LOSS_RTOL`` relative and each
+    gradient to ``STEP_GRAD_RTOL`` of its max |.| in b."""
+    out = step_errs(loss_a, grads_a, loss_b, grads_b, what)
+    check(out["loss_rel_err"] <= STEP_LOSS_RTOL,
+          f"{what}: loss {loss_a} vs {loss_b}")
+    check(out["grad_max_rel_err"] <= STEP_GRAD_RTOL,
+          f"{what}: gradient of {out['worst_param']} "
+          f"{out['grad_max_rel_err']} of its scale")
+    return out
 
 
 def daily_card_vs_cpu(torch, dev, cfg, batch) -> dict:
@@ -2331,6 +2366,271 @@ def raw_phase(torch, dev) -> dict:
     return out
 
 
+# the parallel phase: 2 ranks share the card over gloo; a small pickle for
+# the command lines (one epoch of 2 training batches of B = 32)
+PARALLEL_RANKS = 2
+PARALLEL_DATA = dict(n_train=64, n_test=32, min_len=20, max_len=TRAIN_L,
+                     seed=SEED + 1)
+PARALLEL_STEP = {"bigru_fwd": 4, "bigru_bwd": 4, "gcnii_fwd": 49,
+                 "gcnii_bwd": 116}
+
+
+def host_batch(batch: dict):
+    """A batch on the card as the host ``Batch`` a rank shards."""
+    from mmdfn_torch.data.batching import Batch
+
+    return Batch(**{k: v.cpu().numpy() for k, v in batch.items()})
+
+
+def rank_grads(torch, dev, r: dict) -> dict:
+    return {n: torch.from_numpy(g).to(dev) for n, g in r["grads"].items()}
+
+
+def epoch_lines(out: str) -> list:
+    """The CLI's per-epoch and final lines, the epoch's seconds cut off."""
+    return [line.split(", time:")[0] for line in out.splitlines()
+            if line.startswith(("epoch:", "Eval-metric"))]
+
+
+def parallel_phase(torch, dev) -> dict:
+    """The multi-device layer on the one card (``runtime/mesh.py``,
+    ``runtime/launch.py``, ``parallel/graph_parallel.py``): 2 ranks share
+    it over gloo, so their walls measure sharing, not scaling.  (a) the
+    flagship at the train phase's settings and widths, dropout 0, on 2 data
+    ranks of B = 16 (the global B = 32): 2 steps each through kernels A-D
+    (exactly A 4, C 4, B 49, D 116 a step), held against the one-process
+    step on the same global batches; (b) the same at dropout 0.4: finite
+    losses, and on the same dialogues (a batch whose halves are equal) the
+    data ranks' training forwards differ, each through its own dropout
+    masks, kernel B's among them; (c) 2 model ranks, the GCNII stack
+    node-sharded (its plain version with the sharded product, kernels A and
+    C alone), one step at dropout 0 against the one-process plain step; (d)
+    one epoch of the training CLI with ``--n_data_devices 1`` (NCCL, one
+    rank) against the same command without it, line for line; (e) the
+    first IEMOCAP group cut to K = 4, one epoch of ``cli.sweep --vmap`` on
+    2 ranks of the card (``--device cuda:0 --n_data_devices 2``) against
+    the one-process group, config by config, bit for bit."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.cli import run_train_erc, sweep
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.ops import gcnii as gcnii_ops
+    from mmdfn_torch.parallel import workers
+    from mmdfn_torch.runtime import checkpoint as ckpt_lib
+    from mmdfn_torch.runtime import launch
+    from mmdfn_torch.train import Trainer
+
+    kw = dict(dataset="IEMOCAP", graph_type="GDF", reason_flag=True,
+              class_weight=True, Deep_GCN_nlayers=NLAYERS,
+              batch_size=TRAIN_B, speaker_weights="3-0-1", seed=SEED)
+    cfg0 = ExperimentConfig(**kw, dropout=0.0)
+    cfg4 = ExperimentConfig(**kw, dropout=RATE)
+    rng = np.random.default_rng(SEED + 7)
+    batches = [train_batch(torch, rng, dev) for _ in range(2)]
+    hosts = [host_batch(b) for b in batches]
+    seeds = [1, 2]
+    # both data ranks' blocks hold the first half of the first batch
+    half = TRAIN_B // 2
+    same = dataclasses.replace(hosts[0], **{
+        k: np.concatenate([getattr(hosts[0], k)[:half]] * 2)
+        for k in ("text", "audio", "visual", "qmask", "umask", "label")})
+
+    # the one-process steps: kernels (a), plain (c)
+    tr = Trainer(cfg0, device=dev)
+    one = []
+    for b, s in zip(batches, seeds):
+        loss, _ = tr.train_step(b, seed=s)
+        one.append((float(loss), {n: p.grad.clone() for n, p
+                                  in tr.model.named_parameters()}))
+
+    def plain_step(masks=None):
+        """The one-process plain step on the first batch, its stack's ReLU
+        inputs recorded (and with ``masks``, one list of layer masks a
+        stack call, held at those decisions), as ``step_check`` holds its
+        plain step."""
+        tr_p, pres = Trainer(cfg0, device=dev), []
+        orig, held = gcnii_ops.gcnii_stack_plain, iter(masks or ())
+
+        def record(*a, **k):
+            pres.append([])
+            if masks is not None:
+                k["relu_masks"] = next(held)
+            return orig(*a, relu_inputs=pres[-1], **k)
+        gcnii_ops.gcnii_stack_plain = record
+        try:
+            with ops.plain_ops():
+                loss_p, _ = tr_p.train_step(batches[0], seed=seeds[0])
+            torch.cuda.synchronize()
+        finally:
+            gcnii_ops.gcnii_stack_plain = orig
+        return float(loss_p), {n: p.grad.clone() for n, p
+                               in tr_p.model.named_parameters()}, pres
+    *plain, plain_pres = plain_step()
+
+    t0 = time.perf_counter()
+    jobs = [(workers.trainer_steps, dict(
+                cfg=cfg0, n_data=2, n_model=1, batches=hosts, seeds=seeds,
+                device="cuda", profile=True)),
+            (workers.trainer_steps, dict(
+                cfg=cfg4, n_data=2, n_model=1, batches=[same, hosts[1]],
+                seeds=[3, 4], device="cuda", logits_seed=5)),
+            (workers.trainer_steps, dict(
+                cfg=cfg0, n_data=1, n_model=2, batches=hosts[:1],
+                seeds=seeds[:1], device="cuda", profile=True,
+                record_relu=True))]
+    ranks = launch.run(workers.run_jobs, PARALLEL_RANKS, jobs, device="cuda",
+                       share_device=True)
+    ranks_s = time.perf_counter() - t0
+
+    def summary(r):
+        return {k: r.get(k) for k in (
+            "data_rank", "model_rank", "losses", "step_ms", "busy_ms",
+            "window_ms", "collective_host_ms", "launches")}
+
+    # (a) data parallelism through the kernels
+    dp = []
+    for r in (rk[0] for rk in ranks):
+        want = {k: 2 * v for k, v in PARALLEL_STEP.items()}
+        check(r["launches"] == want, f"DP rank launches {r['launches']} != "
+                                     f"{want} (2 steps)")
+        errs = [grads_close(r["losses"][0], rank_grads(torch, dev, r),
+                            *one[0], "DP step 1 vs one process")]
+        step2 = abs(r["losses"][1] - one[1][0]) / abs(one[1][0])
+        check(step2 <= STEP_LOSS_RTOL, f"DP step 2 loss {r['losses'][1]} "
+                                       f"vs {one[1][0]}")
+        dp.append({**summary(r), "step1": errs[0], "step2_loss_rel_err":
+                   step2})
+    for n, g in ranks[0][0]["grads"].items():
+        check(np.array_equal(g, ranks[1][0]["grads"][n]),
+              f"DP ranks' gradients of {n} differ")
+
+    # (b) live dropout: each data rank its own masks
+    drop = [rk[1] for rk in ranks]
+    check(all(math.isfinite(v) for r in drop for v in r["losses"]),
+          f"DP dropout losses {[r['losses'] for r in drop]}")
+    # the valid utterances' log-probs of the two ranks' equal blocks
+    valid = same.umask[:half] > 0
+    lp0, lp1 = (r["logits"][valid] for r in drop)
+    check(np.isfinite(lp0).all() and np.isfinite(lp1).all(),
+          "DP dropout forwards not finite")
+    differ = float(np.mean(np.abs(lp0 - lp1).max(-1) > 1e-3))
+    check(differ > 0.5, f"the data ranks' training forwards on the same "
+                        f"dialogues: {differ} of the utterances differ")
+
+    # (c) the node-sharded stack, against the plain step at its own ReLU
+    # decisions, or, where the gradients disagree, at the TP step's: the
+    # sharded product sums adj @ h in another order, and a decision whose
+    # input lies within rounding of 0 may flip (see step_check)
+    tp = []
+    for r in (rk[2] for rk in ranks):
+        check(r["launches"]["gcnii_fwd"] == r["launches"]["gcnii_bwd"] == 0
+              and r["launches"]["bigru_fwd"] == PARALLEL_STEP["bigru_fwd"]
+              and r["launches"]["bigru_bwd"] == PARALLEL_STEP["bigru_bwd"],
+              f"TP rank launches {r['launches']}")
+        masks = [[torch.from_numpy(m).to(dev) for m in call]
+                 for call in r["relu_decisions"]]
+        check(len(masks) == len(plain_pres) == 1
+              and len(masks[0]) == NLAYERS, "one stack call of 16 layers")
+        flips, flip_pre = 0, 0.0
+        for m, pre in zip(masks[0], plain_pres[0]):
+            flipped = m != (pre > 0.0)
+            flips += int(flipped.sum())
+            if bool(flipped.any()):
+                flip_pre = max(flip_pre, float(pre[flipped].abs().max()))
+        tol = KERNEL_B_RTOL * max(1.0, max(float(p.abs().max())
+                                           for p in plain_pres[0]))
+        grads = rank_grads(torch, dev, r)
+        errs = step_errs(r["losses"][0], grads, *plain, "TP step")
+        held = not steps_agree(errs)
+        if held:
+            check(flip_pre <= tol, f"TP ReLU decisions differ at |pre| = "
+                                   f"{flip_pre} > {tol}")
+            loss_h, grads_h, _ = plain_step(masks)
+            errs = grads_close(r["losses"][0], grads, loss_h, grads_h,
+                               "TP step vs the plain step at its decisions")
+        tp.append({**summary(r), "step1": errs,
+                   "relu_decisions_differing": flips,
+                   "max_abs_pre_where_they_differ": flip_pre,
+                   "forward_tolerance": tol,
+                   "held_at_tp_decisions": held})
+    for n, g in ranks[0][2]["grads"].items():
+        check(np.array_equal(g, ranks[1][2]["grads"][n]),
+              f"TP ranks' gradients of {n} differ")
+
+    tmp = tempfile.mkdtemp()
+    try:
+        pkl = f"{tmp}/iem.pkl"
+        make_synthetic_iemocap_pickle(pkl, **PARALLEL_DATA)
+
+        def cli(mod, argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(mod.main(argv) == 0, f"{mod.__name__} {argv}")
+            return buf.getvalue()
+
+        # (d) NCCL, one rank
+        t0 = time.perf_counter()
+        train_argv = ["--data_dir", pkl, "--epochs", "1", "--reason_flag",
+                      "--class_weight", "--Deep_GCN_nlayers", str(NLAYERS)]
+        lines = [epoch_lines(cli(run_train_erc, [
+            *train_argv, "--save_model_dir", f"{tmp}/{name}", *extra]))
+            for name, extra in (("solo", []),
+                                ("nccl", ["--n_data_devices", "1"]))]
+        cli_s = time.perf_counter() - t0
+        check(len(lines[0]) == 2 and lines[0] == lines[1],
+              f"the CLI on one NCCL rank: {lines[1]} vs {lines[0]}")
+
+        # (e) the sharded sweep
+        t0 = time.perf_counter()
+        sweep_argv = ["--vmap", "--dataset", "IEMOCAP", "--data_dir", pkl,
+                      "--limit", "4", "--epochs", "1", "--batch-size",
+                      str(TRAIN_B)]
+        layers = next(sweep.combos("IEMOCAP"))["Deep_GCN_nlayers"]
+        metas = []
+        for name, extra in (("solo", ["--device", "cuda"]),
+                            ("sharded", ["--device", "cuda:0",
+                                         "--n_data_devices", "2"])):
+            cli(sweep, [*sweep_argv, "--out_dir", f"{tmp}/sw_{name}",
+                        *extra])
+            metas.append(ckpt_lib.read_meta(
+                f"{tmp}/sw_{name}/group_Deep_GCN_nlayers{layers}", "final"))
+        sweep_s = time.perf_counter() - t0
+        check(len(metas[0]["history"]) == 4
+              and metas[0]["history"] == metas[1]["history"]
+              and metas[0]["best_epoch"] == metas[1]["best_epoch"],
+              f"the sharded group's histories {metas[1]['history']} vs "
+              f"{metas[0]['history']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bars = {"loss_rel": STEP_LOSS_RTOL, "grad_of_its_max_abs": STEP_GRAD_RTOL}
+    checks = {
+        "a_data_parallel": {"ranks": dp, "bars": bars},
+        "b_dropout": {"losses": [r["losses"] for r in drop],
+                      "same_dialogues_share_differing": differ,
+                      "max_abs_log_prob_diff": float(
+                          np.abs(lp0 - lp1).max())},
+        "c_node_sharded": {"ranks": tp, "bars": bars},
+        "d_nccl_one_rank": {"lines_equal": True, "lines": lines[1],
+                            "two_runs_s": cli_s},
+        "e_sharded_sweep": {"histories_equal": True,
+                            "best_test_fscore": metas[1]["best_test_fscore"],
+                            "two_runs_s": sweep_s}}
+    for key, value in checks.items():
+        print(json.dumps({"parallel": {key: value}}), flush=True)
+    return {"shape": f"IEMOCAP GDF reason {NLAYERS} layers, B={TRAIN_B} "
+                     f"global, L<={TRAIN_L}; {PARALLEL_RANKS} ranks on one "
+                     "card over gloo (walls measure sharing, not scaling)",
+            "ranks_s": ranks_s, "passed": sorted(checks),
+            "step_ms_by_rank": {"a": [r["step_ms"] for r in dp],
+                                "c": [r["step_ms"] for r in tp]}}
+
+
 def main() -> int:
     import torch
 
@@ -2412,7 +2712,7 @@ def main() -> int:
                         ("meld", meld_phase), ("families", families_phase),
                         ("single", single_phase), ("learn", learn_phase),
                         ("sweep", sweep_phase), ("daily", daily_phase),
-                        ("raw", raw_phase)):
+                        ("raw", raw_phase), ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0

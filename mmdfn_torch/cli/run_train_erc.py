@@ -33,6 +33,19 @@ pickle's own train/valid/test splits.  ``--test_label`` restores
 on test.  Per-epoch lines are the reference's.  ``--profile_dir`` traces
 the run with torch.profiler, ``--debug_nans`` turns on autograd's anomaly
 mode, and ``--tensorboard`` also writes each batch's gradient histograms.
+
+``--n_data_devices K`` (data parallelism) and ``--n_model_devices M``
+(the GCNII stack node-sharded over M ranks) train over K x M ranks
+(``runtime/launch.py``): one rank a card on NCCL, the ranks on the CPU
+with ``--device cpu``, or every rank on one card over gloo with
+``--device cuda:N`` (a check on one card: its walls measure sharing, not
+scaling); under ``torchrun`` this process is one of them.
+Every rank parses the same flags; the first alone prints, logs and
+writes the checkpoints:
+
+    python -m mmdfn_torch.cli.run_train_erc --n_data_devices 2 --data_dir ...
+    torchrun --nproc_per_node 2 -m mmdfn_torch.cli.run_train_erc \
+        --n_data_devices 2 --data_dir ...
 """
 
 from __future__ import annotations
@@ -51,8 +64,7 @@ JAX_ONLY_FLAGS = (
     "--tpu_fast", "--matmul_precision", "--transfer_dtype", "--param_dtype",
     "--gcn_compute_dtype", "--rnn_compute_dtype", "--gcn_scan_unroll",
     "--gcn_scan_remat", "--rnn_fuse_directions", "--rnn_scan_remat",
-    "--rnn_backend", "--gcn_backend", "--gcn_bwd_block", "--rng_impl",
-    "--n_data_devices", "--n_model_devices")
+    "--rnn_backend", "--gcn_backend", "--gcn_bwd_block", "--rng_impl")
 # the TensorBoard histograms' bins (mmdfn_tpu: 64 under --tensorboard)
 GRAD_HIST_BINS = 64
 
@@ -124,6 +136,12 @@ def build_parser() -> argparse.ArgumentParser:
     add("--sort_batches_by_length", action="store_true", default=False,
         help="training batches of dialogues of similar lengths (less "
              "padding)")
+    add("--n_data_devices", type=int, default=0,
+        help="data-parallel over this many devices (0 = single device)")
+    add("--n_model_devices", type=int, default=1,
+        help="node-shard the GCNII stack's graph over this many devices "
+             "(tensor parallelism for the single-huge-graph regime; "
+             "composes with --n_data_devices on a 2-D mesh)")
     add("--profile_dir", type=str, default=None,
         help="write a torch.profiler trace of training to this dir")
     add("--debug_nans", action="store_true", default=False,
@@ -141,7 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--buckets", type=str, default=None,
         help="comma-separated padding lengths, e.g. 16,32,64,128,200")
     add("--device", type=str, default=None,
-        help="'cuda' (the default) or 'cpu' for the plain PyTorch versions")
+        help="'cuda' (the default) or 'cpu' for the plain PyTorch versions; "
+             "with --n_data_devices / --n_model_devices, 'cuda:N' runs "
+             "every rank on card N over gloo")
     # DailyDialogue's token frontend
     add("--vocab_size", type=int, default=5000)
     add("--max_words", type=int, default=20,
@@ -186,8 +206,10 @@ def load_dialogues(cfg, data_dir: str):
 
 def _test_label(args, trainer, test) -> int:
     """Restore ``best`` and evaluate it on test (reference
-    ``run_train_erc.py:531-549``)."""
+    ``run_train_erc.py:531-549``); on a mesh every rank evaluates and the
+    first writes and prints."""
     from mmdfn_torch.runtime import checkpoint as ckpt_lib
+    from mmdfn_torch.runtime.mesh import is_first_rank
 
     load_dir = args.load_model or args.save_model_dir
     if not ckpt_lib.has_checkpoint(load_dir):
@@ -195,13 +217,17 @@ def _test_label(args, trainer, test) -> int:
         return 1
     ckpt_lib.restore_checkpoint(load_dir, trainer.model)
     m = trainer.evaluate(test)
-    os.makedirs(args.save_model_dir, exist_ok=True)
-    np.save(os.path.join(args.save_model_dir, "test_label.npy"), m.labels)
-    np.save(os.path.join(args.save_model_dir, "test_pred.npy"), m.preds)
+    first = is_first_rank()
+    if first:
+        os.makedirs(args.save_model_dir, exist_ok=True)
+        np.save(os.path.join(args.save_model_dir, "test_label.npy"),
+                m.labels)
+        np.save(os.path.join(args.save_model_dir, "test_pred.npy"), m.preds)
     trainer.dump_activations(
         test, os.path.join(args.save_model_dir, "test_activations.npz"))
-    print(m.report)
-    print("test_acc:", m.acc, "test_fscore:", m.fscore)
+    if first:
+        print(m.report)
+        print("test_acc:", m.acc, "test_fscore:", m.fscore)
     return 0
 
 
@@ -233,30 +259,53 @@ def _grad_hist_sink(writer):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    print(args)
+    if args.n_data_devices or args.n_model_devices > 1:
+        from mmdfn_torch.runtime import launch
+        n_ranks = (args.n_data_devices or 1) * args.n_model_devices
+        device = "cpu" if args.no_cuda else (args.device or "cuda")
+        return max(launch.run(_rank_main, n_ranks, args, device=device,
+                              share_device=launch.names_one_card(device)))
+    return _train(args)
+
+
+def _rank_main(args) -> int:
+    """One rank of a multi-device run: its mesh, then the run."""
+    from mmdfn_torch.runtime.mesh import make_mesh
+
+    return _train(args, make_mesh(n_data=args.n_data_devices or 1,
+                                  n_model=args.n_model_devices))
+
+
+def _train(args, mesh=None) -> int:
+    from mmdfn_torch.runtime.mesh import is_first_rank
+
+    first = is_first_rank()
+    if first:
+        print(args)
     cfg = config_from_args(args)
     device = "cpu" if args.no_cuda else args.device
 
     from mmdfn_torch.train import DailyTrainer, Trainer
 
     cls = DailyTrainer if cfg.dataset == "DailyDialogue" else Trainer
-    trainer = cls(cfg, device=device)
+    trainer = cls(cfg, device=device, mesh=mesh)
     train, valid, test = load_dialogues(cfg, args.data_dir)
     if args.test_label:
         return _test_label(args, trainer, test)
 
     from mmdfn_torch.runtime.profiling import debug_numerics, trace
 
-    print("The model have {} parameters in total".format(
-        sum(p.numel() for p in trainer.model.parameters())))
-    writer = _tensorboard_writer(args.save_model_dir) if args.tensorboard \
-        else None
+    if first:
+        print("The model have {} parameters in total".format(
+            sum(p.numel() for p in trainer.model.parameters())))
+    writer = _tensorboard_writer(args.save_model_dir) \
+        if args.tensorboard and first else None
     if writer is not None:
         trainer.grad_hist_bins = GRAD_HIST_BINS
         trainer.grad_hist_sink = _grad_hist_sink(writer)
     debug_numerics(args.debug_nans)
     try:
-        with trace(args.profile_dir):
+        with trace(args.profile_dir if first else None):
             result = trainer.fit(train, test, valid_dialogues=valid,
                                  verbose=True, log_path=cfg.log_jsonl,
                                  save_dir=args.save_model_dir,

@@ -15,7 +15,11 @@ and ``summary.jsonl`` gains a row only for a combination finished in this
 run.  With ``--vmap`` the combinations of one layer count train as one
 group (``train/vmap_sweep.py``: IEMOCAP as 2 groups of 16, MELD as 3)
 under ``<out_dir>/group_<slug>``, resumed and skipped the same way, and
-``summary.jsonl`` is rewritten with every group's rows.
+``summary.jsonl`` is rewritten with every group's rows.  With
+``--n_data_devices K`` a group's combinations are shared out over K ranks
+(``runtime/launch.py``: one a card on NCCL, ``--device cpu`` on the CPU,
+``--device cuda:N`` every rank on card N over gloo); the first rank
+writes the checkpoints and the summary, as one process does.
 ``--graph_type`` runs the grid on another multimodal graph family than the
 scripts' GDF (its tags then start with the family's name);
 ``mmdfn_tpu``'s sweep has no such flag.
@@ -23,6 +27,7 @@ scripts' GDF (its tags then start with the family's name);
 Usage:
   python -m mmdfn_torch.cli.sweep --dataset MELD --data_dir .../features.pkl \\
       [--epochs 30] [--out_dir outputs/sweep_meld] [--limit N] [--vmap]
+      [--n_data_devices K]
 """
 
 from __future__ import annotations
@@ -87,26 +92,47 @@ def build_parser() -> argparse.ArgumentParser:
                          "on every batch (lr, l2, gamma and dropout vary "
                          "inside a group): IEMOCAP 2x16, MELD 3x16")
     ap.add_argument("--n_data_devices", type=int, default=0,
-                    help="with --vmap: spread a group's combinations over "
-                         "this many devices; above 1 is multi-device work, "
-                         "a later slice of the port")
+                    help="with --vmap: share a group's combinations out "
+                         "over this many devices (config parallelism; each "
+                         "device trains its slice of the grid)")
     ap.add_argument("--tpu_fast", action="store_true", default=False,
                     help="accepted for mmdfn_tpu's command lines; changes "
                          "nothing, since the port runs at the parity "
                          "defaults")
     ap.add_argument("--device", type=str, default=None,
-                    help="'cuda' (the default) or 'cpu'")
+                    help="'cuda' (the default) or 'cpu'; with "
+                         "--n_data_devices, 'cuda:N' runs every rank on "
+                         "card N over gloo")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.vmap and args.n_data_devices:
+        from mmdfn_torch.runtime import launch
+        device = args.device or "cuda"
+        return max(launch.run(_vmap_rank, args.n_data_devices, args,
+                              device=device,
+                              share_device=launch.names_one_card(device)))
+    return _sweep(args)
+
+
+def _vmap_rank(args) -> int:
+    """One rank of a sharded ``--vmap`` sweep: its data mesh, then the
+    sweep."""
+    from mmdfn_torch.runtime.mesh import make_mesh
+
+    return _sweep(args, make_mesh(n_data=args.n_data_devices))
+
+
+def _sweep(args, mesh=None) -> int:
     out_dir = args.out_dir or f"outputs/sweep_{args.dataset.lower()}"
     os.makedirs(out_dir, exist_ok=True)
 
     from mmdfn_torch.cli.run_train_erc import load_dialogues
     from mmdfn_torch.config import ExperimentConfig
     from mmdfn_torch.runtime import checkpoint as ckpt_lib
+    from mmdfn_torch.runtime.mesh import is_first_rank
     from mmdfn_torch.train import Trainer
 
     base = ExperimentConfig(dataset=args.dataset, epochs=args.epochs,
@@ -123,9 +149,10 @@ def main(argv=None) -> int:
     if args.vmap:
         from mmdfn_torch.train.vmap_sweep import run_grouped_sweep
         results = run_grouped_sweep(base, todo, train, test, verbose=True,
-                                    device=args.device,
-                                    n_data_devices=args.n_data_devices,
+                                    device=args.device, mesh=mesh,
                                     save_dir=out_dir, resume=True)
+        if not is_first_rank():
+            return 0
         # mode "w", not "a": resume returns every group's rows on every
         # invocation (finished groups from their 'final' checkpoints), so
         # rewriting keeps summary.jsonl the same across re-runs

@@ -1,17 +1,28 @@
 """Mask-aware losses (``mmdfn_tpu/losses/losses.py``, reference
-``code/loss.py``) over padded (..., C) log-probabilities."""
+``code/loss.py``) over padded (..., C) log-probabilities.
+
+Each is a sum over the valid elements over a denominator.  Under data
+parallelism each rank holds a block of the batch: ``global_sum`` then sums
+the block's denominator over the ranks, so that every rank divides by the
+whole batch's, the ranks' losses add up to the batch's loss and their
+gradients to its gradient (a rank of padding alone adds zero to both)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 Tensor = torch.Tensor
 
 
+def _same(t: Tensor) -> Tensor:
+    return t
+
+
 def focal_loss(log_probs: Tensor, targets: Tensor, mask: Tensor,
-               gamma: float = 0.0, alpha: Optional[Tensor] = None) -> Tensor:
+               gamma: float = 0.0, alpha: Optional[Tensor] = None,
+               global_sum: Callable[[Tensor], Tensor] = _same) -> Tensor:
     """Focal loss over log-probabilities (reference ``FocalLoss``,
     ``code/loss.py:5-34``): ``pt = exp(logpt)`` is detached (the reference
     wraps it in ``Variable(logpt.data.exp())``, so ``(1 - pt)^gamma``
@@ -23,16 +34,19 @@ def focal_loss(log_probs: Tensor, targets: Tensor, mask: Tensor,
         logpt = logpt * alpha[targets.long()]
     loss = -1.0 * (1.0 - pt) ** gamma * logpt
     mask = mask.to(loss.dtype)
-    return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+    return (loss * mask).sum() / global_sum(mask.sum()).clamp(min=1.0)
 
 
 def masked_nll_loss(log_probs: Tensor, targets: Tensor, mask: Tensor,
-                    weight: Optional[Tensor] = None) -> Tensor:
+                    weight: Optional[Tensor] = None,
+                    global_sum: Callable[[Tensor], Tensor] = _same
+                    ) -> Tensor:
     """Masked NLL (reference ``MaskedNLLLoss``, ``code/loss.py:38-58``),
     normalised by ``sum(mask)`` or, weighted, ``sum(weight[target] mask)``."""
     logpt = log_probs.gather(-1, targets[..., None].long())[..., 0]
     mask = mask.to(logpt.dtype)
     if weight is None:
-        return -(logpt * mask).sum() / mask.sum().clamp(min=1.0)
+        return -(logpt * mask).sum() / global_sum(mask.sum()).clamp(min=1.0)
     w = weight[targets.long()]
-    return -(w * logpt * mask).sum() / (w * mask).sum().clamp(min=1e-8)
+    return -(w * logpt * mask).sum() / global_sum(
+        (w * mask).sum()).clamp(min=1e-8)

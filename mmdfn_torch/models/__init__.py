@@ -13,12 +13,14 @@ __all__ = ["DialogRNNModel", "DialogueGCNDailyModel", "DialogueGNN",
            "GRUModel", "LSTMModel", "RawInputDialogueGNN", "from_config"]
 
 
-def from_config(cfg: ExperimentConfig):
+def from_config(cfg: ExperimentConfig, gcn_spmm=None):
     """The config's model (``mmdfn_tpu/train/trainer.py:157-176``): for
     DailyDialogue its token model with ``daily_trainer.py:42-52``'s
     arguments (the TextCNN's dropout 0.5 whatever ``cfg.dropout`` says),
     else ``DialogueGNN`` with ``graph_model``, else the baseline that
-    ``base_model`` names, on the text features."""
+    ``base_model`` names, on the text features.  ``gcn_spmm``: the graph
+    model's GCNII ``adj @ h`` (``DialogueGNN``); the other models run no
+    stack."""
     if cfg.dataset == "DailyDialogue":
         info = cfg.info
         return DialogueGCNDailyModel(
@@ -33,7 +35,7 @@ def from_config(cfg: ExperimentConfig):
             context_attention=cfg.attention, dropout_rec=cfg.rec_dropout,
             dropout=cfg.dropout, nodal_attention=cfg.nodal_attention)
     if cfg.graph_model:
-        return DialogueGNN.from_config(cfg)
+        return DialogueGNN.from_config(cfg, gcn_spmm=gcn_spmm)
     if cfg.dataset not in DATASET_INFO:
         raise NotImplementedError(
             f"dataset {cfg.dataset!r}: a later slice of the port")

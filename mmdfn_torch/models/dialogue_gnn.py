@@ -45,7 +45,7 @@ dropout drawn from ``g``; without it every dropout is the identity.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -75,10 +75,14 @@ class DialogueGNN(nn.Module):
     """Top-level ERC model; construct with :meth:`from_config`."""
 
     def __init__(self, cfg: ExperimentConfig, D_m_a: Optional[int] = None,
-                 D_m_v: Optional[int] = None):
+                 D_m_v: Optional[int] = None,
+                 gcn_spmm: Optional[Callable] = None):
         """``D_m_a`` / ``D_m_v``: the widths of the audio and visual
         features, when not the dataset's (the raw-input model's frontends
-        give 300 and 342)."""
+        give 300 and 342).  ``gcn_spmm``: the GCNII stacks' ``adj @ h``
+        (``GCNIIStack``), for GF, GDF and DeepGCN, as the JAX model passes
+        it (``mmdfn_tpu/models/dialogue_gnn.py:317,405``); GF2's stack
+        takes none there either."""
         super().__init__()
         info = cfg.info
         self.multi_modal = cfg.multi_modal_path
@@ -93,7 +97,7 @@ class DialogueGNN(nn.Module):
         sw = list(map(float, cfg.speaker_weights.split("-")))
         self.speaker_weight = {"a": sw[0], "v": sw[1], "l": sw[2]}
         if not self.multi_modal:
-            self._single_stream(cfg)
+            self._single_stream(cfg, gcn_spmm)
             return
         if cfg.base_model not in ("LSTM", "None"):
             raise ValueError(f"base_model {cfg.base_model!r} feeds one "
@@ -119,7 +123,7 @@ class DialogueGNN(nn.Module):
                 reason_flag=cfg.reason_flag and gt == "GDF",
                 modal_weight=cfg.modal_weight, dropout=cfg.dropout,
                 n_speakers=info["n_speakers"], use_speaker=cfg.use_speaker,
-                use_modal=cfg.use_modal)
+                use_modal=cfg.use_modal, spmm=gcn_spmm)
             feat = M * (n_dim + GRAPH_H if res else GRAPH_H)
         elif gt == "GF2":
             self.graph_model = MMGCN2(
@@ -138,7 +142,7 @@ class DialogueGNN(nn.Module):
                 net = lambda: DeepGCNII(
                     n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=0.5,
                     alpha=0.1, use_residue=res, reason_flag=cfg.reason_flag,
-                    dropout=cfg.dropout)
+                    dropout=cfg.dropout, spmm=gcn_spmm)
                 width = n_dim + GRAPH_H if res else GRAPH_H
             elif gt == "GCN3":
                 net = lambda: GCN2Layers(n_dim, GRAPH_H, info["n_classes"],
@@ -154,7 +158,8 @@ class DialogueGNN(nn.Module):
             feat = self._make_mfn(feat)
         self.smax_fc = nn.Linear(feat, info["n_classes"])
 
-    def _single_stream(self, cfg: ExperimentConfig) -> None:
+    def _single_stream(self, cfg: ExperimentConfig,
+                       gcn_spmm: Optional[Callable]) -> None:
         """The single-stream encoder and classifying graph net."""
         info, gt, base = cfg.info, cfg.graph_type, cfg.base_model
         if gt in ("GF", "GDF", "GF2"):
@@ -192,7 +197,7 @@ class DialogueGNN(nn.Module):
             self.graph_net = DeepGCNII(
                 n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=cfg.lamda,
                 alpha=cfg.alpha, use_residue=res, reason_flag=cfg.reason_flag,
-                dropout=cfg.dropout, n_classes=n_classes)
+                dropout=cfg.dropout, n_classes=n_classes, spmm=gcn_spmm)
         elif gt == "GCN3":
             self.graph_net = GCN2Layers(n_dim, GRAPH_H, n_classes,
                                         use_residue=res, return_feature=False)
@@ -231,7 +236,9 @@ class DialogueGNN(nn.Module):
         return head.output_dim
 
     @classmethod
-    def from_config(cls, cfg: ExperimentConfig, **widths) -> "DialogueGNN":
+    def from_config(cls, cfg: ExperimentConfig,
+                    gcn_spmm: Optional[Callable] = None,
+                    **widths) -> "DialogueGNN":
         if cfg.dataset not in DATASET_INFO:
             raise NotImplementedError(
                 f"dataset {cfg.dataset!r}: a later slice of the port")
@@ -251,7 +258,7 @@ class DialogueGNN(nn.Module):
             raise NotImplementedError(
                 "base_model='DialogRNN' is single-stream only (as in the "
                 "reference)")
-        return cls(cfg, **widths)
+        return cls(cfg, gcn_spmm=gcn_spmm, **widths)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Fresh torch-default weights drawn from ``generator``: the

@@ -6,7 +6,7 @@ All three run the GCNII stack's kernels B and D."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -29,7 +29,8 @@ class MMGCN(nn.Module):
     modality and concatenates along features: (B, L, M*(n_dim + nhidden))
     with the residue concat.  ``use_speaker`` adds a speaker embedding to
     the text features, ``use_modal`` a modality embedding to each
-    (``model_mm.py:79-98``).
+    (``model_mm.py:79-98``).  ``spmm``: the stack's ``adj @ h``
+    (:class:`GCNIIStack`).
     """
 
     def __init__(self, n_dim: int, nlayers: int, nhidden: int,
@@ -37,7 +38,8 @@ class MMGCN(nn.Module):
                  use_residue: bool = True, modals: str = "avl",
                  reason_flag: bool = False, modal_weight: float = 1.0,
                  dropout: float = 0.0, n_speakers: int = 2,
-                 use_speaker: bool = False, use_modal: bool = False):
+                 use_speaker: bool = False, use_modal: bool = False,
+                 spmm: Optional[Callable] = None):
         super().__init__()
         if len(modals) < 2:
             raise ValueError("MMGCN needs at least two modalities")
@@ -50,7 +52,7 @@ class MMGCN(nn.Module):
             self.modal_embeddings = nn.Embedding(3, n_dim)
         self.graph_net = GCNIIStack(n_dim, nlayers, nhidden, lamda=lamda,
                                     alpha=alpha, reason_flag=reason_flag,
-                                    dropout=dropout)
+                                    dropout=dropout, spmm=spmm)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The embeddings N(0, 1) (``nn.Embedding``'s default), then the
@@ -153,10 +155,12 @@ class DeepGCNII(GCNIIStack):
     def __init__(self, nfeat: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.1,
                  use_residue: bool = True, reason_flag: bool = False,
-                 dropout: float = 0.0, n_classes: Optional[int] = None):
+                 dropout: float = 0.0, n_classes: Optional[int] = None,
+                 spmm: Optional[Callable] = None):
         super().__init__(nfeat, nlayers, nhidden, lamda=lamda, alpha=alpha,
                          reason_flag=reason_flag, dropout=dropout,
-                         dropout_mode="none", post_loop_dropout=True)
+                         dropout_mode="none", post_loop_dropout=True,
+                         spmm=spmm)
         self.use_residue = use_residue
         if n_classes is not None:
             self.fcs.append(nn.Linear(

@@ -16,7 +16,7 @@ wiring runs the same kernels; only the dropouts around them differ.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,7 +24,7 @@ from torch import nn
 from mmdfn_torch.graph.adjacency import directed_speaker_adjacency
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.init import reset_linear, reset_linears, reset_uniform
-from mmdfn_torch.ops import gcnii_stack_fwd
+from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
 
 Tensor = torch.Tensor
 
@@ -63,13 +63,23 @@ class GCNIIStack(nn.Module):
       output is dropped after them;
     * ``MM_GCN2``'s loop (GF2): ``has_fc_in=False``,
       ``dropout_mode='before'``, ``post_loop_dropout=True``: h = h0 = x.
+
+    ``spmm`` replaces each layer's ``adj @ h`` (the node-sharded product
+    of a mesh with a model axis, ``parallel/graph_parallel.py``).  With it
+    the stack runs its plain version on any device and launches neither
+    kernel B nor D, as the JAX stack leaves its fused kernel for the scan
+    when ``spmm`` is set (``mmdfn_tpu/nn/gcn.py:188``); the dropout is the
+    same Philox mask.  ``relu_inputs``, None unless a caller sets it to a
+    list, then receives each layer's ReLU input on that path, detached, so
+    that a check can hold a step at another's ReLU decisions.
     """
 
     def __init__(self, nfeat: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.2,
                  reason_flag: bool = False, dropout: float = 0.0,
                  has_fc_in: bool = True, dropout_mode: str = "after",
-                 post_loop_dropout: bool = False):
+                 post_loop_dropout: bool = False,
+                 spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None):
         super().__init__()
         if dropout_mode not in ("after", "before", "none"):
             raise ValueError(f"dropout_mode {dropout_mode!r}")
@@ -85,6 +95,8 @@ class GCNIIStack(nn.Module):
         self.has_fc_in = has_fc_in
         self.dropout_mode = dropout_mode
         self.post_loop_dropout = post_loop_dropout
+        self.spmm = spmm
+        self.relu_inputs: Optional[list] = None
         self._cache = None       # (parameter key, packed weights)
         if has_fc_in:
             self.fcs = nn.ModuleList([nn.Linear(nfeat, nhidden)])
@@ -159,9 +171,15 @@ class GCNIIStack(nn.Module):
         if in_loop > 0.0:   # the kernels' Philox key, never read by the host
             seed = torch.randint(0, 1 << 62, (1,), generator=generator,
                                  device=x.device)
-        h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
-                            alpha=self.alpha, reason=self.reason_flag,
-                            rate=in_loop, seed=seed)
+        if self.spmm is None:
+            h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
+                                alpha=self.alpha, reason=self.reason_flag,
+                                rate=in_loop, seed=seed)
+        else:
+            h = gcnii_stack_plain(adj, h, h0, W, self.theta, *lstm,
+                                  alpha=self.alpha, reason=self.reason_flag,
+                                  rate=in_loop, seed=seed, spmm=self.spmm,
+                                  relu_inputs=self.relu_inputs)
         if self.post_loop_dropout and self.dropout_mode != "before":
             h = dropout(h, rate, generator)
         return x, h

@@ -36,7 +36,7 @@ differentiates it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -182,15 +182,23 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                       reason: bool, rate: float = 0.0,
                       seed: Optional[Tensor] = None,
                       residuals: Optional[Sequence[Tensor]] = None,
-                      relu_masks: Optional[Sequence[Tensor]] = None
+                      relu_masks: Optional[Sequence[Tensor]] = None,
+                      relu_inputs: Optional[list] = None,
+                      spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None
                       ) -> Tensor:
     """Plain PyTorch version of :func:`gcnii_stack_fwd` (same contract);
     differentiable by autograd.  The dropout mask comes from
     :mod:`mmdfn_torch.ops.philox`, bit-equal to the kernel's.
 
+    ``spmm``, when given, computes each layer's ``adj @ h`` in place of the
+    batched product (the node-sharded product,
+    ``parallel.graph_parallel.sharded_spmm_batched``).
+
     ``relu_masks``, when given, are each layer's ReLU decisions (as in
     :func:`gcnii_stack_bwd_plain`) in place of ``pre > 0``: a check holds
-    a training step at the kernels' decisions with them."""
+    a training step at the kernels' decisions with them; ``relu_inputs``,
+    when given, receives each layer's ReLU input ``pre``, detached, so
+    that a check can compare two steps' decisions."""
     drop, inv_keep = _dropout_args(rate, seed)
     B, N, H = h.shape
     lh = torch.zeros_like(h)
@@ -206,10 +214,12 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
             h = lh
         if residuals is not None:
             residuals[3][:, l] = h.detach()
-        hi = adj @ h
+        hi = adj @ h if spmm is None else spmm(adj, h)
         support = hi @ W[l, :H] + h0 @ W[l, H:]
         r = (1.0 - alpha) * hi + alpha * h0
         pre = theta[l] * support + (1.0 - theta[l]) * r
+        if relu_inputs is not None:
+            relu_inputs.append(pre.detach())
         h = (torch.relu(pre) if relu_masks is None
              else torch.where(relu_masks[l], pre, 0.0))
         if drop:

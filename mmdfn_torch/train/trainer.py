@@ -27,11 +27,34 @@ With ``grad_hist_bins`` set (64 under the CLI's ``--tensorboard``), every
 training step also reduces each parameter's gradient to a histogram row on
 the device, and the epoch hands the rows to ``grad_hist_sink`` once its
 losses are copied back (``mmdfn_tpu/train/trainer.py:133-138,264-270``).
+
+With a ``mesh`` (``runtime/mesh.py``; ``mmdfn_tpu/train/trainer.py:117-127,
+145-155,300-304,452-456``), this process is one rank of a data-parallel
+(and, on the graph path, node-sharded) run.  JAX's GSPMD makes that the
+single-device step; here each part is explicit:
+* every rank collates the same global batch (the same shuffle seed) and
+  takes its block of ``B / n_data`` dialogues (``shard_batch``);
+* each rank's loss divides its sum by the whole batch's denominator (the
+  mask's sum over the data ranks), so the ranks' losses add up to the
+  batch's loss and their gradients to its gradient; after ``backward()``
+  one flat all-reduce over the data axis sums the gradients and the
+  loss, which every rank then reports;
+* with a model axis, the GCNII stacks' ``adj @ h`` is the node-sharded
+  product (``parallel/graph_parallel.py``), whose gradients come out
+  whole on every model rank: nothing is reduced over the model axis;
+* the dropout seed of a step folds in the data rank (rank 0's is the
+  seed of a run without a mesh), so the ranks of one model group draw the
+  same masks;
+* predictions are gathered over the data axis before the epoch's metrics;
+* the mesh's first rank alone prints, logs and writes checkpoints (the
+  module's own ``state_dict``: no wrapper prefix on its keys), and a
+  resumed state is broadcast from it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 from dataclasses import dataclass, field
@@ -39,12 +62,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmdfn_torch.config import ExperimentConfig
 from mmdfn_torch.data.batching import Batch, BucketBatcher
 from mmdfn_torch.device import resolve_device
 from mmdfn_torch.losses import focal_loss, masked_nll_loss
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
+from mmdfn_torch.runtime.mesh import (DATA_AXIS, MODEL_AXIS, all_gather,
+                                      is_first_rank, replicate, shard_batch)
 from mmdfn_torch.runtime.profiling import (ThroughputMeter,
                                            grad_histograms_device,
                                            histograms_to_host)
@@ -132,21 +158,49 @@ class Trainer:
 
     ``model`` defaults to the config's model with fresh weights from
     ``cfg.seed``; ``device`` to the card (it raises without one unless
-    ``device="cpu"``).
+    ``device="cpu"``).  ``mesh``: this rank's ``(data, model)`` mesh
+    (``runtime.mesh.make_mesh``), or None for one process.
     """
 
     _token_inputs = False        # DailyTrainer's token-id batches
 
     def __init__(self, cfg: ExperimentConfig, device=None,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None, mesh=None):
         if (cfg.dataset == "DailyDialogue") != self._token_inputs:
             raise ValueError(
                 f"dataset {cfg.dataset!r}: DailyDialogue's token batches "
                 "train with DailyTrainer, every other dataset with Trainer")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._data_group, self._data_rank = None, 0
+        gcn_spmm = None
+        if mesh is not None:
+            n_data = mesh[DATA_AXIS].size()
+            if cfg.batch_size % n_data != 0:
+                raise ValueError(
+                    f"batch_size={cfg.batch_size} must be divisible by the "
+                    f"mesh data axis ({n_data} devices) — every collated "
+                    "batch is padded to exactly batch_size dialogues")
+            self._data_group = mesh[DATA_AXIS].get_group()
+            self._data_rank = mesh.get_local_rank(DATA_AXIS)
+            if mesh[MODEL_AXIS].size() > 1:
+                if self._token_inputs:
+                    raise ValueError(
+                        "DailyDialogue's model has no node-sharded path (as "
+                        "in mmdfn_tpu); its mesh takes a data axis alone")
+                if model is not None:
+                    raise ValueError(
+                        "a mesh with a model axis builds the model with the "
+                        "node-sharded product: pass no model")
+                if cfg.graph_model:
+                    from mmdfn_torch.parallel import sharded_spmm_batched
+                    gcn_spmm = functools.partial(sharded_spmm_batched, mesh)
         self.model = (model if model is not None
-                      else build_model(cfg)).to(self.device)
+                      else build_model(cfg, gcn_spmm=gcn_spmm)
+                      ).to(self.device)
+        if mesh is not None:
+            replicate(mesh, self.model)
         self.optimizer = torch_adam(self.model.parameters(), cfg.lr, cfg.l2)
         alpha = cfg.class_weights_or_none()
         self.alpha = (None if alpha is None
@@ -158,11 +212,21 @@ class Trainer:
         self.grad_hist_sink: Optional[Callable[[int, Dict], None]] = None
 
     # ------------------------------------------------------------------
+    def _global_sum(self, t: Tensor) -> Tensor:
+        """``t`` summed over the data axis (a copy)."""
+        t = t.detach().clone()
+        dist.all_reduce(t, group=self._data_group)
+        return t
+
     def _loss(self, log_probs: Tensor, label: Tensor, umask: Tensor) -> Tensor:
+        """This rank's part of the batch's loss: with a mesh, its block's
+        sum over the whole batch's denominator."""
+        kw = {} if self.mesh is None else {"global_sum": self._global_sum}
         if self.cfg.graph_model and self.cfg.loss == "FocalLoss":
             return focal_loss(log_probs, label, umask, gamma=self.cfg.gamma,
-                              alpha=self.alpha)
-        return masked_nll_loss(log_probs, label, umask, weight=self.alpha)
+                              alpha=self.alpha, **kw)
+        return masked_nll_loss(log_probs, label, umask, weight=self.alpha,
+                               **kw)
 
     def _forward(self, inputs: Dict[str, Tensor], **kw) -> Tensor:
         return self.model(model_text(self.cfg, inputs), inputs["qmask"],
@@ -177,28 +241,74 @@ class Trainer:
             1, np.uint64)
         return int(state[0] >> np.uint64(1))
 
+    def rank_seed(self, seed: int) -> int:
+        """The dropout seed of a step on this rank: ``seed`` itself on data
+        rank 0 (and without a mesh), else ``seed`` folded with the data
+        rank; the ranks of one model group share it."""
+        if self._data_rank == 0:
+            return seed
+        state = np.random.SeedSequence([seed, self._data_rank]
+                                       ).generate_state(1, np.uint64)
+        return int(state[0] >> np.uint64(1))
+
     def train_step(self, inputs: Dict[str, Tensor], seed: int
                    ) -> Tuple[Tensor, Tensor]:
-        """One optimiser step; returns (loss, predictions), on the device.
-        The step's gradients stay in the parameters' ``.grad``."""
+        """One optimiser step; returns (loss, predictions), on the device:
+        with a mesh, the whole batch's loss and this rank's block's
+        predictions.  The step's gradients (with a mesh, summed over the
+        data axis) stay in the parameters' ``.grad``."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        gen.manual_seed(self.rank_seed(seed))
         self.optimizer.zero_grad(set_to_none=True)
         logp = self._forward(inputs, train=True, generator=gen)
         loss = self._loss(logp, inputs["label"], inputs["umask"])
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss = self._sum_gradients(loss)
         self.optimizer.step()
-        return loss.detach(), logp.detach().argmax(dim=-1)
+        return loss, logp.detach().argmax(dim=-1)
+
+    def _sum_gradients(self, loss: Tensor) -> Tensor:
+        """Sum every gradient and the loss over the data axis in one flat
+        all-reduce; returns the summed loss.  A trained parameter without
+        a gradient raises: the ranks' buffers would not line up."""
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        missing = [n for n, p in named if p.grad is None]
+        if missing:
+            raise RuntimeError(
+                f"no gradient reached {missing}: a data-parallel step sums "
+                "every trained parameter's gradient over the ranks")
+        grads = [p.grad for _, p in named]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        dist.all_reduce(flat, group=self._data_group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[-1]
 
     def eval_step(self, inputs: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
+        """(loss, predictions) on the device: with a mesh, the whole
+        batch's loss and this rank's block's predictions."""
         with torch.no_grad():
             logp = self._forward(inputs)
             loss = self._loss(logp, inputs["label"], inputs["umask"])
+            if self.mesh is not None:
+                loss = self._global_sum(loss)
         return loss, logp.argmax(dim=-1)
 
     def _prepare(self, batch) -> Dict[str, Tensor]:
         """A batch's arrays as tensors on the trainer's device."""
         return prepare_inputs(batch, self.device)
+
+    def _put(self, batch) -> Dict[str, Tensor]:
+        """The step's inputs: the batch, or with a mesh this rank's block
+        of it, on the device."""
+        if self.mesh is None:
+            return self._prepare(batch)
+        return self._prepare(shard_batch(self.mesh, batch))
 
     def _batcher(self, dialogues, shuffle: bool = False) -> BucketBatcher:
         cfg = self.cfg
@@ -221,7 +331,7 @@ class Trainer:
         meter.start()
         for i, item in enumerate(batches):
             batch, inputs = (item if isinstance(item, tuple)
-                             else (item, self._prepare(item)))
+                             else (item, self._put(item)))
             n_dia += int((batch.umask.sum(-1) > 0).sum())
             n_utt += batch.n_valid
             if train:
@@ -241,6 +351,8 @@ class Trainer:
         if not losses:
             nan, empty = float("nan"), np.zeros((0,), np.int64)
             return EpochMetrics(nan, nan, nan, empty, empty)
+        if self.mesh is not None:
+            preds = self._gather_predictions(preds)
         # one copy back per epoch, not one wait per step
         losses = torch.stack(losses).cpu().numpy().astype(np.float64)
         preds = [p.reshape(-1).cpu().numpy()[m] for p, m in zip(preds, masks)]
@@ -265,6 +377,14 @@ class Trainer:
             result.per_class_acc = M.per_class_accuracy(labels, preds, names)
         return result
 
+    def _gather_predictions(self, preds: List[Tensor]) -> List[Tensor]:
+        """Each batch's predictions over the whole batch, in its order: the
+        data ranks' blocks of every batch, in one all-gather."""
+        sizes = [p.numel() for p in preds]
+        flat = torch.cat([p.reshape(-1) for p in preds])
+        by_rank = all_gather(flat, self._data_group).view(-1, flat.numel())
+        return list(torch.split(by_rank, sizes, dim=1))
+
     def _optimizer_steps(self) -> int:
         """Adam's step count (``TrainState.step`` in the JAX trainer)."""
         for state in self.optimizer.state.values():
@@ -281,7 +401,9 @@ class Trainer:
         output; the whole model's as ``model``), as one ``.npz``: the
         reference's ``test_label`` per-layer dumps (``model_GCN.py:474-480``),
         as ``mmdfn_tpu``'s ``Trainer.dump_activations`` writes them by flax
-        module path."""
+        module path.  Every rank of a mesh runs the forward on the whole
+        batch (a model axis's ranks take part in its products); the first
+        writes the file."""
         batch = next(iter(self._batcher(dialogues).epoch()))
         inputs = self._prepare(batch)
         out: Dict[str, np.ndarray] = {}
@@ -303,7 +425,8 @@ class Trainer:
         finally:
             for h in handles:
                 h.remove()
-        np.savez(out_path, **out)
+        if is_first_rank():
+            np.savez(out_path, **out)
         return out_path
 
     # ------------------------------------------------------------------
@@ -319,12 +442,17 @@ class Trainer:
 
         With ``save_dir`` the selected epoch is written as ``best`` and
         every epoch as ``last`` (weights, optimiser state, selection
-        counters); ``resume=True`` continues from ``last``.
+        counters); ``resume=True`` continues from ``last``.  On a mesh
+        every rank runs this; the first alone prints, logs and writes.
         """
         cfg = self.cfg
+        first = is_first_rank()
+        verbose = verbose and first
+        log_path = log_path if first else None
+        writes = save_dir if first else None
         train_batcher = self._batcher(train_dialogues, shuffle=True)
         # the fixed eval splits are copied to the device once
-        prep = lambda dias: [(b, self._prepare(b))
+        prep = lambda dias: [(b, self._put(b))
                              for b in self._batcher(dias).epoch()]
         valid_batches = prep(valid_dialogues)
         test_batches = prep(test_dialogues)
@@ -339,7 +467,7 @@ class Trainer:
         start_epoch = 0
         can_resume = bool(resume and save_dir
                           and ckpt_lib.has_checkpoint(save_dir, "last"))
-        if resume and not can_resume:
+        if resume and not can_resume and first:
             print("resume requested but no 'last' checkpoint under "
                   f"{save_dir!r} — starting fresh")
         if can_resume:
@@ -354,6 +482,10 @@ class Trainer:
                                  "the original flags")
             _, meta = ckpt_lib.restore_checkpoint(
                 save_dir, self.model, self.optimizer, "last")
+            if self.mesh is not None:
+                # every rank read the same file; the state is the first
+                # rank's all the same, as JAX replicates it
+                replicate(self.mesh, self.model)
             r = meta.get("resume", {})
             start_epoch = int(r.get("epoch", -1)) + 1
             best_epoch = int(r.get("best_epoch", -1))
@@ -393,9 +525,9 @@ class Trainer:
                     patience = 0
                     best_epoch, best_eval_fscore = e, eval_fscore
                     best_state = self._state_cpu()
-                    if save_dir:
+                    if writes:
                         ckpt_lib.save_checkpoint(
-                            save_dir, self.model,
+                            writes, self.model,
                             meta=dict(epoch=e, eval_fscore=eval_fscore,
                                       config=dataclasses.asdict(cfg)))
                 else:
@@ -430,9 +562,9 @@ class Trainer:
                 if log_f:
                     log_f.write(json.dumps(row) + "\n")
                     log_f.flush()
-                if save_dir:
+                if writes:
                     ckpt_lib.save_checkpoint(
-                        save_dir, self.model, self.optimizer, name="last",
+                        writes, self.model, self.optimizer, name="last",
                         meta=dict(config=dataclasses.asdict(cfg), resume=dict(
                             epoch=e, best_epoch=best_epoch,
                             best_eval_fscore=best_eval_fscore,

@@ -43,9 +43,17 @@ Where the port departs from the JAX group, and why:
 * The batcher is JAX's group batcher: shuffled with ``cfg.seed`` and never
   sorted by length, even where ``sort_batches_by_length`` would sort a
   run alone (``mmdfn_tpu/train/trainer.py:211``).
-* Sharding a group's configurations over devices (``n_data_devices`` > 1)
-  is multi-device work, a later slice; the padding mask that sharding
-  would need is kept, so the counters have JAX's shape.
+* With a ``mesh`` (``runtime/mesh.py``; JAX: the config axis sharded
+  over the mesh's data axis, ``vmap_sweep.py:160-217``), the K configs
+  split into contiguous blocks over the data ranks, and each rank steps
+  and evaluates its own block (a ragged K gives the last rank fewer).
+  JAX pads the config axis with frozen copies; a model per config needs
+  none.  Every rank keeps a model and an Adam state for each config, and
+  after each epoch the ranks exchange their configs' counters and
+  histories, so that each holds the whole group's and all stop together;
+  where the group checkpoints, the first rank gathers the other ranks'
+  models and Adam states and writes them as one process does, so a cut
+  group resumes on any number of ranks.
 """
 
 from __future__ import annotations
@@ -58,11 +66,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmdfn_torch.config import ExperimentConfig
 from mmdfn_torch.data.batching import BucketBatcher
 from mmdfn_torch.device import resolve_device
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
+from mmdfn_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, is_first_rank
 from mmdfn_torch.train.optim import torch_adam
 from mmdfn_torch.train.trainer import Trainer, epoch_loss, prepare_inputs
 from mmdfn_torch.weights import build_model
@@ -118,11 +128,12 @@ class VmapSweep:
 
     ``model`` gives every config its starting weights (default: the shared
     config's model, fresh from ``cfg.seed``: one init for all, as JAX
-    broadcasts one); ``device`` defaults to the card."""
+    broadcasts one); ``device`` defaults to the card; ``mesh``: this
+    rank's data mesh, whose ranks share the configs out."""
 
     def __init__(self, base_cfg: ExperimentConfig, combos: Sequence[dict],
                  device=None, model: Optional[torch.nn.Module] = None,
-                 n_data_devices: int = 0):
+                 mesh=None):
         # only lr/l2/gamma/dropout may vary across a group; any other key
         # must be identical (it folds into the shared config), since a key
         # that varied would train K copies of the base value while the
@@ -148,14 +159,20 @@ class VmapSweep:
                     f"{STACKABLE} can be stacked; run it as a separate "
                     "group (run_grouped_sweep splits on static_keys)")
             static[k] = vals[0]
-        if n_data_devices > 1:
-            raise NotImplementedError(
-                f"n_data_devices={n_data_devices}: a group sharded over "
-                "several devices is multi-device work, a later slice of the "
-                "port")
         self.combos = list(combos)
-        self.real_K = self.K = len(self.combos)
-        self._pad_mask = np.zeros(self.K, bool)   # no padding on one device
+        self.K = len(self.combos)
+        self.mesh = mesh
+        self._group = None
+        self._own = range(self.K)
+        if mesh is not None:
+            if mesh[MODEL_AXIS].size() > 1:
+                raise ValueError("a group shards its configs over the mesh's "
+                                 "data axis; it takes no model axis")
+            n, r = mesh[DATA_AXIS].size(), mesh.get_local_rank(DATA_AXIS)
+            blk = -(-self.K // n)
+            self._own = range(min(self.K, r * blk),
+                              min(self.K, (r + 1) * blk))
+            self._group = mesh[DATA_AXIS].get_group()
         self.cfg = dataclasses.replace(base_cfg, **static)
         if ("dropout" in STACKABLE
                 and any("dropout" in c for c in self.combos)):
@@ -197,13 +214,48 @@ class VmapSweep:
                 else None for tr, on in zip(self.trainers, active)]
 
     def _result(self, best_epoch, all_f, all_a, history) -> GroupResult:
-        R = self.real_K
+        K = self.K
         return GroupResult(
             combos=self.combos,
-            best_epoch=[int(b) for b in best_epoch[:R]],
-            best_test_fscore=[all_f[k][best_epoch[k]] for k in range(R)],
-            best_test_acc=[all_a[k][best_epoch[k]] for k in range(R)],
-            history=history[:R])
+            best_epoch=[int(b) for b in best_epoch],
+            best_test_fscore=[all_f[k][best_epoch[k]] for k in range(K)],
+            best_test_acc=[all_a[k][best_epoch[k]] for k in range(K)],
+            history=history)
+
+    def _exchange(self, rows: Dict[int, tuple]) -> Dict[int, tuple]:
+        """Every rank's per-config rows (config index -> row), on every
+        rank."""
+        if self.mesh is None:
+            return rows
+        got: List[Dict[int, tuple]] = [None] * dist.get_world_size(
+            self._group)
+        dist.all_gather_object(got, rows, group=self._group)
+        return {k: v for part in got for k, v in part.items()}
+
+    def _gather_states(self) -> None:
+        """On the first rank, every other rank's configs' models and Adam
+        states, loaded into its own copies of them (which put them back
+        on its device).  Both travel on the host, so that no rank's card
+        tensors are unpickled on the first rank's process."""
+        if self.mesh is None:
+            return
+        host = lambda v: v.detach().cpu() if torch.is_tensor(v) else v
+        mine = {}
+        for k in self._own:
+            opt = self.trainers[k].optimizer.state_dict()
+            opt["state"] = {i: {n: host(v) for n, v in st.items()}
+                            for i, st in opt["state"].items()}
+            mine[k] = ({n: host(v) for n, v in
+                        self.trainers[k].model.state_dict().items()}, opt)
+        first = is_first_rank()
+        got = [None] * dist.get_world_size(self._group) if first else None
+        dist.gather_object(mine, got, dst=dist.get_global_rank(
+            self._group, 0), group=self._group)
+        if first:
+            for part in got:
+                for k, (model, opt) in part.items():
+                    self.trainers[k].model.load_state_dict(model)
+                    self.trainers[k].optimizer.load_state_dict(opt)
 
     def run(self, train_dialogues, test_dialogues, verbose: bool = True,
             save_dir: Optional[str] = None,
@@ -216,8 +268,11 @@ class VmapSweep:
         carrying the :class:`GroupResult`.  ``resume=True`` skips a group
         whose ``final`` exists, and otherwise continues from ``last`` at
         the next epoch, step for step as a run that was not cut (the seeds
-        and the batcher's order depend on the epoch and step only)."""
+        and the batcher's order depend on the epoch and step only).  On a
+        mesh every rank runs this and returns the whole group's result;
+        the first alone prints and writes."""
         cfg = self.cfg
+        verbose = verbose and is_first_rank()
         info = cfg.info
         K = self.K
         canon = _canon_combos(self.combos)
@@ -252,7 +307,7 @@ class VmapSweep:
         all_f: List[List[float]] = [[] for _ in range(K)]
         all_a: List[List[float]] = [[] for _ in range(K)]
         history: List[List[dict]] = [[] for _ in range(K)]
-        stop = self._pad_mask.copy()
+        stop = np.zeros(K, dtype=bool)
         start_epoch = 0
 
         if resume and save_dir and ckpt_lib.has_checkpoint(save_dir, "last"):
@@ -283,15 +338,21 @@ class VmapSweep:
 
         for e in range(start_epoch, cfg.epochs):
             frozen = stop.copy()
+            active = np.zeros(K, dtype=bool)
+            active[list(self._own)] = True
+            active &= ~frozen
             losses: List[List[torch.Tensor]] = [[] for _ in range(K)]
             mask_sums: List[float] = []
             for i, batch in enumerate(batcher.epoch(e)):
-                inputs = prepare_inputs(batch, self.device)
-                for k, loss in enumerate(self.step(inputs, e, i, ~frozen)):
-                    if loss is not None:
-                        losses[k].append(loss)
+                if active.any():
+                    inputs = prepare_inputs(batch, self.device)
+                    for k, loss in enumerate(self.step(inputs, e, i,
+                                                       active)):
+                        if loss is not None:
+                            losses[k].append(loss)
                 mask_sums.append(float((batch.umask > 0).sum()))
-            for k, tr in enumerate(self.trainers):
+            for k in self._own:
+                tr = self.trainers[k]
                 te = tr.run_epoch(test_batches, epoch=e)
                 train_loss = (epoch_loss(tr.cfg, torch.stack(losses[k]).cpu()
                                          .numpy().astype(np.float64),
@@ -312,9 +373,16 @@ class VmapSweep:
                     best_loss[k], patience2[k] = te.loss, 0
                 else:
                     patience2[k] += 1
-            stop = ((patience >= cfg.patience) & (patience2 >= cfg.patience)
-                    ) | self._pad_mask
+            rows = self._exchange({k: (
+                all_f[k], all_a[k], history[k], best_f[k], best_epoch[k],
+                best_loss[k], patience[k], patience2[k]) for k in self._own})
+            for k, row in rows.items():
+                (all_f[k], all_a[k], history[k], best_f[k], best_epoch[k],
+                 best_loss[k], patience[k], patience2[k]) = row
+            stop = (patience >= cfg.patience) & (patience2 >= cfg.patience)
             if save_dir:
+                self._gather_states()
+            if save_dir and is_first_rank():
                 ckpt_lib.save_checkpoint(
                     save_dir, self._models, self._optimizers, name="last",
                     meta=dict(epoch=e, combos=canon, counters=dict(
@@ -334,6 +402,8 @@ class VmapSweep:
 
         result = self._result(best_epoch, all_f, all_a, history)
         if save_dir:
+            self._gather_states()
+        if save_dir and is_first_rank():
             # 'final' makes a finished group skip on the next invocation
             ckpt_lib.save_checkpoint(
                 save_dir, self._models, self._optimizers, name="final",
@@ -346,27 +416,29 @@ class VmapSweep:
 
 def run_grouped_sweep(base_cfg: ExperimentConfig, combos: Sequence[dict],
                       train_dialogues, test_dialogues,
-                      verbose: bool = True, device=None,
-                      n_data_devices: int = 0,
+                      verbose: bool = True, device=None, mesh=None,
                       save_dir: Optional[str] = None,
                       resume: bool = False) -> List[GroupResult]:
-    """Partition a sweep grid into static groups and train each as one.
+    """Partition a sweep grid into static groups and train each as one
+    (with ``mesh``, each group's configs shared out over its data ranks).
 
     With ``save_dir``, each group checkpoints under
     ``<save_dir>/group_<slug>`` (named by its static keys), so a cut sweep
     resumes mid-group and skips finished groups."""
     results = []
+    where = ("" if mesh is None else
+             f" over {mesh[DATA_AXIS].size()} data ranks")
     for static, group in group_combos(combos):
-        if verbose:
-            print(f"group {static}: {len(group)} configs, stepped in turn")
+        if verbose and is_first_rank():
+            print(f"group {static}: {len(group)} configs, stepped in "
+                  f"turn{where}")
         group_dir = None
         if save_dir:
             slug = "_".join(f"{k}{v}" for k, v in sorted(static.items())) \
                 or "base"
             group_dir = os.path.join(save_dir, f"group_{slug}")
         cfg = dataclasses.replace(base_cfg, **static)
-        sweep = VmapSweep(cfg, group, device=device,
-                          n_data_devices=n_data_devices)
+        sweep = VmapSweep(cfg, group, device=device, mesh=mesh)
         results.append(sweep.run(train_dialogues, test_dialogues, verbose,
                                  save_dir=group_dir, resume=resume))
     return results

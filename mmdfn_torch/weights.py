@@ -317,10 +317,12 @@ def load_served(path: str) -> Tuple[ExperimentConfig, torch.nn.Module,
     return cfg, model, meta.get("epoch")
 
 
-def build_model(cfg: ExperimentConfig, state_dict: Optional[Mapping] = None):
+def build_model(cfg: ExperimentConfig, state_dict: Optional[Mapping] = None,
+                gcn_spmm=None):
     """The config's model: fresh weights drawn from ``cfg.seed``, or
-    ``state_dict`` loaded strictly (no missing or extra keys)."""
-    model = models.from_config(cfg)
+    ``state_dict`` loaded strictly (no missing or extra keys).
+    ``gcn_spmm``: the GCNII stacks' ``adj @ h`` (``models.from_config``)."""
+    model = models.from_config(cfg, gcn_spmm=gcn_spmm)
     if state_dict is None:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     else:

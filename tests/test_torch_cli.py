@@ -120,7 +120,8 @@ def test_sweep_grids_match_the_jax_package(dataset):
 def test_sequential_sweep_trains_each_combination_once(tmp_path, capsys):
     """``--limit 2 --epochs 1`` twice: the first run trains both
     combinations and writes a ``final`` checkpoint each (the summary row
-    as its meta); the second skips both and adds no row."""
+    as its meta); the second skips both and adds no row.  Then ``--vmap
+    --n_data_devices 2`` trains them as one group over two CPU ranks."""
     pkl = str(tmp_path / "iem.pkl")
     make_synthetic_iemocap_pickle(pkl, n_train=4, n_test=2, min_len=3,
                                   max_len=8, seed=2)
@@ -143,10 +144,16 @@ def test_sequential_sweep_trains_each_combination_once(tmp_path, capsys):
     assert second.count("already complete, skipping") == 2
     assert ": training" not in second
     assert len((out / "summary.jsonl").read_text().splitlines()) == 2
-    # --vmap trains (tests/test_torch_learning.py); a group spread over
-    # several devices is the later slice
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sweep.main([*argv, "--vmap", "--n_data_devices", "2"])
+    # --vmap trains (tests/test_torch_learning.py); over two CPU ranks the
+    # group (one combination each) writes its checkpoint and the summary
+    assert sweep.main([*argv, "--vmap", "--n_data_devices", "2"]) == 0
+    rows = [json.loads(l) for l in
+            (out / "summary.jsonl").read_text().splitlines()]
+    assert [r["tag"] for r in rows] == tags
+    final = ckpt_lib.read_meta(str(out / "group_Deep_GCN_nlayers16"),
+                               "final")
+    assert [r["best_test_fscore"] for r in rows] == \
+        final["best_test_fscore"]
 
 
 @pytest.mark.parametrize("graph_type", ["GF2", "relation"])

@@ -918,3 +918,65 @@ def test_raw_input_step_on_the_card_matches_its_plain_step():
     for name, g in grads.items():
         scale = float(ref[name].abs().max())
         assert float((g - ref[name]).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.gpu
+def test_data_and_model_parallel_steps_on_the_shared_card_match_one_process():
+    """Two ranks on the one card over gloo (``runtime/launch.py``,
+    ``share_device=True``): a data-parallel step (B = 8 global, 4 a rank)
+    through kernels A-D against the one-process step on the same batch,
+    and a node-sharded step (2 model ranks; the stack's plain version with
+    the sharded product, kernels A and C alone) against the one-process
+    plain step: the loss and every gradient, on each rank."""
+    import numpy as np
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import Batch
+    from mmdfn_torch.parallel import workers
+    from mmdfn_torch.runtime import launch
+    from mmdfn_torch.train import Trainer
+
+    dev = _card()
+    B, L = 8, 20
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(5, L + 1, size=B)
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    qmask = np.eye(2, dtype=np.float32)[rng.integers(0, 2, (B, L))]
+    qmask *= umask[..., None]
+    feat = lambda D: (rng.standard_normal((B, L, D), dtype=np.float32)
+                      * umask[..., None])
+    batch = Batch(text=feat(100), visual=feat(342), audio=feat(1582),
+                  qmask=qmask, umask=umask,
+                  label=(rng.integers(0, 6, (B, L)) * umask).astype(np.int64))
+    cfg = ExperimentConfig(Deep_GCN_nlayers=4, reason_flag=True,
+                           class_weight=True, batch_size=B, dropout=0.0)
+
+    def one(plain):
+        tr = Trainer(cfg, device=dev)
+        inputs = tr._put(batch)
+        if plain:
+            with plain_ops():
+                loss, _ = tr.train_step(inputs, 1)
+        else:
+            loss, _ = tr.train_step(inputs, 1)
+        return float(loss), {n: p.grad.cpu().numpy()
+                             for n, p in tr.model.named_parameters()}
+    want = {"dp": one(False), "tp": one(True)}
+    jobs = [(workers.trainer_steps, dict(cfg=cfg, n_data=2, n_model=1,
+                                         batches=[batch], seeds=[1],
+                                         device="cuda")),
+            (workers.trainer_steps, dict(cfg=cfg, n_data=1, n_model=2,
+                                         batches=[batch], seeds=[1],
+                                         device="cuda"))]
+    ranks = launch.run(workers.run_jobs, 2, jobs, device="cuda",
+                       share_device=True)
+    for r in ranks:
+        for got, (loss, grads) in zip(r, (want["dp"], want["tp"])):
+            assert abs(got["losses"][0] - loss) <= 1e-5 * abs(loss)
+            for n, g in grads.items():
+                err = np.abs(got["grads"][n] - g).max()
+                assert err <= 1e-4 * np.abs(g).max(), (n, err)
+        dp, tp = r[0]["launches"], r[1]["launches"]
+        assert all(v > 0 for v in dp.values()), dp
+        assert tp["gcnii_fwd"] == tp["gcnii_bwd"] == 0 < tp["bigru_fwd"], tp

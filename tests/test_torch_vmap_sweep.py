@@ -1,6 +1,8 @@
 """The port's grouped sweep (``mmdfn_torch/train/vmap_sweep.py``) against
 the JAX package's ``VmapSweep``: the partition of a grid into groups, the
-refusals, a config in a group against the same config trained alone
+refusals, a group sharded over two CPU ranks (held against the
+one-process group in ``tests/test_torch_parallel.py``), a config in a
+group against the same config trained alone
 (bit for bit, dropout on too), resume, and one whole group run against
 JAX's on bridged weights, epoch by epoch."""
 
@@ -18,6 +20,8 @@ from mmdfn_torch.cli import sweep
 from mmdfn_torch.config import ExperimentConfig
 from mmdfn_torch.data.datasets import IEMOCAPDataset
 from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+from mmdfn_torch.parallel import workers
+from mmdfn_torch.runtime import launch
 from mmdfn_torch.train import Trainer
 from mmdfn_torch.train.vmap_sweep import VmapSweep, group_combos
 from mmdfn_torch.weights import build_model, params_from_jax
@@ -101,7 +105,7 @@ def test_refusals_match_jax(over, combos, match):
     assert match in got and got == want
 
 
-def test_identical_keys_fold_into_the_shared_config():
+def test_identical_keys_fold_into_the_shared_config(data):
     sweep_ = _group(base_cfg(), [dict(lr=1e-4, l2=1e-4, alpha=0.3),
                                  dict(lr=3e-4, l2=1e-4, alpha=0.3)])
     assert sweep_.cfg.alpha == 0.3
@@ -118,8 +122,15 @@ def test_identical_keys_fold_into_the_shared_config():
     assert [tr.cfg.gamma for tr in g.trainers] == [1.0, 0.5]
     assert [tr.optimizer.defaults["weight_decay"] for tr in g.trainers] == \
         [1e-4, 2e-4]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _group(base_cfg(), [dict(lr=1e-4, l2=1e-4)], n_data_devices=2)
+    # sharded over 2 data ranks (one config each), the group runs and
+    # every rank returns the whole group's result
+    _, train, test = data
+    combos = [dict(lr=1e-4, l2=1e-4), dict(lr=3e-4, l2=1e-4)]
+    res = launch.run(workers.sweep_group, 2, base_cfg(epochs=1), combos,
+                     train, test, 2, device="cpu")
+    assert res[0].combos == res[1].combos == combos
+    assert res[0].history == res[1].history
+    assert [len(h) for h in res[0].history] == [1, 1]
 
 
 KEYS = ("epoch", "train_loss", "test_fscore", "test_acc", "test_loss")
