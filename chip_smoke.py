@@ -104,17 +104,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    best epoch >= 95, epoch-0 train F1 < 60; the per-epoch history, then
    the step alone timed and profiled on the run's batches (median wall,
    device busy and idle share, launches a step);
-10. sweep: the grouped sweep (``train/vmap_sweep.py``) at the flagship's
-   widths on 64 dialogues of U[20, 80] turns: the first group of the
-   IEMOCAP grid cut to K = 4 (dropout 0.2 and 0.4 at two learning rates)
-   trains 2 epochs at B = 32; one combination trained alone twice says
-   whether a run repeats itself bit for bit on the card, and two configs
-   of the group (one at each dropout) are held against their runs alone
-   to that bar (else equal test F-scores and losses within 1e-5
+10. sweep: the grouped sweep (``train/vmap_sweep.py``: one batched step
+   over the K configurations' stacked parameters) at the flagship's
+   widths on 64 dialogues of U[20, 80] turns.  First kernels A-D with
+   their config axis at the training shapes, K = 4: each config-axis
+   launch against 4 solo launches, bit for bit, and against the plain
+   versions (A, C, B under vmap; D per configuration at its own ReLU
+   decisions); B and D with the rates 0, 0.2, 0.4, 0.4 read per
+   configuration (B tiled in training mode, and in its eval forwards
+   tiled at B = 32 and resident at one dialogue); each configuration's
+   layer-0 mask equal to its run alone's, the rate-0 one keeping all;
+   the config-axis launches' stream times beside 4 solo launches'.  Then
+   the first group of the IEMOCAP grid cut to K = 4 (dropout 0.2 and 0.4
+   at two learning rates) trains 2 epochs at B = 32; one combination
+   trained alone twice says whether a run repeats itself bit for bit on
+   the card, the group's first step against the solo step of two configs
+   (one at each dropout) whether the batched step sums as the solo step
+   does, and those two configs are held against their runs alone bit for
+   bit where both hold (else equal test F-scores and losses within 1e-5
    relative); the group's batch is timed beside the solo step (launches
-   a batch K times the solo step's, peak memory, device busy and idle
-   share); and ``cli.sweep --vmap --limit 4 --epochs 1`` runs twice on
-   one directory, the second skipping the finished group with the same
+   a batch equal to one solo step's, peak memory, device busy and idle
+   share), and the grid's whole first group (K = 16) over 3 batches; and
+   ``cli.sweep --vmap --limit 4 --epochs 1`` runs twice on one directory,
+   the second skipping the finished group with the same
    ``summary.jsonl``;
 11. daily: DailyDialogue at the JAX package's default widths (the
    TextCNN over 20 words of a 5000-word table, 300-wide embeddings, 50
@@ -169,7 +181,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    2``), whose configs' histories must equal the one-process group's, bit
    for bit.
 
-It prints a line per phase, the seconds each took (``phase_s``), a
+It prints a line per phase, the seconds each took (``phase_s``, beside
+the profiler windows that ``device_ms`` had to open again), a
 ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 ``mmdfn_torch`` package beside it, it exits nonzero before any result.
@@ -179,6 +192,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -205,6 +219,9 @@ KERNEL_D_RTOL = 1e-4     # of each gradient's max |.|: f32, sums over B N
                          # rows and 16 layers in another order
 SERVE_TOL = 1e-4         # log-probs, kernels vs plain through the model
 HEAD_START_CYCLES_PER_CALL = 400_000   # ~0.2 ms of the card's clock
+PROFILE_TRIES = 3        # torch.profiler windows that device_ms opens before
+                         # it falls back to the stream time
+PROFILE_MISSES = []      # the device_ms windows that saw no kernel
 CLI_TOL = 2e-4           # the server rounds log-probs to 4 decimals
 STEP_LOSS_RTOL = 1e-5    # training step, kernels vs plain: the loss
 STEP_GRAD_RTOL = 1e-4    # and every gradient, of its max |.|
@@ -277,20 +294,30 @@ def device_ms(torch, fn, reps: int) -> float:
     library calls whose host time (autograd's engine) may exceed their
     device time: the gaps in which the card waits for the host are not
     counted, and kernels that run at once on several streams (cuDNN runs a
-    bidirectional GRU's two directions side by side) are counted once."""
+    bidirectional GRU's two directions side by side) are counted once.  A
+    window in which the profiler saw no kernel is opened again, up to
+    ``PROFILE_TRIES`` times, and is named in ``PROFILE_MISSES``; if none
+    saw one, the stream time (``time_ms``) stands in."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    check(bool(spans), "torch.profiler saw no device time")
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+        if spans:
+            break
+        PROFILE_MISSES.append(getattr(fn, "__qualname__", repr(fn)))
+    if not spans:
+        # the stream time over chained calls after a head start: it counts
+        # kernels that overlap on two streams twice
+        return time_ms(torch, fn, reps)
     busy, until = 0.0, -math.inf
     for a, b in spans:
         if b > until:
@@ -1771,15 +1798,255 @@ def learn_phase(torch, dev) -> dict:
             "timed_step_L": L, **timed}
 
 
+# the config axis's check: K = 4 configurations, one at each of these rates
+# (kernel B's and D's keep threshold and scale read per configuration)
+CONFIG_RATES = (0.0, 0.2, 0.4, 0.4)
+
+
+def config_axis_case(torch, dev) -> dict:
+    """Kernels A-D with a leading config axis (the grouped sweep's batched
+    step) at the training shapes, K = 4: one launch each against 4 solo
+    launches, bit for bit, and against the plain versions under vmap (A,
+    C, B) or, for D, the plain backward of each configuration at its own
+    ReLU decisions; kernel B in training mode (tiled) with the rates
+    ``CONFIG_RATES`` in one launch against solo launches at each static
+    rate, and in its eval forwards (tiled at B = 32, resident at one
+    dialogue); the stream time of the config-axis launch beside the 4 solo
+    launches'.  Then the masks: layer 0's keep mask of each configuration
+    equals its run alone's bit for bit, and the rate-0 configuration keeps
+    every element."""
+    from torch.func import vmap
+
+    from mmdfn_torch.nn.drop_override import make_drop_rate
+    from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
+                                 bigru_layer_fwd, bigru_layer_plain,
+                                 gcnii_stack_bwd, gcnii_stack_bwd_plain,
+                                 gcnii_stack_fwd, gcnii_stack_plain, philox)
+    from mmdfn_torch.ops.bigru import _forward as bigru_forward
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, _design,
+                                       _forward as gcnii_forward,
+                                       gcnii_bwd_launches,
+                                       gcnii_fwd_launches)
+
+    K, B, L, nl = len(CONFIG_RATES), TRAIN_B, TRAIN_L, NLAYERS
+    N = 3 * L
+    out = {"K": K, "rates": list(CONFIG_RATES)}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def counted(wrapper, fn):
+        before = wrapper.launches
+        r = fn()
+        return r, wrapper.launches - before
+
+    # kernels A and C: K sets of the lstm_l step's operands
+    sets = [bigru_inputs(torch, dev, B, L, seed=40 + k) for k in range(K)]
+    mask = sets[0][6]
+    per = [torch.stack([s[i] for s in sets]) for i in range(6)]
+    got, n_a = counted(bigru_layer_fwd,
+                       lambda: bigru_forward(*per, mask, with_hg=True))
+    solo = [bigru_forward(*s[:6], mask, with_hg=True) for s in sets]
+    check(n_a == 1 and all(same([t[k] for t in got], solo[k])
+                           for k in range(K)),
+          f"kernel A's config-axis launch ({n_a}) != {K} solo launches")
+    plain = vmap(lambda *a: bigru_layer_plain(*a, mask, with_hg=True))(*per)
+    err_a = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    check(err_a <= KERNEL_A_TOL, f"kernel A config axis vs plain: {err_a}")
+    g = torch.Generator().manual_seed(41)
+    dy = [torch.randn(K, B, L, H, generator=g).to(dev) for _ in range(2)]
+    bwd = lambda: bigru_layer_bwd(*per, mask, got[0], got[1], *dy, *got[2:])
+    grads, n_c = counted(bigru_layer_bwd, bwd)
+    solo_c = [bigru_layer_bwd(*sets[k][:6], mask, got[0][k], got[1][k],
+                              dy[0][k], dy[1][k], got[2][k], got[3][k])
+              for k in range(K)]
+    check(n_c == 1 and all(same([t[k] for t in grads], solo_c[k])
+                           for k in range(K)),
+          f"kernel C's config-axis launch ({n_c}) != {K} solo launches")
+    plain = vmap(lambda xf, xb, wf, bf, wb, bb, yf, yb, df, db, hf, hb:
+                 bigru_layer_bwd_plain(xf, xb, wf, bf, wb, bb, mask, yf, yb,
+                                       df, db, hf, hb))(*per, *got[:2], *dy,
+                                                         *got[2:])
+    err_c = max(float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+                for a, b in zip(grads, plain))
+    check(err_c <= KERNEL_C_RTOL, f"kernel C config axis vs plain: {err_c}")
+    out["bigru"] = {
+        "shape": f"K={K} B={B} L={L} H={H}", "launches": [n_a, n_c],
+        "fwd_max_abs_err": err_a, "bwd_max_rel_err": err_c,
+        "fwd_ms": time_ms(torch, lambda: bigru_forward(
+            *per, mask, with_hg=True), 10),
+        "fwd_solo_ms": time_ms(torch, lambda: [bigru_forward(
+            *s[:6], mask, with_hg=True) for s in sets], 10),
+        "bwd_ms": time_ms(torch, bwd, 10),
+        "bwd_solo_ms": time_ms(torch, lambda: [bigru_layer_bwd(
+            *sets[k][:6], mask, got[0][k], got[1][k], dy[0][k], dy[1][k],
+            got[2][k], got[3][k]) for k in range(K)], 10)}
+    del sets, per, got, grads, solo, solo_c, plain
+
+    # kernels B and D at the training stack's shapes, the rates per config
+    sets = [gcnii_train_inputs(torch, dev, B, L, seed=50 + k, nl=nl)[0]
+            for k in range(K)]
+    theta = sets[0][4]
+    per = [torch.stack([s[i] for s in sets]) for i in (0, 1, 2, 3, 5, 6, 7)]
+    seed = torch.tensor([SEED + 4242], dtype=torch.int64, device=dev)
+    rate = make_drop_rate(CONFIG_RATES, device=dev)
+    slabs = lambda *k: [torch.zeros(*k, B, nl, N, H, device=dev)
+                        for _ in RESIDUALS]
+    res = slabs(K)
+    fwd = lambda: gcnii_forward(*per[:4], theta, *per[4:], alpha=0.2,
+                                reason=True, rate=rate, seed=seed,
+                                residuals=res)
+    y, n_b = counted(gcnii_stack_fwd, fwd)
+    solo_res, solo_out = [], []
+    for k, r in enumerate(CONFIG_RATES):
+        res_k = slabs()
+        solo_out.append(gcnii_forward(*sets[k], alpha=0.2, reason=True,
+                                      rate=r, seed=seed if r else None,
+                                      residuals=res_k))
+        solo_res.append(res_k)
+    check(n_b == gcnii_fwd_launches(nl, True) and all(
+        torch.equal(y[k], solo_out[k])
+        and same([t[k] for t in res], solo_res[k]) for k in range(K)),
+        f"kernel B's config-axis launch ({n_b}) != {K} solo launches")
+    res_p = slabs(K)
+    plain = vmap(lambda adj, h, h0, W, ih, hh, b, res, rate:
+                 gcnii_stack_plain(adj, h, h0, W, theta, ih, hh, b,
+                                   alpha=0.2, reason=True, rate=rate,
+                                   seed=seed, residuals=res))(
+        *per, res_p, rate)
+    scale = max(1.0, float(plain.abs().max()))
+    err_b = max(float((a - b).abs().max())
+                for a, b in zip([y, *res], [plain, *res_p]))
+    check(err_b <= KERNEL_B_RTOL * scale,
+          f"kernel B config axis vs plain: {err_b}")
+    del plain, res_p
+    # the eval forwards: tiled at the batch, resident at one dialogue
+    evals = {}
+    for name, b in (("tiled", B), ("resident", 1)):
+        design = _design(K * b, N, _sm_count(dev), H)
+        check(design == DESIGNS[name] == _design(b, N, _sm_count(dev), H),
+              f"kernel B's eval design at K={K} B={b}: {design}")
+        args = [t[:, :b] for t in per[:3]] + per[3:]
+        e, n_e = counted(gcnii_stack_fwd, lambda: gcnii_forward(
+            *args[:4], theta, *args[4:], alpha=0.2, reason=True, rate=0.0,
+            seed=None, residuals=None))
+        check(n_e == gcnii_fwd_launches(nl, True, design) and all(
+            torch.equal(e[k], gcnii_forward(
+                *(t[k] for t in args[:4]), theta,
+                *(t[k] for t in args[4:]), alpha=0.2, reason=True, rate=0.0,
+                seed=None, residuals=None)) for k in range(K)),
+            f"kernel B's {name} eval launch ({n_e}) != {K} solo launches")
+        evals[name] = {
+            "B": b, "launches": n_e,
+            "ms": time_ms(torch, lambda: gcnii_forward(
+                *args[:4], theta, *args[4:], alpha=0.2, reason=True,
+                rate=0.0, seed=None, residuals=None), 10),
+            "solo_ms": time_ms(torch, lambda: [gcnii_forward(
+                *(t[k] for t in args[:4]), theta, *(t[k] for t in args[4:]),
+                alpha=0.2, reason=True, rate=0.0, seed=None, residuals=None)
+                for k in range(K)], 10)}
+
+    g = torch.Generator().manual_seed(51)
+    dh = torch.randn(K, B, N, H, generator=g).to(dev)
+    adj, _, h0, W, ih, hh, lb = per
+    bwd = lambda: gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res, dh,
+                                  alpha=0.2, reason=True, rate=rate,
+                                  seed=seed)
+    grads, n_d = counted(gcnii_stack_bwd, bwd)
+    err_d = 0.0
+    for k, r in enumerate(CONFIG_RATES):
+        a_k, s_k = sets[k], (seed if r else None)
+        want = gcnii_stack_bwd(a_k[0], a_k[2], a_k[3], theta, *a_k[5:],
+                               solo_res[k], dh[k], alpha=0.2, reason=True,
+                               rate=r, seed=s_k)
+        check(same([t[k] for t in grads], want),
+              f"kernel D's config-axis launch != solo launch {k}")
+        # the plain backward at kernel D's own ReLU decisions (kernel B's
+        # tiled products one layer at a time on the stored h1)
+        masks = []
+        for l in range(nl):
+            masks.append(gcnii_forward(
+                a_k[0], solo_res[k][3][:, l].contiguous(), a_k[2],
+                a_k[3][l:l + 1], theta[l:l + 1], None, None, None,
+                alpha=0.2, reason=False, rate=0.0, seed=None,
+                residuals=None, design=DESIGNS["tiled"]) > 0)
+        ref = gcnii_stack_bwd_plain(a_k[0], a_k[2], a_k[3], theta, *a_k[5:],
+                                    solo_res[k], dh[k], alpha=0.2,
+                                    reason=True, rate=r, seed=s_k,
+                                    relu_masks=masks)
+        for a, b in zip(grads, ref):
+            e = float((a[k] - b).abs().max() / b.abs().max().clamp(
+                min=1e-6))
+            check(e <= KERNEL_D_RTOL, f"kernel D config {k} vs plain: {e}")
+            err_d = max(err_d, e)
+    check(n_d == gcnii_bwd_launches(nl, True),
+          f"kernel D's config-axis call launched {n_d}")
+    out["gcnii"] = {
+        "shape": f"K={K} B={B} N={N} H={H} layers={nl} reason rates "
+                 f"{list(CONFIG_RATES)}",
+        "launches": [n_b, n_d], "fwd_max_abs_err": err_b,
+        "fwd_tolerance": KERNEL_B_RTOL * scale, "bwd_max_rel_err": err_d,
+        "fwd_ms": time_ms(torch, fwd, 5),
+        "fwd_solo_ms": time_ms(torch, lambda: [gcnii_forward(
+            *sets[k], alpha=0.2, reason=True, rate=r,
+            seed=seed if r else None, residuals=solo_res[k])
+            for k, r in enumerate(CONFIG_RATES)], 5),
+        "bwd_ms": time_ms(torch, bwd, 5),
+        "bwd_solo_ms": time_ms(torch, lambda: [gcnii_stack_bwd(
+            sets[k][0], sets[k][2], sets[k][3], theta, *sets[k][5:],
+            solo_res[k], dh[k], alpha=0.2, reason=True, rate=r,
+            seed=seed if r else None)
+            for k, r in enumerate(CONFIG_RATES)], 5),
+        "eval": evals}
+    del sets, per, res, solo_res, grads, y, solo_out
+
+    # the masks (mask_check's wiring: W = 0, alpha = 1, no LSTM, so layer
+    # 1's entry h shows layer 0's mask), each configuration against its
+    # run alone
+    g = torch.Generator().manual_seed(6)
+    h0 = (torch.rand(K, B, N, H, generator=g) + 0.5).to(dev)
+    adj = (torch.rand(K, B, N, N, generator=g) / N).to(dev)
+    Wz = torch.zeros(K, nl, 2 * H, H, device=dev)
+    res = slabs(K)
+    gcnii_stack_fwd(adj, h0, h0, Wz, theta, alpha=1.0, reason=False,
+                    rate=rate, seed=seed, residuals=res)
+    kept = []
+    for k, r in enumerate(CONFIG_RATES):
+        res_k = slabs()
+        gcnii_stack_fwd(adj[k], h0[k], h0[k], Wz[k], theta, alpha=1.0,
+                        reason=False, rate=r, seed=seed if r else None,
+                        residuals=res_k)
+        got_mask, want_mask = res[0][k][:, 1] != 0, res_k[0][:, 1] != 0
+        check(torch.equal(got_mask, want_mask),
+              f"configuration {k}'s layer-0 mask differs from its run alone")
+        if r:
+            check(torch.equal(got_mask, philox.keep_mask(seed, r, B, 0, N,
+                                                         H)),
+                  f"configuration {k}'s layer-0 mask is not Philox's")
+        else:
+            check(bool(got_mask.all()),
+                  "the rate-0 configuration dropped an element")
+        kept.append(float(got_mask.float().mean()))
+    out["masks"] = {"layer0_keep_fraction": kept}
+    return out
+
+
 def sweep_phase(torch, dev) -> dict:
-    """The grouped sweep at the flagship's widths: the first group of the
-    IEMOCAP grid cut to K = 4 (both dropouts at two learning rates), 2
-    epochs at B = 32 through kernels A-D; two of its configs against
-    ``Trainer.fit`` of the combo alone (bit for bit if one run alone
-    repeats itself bit for bit on the card, else equal test F-scores and
-    losses within 1e-5 relative); the group's batch timed and profiled
-    beside the solo step; and ``cli.sweep --vmap`` run twice on one
-    directory (the second skips the finished group)."""
+    """The grouped sweep at the flagship's widths: kernels A-D with their
+    config axis (:func:`config_axis_case`); the first group of the IEMOCAP
+    grid cut to K = 4 (both dropouts at two learning rates), 2 epochs at B
+    = 32, one batched step a batch through kernels A-D; two of its configs
+    against their solo steps (the first step from the same weights: loss
+    within 1e-6 relative, gradients within 1e-5 of scale, stepped weights
+    within 1e-6 of scale beyond what Adam makes of that gradient gap; the
+    batched products sum in another order, so not bit for bit) and
+    ``Trainer.fit`` of the combo alone (equal test F-scores, accuracies
+    and best epochs, losses within 1e-5 relative); the group's batch timed
+    and profiled beside the solo step, launching what one solo step
+    launches; the grid's whole first group (K = 16) timed over 3 batches; and
+    ``cli.sweep --vmap`` run twice on one directory (the second skips the
+    finished group)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1793,7 +2060,10 @@ def sweep_phase(torch, dev) -> dict:
     from mmdfn_torch.train import Trainer
     from mmdfn_torch.train.trainer import prepare_inputs
     from mmdfn_torch.train.vmap_sweep import VmapSweep, group_combos
+    from mmdfn_torch.weights import build_model
 
+    config_axis = config_axis_case(torch, dev)
+    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp()
     try:
         pkl = f"{tmp}/iem.pkl"
@@ -1812,22 +2082,22 @@ def sweep_phase(torch, dev) -> dict:
             seed=base.seed).epoch(0)]
         everyone = [True] * K
 
-        def timed(step):
-            """Median wall, launches and peak memory of ``SWEEP_REPS``
-            calls (after one warm-up), then the stream time and device busy
-            of 2 chained calls."""
+        def timed(step, reps=SWEEP_REPS):
+            """Median wall, launches and peak memory of ``reps`` calls
+            (after one warm-up), then the stream time and device busy of 2
+            chained calls."""
             step(0)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             wall = []
-            for i in range(SWEEP_REPS):
+            for i in range(reps):
                 t1 = time.perf_counter()
                 step(i)
                 torch.cuda.synchronize()
                 wall.append((time.perf_counter() - t1) * 1e3)
             out = {"ms_median": sorted(wall)[len(wall) // 2], "ms_all": wall,
-                   "launches": {k: v / SWEEP_REPS
+                   "launches": {k: v / reps
                                 for k, v in ops.launch_counts().items()},
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
             start = torch.cuda.Event(enable_timing=True)
@@ -1864,10 +2134,61 @@ def sweep_phase(torch, dev) -> dict:
         sweep = VmapSweep(base, picked, device=dev)
         group_t = timed(
             lambda i: sweep.step(batches[i % len(batches)], 0, i, everyone))
-        check(all(group_t["launches"][k] == K * v
-                  for k, v in solo_t["launches"].items()),
-              f"group launches {group_t['launches']} != {K} x solo "
+        check(group_t["launches"] == solo_t["launches"],
+              f"group launches {group_t['launches']} != one solo step's "
               f"{solo_t['launches']}")
+
+        # the grid's real group (K = 16), 3 batches, then freed
+        big = VmapSweep(base, group, device=dev)
+        check(big.K == 16, f"the first IEMOCAP group has {big.K} configs")
+        group16_t = timed(
+            lambda i: big.step(batches[i % len(batches)], 0, i,
+                               [True] * big.K), reps=3)
+        check(group16_t["launches"] == solo_t["launches"],
+              f"K = 16 group launches {group16_t['launches']}")
+        del big
+        torch.cuda.empty_cache()
+
+        # the group's first step against the solo step of each held
+        # config, from the same weights on the same batch and seed
+        held = [0, next(k for k, c in enumerate(picked)
+                        if c["dropout"] != picked[0]["dropout"]
+                        and c["lr"] != picked[0]["lr"])]
+        fresh = VmapSweep(base, picked, device=dev)
+        losses0 = fresh.step(batches[0], 0, 0, everyone)
+        first_step = []
+        for k in held:
+            cfg_k = dataclasses.replace(fresh.cfg, **picked[k])
+            tr = Trainer(cfg_k, device=dev,
+                         model=build_model(cfg_k, fresh._init))
+            loss, _ = tr.train_step(batches[0], tr.step_seed(0, 0))
+            gap = {"config": k, "loss_rel_diff": float(
+                (losses0[k] - loss).abs() / loss.abs()),
+                "max_grad_diff_of_scale": 0.0, "max_weight_diff_of_scale": 0.0}
+            for n, p in tr.model.named_parameters():
+                if p.grad is None:
+                    continue
+                d = float((fresh.params[n].grad[k] - p.grad).abs().max())
+                gap["max_grad_diff_of_scale"] = max(
+                    gap["max_grad_diff_of_scale"],
+                    d / float(p.grad.abs().max()))
+                # beyond what Adam's first step lr g / (|g| + eps) makes of
+                # the gradient gap d, where its sign cannot differ
+                g = (p.grad + cfg_k.l2 * fresh._init[n].to(dev)).abs()
+                adam = cfg_k.lr * 1e-8 * d / (g - d + 1e-8) ** 2
+                w = (fresh.params[n].detach()[k] - p.detach()).abs() - adam
+                gap["max_weight_diff_of_scale"] = max(
+                    gap["max_weight_diff_of_scale"],
+                    float(w.where(g > d, 0.0).max() / p.detach().abs().max()))
+            first_step.append(gap)
+            check(gap["loss_rel_diff"] <= 1e-6
+                  and gap["max_grad_diff_of_scale"] <= 1e-5
+                  and gap["max_weight_diff_of_scale"] <= 1e-6,
+                  f"the group's first step differs from config {k}'s solo "
+                  f"step: {gap}")
+            del tr
+        del fresh
+        torch.cuda.empty_cache()
 
         # the command line's first run beside the checks below, which
         # time nothing
@@ -1890,37 +2211,41 @@ def sweep_phase(torch, dev) -> dict:
             def solo(combo):
                 tr = Trainer(dataclasses.replace(sweep.cfg, **combo),
                              device=dev)
-                rows = tr.fit(train, test, verbose=False).history
-                return tr, [{k: r[k] for k in keys} for r in rows]
+                r = tr.fit(train, test, verbose=False)
+                return tr, [{k: h[k] for k in keys} for h in r.history], \
+                    r.best_epoch
 
-            def same_weights(a, b):
+            def weight_gap(a, b):
                 sa, sb = a.state_dict(), b.state_dict()
-                return all(torch.equal(sa[n], sb[n]) for n in sa)
+                return max(float((sa[n] - w).abs().max()
+                                 / w.abs().max().clamp(min=1e-30))
+                           for n, w in sb.items() if w.is_floating_point())
 
             # one run alone, twice: does the card repeat it bit for bit?
-            held = [0, next(k for k, c in enumerate(picked)
-                            if c["dropout"] != picked[0]["dropout"]
-                            and c["lr"] != picked[0]["lr"])]
-            tr_a, rows_a = solo(picked[0])
-            tr_b, rows_b = solo(picked[0])
-            exact = rows_a == rows_b and same_weights(tr_a.model, tr_b.model)
+            tr_a, rows_a, best_a = solo(picked[0])
+            tr_b, rows_b, _ = solo(picked[0])
+            exact = (rows_a == rows_b
+                     and weight_gap(tr_a.model, tr_b.model) == 0.0)
             comparisons = []
             for k in held:
-                tr_k, rows_k = (tr_a, rows_a) if k == 0 else solo(picked[k])
+                tr_k, rows_k, best_k = ((tr_a, rows_a, best_a) if k == 0
+                                        else solo(picked[k]))
                 got = res.history[k]
-                if exact:
-                    ok = got == rows_k and same_weights(
-                        sweep.trainers[k].model, tr_k.model)
-                else:
-                    ok = len(got) == len(rows_k) and all(
-                        g["test_fscore"] == w["test_fscore"] and all(
-                            abs(g[x] - w[x]) <= 1e-5 * abs(w[x])
-                            for x in ("train_loss", "test_loss"))
-                        for g, w in zip(got, rows_k))
-                comparisons.append({"combo": picked[k], "group": got,
-                                    "solo": rows_k, "equal": ok})
+                best = [res.best_epoch[k], best_k]
+                ok = best[0] == best[1] and len(got) == len(rows_k) and all(
+                    g["epoch"] == w["epoch"]
+                    and g["test_fscore"] == w["test_fscore"]
+                    and g["test_acc"] == w["test_acc"] and all(
+                        abs(g[x] - w[x]) <= 1e-5 * abs(w[x])
+                        for x in ("train_loss", "test_loss"))
+                    for g, w in zip(got, rows_k))
+                comparisons.append({
+                    "combo": picked[k], "group": got, "solo": rows_k,
+                    "best_epoch": best, "equal": ok,
+                    "max_weight_diff_of_scale": weight_gap(
+                        sweep.trainers[k].model, tr_k.model)})
                 check(ok, f"config {k} in the group differs from its run "
-                          f"alone (bit for bit: {exact}): {got} vs {rows_k}")
+                          f"alone: {got} vs {rows_k}, best epochs {best}")
             first, err = cli.communicate(timeout=600)
         finally:
             if cli.poll() is None:
@@ -1944,8 +2269,13 @@ def sweep_phase(torch, dev) -> dict:
             "group_run_peak_mem_gb": group_run_peak,
             "best_test_fscore": res.best_test_fscore,
             "solo_repeats_bit_for_bit": exact,
+            "group_first_step_vs_solo": first_step,
             "group_vs_solo": comparisons,
             "group_batch": group_t, "solo_step": solo_t,
+            "group16_batch": group16_t,
+            "group16_over_solo_wall": group16_t["ms_median"]
+            / solo_t["ms_median"],
+            "config_axis": config_axis,
             "group_ms_per_config_step": group_t["ms_median"] / K,
             "group_over_solo_wall": group_t["ms_median"]
             / solo_t["ms_median"],
@@ -2632,6 +2962,9 @@ def parallel_phase(torch, dev) -> dict:
 
 
 def main() -> int:
+    # keep CUPTI attached between torch.profiler windows: re-attached after
+    # each window's teardown, it has missed every kernel of a short window
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -2717,7 +3050,9 @@ def main() -> int:
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0
         print(json.dumps({name: results[name]}), flush=True)
-    print(json.dumps({"phase_s": seconds}), flush=True)
+    print(json.dumps({"phase_s": seconds,
+                      "profile_windows_without_kernels": PROFILE_MISSES}),
+          flush=True)
     train = results["train"]
 
     # the line's numbers: the training step's shapes (the party streams'

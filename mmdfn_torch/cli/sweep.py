@@ -88,9 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the graph family the grid trains")
     ap.add_argument("--vmap", action="store_true", default=False,
                     help="train the combinations of one layer count as one "
-                         "group, each combination's model stepped in turn "
-                         "on every batch (lr, l2, gamma and dropout vary "
-                         "inside a group): IEMOCAP 2x16, MELD 3x16")
+                         "group, one batched step over their stacked "
+                         "parameters a batch (lr, l2, gamma and dropout "
+                         "vary inside a group): IEMOCAP 2x16, MELD 3x16")
     ap.add_argument("--n_data_devices", type=int, default=0,
                     help="with --vmap: share a group's combinations out "
                          "over this many devices (config parallelism; each "

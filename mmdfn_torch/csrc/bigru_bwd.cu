@@ -46,10 +46,18 @@
 //   both directions in one launch; a third sums the splits in split order.
 //   No atomics: the gradients are the same bit for bit from run to run.
 //
+// Config axis (the grouped sweep's K stacked configurations), as in
+// bigru_fwd.cu: every (B, L, .) array holds K blocks of B rows, W_hh K
+// copies at the given config stride, the mask is shared, and grid z of the
+// walk is the configuration.  The weight-gradient product splits each
+// configuration's B L rows on their own (the splits a run alone takes), so
+// each configuration's dW_hh / db_hh is summed over its rows only, in the
+// order its run alone sums them.
+//
 // C interface: pointers are device pointers; the stream is the caller's.
-// dhg_f / dhg_b are (B, L, 3H) scratch; part holds 2 * splits * (H+1) * 3H
-// floats with splits = ceil(B L / split_rows); dwb (2, H+1, 3H) receives
-// [dW_hh; db_hh] of each direction.  Returns cudaErrorInvalidValue for an
+// dhg_f / dhg_b are (K, B, L, 3H) scratch; part holds K * 2 * splits *
+// (H+1) * 3H floats with splits = ceil(B L / split_rows); dwb (K, 2, H+1,
+// 3H) receives [dW_hh; db_hh] of each configuration and direction.  Returns cudaErrorInvalidValue for an
 // H or BT the kernel does not take, else cudaGetLastError() after the
 // launches.
 
@@ -151,11 +159,11 @@ template <int BT>
 __device__ __forceinline__ void fetch(float* slot, const float* xg,
                                       const float* hg, const float* ys,
                                       const float* dy, const float* mask,
-                                      int b0, int nb, int t, int tp, int L,
-                                      int lane) {
+                                      int g0, int b0, int nb, int t, int tp,
+                                      int L, int lane) {
   const bool has_prev = tp >= 0 && tp < L;
   for (int r = 0; r < nb; ++r) {
-    const long long row = (long long)(b0 + r) * L + t;
+    const long long row = (long long)(g0 + r) * L + t;
     float* d = slot + r * kPerRow;
     copy_row(d + kXg, xg + row * kG, kG, lane);
     copy_row(d + kHg, hg + row * kG, kG, lane);
@@ -194,7 +202,7 @@ __device__ __forceinline__ StepIn step_in(const float* slot, int r, int i,
 template <int BT, int kDir>
 __device__ __forceinline__ void bwd_walk(
     const float* __restrict__ xg, const float* __restrict__ hg,
-    const float* __restrict__ w, long long s0, long long s1,
+    const float* __restrict__ w, long long sk, long long s0, long long s1,
     const float* __restrict__ mask, const float* __restrict__ ys,
     const float* __restrict__ dy, float* __restrict__ dxg,
     float* __restrict__ dhg, int B, int L) {
@@ -203,8 +211,11 @@ __device__ __forceinline__ void bwd_walk(
   float* dg_s = smem;                     // [2][BT][3][kRow]
   float* ring = smem + 2 * BT * 3 * kRow; // [kRing][kSlot]
 
+  // rows b0 .. b0 + nb of configuration blockIdx.z: rows g0 .. of the
+  // (K, B, L, .) arrays
   const int b0 = blockIdx.y * BT;
   const int nb = min(BT, B - b0);
+  const int g0 = blockIdx.z * B + b0;
   const int tid = threadIdx.x;
   auto time_of = [L](int step) { return kDir == 0 ? L - 1 - step : step; };
   constexpr int shift = kDir == 0 ? -1 : 1;   // h_prev's time is t + shift
@@ -220,7 +231,7 @@ __device__ __forceinline__ void bwd_walk(
     for (int q = 0; q < kDepth; ++q) {
       if (q < L) {
         const int t = time_of(q);
-        fetch<BT>(ring + q * kSlot, xg, hg, ys, dy, mask, b0, nb, t,
+        fetch<BT>(ring + q * kSlot, xg, hg, ys, dy, mask, g0, b0, nb, t,
                   t + shift, L, lane);
       }
       cp_commit();
@@ -231,8 +242,8 @@ __device__ __forceinline__ void bwd_walk(
       const int q = step + kDepth;
       if (q < L) {
         const int tq = time_of(q);
-        fetch<BT>(ring + (q % kRing) * kSlot, xg, hg, ys, dy, mask, b0, nb,
-                  tq, tq + shift, L, lane);
+        fetch<BT>(ring + (q % kRing) * kSlot, xg, hg, ys, dy, mask, g0, b0,
+                  nb, tq, tq + shift, L, lane);
       }
       cp_commit();
       cp_wait<kDepth - 1>();
@@ -249,7 +260,9 @@ __device__ __forceinline__ void bwd_walk(
 #pragma unroll
     for (int q = 0; q < kK; ++q) {
       const int k = s * kK + q;
-      wr[g][q] = k < kH && i < kH ? w[i * s0 + (g * kH + k) * s1] : 0.0f;
+      wr[g][q] = k < kH && i < kH
+                     ? w[blockIdx.z * sk + i * s0 + (g * kH + k) * s1]
+                     : 0.0f;
     }
   // the lanes that share rows (BT < kS) compute alike; the first stores
   constexpr int kShare = BT >= kS ? 1 : kS / BT;
@@ -293,7 +306,7 @@ __device__ __forceinline__ void bwd_walk(
         dgr[0] = dr;
         dgr[kRow] = dz;
         dgr[2 * kRow] = dnr;
-        const long long row = (long long)(b0 + r) * L + t;
+        const long long row = (long long)(g0 + r) * L + t;
         dxg[row * kG + i] = dr;
         dxg[row * kG + kH + i] = dz;
         dxg[row * kG + 2 * kH + i] = dn;
@@ -346,18 +359,18 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_bwd_kernel(
     const float* __restrict__ xg_f, const float* __restrict__ xg_b,
     const float* __restrict__ hg_f, const float* __restrict__ hg_b,
     const float* __restrict__ w_f, const float* __restrict__ w_b,
-    long long w_f_s0, long long w_f_s1, long long w_b_s0, long long w_b_s1,
-    const float* __restrict__ mask, const float* __restrict__ ys_f,
-    const float* __restrict__ ys_b, const float* __restrict__ dy_f,
-    const float* __restrict__ dy_b, float* __restrict__ dxg_f,
-    float* __restrict__ dxg_b, float* __restrict__ dhg_f,
-    float* __restrict__ dhg_b, int B, int L) {
+    long long w_f_sk, long long w_f_s0, long long w_f_s1, long long w_b_sk,
+    long long w_b_s0, long long w_b_s1, const float* __restrict__ mask,
+    const float* __restrict__ ys_f, const float* __restrict__ ys_b,
+    const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+    float* __restrict__ dxg_f, float* __restrict__ dxg_b,
+    float* __restrict__ dhg_f, float* __restrict__ dhg_b, int B, int L) {
   if (blockIdx.x == 0)
-    bwd_walk<BT, 0>(xg_f, hg_f, w_f, w_f_s0, w_f_s1, mask, ys_f, dy_f, dxg_f,
-                    dhg_f, B, L);
+    bwd_walk<BT, 0>(xg_f, hg_f, w_f, w_f_sk, w_f_s0, w_f_s1, mask, ys_f,
+                    dy_f, dxg_f, dhg_f, B, L);
   else
-    bwd_walk<BT, 1>(xg_b, hg_b, w_b, w_b_s0, w_b_s1, mask, ys_b, dy_b, dxg_b,
-                    dhg_b, B, L);
+    bwd_walk<BT, 1>(xg_b, hg_b, w_b, w_b_sk, w_b_s0, w_b_s1, mask, ys_b,
+                    dy_b, dxg_b, dhg_b, B, L);
 }
 
 // this thread's kPer elements of A (column k) and Bm (column j) of the
@@ -396,15 +409,19 @@ __device__ __forceinline__ void wgrad_load(
 __global__ void __launch_bounds__(kWThreads) bigru_wgrad_kernel(
     const float* __restrict__ ys_f, const float* __restrict__ ys_b,
     const float* __restrict__ dhg_f, const float* __restrict__ dhg_b,
-    int B, int L, int split_rows, float* __restrict__ part) {
+    int K, int B, int L, int split_rows, float* __restrict__ part) {
   constexpr int kPer = kWR * kWM / kWThreads;   // elements per thread
   constexpr int kRowStep = kWThreads / kWM;     // rows apart of those
   __shared__ __align__(16) float a_s[kWR][kWM];
   __shared__ __align__(16) float b_s[kWR][kWN];
-  const int splits = gridDim.z / 2;
-  const int dir = blockIdx.z / splits, split = blockIdx.z % splits;
-  const float* ys = dir == 0 ? ys_f : ys_b;
-  const float* dg = dir == 0 ? dhg_f : dhg_b;
+  // blockIdx.z = (configuration, direction, split), each configuration's
+  // B L rows split on their own
+  const int splits = gridDim.z / (2 * K);
+  const int cfg = blockIdx.z / (2 * splits);
+  const int dir = blockIdx.z / splits % 2, split = blockIdx.z % splits;
+  const long long base = (long long)cfg * B * L;
+  const float* ys = (dir == 0 ? ys_f : ys_b) + base * kH;
+  const float* dg = (dir == 0 ? dhg_f : dhg_b) + base * kG;
   const int shift = dir == 0 ? -1 : 1;
   const int R = B * L;
   const int k0 = blockIdx.y * kWM, j0 = blockIdx.x * kWN;
@@ -454,11 +471,12 @@ __global__ void __launch_bounds__(kWThreads) bigru_wgrad_kernel(
     }
 }
 
-// dwb[dir][e] = sum over splits of part[dir][split][e], in split order
+// dwb[g][e] = sum over splits of part[g][split][e], in split order, g =
+// (configuration, direction)
 __global__ void bigru_wgrad_reduce(const float* __restrict__ part,
                                    int splits, float* __restrict__ dwb) {
   constexpr int E = (kH + 1) * kG;
-  const int dir = blockIdx.y;
+  const int dir = blockIdx.y;   // (configuration, direction)
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const float* p = part + (long long)dir * splits * E + e;
@@ -470,20 +488,21 @@ __global__ void bigru_wgrad_reduce(const float* __restrict__ part,
 template <int BT>
 int launch(const float* xg_f, const float* xg_b, const float* hg_f,
            const float* hg_b, const float* w_f, const float* w_b,
-           long long w_f_s0, long long w_f_s1, long long w_b_s0,
-           long long w_b_s1, const float* mask, const float* ys_f,
-           const float* ys_b, const float* dy_f, const float* dy_b,
-           float* dxg_f, float* dxg_b, float* dhg_f, float* dhg_b, int B,
-           int L, cudaStream_t st) {
+           long long w_f_sk, long long w_f_s0, long long w_f_s1,
+           long long w_b_sk, long long w_b_s0, long long w_b_s1,
+           const float* mask, const float* ys_f, const float* ys_b,
+           const float* dy_f, const float* dy_b, float* dxg_f, float* dxg_b,
+           float* dhg_f, float* dhg_b, int K, int B, int L, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (2 * BT * 3 * kRow + kRing * (BT * kPerRow + 8));
   auto kernel = bigru_bwd_kernel<BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(2, (B + BT - 1) / BT), kThreads, smem, st>>>(
-      xg_f, xg_b, hg_f, hg_b, w_f, w_b, w_f_s0, w_f_s1, w_b_s0, w_b_s1, mask,
-      ys_f, ys_b, dy_f, dy_b, dxg_f, dxg_b, dhg_f, dhg_b, B, L);
+  kernel<<<dim3(2, (B + BT - 1) / BT, K), kThreads, smem, st>>>(
+      xg_f, xg_b, hg_f, hg_b, w_f, w_b, w_f_sk, w_f_s0, w_f_s1, w_b_sk,
+      w_b_s0, w_b_s1, mask, ys_f, ys_b, dy_f, dy_b, dxg_f, dxg_b, dhg_f,
+      dhg_b, B, L);
   return (int)cudaGetLastError();
 }
 
@@ -492,23 +511,25 @@ int launch(const float* xg_f, const float* xg_b, const float* hg_f,
 extern "C" int bigru_bwd(const float* xg_f, const float* xg_b,
                          const float* hg_f, const float* hg_b,
                          const float* w_f, const float* w_b,
-                         long long w_f_s0, long long w_f_s1,
+                         long long w_f_sk, long long w_f_s0,
+                         long long w_f_s1, long long w_b_sk,
                          long long w_b_s0, long long w_b_s1,
                          const float* mask, const float* ys_f,
                          const float* ys_b, const float* dy_f,
                          const float* dy_b, float* dxg_f, float* dxg_b,
                          float* dhg_f, float* dhg_b, float* part, float* dwb,
-                         int B, int L, int H, int BT, int split_rows,
+                         int K, int B, int L, int H, int BT, int split_rows,
                          void* stream) {
-  if (H != kH || split_rows <= 0) return (int)cudaErrorInvalidValue;
+  if (H != kH || split_rows <= 0 || K <= 0 || K > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int err;
   switch (BT) {
 #define BIGRU_BWD_CASE(N)                                                     \
   case N:                                                                     \
-    err = launch<N>(xg_f, xg_b, hg_f, hg_b, w_f, w_b, w_f_s0, w_f_s1, w_b_s0, \
-                    w_b_s1, mask, ys_f, ys_b, dy_f, dy_b, dxg_f, dxg_b,       \
-                    dhg_f, dhg_b, B, L, st);                                  \
+    err = launch<N>(xg_f, xg_b, hg_f, hg_b, w_f, w_b, w_f_sk, w_f_s0, w_f_s1, \
+                    w_b_sk, w_b_s0, w_b_s1, mask, ys_f, ys_b, dy_f, dy_b,     \
+                    dxg_f, dxg_b, dhg_f, dhg_b, K, B, L, st);                 \
     break;
     BIGRU_BWD_CASE(1)
     BIGRU_BWD_CASE(2)
@@ -519,14 +540,15 @@ extern "C" int bigru_bwd(const float* xg_f, const float* xg_b,
   }
   if (err != cudaSuccess) return err;
   const int splits = (B * L + split_rows - 1) / split_rows;
+  if ((long long)K * 2 * splits > 65535) return (int)cudaErrorInvalidValue;
   bigru_wgrad_kernel<<<dim3((kG + kWN - 1) / kWN, (kH + 1 + kWM - 1) / kWM,
-                            2 * splits),
-                       kWThreads, 0, st>>>(ys_f, ys_b, dhg_f, dhg_b, B, L,
+                            K * 2 * splits),
+                       kWThreads, 0, st>>>(ys_f, ys_b, dhg_f, dhg_b, K, B, L,
                                            split_rows, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   constexpr int E = (kH + 1) * kG;
-  bigru_wgrad_reduce<<<dim3((E + 255) / 256, 2), 256, 0, st>>>(part, splits,
-                                                               dwb);
+  bigru_wgrad_reduce<<<dim3((E + 255) / 256, 2 * K), 256, 0, st>>>(
+      part, splits, dwb);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,13 @@
 //   kDepth steps, which one more warp fetches with cp.async while the others
 //   compute, so the recurrence's warps make no copies.
 //
+// Config axis (the grouped sweep's K stacked configurations): xg, ys and
+// hg hold K blocks of B rows, W_hh and b_hh K copies (W_hh's config
+// stride given, 0 for one shared copy; b_hh contiguous), the mask is
+// shared.  Grid z is the configuration, so a block's rows are one
+// configuration's and it keeps that configuration's W_hh in registers;
+// K = 1 is a run alone.
+//
 // C interface: pointers are device pointers; the stream is the caller's.
 // hg_f / hg_b are null in serve mode.  Returns cudaErrorInvalidValue for an
 // H or BT the kernel does not take, else cudaGetLastError() after the launch.
@@ -133,13 +140,14 @@ __device__ __forceinline__ void reduce_rows(float (&v)[3 * BT]) {
   }
 }
 
-// xg rows and mask values of time t for the block's rows, into one slot
+// xg rows (from row g0 of the K B rows) and mask values (from row b0 of
+// the shared B) of time t for the block's rows, into one slot
 template <int BT>
 __device__ __forceinline__ void fetch(float* slot, const float* xg,
-                                      const float* mask, int b0, int nb,
-                                      int t, int L, int lane) {
+                                      const float* mask, int g0, int b0,
+                                      int nb, int t, int L, int lane) {
   for (int r = 0; r < nb; ++r) {
-    const float* src = xg + ((long long)(b0 + r) * L + t) * kG;
+    const float* src = xg + ((long long)(g0 + r) * L + t) * kG;
     for (int v = 4 * lane; v < kG; v += 4 * 32)
       cp_async16(slot + r * kG + v, src + v);
   }
@@ -152,7 +160,7 @@ __device__ __forceinline__ void fetch(float* slot, const float* xg,
 template <int BT, bool kTrain, int kDir>
 __device__ __forceinline__ void fwd_walk(
     const float* __restrict__ xg, const float* __restrict__ w,
-    const float* __restrict__ bias, long long s0, long long s1,
+    const float* __restrict__ bias, long long sk, long long s0, long long s1,
     const float* __restrict__ mask, float* __restrict__ ys,
     float* __restrict__ hg, int B, int L) {
   constexpr int kSlot = BT * kG + 8;
@@ -160,8 +168,11 @@ __device__ __forceinline__ void fwd_walk(
   float* h_s = smem;                      // [2][BT][kRow]
   float* ring = smem + 2 * BT * kRow;     // [kRing][kSlot]
 
+  // rows b0 .. b0 + nb of configuration blockIdx.z: rows g0 .. of xg, ys
+  // and hg
   const int b0 = blockIdx.y * BT;
   const int nb = min(BT, B - b0);
+  const int g0 = blockIdx.z * B + b0;
   const int tid = threadIdx.x;
   auto time_of = [L](int step) { return kDir == 0 ? step : L - 1 - step; };
 
@@ -173,7 +184,8 @@ __device__ __forceinline__ void fwd_walk(
     const int lane = tid - kCompute;
     for (int q = 0; q < kDepth; ++q) {
       if (q < L)
-        fetch<BT>(ring + q * kSlot, xg, mask, b0, nb, time_of(q), L, lane);
+        fetch<BT>(ring + q * kSlot, xg, mask, g0, b0, nb, time_of(q), L,
+                  lane);
       cp_commit();
     }
     cp_wait<kDepth - 1>();
@@ -181,8 +193,8 @@ __device__ __forceinline__ void fwd_walk(
     for (int step = 0; step < L; ++step) {
       const int q = step + kDepth;
       if (q < L)
-        fetch<BT>(ring + (q % kRing) * kSlot, xg, mask, b0, nb, time_of(q),
-                  L, lane);
+        fetch<BT>(ring + (q % kRing) * kSlot, xg, mask, g0, b0, nb,
+                  time_of(q), L, lane);
       cp_commit();
       cp_wait<kDepth - 1>();
       __syncthreads();
@@ -198,7 +210,9 @@ __device__ __forceinline__ void fwd_walk(
 #pragma unroll
     for (int q = 0; q < kK; ++q) {
       const int k = s * kK + q;
-      wr[g][q] = k < kH && i < kH ? w[k * s0 + (g * kH + i) * s1] : 0.0f;
+      wr[g][q] = k < kH && i < kH
+                     ? w[blockIdx.z * sk + k * s0 + (g * kH + i) * s1]
+                     : 0.0f;
     }
   // the lanes that share rows (BT < kS) compute alike; the first stores
   constexpr int kShare = BT >= kS ? 1 : kS / BT;
@@ -245,9 +259,10 @@ __device__ __forceinline__ void fwd_walk(
     if (r < nb && i < kH) {
       const float* x = slot + r * kG;
       const float m = slot[BT * kG + r];
-      const float ghr = acc[0] + __ldg(bias + i);
-      const float ghz = acc[1] + __ldg(bias + kH + i);
-      const float ghn = acc[2] + __ldg(bias + 2 * kH + i);
+      const float* bk = bias + blockIdx.z * kG;
+      const float ghr = acc[0] + __ldg(bk + i);
+      const float ghz = acc[1] + __ldg(bk + kH + i);
+      const float ghn = acc[2] + __ldg(bk + 2 * kH + i);
       const float hprev = hc[r * kRow + hpos];
       const float rg = sigmoidf_(x[i] + ghr);
       const float zg = sigmoidf_(x[kH + i] + ghz);
@@ -255,7 +270,7 @@ __device__ __forceinline__ void fwd_walk(
       const float hnew = (1.0f - zg) * ng + zg * hprev;
       const float hout = m > 0.0f ? hnew : hprev;
       if (writer) {
-        const long long row = (long long)(b0 + r) * L + t;
+        const long long row = (long long)(g0 + r) * L + t;
         hn[r * kRow + hpos] = hout;
         ys[row * kH + i] = hout;
         if (kTrain) {
@@ -274,46 +289,48 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_fwd_kernel(
     const float* __restrict__ xg_f, const float* __restrict__ xg_b,
     const float* __restrict__ w_f, const float* __restrict__ b_f,
     const float* __restrict__ w_b, const float* __restrict__ b_b,
-    long long w_f_s0, long long w_f_s1, long long w_b_s0, long long w_b_s1,
-    const float* __restrict__ mask, float* __restrict__ ys_f,
-    float* __restrict__ ys_b, float* __restrict__ hg_f,
-    float* __restrict__ hg_b, int B, int L) {
+    long long w_f_sk, long long w_f_s0, long long w_f_s1, long long w_b_sk,
+    long long w_b_s0, long long w_b_s1, const float* __restrict__ mask,
+    float* __restrict__ ys_f, float* __restrict__ ys_b,
+    float* __restrict__ hg_f, float* __restrict__ hg_b, int B, int L) {
   if (blockIdx.x == 0)
-    fwd_walk<BT, kTrain, 0>(xg_f, w_f, b_f, w_f_s0, w_f_s1, mask, ys_f, hg_f,
-                            B, L);
+    fwd_walk<BT, kTrain, 0>(xg_f, w_f, b_f, w_f_sk, w_f_s0, w_f_s1, mask,
+                            ys_f, hg_f, B, L);
   else
-    fwd_walk<BT, kTrain, 1>(xg_b, w_b, b_b, w_b_s0, w_b_s1, mask, ys_b, hg_b,
-                            B, L);
+    fwd_walk<BT, kTrain, 1>(xg_b, w_b, b_b, w_b_sk, w_b_s0, w_b_s1, mask,
+                            ys_b, hg_b, B, L);
 }
 
 template <int BT, bool kTrain>
 int launch(const float* xg_f, const float* xg_b, const float* w_f,
            const float* b_f, const float* w_b, const float* b_b,
-           long long w_f_s0, long long w_f_s1, long long w_b_s0,
-           long long w_b_s1, const float* mask, float* ys_f, float* ys_b,
-           float* hg_f, float* hg_b, int B, int L, cudaStream_t st) {
+           long long w_f_sk, long long w_f_s0, long long w_f_s1,
+           long long w_b_sk, long long w_b_s0, long long w_b_s1,
+           const float* mask, float* ys_f, float* ys_b, float* hg_f,
+           float* hg_b, int K, int B, int L, cudaStream_t st) {
   const size_t smem = sizeof(float) * (2 * BT * kRow + kRing * (BT * kG + 8));
   auto kernel = bigru_fwd_kernel<BT, kTrain>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(2, (B + BT - 1) / BT), kThreads, smem, st>>>(
-      xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_s0, w_f_s1, w_b_s0, w_b_s1, mask,
-      ys_f, ys_b, hg_f, hg_b, B, L);
+  kernel<<<dim3(2, (B + BT - 1) / BT, K), kThreads, smem, st>>>(
+      xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, w_f_s0, w_f_s1, w_b_sk, w_b_s0,
+      w_b_s1, mask, ys_f, ys_b, hg_f, hg_b, B, L);
   return (int)cudaGetLastError();
 }
 
 template <bool kTrain>
 int dispatch(int BT, const float* xg_f, const float* xg_b, const float* w_f,
              const float* b_f, const float* w_b, const float* b_b,
-             long long w_f_s0, long long w_f_s1, long long w_b_s0,
-             long long w_b_s1, const float* mask, float* ys_f, float* ys_b,
-             float* hg_f, float* hg_b, int B, int L, cudaStream_t st) {
-#define BIGRU_FWD_CASE(N)                                                    \
-  case N:                                                                    \
-    return launch<N, kTrain>(xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_s0, w_f_s1, \
-                             w_b_s0, w_b_s1, mask, ys_f, ys_b, hg_f, hg_b, B, \
-                             L, st);
+             long long w_f_sk, long long w_f_s0, long long w_f_s1,
+             long long w_b_sk, long long w_b_s0, long long w_b_s1,
+             const float* mask, float* ys_f, float* ys_b, float* hg_f,
+             float* hg_b, int K, int B, int L, cudaStream_t st) {
+#define BIGRU_FWD_CASE(N)                                                  \
+  case N:                                                                  \
+    return launch<N, kTrain>(xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk,       \
+                             w_f_s0, w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, \
+                             ys_f, ys_b, hg_f, hg_b, K, B, L, st);
   switch (BT) {
     BIGRU_FWD_CASE(1)
     BIGRU_FWD_CASE(2)
@@ -329,18 +346,19 @@ int dispatch(int BT, const float* xg_f, const float* xg_b, const float* w_f,
 extern "C" int bigru_fwd(const float* xg_f, const float* xg_b,
                          const float* w_f, const float* b_f,
                          const float* w_b, const float* b_b,
-                         long long w_f_s0, long long w_f_s1,
+                         long long w_f_sk, long long w_f_s0,
+                         long long w_f_s1, long long w_b_sk,
                          long long w_b_s0, long long w_b_s1,
                          const float* mask, float* ys_f, float* ys_b,
-                         float* hg_f, float* hg_b, int B, int L, int H,
-                         int BT, void* stream) {
-  if (H != kH) return (int)cudaErrorInvalidValue;
+                         float* hg_f, float* hg_b, int K, int B, int L,
+                         int H, int BT, void* stream) {
+  if (H != kH || K <= 0 || K > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (hg_f != nullptr)
-    return dispatch<true>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_s0, w_f_s1,
-                          w_b_s0, w_b_s1, mask, ys_f, ys_b, hg_f, hg_b, B, L,
-                          st);
-  return dispatch<false>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_s0, w_f_s1,
-                         w_b_s0, w_b_s1, mask, ys_f, ys_b, hg_f, hg_b, B, L,
-                         st);
+    return dispatch<true>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, w_f_s0,
+                          w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, ys_f, ys_b,
+                          hg_f, hg_b, K, B, L, st);
+  return dispatch<false>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, w_f_s0,
+                         w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, ys_f, ys_b,
+                         hg_f, hg_b, K, B, L, st);
 }

@@ -63,6 +63,17 @@
 // digits, and the port holds kernel D to 1e-4 of each gradient's scale
 // against the plain f32 version.
 //
+// Config axis (the grouped sweep's K stacked configurations), as in
+// gcnii_fwd.cu: the walk's products run the K B dialogues as one batch,
+// their weight operands stepping to the next configuration's copy every B
+// batches, and where the rates differ the dropout's keep threshold and
+// keep scale are read per configuration (philox::Rate; JAX's `dyn`
+// branch, pallas_gcnii_train.py:230-234), with Philox's counter at the
+// dialogue's index within its configuration.  The
+// weight-gradient sums run one batch per (configuration, layer) over that
+// configuration's B N rows only, split as its run alone splits them, so
+// each configuration's dW and LSTM gradients are its run alone's sums.
+//
 // C interface: device pointers to contiguous f32 arrays; the stream is the
 // caller's.  gcnii_bwd runs the whole backward and returns the number of
 // kernels it launched, or minus the CUDA error of the first launch that
@@ -103,9 +114,15 @@ struct Dims {
 // P1: the reason-LSTM gates i, f, g, o of layer l, activated.
 struct P1Gates {
   Dims d;
-  const float* lb;
-  float* gates;   // (B, N, 4H)
+  const float* lb;   // (K, 4H)
+  int Bc;            // dialogues a configuration
+  float* gates;      // (B, N, 4H)
   struct In { float b; };
+  __device__ P1Gates for_batch(int b) const {   // dialogue b's bias
+    P1Gates e = *this;
+    e.lb = lb + (long long)(b / Bc) * 4 * d.H;
+    return e;
+  }
   __device__ In load(int, int, int c) const { return {lb[c]}; }
   __device__ void operator()(int b, int r, int c, float v, In in) const {
     v += in.b;
@@ -134,19 +151,31 @@ struct P3Pre {
   const float* dh;     // the carry: d(layer output)
   const float* theta;  // theta[l]
   float alpha;
-  int drop;
-  unsigned int thresh;
-  float inv_keep;
+  int drop, Bc;
+  philox::Rate rate;
   const long long* seed;
   int first;           // l == nl - 1: dh0 starts here
   float* tdpre;        // layer l's slab
   float* d_hi;
   float* dh0;
-  struct In { float hi, h0, dh, dh0, th; unsigned long long seed; };
+  // set by for_batch, as F3Update's (gcnii_fwd.cu)
+  unsigned int thr;
+  float ik;
+  unsigned long long key;
+  int b0;
+  struct In { float hi, h0, dh, dh0, th; };
+  __device__ P3Pre for_batch(int b) const {
+    P3Pre e = *this;
+    const int k = b / Bc;
+    e.b0 = k * Bc;
+    e.ik = drop ? rate.inv_keep_of(k) : 1.0f;
+    e.thr = drop ? rate.thresh_of(k) : 0u;
+    e.key = drop ? (unsigned long long)*seed : 0ull;
+    return e;
+  }
   __device__ In load(int b, int r, int c) const {
     const long long o = d.o(b, r, c);
-    return {hi[o], h0[o], dh[o], first ? 0.0f : dh0[o], *theta,
-            drop ? (unsigned long long)*seed : 0ull};
+    return {hi[o], h0[o], dh[o], first ? 0.0f : dh0[o], *theta};
   }
   __device__ void operator()(int b, int r, int c, float v, In in) const {
     const long long o = d.o(b, r, c);
@@ -154,8 +183,8 @@ struct P3Pre {
     const float pre =
         th * v + (1.0f - th) * ((1.0f - alpha) * in.hi + alpha * in.h0);
     float g = in.dh;
-    if (drop)
-      g = philox::keep(in.seed, b, d.l, r, c, thresh) ? g * inv_keep : 0.0f;
+    if (drop && ik != 1.0f)   // a keep scale of 1 (rate 0) keeps all
+      g = philox::keep(key, b - b0, d.l, r, c, thr) ? g * ik : 0.0f;
     const float dpre = pre > 0.0f ? g : 0.0f;
     tdpre[o] = th * dpre;
     d_hi[o] = (1.0f - th) * (1.0f - alpha) * dpre;
@@ -305,11 +334,12 @@ cudaError_t reduce(const float* part, int groups, int splits, long long E,
 
 }  // namespace
 
-// The whole backward on `stream`.  Scratch: hi and tdpre (nl, B, N, H);
-// with reason gates (B, N, 4H) and dgates (B, nl, N, 4H); part_w (nl,
-// splits_w, 2H, H) and part_l (splits_l, 2H + 1, 4H).  dh_out is read only;
-// dh, dlh, dlc, d_hi, dh0 and dadj need no initial value.  dl is
-// [dW_ih; dW_hh; db], (2H + 1, 4H), written only with reason.
+// The whole backward on `stream`.  K configurations of Bc dialogues (B =
+// K Bc in all).  Scratch: hi and tdpre (nl, B, N, H); with reason gates
+// (B, N, 4H) and dgates (B, nl, N, 4H); part_w (K, nl, splits_w, 2H, H)
+// and part_l (K, splits_l, 2H + 1, 4H).  dh_out is read only; dh, dlh,
+// dlc, d_hi, dh0 and dadj need no initial value.  dW is (K, nl, 2H, H);
+// dl is [dW_ih; dW_hh; db], (K, 2H + 1, 4H), written only with reason.
 extern "C" int gcnii_bwd(
     const float* adj, const float* h0, const float* W, const float* theta,
     float alpha, const float* res_h, const float* res_lh,
@@ -317,17 +347,22 @@ extern "C" int gcnii_bwd(
     const float* hh, const float* lb, const float* dh_out, float* dh,
     float* dlh, float* dlc, float* d_hi, float* dh0, float* dadj, float* hi,
     float* tdpre, float* gates, float* dgates, float* part_w, float* part_l,
-    float* dW, float* dl, int drop, unsigned int thresh, float inv_keep,
-    const long long* seed, int reason, int nl, int B, int N, int H,
+    float* dW, float* dl, int drop, const unsigned int* thresh_k,
+    const float* inv_keep_k, unsigned int thresh, float inv_keep,
+    const long long* seed, int reason, int nl, int K, int Bc, int N, int H,
     int splits_w, int splits_l, void* stream) {
-  if (H > 128 || B <= 0 || N <= 0 || nl <= 0 || splits_w <= 0 ||
+  if (H > 128 || K <= 0 || Bc <= 0 || N <= 0 || nl <= 0 || splits_w <= 0 ||
       splits_l <= 0)
     return -(int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int G = 4 * H;
+  const int B = K * Bc;   // the dialogues of all configurations
+  const philox::Rate rate{thresh_k, inv_keep_k, thresh, inv_keep};
   const long long NH = (long long)N * H, NN = (long long)N * N;
   const long long RH = (long long)B * NH;
-  const int R = B * N;
+  const long long CH = (long long)Bc * NH;   // a configuration's rows
+  const long long WK = (long long)nl * 2 * H * H, LK = (long long)H * G;
+  const int R = Bc * N;
   int launches = 0;
   cudaError_t err = cudaSuccess;
 #define GCNII_LAUNCH(call)                    \
@@ -349,8 +384,8 @@ extern "C" int gcnii_bwd(
       GCNII_LAUNCH((wide<true, false>(
           gemm::cat(res_h + l * NH, nl * NH, res_lh + l * NH, nl * NH, H, 1,
                     H, true),
-          gemm::cat(ih, 0, hh, 0, 1, G, H, true), N, G, 2 * H, B, 1,
-          P1Gates{d, lb, gates}, st)));
+          gemm::grouped(gemm::cat(ih, 0, hh, 0, 1, G, H, true), Bc, LK, LK),
+          N, G, 2 * H, B, 1, P1Gates{d, lb, Bc, gates}, st)));
     // P2
     GCNII_LAUNCH((narrow100<true, false>(
         gemm::dense(adj, NN, N, 1), gemm::dense(h1, nl * NH, 1, H), N, H, N,
@@ -358,14 +393,15 @@ extern "C" int gcnii_bwd(
     // P3
     GCNII_LAUNCH((narrow100<true, false>(
         gemm::cat(hi_l, NH, h0, NH, H, 1, H, true),
-        gemm::dense(W_l, 0, 1, H), N, H, 2 * H, B,
-        P3Pre{d, hi_l, h0, dh_src, theta + l, alpha, drop, thresh, inv_keep,
-               seed, first, tdpre_l, d_hi, dh0},
+        gemm::grouped(gemm::dense(W_l, 0, 1, H), Bc, WK, WK), N, H, 2 * H, B,
+        P3Pre{d, hi_l, h0, dh_src, theta + l, alpha, drop, Bc, rate, seed,
+               first, tdpre_l, d_hi, dh0},
         st)));
     // P4
     GCNII_LAUNCH((narrow<true, true>(
-        gemm::dense(tdpre_l, NH, H, 1), gemm::dense(W_l, 0, H, 1), N, 2 * H,
-        H, B, P4DProj{{d, d_hi, d_hi, dh0, 1}}, st)));
+        gemm::dense(tdpre_l, NH, H, 1),
+        gemm::grouped(gemm::dense(W_l, 0, H, 1), Bc, WK, WK), N, 2 * H, H, B,
+        P4DProj{{d, d_hi, d_hi, dh0, 1}}, st)));
     // P5
     GCNII_LAUNCH((narrow<true, true>(
         gemm::dense(d_hi, NH, H, 1), gemm::dense(h1, nl * NH, H, 1), N, N, H,
@@ -378,23 +414,30 @@ extern "C" int gcnii_bwd(
       GCNII_LAUNCH((narrow<true, true>(
           gemm::dense(dgates + (long long)l * N * G, (long long)nl * N * G, G,
                       1),
-          gemm::cat(ih, 0, hh, 0, G, 1, H, false), N, 2 * H, G, B,
-          P7LstmIn{{d, dh_src, dh, dlh, 0}}, st)));
+          gemm::grouped(gemm::cat(ih, 0, hh, 0, G, 1, H, false), Bc, LK, LK),
+          N, 2 * H, G, B, P7LstmIn{{d, dh_src, dh, dlh, 0}}, st)));
   }
 
-  // dW[l] = [hi_l | h0]^T tdpre_l, all layers at once, K = B N
+  // dW[k][l] = [hi_l | h0]^T tdpre_l over configuration k's R = Bc N
+  // rows, every (k, l) at once: batch z = k nl + l starts at layer l's
+  // slab, row k Bc N (a group stride CH - nl RH every nl batches; h0's
+  // CH)
   GCNII_LAUNCH((wide<false, false>(
-      gemm::cat(hi, RH, h0, 0, 1, H, H, false), gemm::dense(tdpre, RH, 1, H),
-      2 * H, H, R, nl, splits_w, WgradW{{part_w, 2 * H, H}}, st)));
-  GCNII_LAUNCH(reduce(part_w, nl, splits_w, 2LL * H * H, dW, st));
+      gemm::grouped(gemm::cat(hi, RH, h0, 0, 1, H, H, false), nl,
+                    CH - nl * RH, CH),
+      gemm::grouped(gemm::dense(tdpre, RH, 1, H), nl, CH - nl * RH,
+                    CH - nl * RH),
+      2 * H, H, R, K * nl, splits_w, WgradW{{part_w, 2 * H, H}}, st)));
+  GCNII_LAUNCH(reduce(part_w, K * nl, splits_w, 2LL * H * H, dW, st));
   if (reason) {
-    // [dW_ih; dW_hh; db] = [h | lh | 1]^T dgates over all B nl N rows
-    Operand A = gemm::cat(res_h, 0, res_lh, 0, 1, H, H, false);
+    // [dW_ih; dW_hh; db][k] = [h | lh | 1]^T dgates over configuration k's
+    // Bc nl N rows
+    Operand A = gemm::cat(res_h, nl * CH, res_lh, nl * CH, 1, H, H, false);
     A.one_row = 2 * H;
     GCNII_LAUNCH((wide<false, false>(
-        A, gemm::dense(dgates, 0, 1, G), 2 * H + 1, G, R * nl, 1, splits_l,
-        WgradLstm{{part_l, 2 * H + 1, G}}, st)));
-    GCNII_LAUNCH(reduce(part_l, 1, splits_l, (2LL * H + 1) * G, dl, st));
+        A, gemm::dense(dgates, (long long)Bc * nl * N * G, 1, G), 2 * H + 1,
+        G, R * nl, K, splits_l, WgradLstm{{part_l, 2 * H + 1, G}}, st)));
+    GCNII_LAUNCH(reduce(part_l, K, splits_l, (2LL * H + 1) * G, dl, st));
   }
 #undef GCNII_LAUNCH
   return launches;

@@ -114,6 +114,22 @@
 // the products run at ~20% of the 16 SMs' f32 rate; F1, the LSTM gates
 // (80% of the FLOPs), takes about half the time.
 //
+// Config axis (the grouped sweep's K stacked configurations): the per-
+// dialogue arrays hold K blocks of B dialogues, W, [W_ih; W_hh; b] (and
+// ih, hh, lb) K contiguous copies, theta and the seed are shared.  Every
+// design runs the K B dialogues as one batch: a product's weight operand
+// steps to the next configuration's copy every B batches (gemm::grouped),
+// the resident design's cluster and the row-wise block find theirs from
+// the dialogue index.  Where the rates differ, the dropout's keep
+// threshold and keep scale are read from device memory, one per
+// configuration (philox::Rate; JAX's `dyn` branch,
+// pallas_gcnii_train.py:143-147), else passed by value; a launch with no
+// batch past the first configuration runs the products compiled without
+// the group term (gemm_f32.cuh).  A keep scale of exactly 1 (rate 0)
+// keeps every element without a draw (:160); and Philox's counter takes
+// the dialogue's index within its configuration, so that configuration k
+// draws its run alone's bits.  K = 1 is a run alone.
+//
 // C interface: device pointers to contiguous f32 arrays; the stream is the
 // caller's.  gcnii_fwd runs the whole stack and returns the number of
 // kernels it launched, or minus the CUDA error of the first launch that
@@ -151,12 +167,19 @@ struct View {
 // F1: the chunk at column c holds the gates i, f, g, o of channel c / 4
 // (before their bias); the LSTM cell.
 struct F1Cell : gemm::Chunk4 {
-  const float* bias;   // (4H), interleaved as the weights
+  const float* bias;   // (4H) a configuration, interleaved as the weights
+  long long bias_ks;   // the next configuration's bias: bias_ks further
+  int Bc;              // dialogues a configuration
   View lc;             // the pre-layer cell state
   View h1;             // the layer's LSTM output
   View lh_next;        // the next layer's pre-layer lh (= h1)
   View lc_next;        // and lc; in serve mode lc itself
   struct In { float bi, bf, bg, bo, lc; };
+  __device__ F1Cell for_batch(int b) const {   // dialogue b's bias
+    F1Cell e = *this;
+    e.bias = bias + (b / Bc) * bias_ks;
+    return e;
+  }
   __device__ In load(int b, int r, int c) const {
     return {bias[c], bias[c + 1], bias[c + 2], bias[c + 3],
             *lc.at(b, r, c / 4)};
@@ -194,23 +217,37 @@ struct F3Update {
                        // layer's h1 residual (= its h)
   const float* theta;  // theta[l]
   float alpha;
-  int l, N, H, reason, drop;
-  unsigned int thresh;
-  float inv_keep;
+  int l, N, H, reason, drop, Bc;
+  philox::Rate rate;
   const long long* seed;
-  struct In { float hi, h0, q, th; unsigned long long seed; };
+  // set by for_batch: the dialogue's configuration's threshold and scale,
+  // the step seed, and the configuration's first dialogue (Philox counts
+  // the dialogues of a configuration)
+  unsigned int thr;
+  float ik;
+  unsigned long long key;
+  int b0;
+  struct In { float hi, h0, q, th; };
+  __device__ F3Update for_batch(int b) const {
+    F3Update e = *this;
+    const int k = b / Bc;
+    e.b0 = k * Bc;
+    e.ik = drop ? rate.inv_keep_of(k) : 1.0f;
+    e.thr = drop ? rate.thresh_of(k) : 0u;
+    e.key = drop ? (unsigned long long)*seed : 0ull;
+    return e;
+  }
   __device__ In load(int b, int r, int c) const {
     const long long o = ((long long)b * N + r) * H + c;
-    return {hi[o], h0[o], reason ? *q.at(b, r, c) : 0.0f, *theta,
-            drop ? (unsigned long long)*seed : 0ull};
+    return {hi[o], h0[o], reason ? *q.at(b, r, c) : 0.0f, *theta};
   }
   __device__ void operator()(int b, int r, int c, float v, In in) const {
     const float th = in.th;
     const float pre =   // as P3Pre (gcnii_bwd.cu) forms it
         th * v + (1.0f - th) * ((1.0f - alpha) * in.hi + alpha * in.h0);
     float hn = fmaxf(pre, 0.0f);
-    if (drop)
-      hn = philox::keep(in.seed, b, l, r, c, thresh) ? hn * inv_keep : 0.0f;
+    if (drop && ik != 1.0f)   // a keep scale of 1 (rate 0) keeps all
+      hn = philox::keep(key, b - b0, l, r, c, thr) ? hn * ik : 0.0f;
     if (reason) hn += in.q;
     *out.at(b, r, c) = hn;
     if (h1_next.p) *h1_next.at(b, r, c) = hn;
@@ -249,8 +286,8 @@ __global__ void __launch_bounds__(kTX * kTY) gcnii_layer_kernel(
     int do_lstm, int reason, int N, int H, int l_conv, int l_lstm, int nl,
     float* __restrict__ res_h, float* __restrict__ res_lh,
     float* __restrict__ res_lc, float* __restrict__ res_h1, int drop,
-    unsigned int thresh, float inv_keep,
-    const long long* __restrict__ seed_ptr) {
+    const philox::Rate rate, const long long* __restrict__ seed_ptr,
+    int Bc) {
   __shared__ float adj_s[kR][kKC];
   __shared__ float h1_s[kKC][kHMax];
   __shared__ float hi_s[kR][kHMax];
@@ -267,6 +304,13 @@ __global__ void __launch_bounds__(kTX * kTY) gcnii_layer_kernel(
   const long long base = (long long)b * N * H;
   const float* A = adj + (long long)b * N * N;
   const bool store = res_h != nullptr;
+  // this dialogue's configuration: its weights, rate and Philox index
+  const int kc = b / Bc, bl = b - kc * Bc;
+  w1 += (long long)kc * nl * 2 * H * H;
+  w2 += (long long)kc * nl * 2 * H * H;
+  ih += (long long)kc * H * 4 * H;
+  hh += (long long)kc * H * 4 * H;
+  lb += (long long)kc * 4 * H;
 
   if (do_conv) {
     float acc[kRT];
@@ -306,6 +350,8 @@ __global__ void __launch_bounds__(kTX * kTY) gcnii_layer_kernel(
     const float theta = *theta_l;
     const unsigned long long seed =
         drop ? (unsigned long long)*seed_ptr : 0ull;
+    const float inv_keep = drop ? rate.inv_keep_of(kc) : 1.0f;
+    const unsigned int thresh = drop ? rate.thresh_of(kc) : 0u;
     if (c < H) {
 #pragma unroll
       for (int q = 0; q < kRT; ++q) {
@@ -317,9 +363,10 @@ __global__ void __launch_bounds__(kTX * kTY) gcnii_layer_kernel(
             sup += hi_s[r][k] * w1[k * H + c] + h0_s[r][k] * w2[k * H + c];
           const float rr = (1.0f - alpha) * hi_s[r][c] + alpha * h0_s[r][c];
           hn = fmaxf(theta * sup + (1.0f - theta) * rr, 0.0f);
-          if (drop)
-            hn = philox::keep(seed, b, l_conv, row, c, thresh) ? hn * inv_keep
-                                                               : 0.0f;
+          if (drop && inv_keep != 1.0f)
+            hn = philox::keep(seed, bl, l_conv, row, c, thresh)
+                     ? hn * inv_keep
+                     : 0.0f;
           const long long o = base + (long long)row * H + c;
           if (store) {
             const long long ro =
@@ -414,10 +461,9 @@ struct ResidentArgs {
   float* out;
   float *res_h, *res_lh, *res_lc, *res_h1;   // null outside training mode
   int drop;
-  unsigned int thresh;
-  float inv_keep;
+  philox::Rate rate;
   const long long* seed;
-  int reason, nl, N, H;
+  int reason, nl, Bc, N, H;     // Bc: dialogues a configuration
 };
 
 // The k splits of a product over R rows: the most (a power of two, up to
@@ -488,6 +534,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q = (int)cl.block_rank(), C = (int)cl.num_blocks();
   const int b = blockIdx.y, tid = threadIdx.x, lane = tid % 32;
   const int N = a.N, H = a.H, NP = padded_rows(N), K2 = 2 * H;
+  // this dialogue's configuration: its weights, rate and Philox index
+  const int kc = b / a.Bc, bl = b - kc * a.Bc;
+  const float* Wk = a.W + (long long)kc * a.nl * K2 * H;
   // this CTA's channels [c0, c0 + S): H split as evenly as C allows
   const int base = H / C, extra = H % C;
   const int c0 = q * base + min(q, extra), S = base + (q < extra);
@@ -512,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool train = a.res_h != nullptr;
   // W[l]'s slice by cp.async (pad columns zero-filled)
   auto fetch_w = [&](int l) {
-    const float* src = a.W + (long long)l * K2 * H + c0;
+    const float* src = Wk + (long long)l * K2 * H + c0;
     float* dst = l % 2 ? Wc1 : Wc0;
     for (int e = tid; e < K2 * kSP; e += kThreads) {
       const int k = e / kSP, j = e % kSP;
@@ -535,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   if (a.reason) {   // gate column 4c + u of the interleaved weights
-    const float* src = a.wl + 4 * c0;
+    const float* src = a.wl + (long long)kc * (K2 + 1) * 4 * H + 4 * c0;
     for (int e = tid; e < (K2 + 1) * 4 * kSP; e += kThreads) {
       const int k = e / (4 * kSP), m = e % (4 * kSP);
       gemm::cp_async4(Wl + e, m / 4 < S ? src + (long long)k * 4 * H + m : src,
@@ -552,6 +601,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   fetch_w(0);
   const unsigned long long seed =
       a.drop ? (unsigned long long)*a.seed : 0ull;
+  const float inv_keep = a.drop ? a.rate.inv_keep_of(kc) : 1.0f;
+  const unsigned int thresh = a.drop ? a.rate.thresh_of(kc) : 0u;
   gemm::cp_async_wait<0>();
   cl.sync();   // every CTA's state is in place before the first gather
 
@@ -775,9 +826,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                   th * acc[4 * i + j] +
                   (1.0f - th) * ((1.0f - alpha) * hiS[e] + alpha * h0S[e]);
               float hn = fmaxf(pre, 0.0f);
-              if (a.drop && cj < S)
-                hn = philox::keep(seed, b, l, r + i, c0 + cj, a.thresh)
-                         ? hn * a.inv_keep
+              if (a.drop && inv_keep != 1.0f && cj < S)
+                hn = philox::keep(seed, bl, l, r + i, c0 + cj, thresh)
+                         ? hn * inv_keep
                          : 0.0f;
               if (a.reason) hn += hS[e];
               hS[e] = hn;
@@ -881,12 +932,15 @@ extern "C" int gcnii_fwd(
     const float* theta, float alpha, const float* wl, const float* ih,
     const float* hh, const float* lb, float* out, float* scratch,
     float* res_h, float* res_lh, float* res_lc, float* res_h1, int drop,
+    const unsigned int* thresh_k, const float* inv_keep_k,
     unsigned int thresh, float inv_keep, const long long* seed, int reason,
-    int design, int nl, int B, int N, int H, void* stream) {
-  if (H > kHMax || B <= 0 || N <= 0 || nl <= 0 ||
+    int design, int nl, int K, int Bc, int N, int H, void* stream) {
+  if (H > kHMax || K <= 0 || Bc <= 0 || N <= 0 || nl <= 0 ||
       (design != kTiled && design != kRowwise && design != kResident))
     return -(int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int B = K * Bc;   // the dialogues of all configurations
+  const philox::Rate rate{thresh_k, inv_keep_k, thresh, inv_keep};
   const long long NH = (long long)N * H, NN = (long long)N * N;
   const long long RH = (long long)B * NH;
   const bool train = res_h != nullptr;
@@ -900,10 +954,10 @@ extern "C" int gcnii_fwd(
   } while (0)
 
   if (design == kResident) {
-    const ResidentArgs a{adj,    h,      h0,     W,      theta,  wl,
-                         alpha,  out,    res_h,  res_lh, res_lc, res_h1,
-                         drop,   thresh, inv_keep, seed, reason, nl,
-                         N,      H};
+    const ResidentArgs a{adj,   h,     h0,     W,      theta,  wl,
+                         alpha, out,   res_h,  res_lh, res_lc, res_h1,
+                         drop,  rate,  seed,   reason, nl,     Bc,
+                         N,     H};
     GCNII_LAUNCH(resident(a, B, st));
     return launches;
   }
@@ -923,8 +977,8 @@ extern "C" int gcnii_fwd(
       gcnii_layer_kernel<<<grid, block, 0, st>>>(
           adj, h0, w1, w1 + (long long)H * H, theta + lw, alpha, out, h1_in,
           out, h1_out, lh, lc, ih, hh, lb, do_conv, do_lstm, reason, N, H,
-          lw, l + 1, nl, res_h, res_lh, res_lc, res_h1, drop, thresh,
-          inv_keep, seed);
+          lw, l + 1, nl, res_h, res_lh, res_lc, res_h1, drop, rate, seed,
+          Bc);
       return cudaGetLastError();
     };
     const float* h1_src = h;   // without reason h1_0 = h, read only
@@ -963,6 +1017,8 @@ extern "C" int gcnii_fwd(
     if (reason) {
       F1Cell f1{};
       f1.bias = wl + 2LL * H * G;
+      f1.bias_ks = (2LL * H + 1) * G;
+      f1.Bc = Bc;
       View lh_l;
       if (train) {
         lh_l = slab(res_lh, l);
@@ -978,7 +1034,8 @@ extern "C" int gcnii_fwd(
       }
       const Operand A =
           gemm::cat(h_l.p, h_l.bs, lh_l.p, lh_l.bs, H, 1, H, true);
-      const Operand Bw = gemm::dense(wl, 0, 1, G);
+      const Operand Bw = gemm::grouped(gemm::dense(wl, 0, 1, G), Bc,
+                                       (2LL * H + 1) * G, (2LL * H + 1) * G);
       GCNII_LAUNCH(wide(A, Bw, N, G, 2 * H, B, f1, st));
     }
     {   // F2
@@ -989,12 +1046,14 @@ extern "C" int gcnii_fwd(
     }
     {   // F3
       const Operand A = gemm::cat(hi, NH, h0, NH, H, 1, H, true);
-      const Operand Bw = gemm::dense(W + (long long)l * 2 * H * H, 0, 1, H);
+      const long long wk = (long long)nl * 2 * H * H;   // a configuration's W
+      const Operand Bw = gemm::grouped(
+          gemm::dense(W + (long long)l * 2 * H * H, 0, 1, H), Bc, wk, wk);
       const F3Update f3{hi, h0, h_l, h_next,
                         train && !reason && !last ? slab(res_h1, l + 1)
                                                   : none,
-                        theta + l, alpha, l, N, H, reason, drop, thresh,
-                        inv_keep, seed};
+                        theta + l, alpha, l, N, H, reason, drop, Bc, rate,
+                        seed};
       GCNII_LAUNCH(narrow100(A, Bw, N, H, 2 * H, B, f3, st));
     }
   }

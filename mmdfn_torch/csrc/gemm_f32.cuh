@@ -9,7 +9,13 @@
 // pointer from index `split` on ([h | lh], [W_ih; W_hh]), and may have one
 // row of ones (the bias row of a weight gradient).  z indexes a batch
 // (one dialogue, or one layer); blockIdx.z = z * splits + s, where split s
-// of a split-K product sums k in [s kchunk, (s + 1) kchunk).
+// of a split-K product sums k in [s kchunk, (s + 1) kchunk).  Batch z of a
+// segment starts at p + z bs + (z / zg) gs: a group stride gs every zg
+// batches (a configuration's weights, shared by its dialogues, under the
+// grouped sweep's config axis; gs = 0 without one).  A block computes its
+// batch's group z / zg once and passes it to every load; a launch whose
+// batches all lie in group 0 (a run alone) runs the kernel compiled
+// without the group term.
 //
 // Tiling: a block computes a BM x BN tile; 8-deep slices of both operands
 // are staged k-major in shared memory through a ring of three slices
@@ -23,7 +29,9 @@
 // element inside M x N.  An epilogue derived from Chunk4 is called once
 // per 4-wide chunk of a thread's columns instead, with c the chunk's first
 // column (a multiple of 4) and acc a float4 of columns c .. c + 3; N must
-// be a multiple of 4.
+// be a multiple of 4.  An epilogue may resolve what depends on its batch
+// alone (a configuration's weights or rate) once a block, in a method
+// `Epi for_batch(int z) const`; without one it is used as given.
 
 #pragma once
 
@@ -54,24 +62,28 @@ struct Operand {
   int split;            // where segment 1 starts; a large value: never
   int split_k;          // 1: split along k; 0: along the rows
   int one_row;          // a row that reads 1.0; -1: none
+  int zg;               // batches a group
+  long long gs0, gs1;   // group strides of the segments (elements)
 
-  __device__ __forceinline__ const float* at(int z, int r, int k) const {
+  // element (r, k) of batch z, whose group is zgrp = z / zg
+  __device__ __forceinline__ const float* at(int z, int zgrp, int r,
+                                             int k) const {
     if (r == one_row) return &kOne;
     const float* p = p0;
-    long long bs = bs0;
+    long long bs = bs0, gs = gs0;
     if (split_k) {
-      if (k >= split) { p = p1; bs = bs1; k -= split; }
+      if (k >= split) { p = p1; bs = bs1; gs = gs1; k -= split; }
     } else if (r >= split) {
-      p = p1; bs = bs1; r -= split;
+      p = p1; bs = bs1; gs = gs1; r -= split;
     }
-    return p + z * bs + r * rs + k * ks;
+    return p + z * bs + zgrp * gs + r * rs + k * ks;
   }
 };
 
 // A dense operand: element (r, k) at p + z bs + r rs + k ks.
 inline Operand dense(const float* p, long long bs, long long rs,
                      long long ks) {
-  return Operand{p, p, bs, bs, rs, ks, 1 << 30, 0, -1};
+  return Operand{p, p, bs, bs, rs, ks, 1 << 30, 0, -1, 1, 0, 0};
 }
 
 // Two operands side by side along k (split_k) or stacked along the rows,
@@ -79,7 +91,17 @@ inline Operand dense(const float* p, long long bs, long long rs,
 inline Operand cat(const float* p0, long long bs0, const float* p1,
                    long long bs1, long long rs, long long ks, int split,
                    bool split_k) {
-  return Operand{p0, p1, bs0, bs1, rs, ks, split, split_k ? 1 : 0, -1};
+  return Operand{p0, p1, bs0, bs1, rs, ks, split, split_k ? 1 : 0, -1,
+                 1, 0, 0};
+}
+
+// `o` with a group stride: batch z's segments start gs0 / gs1 further per
+// zg batches.
+inline Operand grouped(Operand o, int zg, long long gs0, long long gs1) {
+  o.zg = zg;
+  o.gs0 = gs0;
+  o.gs1 = gs1;
+  return o;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -107,12 +129,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 // An edge group, element by element (out of line: rare, and kept out of the
 // main loop's code).
 __device__ __noinline__ void load_edge(float* d, int step, const Operand op,
-                                       int z, int gr, int gk, bool kc,
-                                       int nrows, int ke) {
+                                       int z, int zgrp, int gr, int gk,
+                                       bool kc, int nrows, int ke) {
   for (int j = 0; j < 4; ++j) {
     const int rr = kc ? gr : gr + j, kk = kc ? gk + j : gk;
     const bool ok = rr < nrows && kk < ke;
-    cp_async4(d + j * step, ok ? op.at(z, rr, kk) : op.p0, ok ? 4 : 0);
+    cp_async4(d + j * step, ok ? op.at(z, zgrp, rr, kk) : op.p0,
+              ok ? 4 : 0);
   }
 }
 
@@ -127,8 +150,9 @@ __device__ __noinline__ void load_edge(float* d, int step, const Operand op,
 // element.
 template <int ROWS, bool KC, int T>
 __device__ __forceinline__ void load_slice(float* dst, const Operand& op,
-                                           int z, int r0, int nrows, int k0,
-                                           int ke, int tid) {
+                                           int z, int zgrp, int r0,
+                                           int nrows, int k0, int ke,
+                                           int tid) {
   constexpr int S = ROWS + 4;
   constexpr int NG = BK * ROWS / 4;
   static_assert(ROWS % 4 == 0, "rows in groups of 4");
@@ -150,7 +174,7 @@ __device__ __forceinline__ void load_slice(float* dst, const Operand& op,
           !(KC ? gr == op.one_row
                : op.one_row >= gr && op.one_row <= gr + 3);
       if (whole) {
-        const float* src = op.at(z, gr, gk);
+        const float* src = op.at(z, zgrp, gr, gk);
         if (!KC && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
           cp_async16(d, src);
         } else {
@@ -158,16 +182,29 @@ __device__ __forceinline__ void load_slice(float* dst, const Operand& op,
           for (int j = 0; j < 4; ++j) cp_async4(d + j * step, src + j, 4);
         }
       } else {
-        load_edge(d, step, op, z, gr, gk, KC, nrows, ke);
+        load_edge(d, step, op, z, zgrp, gr, gk, KC, nrows, ke);
       }
     }
   }
 }
 
-template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, class Epi>
+template <class Epi>
+__device__ __forceinline__ auto batch_epilogue(const Epi& e, int z, int)
+    -> decltype(e.for_batch(z)) {
+  return e.for_batch(z);
+}
+template <class Epi>
+__device__ __forceinline__ Epi batch_epilogue(const Epi& e, int, long) {
+  return e;
+}
+
+// GROUPED: whether a group stride applies (false: every batch's group is
+// 0, and the loads skip the group term, as for a run alone).
+template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, bool GROUPED,
+          class Epi>
 __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
     gemm_kernel(const Operand A, const Operand B, int M, int N, int K,
-                int splits, int kchunk, const Epi epi) {
+                int splits, int kchunk, const Epi epi_all) {
   constexpr int TN = 8;
   constexpr int TR = BM / TM, TC = BN / TN, T = TR * TC;
   constexpr int SA = BM + 4, SB = BN + 4;
@@ -181,6 +218,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int z = blockIdx.z / splits, s = blockIdx.z % splits;
   const int kb = s * kchunk, ke = min(K, kb + kchunk);
+  const int ga = GROUPED ? z / A.zg : 0, gb = GROUPED ? z / B.zg : 0;
   const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
 
   float acc[TM][TN];
@@ -194,8 +232,8 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < nk) {
-      load_slice<BM, AKC, T>(As[p], A, z, m0, M, kb + p * BK, ke, tid);
-      load_slice<BN, BKC, T>(Bs[p], B, z, n0, N, kb + p * BK, ke, tid);
+      load_slice<BM, AKC, T>(As[p], A, z, ga, m0, M, kb + p * BK, ke, tid);
+      load_slice<BN, BKC, T>(Bs[p], B, z, gb, n0, N, kb + p * BK, ke, tid);
     }
     cp_async_commit();
   }
@@ -205,8 +243,10 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
     {
       const int p = t + STAGES - 1, nb = p % STAGES;
       if (p < nk) {
-        load_slice<BM, AKC, T>(As[nb], A, z, m0, M, kb + p * BK, ke, tid);
-        load_slice<BN, BKC, T>(Bs[nb], B, z, n0, N, kb + p * BK, ke, tid);
+        load_slice<BM, AKC, T>(As[nb], A, z, ga, m0, M, kb + p * BK, ke,
+                               tid);
+        load_slice<BN, BKC, T>(Bs[nb], B, z, gb, n0, N, kb + p * BK, ke,
+                               tid);
       }
       cp_async_commit();
     }
@@ -236,6 +276,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
     }
   }
   cp_async_wait<0>();
+  const Epi epi = batch_epilogue(epi_all, z, 0);
 
   // a row of the register tile at a time: first every global value its
   // epilogue reads, then the epilogue itself (its stores would otherwise
@@ -294,8 +335,15 @@ cudaError_t launch(const Operand& A, const Operand& B, int M, int N, int K,
   int kchunk = (K + splits - 1) / splits;
   kchunk = (kchunk + BK - 1) / BK * BK;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batches * splits);
-  gemm_kernel<BM, BN, TM, AKC, BKC, MINB, Epi>
-      <<<grid, T, 0, st>>>(A, B, M, N, K, splits, kchunk, epi);
+  // a group stride applies only past an operand's first group
+  const bool grouped = ((A.gs0 || A.gs1) && batches > A.zg) ||
+                       ((B.gs0 || B.gs1) && batches > B.zg);
+  if (grouped)
+    gemm_kernel<BM, BN, TM, AKC, BKC, MINB, true, Epi>
+        <<<grid, T, 0, st>>>(A, B, M, N, K, splits, kchunk, epi);
+  else
+    gemm_kernel<BM, BN, TM, AKC, BKC, MINB, false, Epi>
+        <<<grid, T, 0, st>>>(A, B, M, N, K, splits, kchunk, epi);
   return cudaGetLastError();
 }
 

@@ -48,4 +48,21 @@ __device__ __forceinline__ bool keep(unsigned long long seed, int b,
                (uint32_t)(seed >> 32)) < thresh;
 }
 
+// A dropout's keep threshold and keep scale: one for every dialogue (a
+// run alone's rate, passed by value), or one per configuration, read from
+// device memory (the grouped sweep's rates; JAX's `dyn` branch,
+// pallas_gcnii_train.py:143-147).
+struct Rate {
+  const unsigned int* thresh_k;   // (K), or null: thresh
+  const float* inv_keep_k;        // (K), or null: inv_keep
+  unsigned int thresh;
+  float inv_keep;
+  __device__ __forceinline__ unsigned int thresh_of(int k) const {
+    return thresh_k ? thresh_k[k] : thresh;
+  }
+  __device__ __forceinline__ float inv_keep_of(int k) const {
+    return inv_keep_k ? inv_keep_k[k] : inv_keep;
+  }
+};
+
 }  // namespace philox

@@ -9,7 +9,7 @@ gradients to its gradient (a rank of padding alone adds zero to both)."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -21,18 +21,31 @@ def _same(t: Tensor) -> Tensor:
 
 
 def focal_loss(log_probs: Tensor, targets: Tensor, mask: Tensor,
-               gamma: float = 0.0, alpha: Optional[Tensor] = None,
+               gamma: Union[float, Tuple[Sequence[float], Tensor]] = 0.0,
+               alpha: Optional[Tensor] = None,
                global_sum: Callable[[Tensor], Tensor] = _same) -> Tensor:
     """Focal loss over log-probabilities (reference ``FocalLoss``,
     ``code/loss.py:5-34``): ``pt = exp(logpt)`` is detached (the reference
     wraps it in ``Variable(logpt.data.exp())``, so ``(1 - pt)^gamma``
     carries no gradient); per-class ``alpha`` scales ``logpt``; mean over
-    the valid elements."""
+    the valid elements.
+
+    ``gamma`` may be ``(values, index)``: the grouped sweep's gamma per
+    configuration, ``values[index]`` (index an int tensor, 0-d under
+    ``vmap``), each ``(1 - pt) ** value`` computed with its Python
+    exponent, as a run alone computes it, and the configuration's picked."""
     logpt = log_probs.gather(-1, targets[..., None].long())[..., 0]
     pt = logpt.detach().exp()
     if alpha is not None:
         logpt = logpt * alpha[targets.long()]
-    loss = -1.0 * (1.0 - pt) ** gamma * logpt
+    if isinstance(gamma, tuple):
+        values, index = gamma
+        weight = (1.0 - pt) ** values[0]
+        for j, g in enumerate(values[1:], 1):
+            weight = torch.where(index == j, (1.0 - pt) ** g, weight)
+    else:
+        weight = (1.0 - pt) ** gamma
+    loss = -1.0 * weight * logpt
     mask = mask.to(loss.dtype)
     return (loss * mask).sum() / global_sum(mask.sum()).clamp(min=1.0)
 

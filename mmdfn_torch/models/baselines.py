@@ -22,6 +22,7 @@ from torch import nn
 from mmdfn_torch.nn.attention import MatchingAttention, SimpleAttention
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.init import reset_linear
+from mmdfn_torch.nn.linear import Linear
 from mmdfn_torch.nn.rnn import BiRNN, GRUCellStep
 from mmdfn_torch.utils.masking import flip_valid
 
@@ -163,8 +164,8 @@ class _AttHeadModel(nn.Module):
                    dropout: float) -> None:
         self.dropout = dropout
         self.matchatt = MatchingAttention(D_e2, D_e2, att_type="general2")
-        self.linear = nn.Linear(D_e2, D_h)
-        self.smax_fc = nn.Linear(D_h, n_classes)
+        self.linear = Linear(D_e2, D_h)
+        self.smax_fc = Linear(D_h, n_classes)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         _reset_children(self, generator)

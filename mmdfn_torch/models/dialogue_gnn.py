@@ -62,12 +62,16 @@ from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.fusion import LMF, MFN, TFN
 from mmdfn_torch.nn.gcn import GCN2Layers
 from mmdfn_torch.nn.init import reset_linear
+from mmdfn_torch.nn.linear import Linear
 from mmdfn_torch.nn.rnn import BiRNN, crn_party_delta
 
 Tensor = torch.Tensor
 
 GRAPH_TYPES = ("GF", "GDF", "GF2", "DeepGCN", "GCN3", "relation", "None")
 BASES = ("LSTM", "GRU", "DialogRNN", "None")
+# the override tag of every site whose rate is cfg.dropout (JAX's
+# rate_tag="dropout"; nn/drop_override.py): the grouped sweep varies it
+TAG = "dropout"
 GF2_NLAYERS = 64     # MMGCN2's depth, hard-coded upstream (model.py:956)
 
 
@@ -107,13 +111,15 @@ class DialogueGNN(nn.Module):
         dims = {"a": D_m_a or info["D_audio"], "v": D_m_v or info["D_visual"],
                 "l": info["D_text"]}
         for m in self.order:
-            setattr(self, f"linear_{m}", nn.Linear(dims[m], HIDDEN_MODALITY))
+            setattr(self, f"linear_{m}", Linear(dims[m], HIDDEN_MODALITY))
         for m in self.order:
             if lstm and (m == "l" or cfg.av_using_lstm):
                 setattr(self, f"lstm_{m}", BiRNN(HIDDEN_MODALITY, D_E,
-                                                 dropout=cfg.dropout))
+                                                 dropout=cfg.dropout,
+                                                 rate_tag=TAG))
         if self.use_crn_speaker:
-            self.rnn_parties = BiRNN(HIDDEN_MODALITY, D_E, dropout=cfg.dropout)
+            self.rnn_parties = BiRNN(HIDDEN_MODALITY, D_E, dropout=cfg.dropout,
+                                     rate_tag=TAG)
 
         M, n_dim, res = len(self.order), 2 * D_E, cfg.use_residue
         if gt in ("GF", "GDF"):
@@ -123,13 +129,14 @@ class DialogueGNN(nn.Module):
                 reason_flag=cfg.reason_flag and gt == "GDF",
                 modal_weight=cfg.modal_weight, dropout=cfg.dropout,
                 n_speakers=info["n_speakers"], use_speaker=cfg.use_speaker,
-                use_modal=cfg.use_modal, spmm=gcn_spmm)
+                use_modal=cfg.use_modal, spmm=gcn_spmm, rate_tag=TAG)
             feat = M * (n_dim + GRAPH_H if res else GRAPH_H)
         elif gt == "GF2":
             self.graph_model = MMGCN2(
                 n_dim, GF2_NLAYERS, GRAPH_H, lamda=0.5, alpha=0.1,
                 use_residue=res, modals=cfg.modals,
-                graph_construct=cfg.graph_construct, dropout=cfg.dropout)
+                graph_construct=cfg.graph_construct, dropout=cfg.dropout,
+                rate_tag=TAG)
             feat = (n_dim if res else 0) + M * GRAPH_H
         else:
             if gt == "relation":
@@ -142,21 +149,21 @@ class DialogueGNN(nn.Module):
                 net = lambda: DeepGCNII(
                     n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=0.5,
                     alpha=0.1, use_residue=res, reason_flag=cfg.reason_flag,
-                    dropout=cfg.dropout, spmm=gcn_spmm)
+                    dropout=cfg.dropout, spmm=gcn_spmm, rate_tag=TAG)
                 width = n_dim + GRAPH_H if res else GRAPH_H
             elif gt == "GCN3":
                 net = lambda: GCN2Layers(n_dim, GRAPH_H, info["n_classes"],
                                          use_residue=res)
                 width = n_dim + GRAPH_H if res else info["n_classes"]
             else:                                              # 'None'
-                net = lambda: nn.Linear(n_dim, GRAPH_H)
+                net = lambda: Linear(n_dim, GRAPH_H)
                 width = n_dim + GRAPH_H
             for m in self.order:
                 setattr(self, f"graph_net_{m}", net())
             feat = self._fusion_head(width, cfg.modals)
         if self.fusion == "mfn" and gt in ("GF", "GDF", "GF2"):
             feat = self._make_mfn(feat)
-        self.smax_fc = nn.Linear(feat, info["n_classes"])
+        self.smax_fc = Linear(feat, info["n_classes"])
 
     def _single_stream(self, cfg: ExperimentConfig,
                        gcn_spmm: Optional[Callable]) -> None:
@@ -173,36 +180,39 @@ class DialogueGNN(nn.Module):
             M = len(cfg.modals)
             hidden = 250 if M == 3 else (150 if cfg.modals in ("al", "vl")
                                          else 100)
-            self.linear_ = nn.Linear(D_m, hidden)
-            self.lstm = BiRNN(hidden, D_E, dropout=cfg.dropout)
+            self.linear_ = Linear(D_m, hidden)
+            self.lstm = BiRNN(hidden, D_E, dropout=cfg.dropout,
+                              rate_tag=TAG)
             if self.use_crn_speaker:
-                self.rnn_parties = BiRNN(hidden, D_E, dropout=cfg.dropout)
+                self.rnn_parties = BiRNN(hidden, D_E, dropout=cfg.dropout,
+                                         rate_tag=TAG)
         elif base == "GRU":
-            self.gru = BiRNN(D_m, D_E, dropout=cfg.dropout)
+            self.gru = BiRNN(D_m, D_E, dropout=cfg.dropout, rate_tag=TAG)
         elif base == "DialogRNN":
             rnn = lambda: DialogueRNN(D_m, D_G, D_P, D_E, cfg.active_listener,
                                       cfg.attention, D_A, cfg.rec_dropout)
             self.dialog_rnn_f = rnn()
             self.dialog_rnn_r = rnn()
         else:                                                  # 'None'
-            self.base_linear = nn.Linear(D_m, n_dim)
+            self.base_linear = Linear(D_m, n_dim)
         if gt == "relation":
             self.att_model = MaskedEdgeAttention(n_dim, MAX_SEQ_LEN,
                                                  cfg.edge_attn_type)
             self.graph_net = GraphNetwork(
                 n_dim, 2 * info["n_speakers"] ** 2, GRAPH_H, cfg.use_gcn,
                 n_classes=n_classes, nodal_attention=cfg.nodal_attention,
-                dropout=cfg.dropout)
+                dropout=cfg.dropout, rate_tag=TAG)
         elif gt == "DeepGCN":
             self.graph_net = DeepGCNII(
                 n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=cfg.lamda,
                 alpha=cfg.alpha, use_residue=res, reason_flag=cfg.reason_flag,
-                dropout=cfg.dropout, n_classes=n_classes, spmm=gcn_spmm)
+                dropout=cfg.dropout, n_classes=n_classes, spmm=gcn_spmm,
+                rate_tag=TAG)
         elif gt == "GCN3":
             self.graph_net = GCN2Layers(n_dim, GRAPH_H, n_classes,
                                         use_residue=res, return_feature=False)
         else:                                                  # 'None'
-            self.graph_net = nn.Linear(n_dim, n_classes)
+            self.graph_net = Linear(n_dim, n_classes)
 
     def _make_mfn(self, width: int) -> int:
         self.mfn = MFN()
@@ -314,7 +324,8 @@ class DialogueGNN(nn.Module):
         kw = dict(train=train, generator=generator)
         if not self.multi_modal:
             return self._forward_single(text, qmask, umask, **kw)
-        drop = lambda x: dropout(x, self.dropout if train else 0.0, generator)
+        drop = lambda x: dropout(x, self.dropout if train else 0.0, generator,
+                                 TAG)
         emotions = self._encode({"a": audio, "v": visual, "l": text}, qmask,
                                 umask, **kw)
         nets = [getattr(self, f"graph_net_{m}", None) for m in self.order]

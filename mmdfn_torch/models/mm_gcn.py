@@ -17,6 +17,7 @@ from mmdfn_torch.graph.adjacency import (gcnii_block_adjacency,
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.gcn import GCNIIStack
 from mmdfn_torch.nn.init import reset_linear, reset_linears
+from mmdfn_torch.nn.linear import Linear
 
 Tensor = torch.Tensor
 
@@ -39,7 +40,8 @@ class MMGCN(nn.Module):
                  reason_flag: bool = False, modal_weight: float = 1.0,
                  dropout: float = 0.0, n_speakers: int = 2,
                  use_speaker: bool = False, use_modal: bool = False,
-                 spmm: Optional[Callable] = None):
+                 spmm: Optional[Callable] = None,
+                 rate_tag: Optional[str] = None):
         super().__init__()
         if len(modals) < 2:
             raise ValueError("MMGCN needs at least two modalities")
@@ -52,7 +54,8 @@ class MMGCN(nn.Module):
             self.modal_embeddings = nn.Embedding(3, n_dim)
         self.graph_net = GCNIIStack(n_dim, nlayers, nhidden, lamda=lamda,
                                     alpha=alpha, reason_flag=reason_flag,
-                                    dropout=dropout, spmm=spmm)
+                                    dropout=dropout, spmm=spmm,
+                                    rate_tag=rate_tag)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The embeddings N(0, 1) (``nn.Embedding``'s default), then the
@@ -105,10 +108,12 @@ class MMGCN2(GCNIIStack):
     def __init__(self, nfeat: int, nlayers: int, nhidden: int,
                  lamda: float = 0.5, alpha: float = 0.1,
                  use_residue: bool = True, modals: str = "avl",
-                 graph_construct: str = "direct", dropout: float = 0.0):
+                 graph_construct: str = "direct", dropout: float = 0.0,
+                 rate_tag: Optional[str] = None):
         super().__init__(nhidden, nlayers, nhidden, lamda=lamda, alpha=alpha,
                          dropout=dropout, has_fc_in=False,
-                         dropout_mode="before", post_loop_dropout=True)
+                         dropout_mode="before", post_loop_dropout=True,
+                         rate_tag=rate_tag)
         if graph_construct not in ("direct", "single", "window", "fc"):
             raise ValueError(f"graph_construct {graph_construct!r}")
         if use_residue and "l" not in modals:
@@ -116,7 +121,7 @@ class MMGCN2(GCNIIStack):
         self.modals = list(modals)
         self.use_residue = use_residue
         self.graph_construct = graph_construct
-        self.fcs = nn.ModuleDict({str(self._FC_INDEX[m]): nn.Linear(
+        self.fcs = nn.ModuleDict({str(self._FC_INDEX[m]): Linear(
             nfeat, nhidden) for m in sorted(modals, key=self._FC_INDEX.get)})
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -129,7 +134,8 @@ class MMGCN2(GCNIIStack):
         L = umask.shape[1]
         rate = self.dropout if train else 0.0
         encoded = [torch.relu(self.fcs[str(self._FC_INDEX[m])](
-            dropout(feats[m], rate, generator))) for m in self.modals]
+            dropout(feats[m], rate, generator, self.rate_tag)))
+            for m in self.modals]
         if self.graph_construct == "direct":
             adj = mm_big_adjacency([feats[m] for m in self.modals], umask,
                                    variant="arccos", cross_constant=0.99999)
@@ -156,14 +162,15 @@ class DeepGCNII(GCNIIStack):
                  lamda: float = 0.5, alpha: float = 0.1,
                  use_residue: bool = True, reason_flag: bool = False,
                  dropout: float = 0.0, n_classes: Optional[int] = None,
-                 spmm: Optional[Callable] = None):
+                 spmm: Optional[Callable] = None,
+                 rate_tag: Optional[str] = None):
         super().__init__(nfeat, nlayers, nhidden, lamda=lamda, alpha=alpha,
                          reason_flag=reason_flag, dropout=dropout,
                          dropout_mode="none", post_loop_dropout=True,
-                         spmm=spmm)
+                         spmm=spmm, rate_tag=rate_tag)
         self.use_residue = use_residue
         if n_classes is not None:
-            self.fcs.append(nn.Linear(
+            self.fcs.append(Linear(
                 nfeat + nhidden if use_residue else nhidden, n_classes))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

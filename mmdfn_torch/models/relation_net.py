@@ -16,6 +16,7 @@ from mmdfn_torch.nn.attention import MatchingAttention
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.gcn import GCNLayer1
 from mmdfn_torch.nn.init import reset_linears, reset_uniform
+from mmdfn_torch.nn.linear import Linear
 
 Tensor = torch.Tensor
 
@@ -63,7 +64,7 @@ class DenseGraphConv(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        self.lin = nn.Linear(in_features, out_features)
+        self.lin = Linear(in_features, out_features)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -91,7 +92,8 @@ class GraphNetwork(nn.Module):
     def __init__(self, num_features: int, num_relations: int,
                  hidden_size: int = 64, use_GCN: bool = False,
                  n_classes: Optional[int] = None,
-                 nodal_attention: bool = True, dropout: float = 0.0):
+                 nodal_attention: bool = True, dropout: float = 0.0,
+                 rate_tag: Optional[str] = None):
         super().__init__()
         self.conv1 = DenseRGCNConv(num_features, hidden_size, num_relations)
         self.conv2 = DenseGraphConv(hidden_size, hidden_size)
@@ -100,12 +102,13 @@ class GraphNetwork(nn.Module):
             self.conv4 = GCNLayer1(hidden_size, hidden_size)
         if n_classes is not None:
             self.dropout = dropout
+            self.rate_tag = rate_tag
             width = num_features + hidden_size * (2 if use_GCN else 1)
             if nodal_attention:
                 self.matchatt = MatchingAttention(width, width,
                                                   att_type="general2")
-            self.linear = nn.Linear(width, hidden_size)
-            self.smax_fc = nn.Linear(hidden_size, n_classes)
+            self.linear = Linear(width, hidden_size)
+            self.smax_fc = Linear(hidden_size, n_classes)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.conv1.reset_parameters(generator)
@@ -139,6 +142,7 @@ class GraphNetwork(nn.Module):
         if hasattr(self, "matchatt"):
             emotions, _ = self.matchatt(emotions, emotions, umask)
         hidden = dropout(torch.relu(self.linear(emotions)),
-                         self.dropout if train else 0.0, generator)
+                         self.dropout if train else 0.0, generator,
+                         self.rate_tag)
         scores = self.smax_fc(hidden)
         return scores if avec else torch.log_softmax(scores, dim=-1)

@@ -13,6 +13,7 @@ from torch import nn
 
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.init import reset_linears
+from mmdfn_torch.nn.linear import Linear
 
 Tensor = torch.Tensor
 
@@ -31,11 +32,11 @@ class MMGatedAttention(nn.Module):
         self.dropout = dropout
         for m in "avl":
             if m in modals:
-                setattr(self, f"transform_{m}", nn.Linear(mem_dim, cand_dim))
+                setattr(self, f"transform_{m}", Linear(mem_dim, cand_dim))
         for pair in ("av", "al", "vl"):
             if pair[0] in modals and pair[1] in modals:
                 setattr(self, f"transform_{pair}",
-                        nn.Linear(3 * mem_dim, 1))
+                        Linear(3 * mem_dim, 1))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_linears(self, generator)
@@ -60,7 +61,7 @@ class SimpleAttention(nn.Module):
 
     def __init__(self, input_dim: int):
         super().__init__()
-        self.scalar = nn.Linear(input_dim, 1, bias=False)
+        self.scalar = Linear(input_dim, 1, bias=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_linears(self, generator)
@@ -95,12 +96,12 @@ class MatchingAttention(nn.Module):
             raise ValueError(f"att_type {att_type!r}")
         self.att_type = att_type
         if att_type in ("general", "general2"):
-            self.transform = nn.Linear(cand_dim, mem_dim,
+            self.transform = Linear(cand_dim, mem_dim,
                                        bias=att_type == "general2")
         elif att_type == "concat":
-            self.transform = nn.Linear(cand_dim + mem_dim, alpha_dim,
+            self.transform = Linear(cand_dim + mem_dim, alpha_dim,
                                        bias=False)
-            self.vector_prod = nn.Linear(alpha_dim, 1, bias=False)
+            self.vector_prod = Linear(alpha_dim, 1, bias=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_linears(self, generator)
@@ -159,7 +160,7 @@ class MaskedEdgeAttention(nn.Module):
             raise ValueError(f"edge_attn_type {attn_type!r}")
         self.attn_type = attn_type
         if attn_type == "attn1":
-            self.scalar = nn.Linear(input_dim, max_seq_len, bias=False)
+            self.scalar = Linear(input_dim, max_seq_len, bias=False)
         elif attn_type == "attn2":
             self.simpleatt = SimpleAttention(input_dim)
 

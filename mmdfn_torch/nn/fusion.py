@@ -12,6 +12,7 @@ from torch import nn
 
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.init import reset_linears, reset_uniform
+from mmdfn_torch.nn.linear import Linear
 
 Tensor = torch.Tensor
 
@@ -33,14 +34,14 @@ class MFN(nn.Module):
         for m in "lav":
             setattr(self, f"lstm_{m}", nn.LSTMCell(d, dh))
         att_in = 2 * 3 * dh
-        self.att1_fc1 = nn.Linear(att_in, self.h_att)
-        self.att1_fc2 = nn.Linear(self.h_att, att_in)
-        self.att2_fc1 = nn.Linear(att_in, self.h_att)
-        self.att2_fc2 = nn.Linear(self.h_att, self.mem_dim)
-        self.gamma1_fc1 = nn.Linear(att_in + self.mem_dim, self.h_gamma)
-        self.gamma1_fc2 = nn.Linear(self.h_gamma, self.mem_dim)
-        self.gamma2_fc1 = nn.Linear(att_in + self.mem_dim, self.h_gamma)
-        self.gamma2_fc2 = nn.Linear(self.h_gamma, self.mem_dim)
+        self.att1_fc1 = Linear(att_in, self.h_att)
+        self.att1_fc2 = Linear(self.h_att, att_in)
+        self.att2_fc1 = Linear(att_in, self.h_att)
+        self.att2_fc2 = Linear(self.h_att, self.mem_dim)
+        self.gamma1_fc1 = Linear(att_in + self.mem_dim, self.h_gamma)
+        self.gamma1_fc2 = Linear(self.h_gamma, self.mem_dim)
+        self.gamma2_fc1 = Linear(att_in + self.mem_dim, self.h_gamma)
+        self.gamma2_fc2 = Linear(self.h_gamma, self.mem_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """torch defaults: the LSTM cells U(-1/sqrt(dh), .), the linears
@@ -107,12 +108,12 @@ class TFN(nn.Module):
     def __init__(self, input_dim: int):
         super().__init__()
         h = self.hidden
-        self.audio_subnet = nn.Linear(input_dim, h)
-        self.video_subnet = nn.Linear(input_dim, h)
-        self.text_subnet = nn.Linear(input_dim, h)
-        self.post_fusion_layer_1 = nn.Linear((h + 1) ** 3,
+        self.audio_subnet = Linear(input_dim, h)
+        self.video_subnet = Linear(input_dim, h)
+        self.text_subnet = Linear(input_dim, h)
+        self.post_fusion_layer_1 = Linear((h + 1) ** 3,
                                              self.post_fusion_dim)
-        self.post_fusion_layer_2 = nn.Linear(self.post_fusion_dim,
+        self.post_fusion_layer_2 = Linear(self.post_fusion_dim,
                                              self.output_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -141,9 +142,9 @@ class LMF(nn.Module):
     def __init__(self, input_dim: int):
         super().__init__()
         h, out = self.hidden, self.output_dim
-        self.audio_subnet = nn.Linear(input_dim, h)
-        self.video_subnet = nn.Linear(input_dim, h)
-        self.text_subnet = nn.Linear(input_dim, h)
+        self.audio_subnet = Linear(input_dim, h)
+        self.video_subnet = Linear(input_dim, h)
+        self.text_subnet = Linear(input_dim, h)
         for name in ("audio", "video", "text"):
             setattr(self, f"{name}_factor", nn.Parameter(
                 torch.empty(self.rank, h + 1, out)))

@@ -22,9 +22,11 @@ import torch
 from torch import nn
 
 from mmdfn_torch.graph.adjacency import directed_speaker_adjacency
+from mmdfn_torch.nn import drop_override
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.init import reset_linear, reset_linears, reset_uniform
-from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
+from mmdfn_torch.nn.linear import Linear
+from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain, is_batched
 
 Tensor = torch.Tensor
 
@@ -79,7 +81,8 @@ class GCNIIStack(nn.Module):
                  reason_flag: bool = False, dropout: float = 0.0,
                  has_fc_in: bool = True, dropout_mode: str = "after",
                  post_loop_dropout: bool = False,
-                 spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None):
+                 spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+                 rate_tag: Optional[str] = None):
         super().__init__()
         if dropout_mode not in ("after", "before", "none"):
             raise ValueError(f"dropout_mode {dropout_mode!r}")
@@ -96,10 +99,11 @@ class GCNIIStack(nn.Module):
         self.dropout_mode = dropout_mode
         self.post_loop_dropout = post_loop_dropout
         self.spmm = spmm
+        self.rate_tag = rate_tag
         self.relu_inputs: Optional[list] = None
         self._cache = None       # (parameter key, packed weights)
         if has_fc_in:
-            self.fcs = nn.ModuleList([nn.Linear(nfeat, nhidden)])
+            self.fcs = nn.ModuleList([Linear(nfeat, nhidden)])
         self.convs = nn.ModuleList(
             [GraphConvolution(2 * nhidden, nhidden) for _ in range(nlayers)])
         self.rnn = ReasonLSTM(nhidden) if reason_flag else None
@@ -129,9 +133,12 @@ class GCNIIStack(nn.Module):
         params = [c.weight for c in self.convs]
         if self.rnn is not None:
             params += list(self.rnn.parameters())
-        key = tuple((p.data_ptr(), p._version) for p in params)
-        if self._cache is not None and self._cache[0] == key \
-                and not torch.is_grad_enabled():
+        # under torch.func.vmap (the grouped sweep) the parameters are
+        # batched wrappers, with no storage of their own to key on
+        keep = not (torch.is_grad_enabled() or is_batched(params[0]))
+        key = (tuple((p.data_ptr(), p._version) for p in params)
+               if keep else None)
+        if keep and self._cache is not None and self._cache[0] == key:
             return self._cache[1]
         W = torch.stack([conv.weight for conv in self.convs])
         if self.reason_flag:
@@ -141,7 +148,7 @@ class GCNIIStack(nn.Module):
                       r.bias_ih_l0 + r.bias_hh_l0)
         else:
             packed = (W, None, None, None)
-        self._cache = None if torch.is_grad_enabled() else (key, packed)
+        self._cache = (key, packed) if keep else None
         return packed
 
     def forward(self, x: Tensor, adj: Tensor, *, train: bool = False,
@@ -152,10 +159,15 @@ class GCNIIStack(nn.Module):
         and the final hidden state."""
         W, *lstm = self._packed()
         rate = self.dropout if train else 0.0
+        tag = self.rate_tag
+        # under an override (the grouped sweep) the stack always draws, as
+        # JAX's does (mmdfn_tpu/nn/gcn.py:151); kernels B and D then take
+        # each configuration's threshold and keep scale
+        ov = drop_override.get(tag) if generator is not None else None
         if self.has_fc_in:
-            x = dropout(x, rate, generator)
+            x = dropout(x, rate, generator, tag)
             h0 = torch.relu(self.fcs[0](x))
-            h = dropout(h0, rate, generator)
+            h = dropout(h0, rate, generator, tag)
         else:
             h0 = h = x
         if self.dropout_mode == "before":
@@ -165,10 +177,14 @@ class GCNIIStack(nn.Module):
             # drop.  So the kernels run in their after-mode on h = drop(x)
             # beside h0 = x, and the entry's gradient reaches x through
             # both.
-            h = dropout(h, rate, generator)
-        in_loop = 0.0 if self.dropout_mode == "none" else rate
+            h = dropout(h, rate, generator, tag)
+        if self.dropout_mode == "none":
+            in_loop = 0.0
+        else:
+            in_loop = rate if ov is None else ov
         seed = None
-        if in_loop > 0.0:   # the kernels' Philox key, never read by the host
+        if ov is not None and in_loop is ov or in_loop > 0.0:
+            # the kernels' Philox key, never read by the host
             seed = torch.randint(0, 1 << 62, (1,), generator=generator,
                                  device=x.device)
         if self.spmm is None:
@@ -181,7 +197,7 @@ class GCNIIStack(nn.Module):
                                   rate=in_loop, seed=seed, spmm=self.spmm,
                                   relu_inputs=self.relu_inputs)
         if self.post_loop_dropout and self.dropout_mode != "before":
-            h = dropout(h, rate, generator)
+            h = dropout(h, rate, generator, tag)
         return x, h
 
 
@@ -192,7 +208,7 @@ class GCNLayer1(nn.Module):
 
     def __init__(self, in_feats: int, out_feats: int):
         super().__init__()
-        self.linear = nn.Linear(in_feats, out_feats)
+        self.linear = Linear(in_feats, out_feats)
 
     def forward(self, x: Tensor, qmask: Tensor, umask: Tensor) -> Tensor:
         adj = directed_speaker_adjacency(x, qmask, umask)
@@ -213,7 +229,7 @@ class GCN2Layers(nn.Module):
         self.gcn1 = GCNLayer1(in_feats, hidden)
         self.gcn2 = GCNLayer1(hidden, hidden if use_residue else n_classes)
         if use_residue and not return_feature:
-            self.linear = nn.Linear(in_feats + hidden, n_classes)
+            self.linear = Linear(in_feats + hidden, n_classes)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_linears(self, generator)

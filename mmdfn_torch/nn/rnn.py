@@ -66,13 +66,14 @@ class BiRNN(nn.Module):
 
     def __init__(self, input_size: int, hidden_size: int,
                  num_layers: int = 2, dropout: float = 0.0,
-                 cell: str = "gru"):
+                 cell: str = "gru", rate_tag: Optional[str] = None):
         super().__init__()
         if cell not in ("gru", "lstm"):
             raise ValueError(f"cell {cell!r}")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dropout = dropout
+        self.rate_tag = rate_tag
         self.cell = cell
         H = hidden_size
         G = (3 if cell == "gru" else 4) * H
@@ -114,7 +115,7 @@ class BiRNN(nn.Module):
                 umask)
             out = torch.cat([ys_f, ys_b], dim=-1)
             if train and layer < self.num_layers - 1:
-                out = dropout(out, self.dropout, generator)
+                out = dropout(out, self.dropout, generator, self.rate_tag)
         return out
 
 

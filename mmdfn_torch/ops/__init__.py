@@ -5,7 +5,7 @@ plain PyTorch version for CPU tensors or inside :func:`plain_ops`, and
 counts its kernel launches in ``<wrapper>.launches``.
 """
 
-from mmdfn_torch.ops._mode import plain_ops
+from mmdfn_torch.ops._mode import is_batched, plain_ops
 from mmdfn_torch.ops.bigru import (bigru_layer_bwd, bigru_layer_bwd_plain,
                                    bigru_layer_fwd, bigru_layer_plain)
 from mmdfn_torch.ops.gcnii import (gcnii_stack_bwd, gcnii_stack_bwd_plain,

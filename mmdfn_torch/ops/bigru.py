@@ -21,6 +21,16 @@ forward is kernel A's training mode and whose backward is
 wrapper launches its kernel for CUDA tensors and runs its plain version for
 CPU tensors; anything else raises.  Inside ``ops.plain_ops()``
 ``bigru_layer_fwd`` runs the plain forward and autograd differentiates it.
+
+Both kernels take a leading config axis (the grouped sweep's K stacked
+configurations, ``train/vmap_sweep.py``): xg (K, B, L, 3H), W_hh (K, H,
+3H), b_hh (K, 3H), the mask (B, L) shared.  A block then walks rows of
+one configuration only (grid z = the configuration), and kernel C sums
+each configuration's dW_hh / db_hh over its own rows.  Under
+``torch.func.vmap`` the two Functions' ``vmap`` rules move the config axis
+to the front and make that one launch, which autograd records, so the
+backward is one config-axis launch of kernel C; on CPU tensors the
+config-axis call is the plain version under ``vmap``.
 """
 
 from __future__ import annotations
@@ -36,23 +46,25 @@ from mmdfn_torch.ops import _build, _mode
 Tensor = torch.Tensor
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# xg_f, xg_b, w_f, b_f, w_b, b_b, the two weights' strides, mask, ys_f,
-# ys_b, hg_f, hg_b (null in serve mode), B, L, H, BT, stream
-_ARGTYPES = [_p] * 6 + [_i64] * 4 + [_p] * 5 + [_i32] * 4 + [_p]
-# xg_f, xg_b, hg_f, hg_b, w_f, w_b, the two weights' strides, mask, ys_f,
-# ys_b, dy_f, dy_b, dxg_f, dxg_b, dhg_f, dhg_b, partials, dwb, B, L, H, BT,
-# split_rows, stream
-_BWD_ARGTYPES = [_p] * 6 + [_i64] * 4 + [_p] * 11 + [_i32] * 5 + [_p]
+# xg_f, xg_b, w_f, b_f, w_b, b_b, the two weights' (config, row, column)
+# strides, mask, ys_f, ys_b, hg_f, hg_b (null in serve mode), K, B, L, H,
+# BT, stream
+_ARGTYPES = [_p] * 6 + [_i64] * 6 + [_p] * 5 + [_i32] * 5 + [_p]
+# xg_f, xg_b, hg_f, hg_b, w_f, w_b, the two weights' (config, row, column)
+# strides, mask, ys_f, ys_b, dy_f, dy_b, dxg_f, dxg_b, dhg_f, dhg_b,
+# partials, dwb, K, B, L, H, BT, split_rows, stream
+_BWD_ARGTYPES = [_p] * 6 + [_i64] * 6 + [_p] * 11 + [_i32] * 6 + [_p]
 _KERNEL_H = 100      # the only hidden width the kernels take (the port's)
 _SPLIT_ROWS = 256    # rows of B L per split of kernel C's dW_hh product
 
 
-def _rows_per_block(B: int, sms: int) -> int:
+def _rows_per_block(B: int, sms: int, K: int = 1) -> int:
     """Batch rows per block of kernels A and C: the fewest of 1, 2, 4 for
-    which both directions' blocks fit on a card of ``sms`` multiprocessors
-    in one wave (one block per SM); 4 beyond that."""
+    which both directions' blocks of the K configurations of B rows fit on
+    a card of ``sms`` multiprocessors in one wave (one block per SM); 4
+    beyond that.  A block's rows are one configuration's."""
     for bt in (1, 2):
-        if 2 * -(-B // bt) <= sms:
+        if 2 * K * -(-B // bt) <= sms:
             return bt
     return 4
 
@@ -62,12 +74,21 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def _gates_rz(xg_t: Tensor, hg: Tensor) -> Tuple[Tensor, Tensor]:
+    """The r and z gates, sigmoid(xg + hg) over the first 2H columns.  The
+    sigmoid reads a strided view of the (., 3H) sum, so that it runs row by
+    row, as it does on the same rows under ``vmap`` (on a contiguous
+    tensor the CPU kernel runs one flat loop, whose scalar tail falls on
+    other elements once K blocks are stacked, a last-bit difference)."""
+    H = hg.shape[-1] // 3
+    rz = torch.sigmoid((xg_t + hg)[..., :2 * H])
+    return rz[..., :H], rz[..., H:]
+
+
 def _gru_gates(xg_t: Tensor, hg: Tensor, h: Tensor) -> Tensor:
     """Torch GRU gate math (r, z, n) from the two projections."""
-    xr, xz, xn = xg_t.chunk(3, dim=-1)
-    hr, hz, hn = hg.chunk(3, dim=-1)
-    r = torch.sigmoid(xr + hr)
-    z = torch.sigmoid(xz + hz)
+    r, z = _gates_rz(xg_t, hg)
+    xn, hn = xg_t.chunk(3, dim=-1)[2], hg.chunk(3, dim=-1)[2]
     n = torch.tanh(xn + r * hn)
     return (1.0 - z) * n + z * h
 
@@ -139,10 +160,8 @@ def bigru_layer_bwd_plain(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
             dh = dh + dy[:, t]
             m = gate[:, t]
             hg = h_prev @ w + b if hgs is None else hgs[:, t]
-            xr, xz, xn = xg[:, t].chunk(3, dim=-1)
-            hr, hz, hn = hg.chunk(3, dim=-1)
-            r = torch.sigmoid(xr + hr)
-            z = torch.sigmoid(xz + hz)
+            r, z = _gates_rz(xg[:, t], hg)
+            xn, hn = xg[:, t].chunk(3, dim=-1)[2], hg.chunk(3, dim=-1)[2]
             n = torch.tanh(xn + r * hn)
             dh_eff = torch.where(m, dh, 0.0)
             dz = dh_eff * (h_prev - n) * z * (1.0 - z)
@@ -175,9 +194,11 @@ def _aligned(t: Tensor) -> Tensor:
 def _prepare(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, more=()):
     """Aligned contiguous f32 operands on one CUDA device, shapes checked;
     the hidden weights keep their strides (the kernels take them).  ``more``
-    holds (name, tensor, width) operands of shape (B, L, width)."""
-    B, L, G = xg_f.shape
+    holds (name, tensor, width) operands of shape (B, L, width).  With a
+    config axis every operand but the mask has a leading K."""
+    *lead, B, L, G = xg_f.shape
     H = G // 3
+    k = tuple(lead)
     dev = xg_f.device
     if dev.type != "cuda":
         raise ValueError(f"bi-GRU kernels: no kernel for {dev}")
@@ -186,43 +207,56 @@ def _prepare(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, more=()):
     xg_f, xg_b, b_hh_f, b_hh_b = map(_aligned, (xg_f, xg_b, b_hh_f, b_hh_b))
     mask = _aligned(mask.to(torch.float32))
     more = tuple((name, _aligned(t), width) for name, t, width in more)
-    for name, t, shape in (("xg_f", xg_f, (B, L, G)), ("xg_b", xg_b, (B, L, G)),
-                           ("w_hh_f", w_hh_f, (H, G)), ("w_hh_b", w_hh_b, (H, G)),
-                           ("b_hh_f", b_hh_f, (G,)), ("b_hh_b", b_hh_b, (G,)),
+    for name, t, shape in (("xg_f", xg_f, k + (B, L, G)),
+                           ("xg_b", xg_b, k + (B, L, G)),
+                           ("w_hh_f", w_hh_f, k + (H, G)),
+                           ("w_hh_b", w_hh_b, k + (H, G)),
+                           ("b_hh_f", b_hh_f, k + (G,)),
+                           ("b_hh_b", b_hh_b, k + (G,)),
                            ("mask", mask, (B, L)),
-                           *((name, t, (B, L, width))
+                           *((name, t, k + (B, L, width))
                              for name, t, width in more)):
         _check(name, t, shape, dev)
     return (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask) \
         + tuple(t for _, t, _ in more)
 
 
+def _strides(w: Tensor):
+    """A hidden weight's (config, row, column) strides; 0 for the config
+    of a weight without a config axis."""
+    return (w.stride(0), *w.stride()[1:]) if w.dim() == 3 else (0, *w.stride())
+
+
 def _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
              with_hg: bool = False):
     """Kernel A on CUDA tensors, the plain version on CPU tensors.  With
     ``with_hg`` (training mode) it also returns hg_f, hg_b (B, L, 3H) for
-    kernel C."""
+    kernel C.  A 3-d ``w_hh_f`` marks a config axis: one launch for all K
+    configurations."""
+    args = (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask)
     if xg_f.device.type == "cpu":
-        return bigru_layer_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
-                                 mask, with_hg=with_hg)
-    xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask = _prepare(
-        xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask)
-    B, L, G = xg_f.shape
+        if w_hh_f.dim() == 3:
+            return _mode.vmap_plain(
+                lambda *a: bigru_layer_plain(*a, with_hg=with_hg), args,
+                shared=(6,))
+        return bigru_layer_plain(*args, with_hg=with_hg)
+    xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask = _prepare(*args)
+    *lead, B, L, G = xg_f.shape
+    K = lead[0] if lead else 1
     H = G // 3
     dev = xg_f.device
-    ys_f = torch.empty(B, L, H, device=dev)
-    ys_b = torch.empty(B, L, H, device=dev)
-    hgs = (torch.empty(B, L, G, device=dev),
-           torch.empty(B, L, G, device=dev)) if with_hg else ()
-    if B == 0 or L == 0:
+    ys_f = xg_f.new_empty(*lead, B, L, H)
+    ys_b = xg_f.new_empty(*lead, B, L, H)
+    hgs = (torch.empty_like(xg_f), torch.empty_like(xg_f)) if with_hg else ()
+    if K * B == 0 or L == 0:
         return (ys_f, ys_b, *hgs)
     fn = _build.load("bigru_fwd", "bigru_fwd", _ARGTYPES)
     hg_ptrs = [t.data_ptr() for t in hgs] if with_hg else [None, None]
     err = fn(xg_f.data_ptr(), xg_b.data_ptr(), w_hh_f.data_ptr(),
              b_hh_f.data_ptr(), w_hh_b.data_ptr(), b_hh_b.data_ptr(),
-             *w_hh_f.stride(), *w_hh_b.stride(), mask.data_ptr(),
-             ys_f.data_ptr(), ys_b.data_ptr(), *hg_ptrs, B, L, H,
-             _rows_per_block(B, _sm_count(dev)),
+             *_strides(w_hh_f), *_strides(w_hh_b), mask.data_ptr(),
+             ys_f.data_ptr(), ys_b.data_ptr(), *hg_ptrs, K, B, L, H,
+             _rows_per_block(B, _sm_count(dev), K),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bigru_fwd launch")
     bigru_layer_fwd.launches += 1
@@ -242,15 +276,21 @@ def bigru_layer_bwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
     the kernel needs.  Returns (dxg_f, dxg_b, dW_hh_f, db_hh_f, dW_hh_b,
     db_hh_b) as :func:`bigru_layer_bwd_plain` does, which CPU tensors and
     ``ops.plain_ops()`` run instead (there hg may be None: recomputed).
+    With a config axis (every operand but the mask led by K) it is one
+    launch, and each configuration's dW_hh, db_hh sums its own rows.
     """
+    args = (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, ys_f, ys_b,
+            dy_f, dy_b, hg_f, hg_b)
     if _mode.plain or xg_f.device.type == "cpu":
-        return bigru_layer_bwd_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b,
-                                     b_hh_b, mask, ys_f, ys_b, dy_f, dy_b,
-                                     hg_f, hg_b)
+        if w_hh_f.dim() == 3:
+            return _mode.vmap_plain(bigru_layer_bwd_plain, args,
+                                    shared=(6,))
+        return bigru_layer_bwd_plain(*args)
     if hg_f is None or hg_b is None:
         raise ValueError("bigru_layer_bwd: kernel C needs the hg that kernel "
                          "A's training mode writes")
-    B, L, G = xg_f.shape
+    *lead, B, L, G = xg_f.shape
+    K = lead[0] if lead else 1
     H = G // 3
     (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask, ys_f, ys_b, dy_f,
      dy_b, hg_f, hg_b) = _prepare(
@@ -258,27 +298,30 @@ def bigru_layer_bwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
         (("ys_f", ys_f, H), ("ys_b", ys_b, H), ("dy_f", dy_f, H),
          ("dy_b", dy_b, H), ("hg_f", hg_f, G), ("hg_b", hg_b, G)))
     dev = xg_f.device
-    dxg_f = torch.empty(B, L, G, device=dev)
-    dxg_b = torch.empty(B, L, G, device=dev)
-    # [dW_hh; db_hh] of each direction
-    dwb = torch.empty(2, H + 1, G, device=dev)
-    grads = (dxg_f, dxg_b, dwb[0, :H], dwb[0, H], dwb[1, :H], dwb[1, H])
-    if B == 0 or L == 0:
+    dxg_f = torch.empty_like(xg_f)
+    dxg_b = torch.empty_like(xg_f)
+    # [dW_hh; db_hh] of each configuration and direction
+    dwb = xg_f.new_empty(K, 2, H + 1, G)
+    dw = dwb if lead else dwb[0]
+    grads = (dxg_f, dxg_b, dw[..., 0, :H, :], dw[..., 0, H, :],
+             dw[..., 1, :H, :], dw[..., 1, H, :])
+    if K * B == 0 or L == 0:
         for t in (dxg_f, dxg_b, dwb):
             t.zero_()
         return grads
-    # each step's dhg, and the dW_hh product's partials over row splits
-    dhg = torch.empty(2, B, L, G, device=dev)
+    # each step's dhg, and the dW_hh product's partials over each
+    # configuration's row splits
+    dhg = xg_f.new_empty(2, K * B * L * G)
     splits = -(-B * L // _SPLIT_ROWS)
-    partials = torch.empty(2, splits, H + 1, G, device=dev)
+    partials = xg_f.new_empty(K, 2, splits, H + 1, G)
     fn = _build.load("bigru_bwd", "bigru_bwd", _BWD_ARGTYPES)
     err = fn(xg_f.data_ptr(), xg_b.data_ptr(), hg_f.data_ptr(),
              hg_b.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-             *w_hh_f.stride(), *w_hh_b.stride(), mask.data_ptr(),
+             *_strides(w_hh_f), *_strides(w_hh_b), mask.data_ptr(),
              ys_f.data_ptr(), ys_b.data_ptr(), dy_f.data_ptr(),
              dy_b.data_ptr(), dxg_f.data_ptr(), dxg_b.data_ptr(),
              dhg[0].data_ptr(), dhg[1].data_ptr(), partials.data_ptr(),
-             dwb.data_ptr(), B, L, H, _rows_per_block(B, _sm_count(dev)),
+             dwb.data_ptr(), K, B, L, H, _rows_per_block(B, _sm_count(dev), K),
              _SPLIT_ROWS,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bigru_bwd launch")
@@ -290,24 +333,37 @@ class BiGRULayer(torch.autograd.Function):
     """One bi-GRU layer's recurrence with kernel A forward (training mode)
     and kernel C backward (their plain versions on CPU tensors).  Saves what
     ``_bigru_bwd`` needs: xg, mask, W_hh, b_hh, the outputs, and the gate
-    pre-activations hg, so the backward recomputes nothing."""
+    pre-activations hg, so the backward recomputes nothing.  Its outputs
+    are ys_f, ys_b and the hg pair (not differentiable).  Under
+    ``torch.func.vmap`` its rule makes one config-axis launch (with
+    autograd off, of the serve mode, and the hg pair is None)."""
 
     @staticmethod
-    def forward(ctx, xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
-        ys_f, ys_b, hg_f, hg_b = _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b,
-                                          b_hh_b, mask, with_hg=True)
-        ctx.save_for_backward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b,
-                              mask, ys_f, ys_b, hg_f, hg_b)
-        return ys_f, ys_b
+    def forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask):
+        return _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
+                        with_hg=True)
 
     @staticmethod
-    def backward(ctx, dy_f, dy_b):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[2:])
+        ctx.save_for_backward(*inputs, *output)
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b, _dhg_f, _dhg_b):
         saved = ctx.saved_tensors
         ys_f = saved[7]
         dy_f = torch.zeros_like(ys_f) if dy_f is None else dy_f
         dy_b = torch.zeros_like(ys_f) if dy_b is None else dy_b
         grads = bigru_layer_bwd(*saved[:9], dy_f, dy_b, *saved[9:])
         return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        args = _mode.config_axis(info, in_dims, args, shared=(6,))
+        if torch.is_grad_enabled():
+            return BiGRULayer.apply(*args), (0, 0, 0, 0)
+        # serving: kernel A's serve mode, which writes no hg
+        return (*_forward(*args), None, None), (0, 0, None, None)
 
 
 def bigru_layer_fwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
@@ -325,17 +381,20 @@ def bigru_layer_fwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
     Returns:
       (ys_f, ys_b): (B, L, H) float32; a masked frame holds the carried
       state.  With autograd on, their gradients come from kernel C.
+      Under ``torch.func.vmap`` (every operand but the mask may carry the
+      config axis) the kernels take the whole group in one launch.
     """
     B, L, G = xg_f.shape
-    if mask is None:
-        mask = xg_f.new_ones(B, L)
+    if mask is None:    # shared by every configuration under vmap
+        mask = torch.ones(B, L, device=xg_f.device)
     args = (xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask)
     if _mode.plain:
         return bigru_layer_plain(*args)
     if xg_f.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bigru_layer_fwd: no kernel for {xg_f.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return BiGRULayer.apply(*args)
+    if any(_mode.is_batched(t) for t in args) or torch.is_grad_enabled() \
+            and any(t.requires_grad for t in args):
+        return BiGRULayer.apply(*args)[:2]
     return _forward(*args)
 
 

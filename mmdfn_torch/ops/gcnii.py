@@ -31,12 +31,29 @@ CUDA tensors and runs its plain version for CPU tensors; anything else
 raises.  Each counts the CUDA kernels its C call launched.  Inside
 ``ops.plain_ops()`` ``gcnii_stack_fwd`` runs the plain forward and autograd
 differentiates it.
+
+Config axis (the grouped sweep's K stacked configurations,
+``train/vmap_sweep.py``): adj, h, h0, W (K, nl, 2H, H) and the
+reason-LSTM's weights carry a leading K, theta and the step seed are
+shared.  Both C calls then run the K B dialogues as one batch, each
+product reading its dialogue's configuration's weights, and kernel D sums
+each configuration's weight gradients over its own rows.  The dropout
+rate is a Python float, or per configuration a ``DropRate``
+(``nn/drop_override.py``): the kernels always read the keep threshold and
+keep scale from device memory, one per configuration (JAX's ``dyn``
+branch, ``pallas_gcnii_train.py:143-147,230-234``), a rate-0
+configuration keeping every element without a draw (its keep scale is
+exactly 1, ``:160``), and Philox's counter takes the dialogue's index in
+its configuration, so configuration k draws the bits its run alone
+draws.  Under ``torch.func.vmap`` the Functions' ``vmap`` rules move the
+config axis to the front and make that one launch, which autograd
+records: the backward is one config-axis launch of kernel D.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,10 +64,10 @@ Tensor = torch.Tensor
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # adj, h, h0, W, theta, alpha, wl, ih, hh, lb, out, scratch, res_h, res_lh,
-# res_lc, res_h1, drop, thresh, inv_keep, seed, reason, design, nl, B, N, H,
-# stream
-_ARGTYPES = ([_p] * 5 + [_f] + [_p] * 10 + [_i, _u, _f, _p] + [_i] * 6
-             + [_p])
+# res_lc, res_h1, drop, thresh_k, inv_keep_k, thresh, inv_keep, seed,
+# reason, design, nl, K, B, N, H, stream
+_ARGTYPES = ([_p] * 5 + [_f] + [_p] * 10 + [_i, _p, _p, _u, _f, _p]
+             + [_i] * 7 + [_p])
 # kernel B's designs (gcnii_fwd.cu): three tiled products a layer, one
 # row-wise launch a layer, or the whole stack in one launch, a cluster of
 # CTAs a dialogue
@@ -68,10 +85,10 @@ SMEM_MAX = 232448
 RESIDENT_MAX_N = 384
 # adj, h0, W, theta, alpha, res_h, res_lh, res_lc, res_h1, ih, hh, lb,
 # dh_out, dh, dlh, dlc, d_hi, dh0, dadj, hi, tdpre, gates, dgates, part_w,
-# part_l, dW, dl, drop, thresh, inv_keep, seed, reason, nl, B, N, H,
-# splits_w, splits_l, stream
-_BWD_ARGTYPES = ([_p] * 4 + [_f] + [_p] * 22 + [_i, _u, _f, _p]
-                 + [_i] * 7 + [_p])
+# part_l, dW, dl, drop, thresh_k, inv_keep_k, thresh, inv_keep, seed,
+# reason, nl, K, B, N, H, splits_w, splits_l, stream
+_BWD_ARGTYPES = ([_p] * 4 + [_f] + [_p] * 22 + [_i, _p, _p, _u, _f, _p]
+                 + [_i] * 8 + [_p])
 # row splits of the weight-gradient sums after the walk: dW (K = B N rows,
 # nl layers, 2 x 1 tiles each) and the LSTM's (K = B nl N, 2 x 4 tiles);
 # 8 x 32 and 32 x 8 blocks fill the card's 132 SMs about twice
@@ -81,7 +98,7 @@ _SPLIT_ROWS_MIN = 16   # one 16-deep slice of the product
 
 def gcnii_bwd_splits(R: int, nl: int) -> Tuple[int, int]:
     """Kernel D's row splits of the dW and the LSTM weight-gradient sums,
-    for R = B N rows and nl layers."""
+    for R = B N rows (of one configuration) and nl layers."""
     return (max(1, min(_SPLITS_W, R // _SPLIT_ROWS_MIN)),
             max(1, min(_SPLITS_L, nl * R // _SPLIT_ROWS_MIN)))
 
@@ -151,18 +168,48 @@ def interleave_gates(ih: Tensor, hh: Tensor, b: Tensor) -> Tensor:
     for gate u = i, f, g, o of channel c) with the gate columns
     interleaved, as kernel B's LSTM product reads it: (2H + 1, 4H), column
     4c + u is gate u of channel c, so that the four gates of a channel are
-    four neighbouring columns of the product."""
-    H = ih.shape[0]
-    return torch.cat([ih, hh, b[None]]).view(2 * H + 1, 4, H) \
-        .transpose(1, 2).reshape(2 * H + 1, 4 * H)
+    four neighbouring columns of the product.  A leading config axis is
+    kept."""
+    *lead, H, G = ih.shape
+    return torch.cat([ih, hh, b[..., None, :]], dim=-2) \
+        .view(*lead, 2 * H + 1, 4, H).transpose(-1, -2) \
+        .reshape(*lead, 2 * H + 1, G)
 
 
-def _dropout_args(rate: float, seed: Optional[Tensor]):
+class _Rate(NamedTuple):
+    """A rate per configuration as the kernels read it: the fields of
+    ``nn/drop_override.py``'s ``DropRate`` that they take."""
+
+    thresh: Tensor      # int32, the uint32 keep threshold's bit pattern
+    inv_keep: Tensor    # f32, exactly 1.0 at rate 0
+
+
+def _dropout_args(rate, seed: Optional[Tensor]):
+    """(drop, thresh, inv_keep): for a Python rate, whether it drops, the
+    rate (``philox.keep_mask`` takes it) and 1 / (1 - rate); for a rate
+    per configuration (anything with ``thresh`` and ``inv_keep``), True and
+    its two tensors."""
+    if hasattr(rate, "thresh"):
+        if seed is None:
+            raise ValueError("dropout needs a seed tensor")
+        return True, rate.thresh, rate.inv_keep
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if rate > 0.0 and seed is None:
         raise ValueError("dropout needs a seed tensor")
-    return rate > 0.0, 1.0 / (1.0 - rate)
+    return rate > 0.0, rate, 1.0 / (1.0 - rate)
+
+
+def _keep(seed: Tensor, thresh, inv_keep, B: int, l: int, N: int,
+          H: int) -> Tensor:
+    """Layer l's keep mask; for a rate per configuration with JAX's
+    keep-all guard: a keep scale of exactly 1 (rate 0) keeps every
+    element, as ``pallas_gcnii_train.py:160`` does, where the threshold
+    2^32 - 1 alone would drop the draws equal to it."""
+    keep = philox.keep_mask(seed, thresh, B, l, N, H)
+    if isinstance(inv_keep, Tensor):
+        keep = keep | (inv_keep == 1.0)
+    return keep
 
 
 def _lstm_step(h: Tensor, lh: Tensor, lc: Tensor, ih: Tensor, hh: Tensor,
@@ -194,12 +241,15 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
     batched product (the node-sharded product,
     ``parallel.graph_parallel.sharded_spmm_batched``).
 
+    ``rate`` is a Python rate, or a rate per configuration
+    (``nn/drop_override.py``'s ``DropRate``, 0-d under ``vmap``).
+
     ``relu_masks``, when given, are each layer's ReLU decisions (as in
     :func:`gcnii_stack_bwd_plain`) in place of ``pre > 0``: a check holds
     a training step at the kernels' decisions with them; ``relu_inputs``,
     when given, receives each layer's ReLU input ``pre``, detached, so
     that a check can compare two steps' decisions."""
-    drop, inv_keep = _dropout_args(rate, seed)
+    drop, thresh, inv_keep = _dropout_args(rate, seed)
     B, N, H = h.shape
     lh = torch.zeros_like(h)
     lc = torch.zeros_like(h)
@@ -223,7 +273,7 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
         h = (torch.relu(pre) if relu_masks is None
              else torch.where(relu_masks[l], pre, 0.0))
         if drop:
-            keep = philox.keep_mask(seed, rate, B, l, N, H)
+            keep = _keep(seed, thresh, inv_keep, B, l, N, H)
             h = torch.where(keep, h * inv_keep, 0.0)
         if reason:
             h = h + q
@@ -254,7 +304,7 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                     theta: Tensor, lstm_ih: Optional[Tensor] = None,
                     lstm_hh: Optional[Tensor] = None,
                     lstm_b: Optional[Tensor] = None, *, alpha: float,
-                    reason: bool, rate: float = 0.0,
+                    reason: bool, rate=0.0,
                     seed: Optional[Tensor] = None,
                     residuals: Optional[Sequence[Tensor]] = None) -> Tensor:
     """GCNII stack forward (deterministic at ``rate = 0``).
@@ -266,8 +316,10 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
       (a transposed view of torch's (4H, H) weights is copied contiguous,
       so that the kernel's weight reads coalesce);
       lstm_b: (4H,) = b_ih + b_hh.  The LSTM arguments are used iff reason.
-      rate: dropout after each layer's ReLU; seed: the step's 64-bit seed,
-        one int64 on the device (read by the kernel, never by the host).
+      rate: dropout after each layer's ReLU, a Python rate or a rate per
+        configuration (``nn/drop_override.py``'s ``DropRate``); seed: the
+        step's 64-bit seed, one int64 on the device (read by the kernel,
+        never by the host).
       residuals: when given, the four (B, nlayers, N, H) slabs named by
         ``RESIDUALS``, filled in place for the backward.
     Returns:
@@ -275,6 +327,9 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
       With autograd on (and no ``residuals`` asked for) it goes through
       :class:`GCNIIStackTrain`, so its gradients come from kernel D; inside
       ``ops.plain_ops()`` autograd differentiates the plain version.
+      Under ``torch.func.vmap`` (the operands but theta and the seed may
+      carry the config axis) the kernels take the whole group in one
+      launch.
     """
     args = (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b)
     opts = dict(alpha=alpha, reason=reason, rate=rate, seed=seed)
@@ -282,41 +337,72 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
         return gcnii_stack_plain(*args, residuals=residuals, **opts)
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcnii_stack_fwd: no kernel for {h.device}")
-    if residuals is None and torch.is_grad_enabled() and any(
+    dyn = hasattr(rate, "thresh")
+    fn_args = (*args, *_rate_ops(rate), seed, alpha, reason,
+               None if dyn else rate)
+    batched = any(_mode.is_batched(t) for t in fn_args)
+    if batched and residuals is not None:
+        raise ValueError("gcnii_stack_fwd: residual slabs are not taken "
+                         "under vmap")
+    if batched or residuals is None and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in args):
-        return GCNIIStackTrain.apply(*args, alpha, reason, rate, seed)
+        return GCNIIStackTrain.apply(*fn_args)[0]
     return _forward(*args, residuals=residuals, **opts)
+
+
+def _rate_args(drop: bool, thresh, inv_keep, K: int, dev) -> tuple:
+    """Kernels B's and D's rate arguments (thresh_k, inv_keep_k, thresh,
+    inv_keep): a rate per configuration as (K,) device tensors, the keep
+    thresholds (int32 holding the uint32 bits) and keep scales that the
+    kernels read; a Python rate (one for all) by value."""
+    if drop and isinstance(inv_keep, Tensor):
+        return (thresh.to(dev, torch.int32).expand(K).contiguous(),
+                inv_keep.to(dev, torch.float32).expand(K).contiguous(), 0,
+                1.0)
+    return (None, None, philox.threshold(thresh) if drop else 0,
+            float(inv_keep))
 
 
 def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
              reason, rate, seed, residuals, design=None):
     """Kernel B on CUDA tensors (``design``: one of ``DESIGNS``' values;
-    None: chosen by shape), the plain version on CPU tensors."""
-
+    None: chosen by shape), the plain version on CPU tensors.  A 4-d ``W``
+    marks a config axis: one call for all K configurations."""
+    cfg_axis = W.dim() == 4
     if h.device.type == "cpu":
-        return gcnii_stack_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh,
-                                 lstm_b, alpha=alpha, reason=reason,
-                                 rate=rate, seed=seed, residuals=residuals)
-    B, N, H = h.shape
-    nl = W.shape[0]
+        if not cfg_axis:
+            return gcnii_stack_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh,
+                                     lstm_b, alpha=alpha, reason=reason,
+                                     rate=rate, seed=seed,
+                                     residuals=residuals)
+        plain = lambda adj, h, h0, W, ih, hh, b, res, th, ik: \
+            gcnii_stack_plain(adj, h, h0, W, theta, ih, hh, b, alpha=alpha,
+                              reason=reason, rate=_rate_of(th, ik, rate),
+                              seed=seed, residuals=res)
+        return _mode.vmap_plain(plain, (adj, h, h0, W, lstm_ih, lstm_hh,
+                                        lstm_b, residuals, *_rate_ops(rate)))
+    *lead, B, N, H = h.shape
+    K = lead[0] if cfg_axis else 1
+    k = tuple(lead)
+    nl = W.shape[-3]
     dev = h.device
     if H > 128:
         raise ValueError(f"gcnii_stack_fwd: hidden size {H} > 128")
-    drop, inv_keep = _dropout_args(rate, seed)
+    drop, thresh, inv_keep = _dropout_args(rate, seed)
     seed_ptr = _seed_ptr(seed, drop, dev)
     adj, h, h0, W = (t.contiguous() for t in (adj, h, h0, W))
     theta = theta.to(torch.float32).contiguous()
-    expect = (("adj", adj, (B, N, N)), ("h", h, (B, N, H)),
-              ("h0", h0, (B, N, H)),
-              ("W", W, (nl, 2 * H, H)), ("theta", theta, (nl,)))
+    expect = (("adj", adj, k + (B, N, N)), ("h", h, k + (B, N, H)),
+              ("h0", h0, k + (B, N, H)),
+              ("W", W, k + (nl, 2 * H, H)), ("theta", theta, (nl,)))
     if reason:
         lstm_ih, lstm_hh, lstm_b = (
             t.contiguous() for t in (lstm_ih, lstm_hh, lstm_b))
-        expect += (("lstm_ih", lstm_ih, (H, 4 * H)),
-                   ("lstm_hh", lstm_hh, (H, 4 * H)),
-                   ("lstm_b", lstm_b, (4 * H,)))
+        expect += (("lstm_ih", lstm_ih, k + (H, 4 * H)),
+                   ("lstm_hh", lstm_hh, k + (H, 4 * H)),
+                   ("lstm_b", lstm_b, k + (4 * H,)))
     if residuals is not None:
-        expect += tuple((f"residual {n}", r, (B, nl, N, H))
+        expect += tuple((f"residual {n}", r, k + (B, nl, N, H))
                         for n, r in zip(RESIDUALS, residuals))
         if not all(r.is_contiguous() for r in residuals):
             raise ValueError("residual slabs must be contiguous")
@@ -324,35 +410,35 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
     else:
         res_ptrs = [None] * 4
     _check_all(expect, dev)
-    if B == 0 or N == 0 or nl == 0:
+    if K * B == 0 or N == 0 or nl == 0:
         return h.clone()
     if design is None:
-        design = _design(B, N, _sm_count(dev), H)
+        design = _design(K * B, N, _sm_count(dev), H)
     if not reason:      # never read by the kernels; any valid pointer will do
         lstm_ih = lstm_hh = lstm_b = wl = h
     elif design == ROWWISE:
         wl = h
     else:
-        wl = interleave_gates(lstm_ih, lstm_hh, lstm_b)
+        wl = interleave_gates(lstm_ih, lstm_hh, lstm_b).contiguous()
     out = torch.empty_like(h)
     # the tiled design's training mode keeps its state in the residual
     # slabs and needs hi only, the resident design none (see the C entry's
     # note)
     if design == RESIDENT:
-        k = 0
+        n_scratch = 0
     elif residuals is not None and design == TILED:
-        k = 1
+        n_scratch = 1
     else:
-        k = 4
-    scratch = torch.empty((k, B, N, H), device=dev)
+        n_scratch = 4
+    scratch = torch.empty((n_scratch, K * B, N, H), device=dev)
     fn = _build.load("gcnii_fwd", "gcnii_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    thresh = philox.threshold(rate) if drop else 0
-    ptr = lambda t: t.data_ptr()
+    th_k, ik_k, th, ik = _rate_args(drop, thresh, inv_keep, K, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     n = fn(ptr(adj), ptr(h), ptr(h0), ptr(W), ptr(theta), float(alpha),
            ptr(wl), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b), ptr(out),
-           ptr(scratch), *res_ptrs, int(drop), thresh, float(inv_keep),
-           seed_ptr, int(reason), design, nl, B, N, H, stream)
+           ptr(scratch), *res_ptrs, int(drop), ptr(th_k), ptr(ik_k), th, ik,
+           seed_ptr, int(reason), design, nl, K, B, N, H, stream)
     _build.check(-n if n < 0 else 0, "gcnii_fwd launch")
     gcnii_stack_fwd.launches += n
     return out
@@ -381,7 +467,7 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
       (B, N, H) twice, (nlayers, 2H, H), (H, 4H) twice and (4H,); the LSTM
       gradients are zeros without ``reason``.
     """
-    drop, inv_keep = _dropout_args(rate, seed)
+    drop, thresh, inv_keep = _dropout_args(rate, seed)
     h_res, lh_res, lc_res = residuals[:3]
     B, N, H = h0.shape
     nl = W.shape[0]
@@ -407,7 +493,7 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
         pre = th * (hi @ W[l, :H] + h0 @ W[l, H:]) \
             + (1.0 - th) * ((1.0 - alpha) * hi + alpha * h0)
         if drop:
-            keep = philox.keep_mask(seed, rate, B, l, N, H)
+            keep = _keep(seed, thresh, inv_keep, B, l, N, H)
             dh2 = torch.where(keep, dh * inv_keep, 0.0)
         else:
             dh2 = dh
@@ -444,7 +530,7 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
                     lstm_ih: Optional[Tensor], lstm_hh: Optional[Tensor],
                     lstm_b: Optional[Tensor], residuals: Sequence[Tensor],
                     dh_out: Tensor, *, alpha: float, reason: bool,
-                    rate: float = 0.0, seed: Optional[Tensor] = None):
+                    rate=0.0, seed: Optional[Tensor] = None):
     """Kernel D: the gradients of the GCNII stack from the forward's
     residuals (``gcnii_stack_fwd(..., residuals=...)``) and the cotangent
     ``dh_out`` of its output; same contract as
@@ -452,40 +538,57 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     run instead.  One call into ``csrc/gcnii_bwd.cu`` runs the whole walk
     (7 tiled products a layer with reason, 5 without) and the
     weight-gradient sums (4 kernels, 2 without reason); ``launches`` counts
-    those CUDA kernel launches."""
+    those CUDA kernel launches.  With a config axis (every operand but
+    theta and the seed led by K) it is one call, and each configuration's
+    dW and LSTM gradients sum its own rows."""
+    cfg_axis = W.dim() == 4
     if _mode.plain or h0.device.type == "cpu":
-        return gcnii_stack_bwd_plain(adj, h0, W, theta, lstm_ih, lstm_hh,
-                                     lstm_b, residuals, dh_out, alpha=alpha,
-                                     reason=reason, rate=rate, seed=seed)
+        if not cfg_axis:
+            return gcnii_stack_bwd_plain(adj, h0, W, theta, lstm_ih,
+                                         lstm_hh, lstm_b, residuals, dh_out,
+                                         alpha=alpha, reason=reason,
+                                         rate=rate, seed=seed)
+        plain = lambda adj, h0, W, ih, hh, b, res, dh, th, ik: \
+            gcnii_stack_bwd_plain(adj, h0, W, theta, ih, hh, b, res, dh,
+                                  alpha=alpha, reason=reason,
+                                  rate=_rate_of(th, ik, rate), seed=seed)
+        return _mode.vmap_plain(plain, (adj, h0, W, lstm_ih, lstm_hh, lstm_b,
+                                        list(residuals), dh_out,
+                                        *_rate_ops(rate)))
     if h0.device.type != "cuda":
         raise ValueError(f"gcnii_stack_bwd: no kernel for {h0.device}")
-    B, N, H = h0.shape
-    nl = W.shape[0]
+    *lead, B, N, H = h0.shape
+    K = lead[0] if cfg_axis else 1
+    k = tuple(lead)
+    nl = W.shape[-3]
     dev = h0.device
     if H > 128:
         raise ValueError(f"gcnii_stack_bwd: hidden size {H} > 128")
-    drop, inv_keep = _dropout_args(rate, seed)
+    drop, thresh, inv_keep = _dropout_args(rate, seed)
     seed_ptr = _seed_ptr(seed, drop, dev)
     adj, h0, W, dh_out = (t.contiguous() for t in (adj, h0, W, dh_out))
     theta = theta.to(torch.float32).contiguous()
-    expect = [("adj", adj, (B, N, N)), ("h0", h0, (B, N, H)),
-              ("W", W, (nl, 2 * H, H)), ("theta", theta, (nl,)),
-              ("dh_out", dh_out, (B, N, H))]
-    expect += [(f"residual {n}", r, (B, nl, N, H))
+    expect = [("adj", adj, k + (B, N, N)), ("h0", h0, k + (B, N, H)),
+              ("W", W, k + (nl, 2 * H, H)), ("theta", theta, (nl,)),
+              ("dh_out", dh_out, k + (B, N, H))]
+    expect += [(f"residual {n}", r, k + (B, nl, N, H))
                for n, r in zip(RESIDUALS, residuals)]
     if reason:
         lstm_ih, lstm_hh, lstm_b = (
             t.contiguous() for t in (lstm_ih, lstm_hh, lstm_b))
-        expect += [("lstm_ih", lstm_ih, (H, 4 * H)),
-                   ("lstm_hh", lstm_hh, (H, 4 * H)),
-                   ("lstm_b", lstm_b, (4 * H,))]
+        expect += [("lstm_ih", lstm_ih, k + (H, 4 * H)),
+                   ("lstm_hh", lstm_hh, k + (H, 4 * H)),
+                   ("lstm_b", lstm_b, k + (4 * H,))]
     _check_all(expect, dev)
     residuals = [r.contiguous() for r in residuals]
 
-    dl = torch.zeros(2 * H + 1, 4 * H, device=dev)   # [dW_ih; dW_hh; db]
-    if B == 0 or N == 0 or nl == 0:
+    # [dW_ih; dW_hh; db] of each configuration
+    dl = torch.zeros(*k, 2 * H + 1, 4 * H, device=dev)
+    lstm_grads = lambda: (dl[..., :H, :], dl[..., H:2 * H, :],
+                          dl[..., 2 * H, :])
+    if K * B == 0 or N == 0 or nl == 0:
         return (torch.zeros_like(adj), dh_out.clone(), torch.zeros_like(h0),
-                torch.zeros_like(W), dl[:H], dl[H:2 * H], dl[2 * H])
+                torch.zeros_like(W), *lstm_grads())
     if not reason:   # never read by the kernels; any valid pointer will do
         lstm_ih = lstm_hh = lstm_b = h0
     R = B * N
@@ -495,58 +598,98 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
         torch.empty_like(h0) for _ in range(4)))
     dW = torch.empty_like(W)
     d_hi = torch.empty_like(h0)
-    hi, tdpre = new(nl, B, N, H), new(nl, B, N, H)    # the walk's slabs
-    gates = new(B, N, 4 * H) if reason else d_hi
-    dgates = new(B, nl, N, 4 * H) if reason else d_hi
+    hi, tdpre = new(nl, K * B, N, H), new(nl, K * B, N, H)  # the walk's slabs
+    gates = new(K * B, N, 4 * H) if reason else d_hi
+    dgates = new(K * B, nl, N, 4 * H) if reason else d_hi
     splits_w, splits_l = gcnii_bwd_splits(R, nl)
-    part_w = new(nl, splits_w, 2 * H, H)
-    part_l = new(splits_l, 2 * H + 1, 4 * H) if reason else part_w
+    part_w = new(K, nl, splits_w, 2 * H, H)
+    part_l = new(K, splits_l, 2 * H + 1, 4 * H) if reason else part_w
     fn = _build.load("gcnii_bwd", "gcnii_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    thresh = philox.threshold(rate) if drop else 0
-    ptr = lambda t: t.data_ptr()
+    th_k, ik_k, th, ik = _rate_args(drop, thresh, inv_keep, K, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     n = fn(ptr(adj), ptr(h0), ptr(W), ptr(theta), float(alpha),
            *map(ptr, residuals), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b),
            ptr(dh_out), ptr(dh), ptr(dlh), ptr(dlc), ptr(d_hi), ptr(dh0),
            ptr(dadj), ptr(hi), ptr(tdpre), ptr(gates), ptr(dgates),
-           ptr(part_w), ptr(part_l), ptr(dW), ptr(dl), int(drop), thresh,
-           float(inv_keep), seed_ptr, int(reason), nl, B, N, H, splits_w,
-           splits_l, stream)
+           ptr(part_w), ptr(part_l), ptr(dW), ptr(dl), int(drop), ptr(th_k),
+           ptr(ik_k), th, ik, seed_ptr, int(reason), nl, K, B, N, H,
+           splits_w, splits_l, stream)
     _build.check(-n if n < 0 else 0, "gcnii_bwd launch")
     gcnii_stack_bwd.launches += n
-    return dadj, dh, dh0, dW, dl[:H], dl[H:2 * H], dl[2 * H]
+    return (dadj, dh, dh0, dW, *lstm_grads())
+
+
+def _rate_ops(rate):
+    """A rate's (thresh, inv_keep) tensors as operands: a rate per
+    configuration's own, (None, None) for a Python rate."""
+    return (rate.thresh, rate.inv_keep) if hasattr(rate, "thresh") \
+        else (None, None)
+
+
+def _rate_of(thresh, inv_keep, rate):
+    """The rate operands as the wrappers take the rate."""
+    return rate if thresh is None else _Rate(thresh, inv_keep)
 
 
 class GCNIIStackTrain(torch.autograd.Function):
     """The training stack: kernel B in training mode forward (residuals
-    kept), kernel D backward; their plain versions on CPU tensors."""
+    kept), kernel D backward; their plain versions on CPU tensors.  Its
+    outputs are the stack's output and the four residual slabs (not
+    differentiable); a rate per configuration comes as its ``thresh`` and
+    ``inv_keep`` tensors (else None, and ``rate`` the Python rate).
+    Under ``torch.func.vmap`` its rule makes one config-axis launch (with
+    autograd off, of kernel B alone, and the slabs are None)."""
 
     @staticmethod
-    def forward(ctx, adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, alpha,
-                reason, rate, seed):
-        B, N, H = h.shape
-        slab = (B, W.shape[0], N, H)
+    def forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh,
+                inv_keep, seed, alpha, reason, rate):
+        slab = (*h.shape[:-2], W.shape[-3], *h.shape[-2:])
         residuals = [torch.empty(slab, device=h.device) for _ in RESIDUALS]
         if not reason:        # the kernel writes no LSTM state without it
             residuals[1].zero_()
             residuals[2].zero_()
         out = _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
-                       alpha=alpha, reason=reason, rate=rate, seed=seed,
+                       alpha=alpha, reason=reason,
+                       rate=_rate_of(thresh, inv_keep, rate), seed=seed,
                        residuals=residuals)
-        ctx.save_for_backward(adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
-                              seed, *residuals)
-        ctx.opts = dict(alpha=alpha, reason=reason, rate=rate)
-        return out
+        return (out, *residuals)
 
     @staticmethod
-    def backward(ctx, dh_out):
-        (adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b, seed,
+    def setup_context(ctx, inputs, output):
+        (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh, inv_keep,
+         seed, alpha, reason, rate) = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
+                              thresh, inv_keep, seed, *output[1:])
+        ctx.opts = dict(alpha=alpha, reason=reason)
+        ctx.rate = rate
+
+    @staticmethod
+    def backward(ctx, dh_out, *_):
+        (adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh, inv_keep, seed,
          *residuals) = ctx.saved_tensors
         dadj, dh, dh0, dW, dih, dhh, db = gcnii_stack_bwd(
             adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b, residuals, dh_out,
-            seed=seed, **ctx.opts)
+            rate=_rate_of(thresh, inv_keep, ctx.rate), seed=seed, **ctx.opts)
         lstm = (dih, dhh, db) if ctx.opts["reason"] else (None,) * 3
-        return (dadj, dh, dh0, dW, None, *lstm, None, None, None, None)
+        return (dadj, dh, dh0, dW, None, *lstm) + (None,) * 6
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        args = _mode.config_axis(info, in_dims, args, shared=(4, 10))
+        if torch.is_grad_enabled():
+            out = GCNIIStackTrain.apply(*args)
+            return out, (0,) * len(out)
+        # serving: kernel B alone, which keeps no residuals
+        (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh, inv_keep,
+         seed, alpha, reason, rate) = args
+        out = _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
+                       alpha=alpha, reason=reason,
+                       rate=_rate_of(thresh, inv_keep, rate), seed=seed,
+                       residuals=None)
+        return (out,) + (None,) * len(RESIDUALS), (0,) + (None,) * len(
+            RESIDUALS)
 
 
 gcnii_stack_fwd.launches = 0

@@ -11,6 +11,8 @@ this does not reproduce ``jax.random``'s bits.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 Tensor = torch.Tensor
@@ -61,7 +63,15 @@ def dropout_bits(seed: Tensor, B: int, layer: int, N: int, H: int) -> Tensor:
     return philox4x32(c0, c1, c2, c3, k0, k1)[0].expand(B, N, H)
 
 
-def keep_mask(seed: Tensor, rate: float, B: int, layer: int, N: int,
-              H: int) -> Tensor:
-    """(B, N, H) bool: the elements that layer ``layer``'s dropout keeps."""
-    return dropout_bits(seed, B, layer, N, H) < threshold(rate)
+def keep_mask(seed: Tensor, rate: Union[float, Tensor], B: int, layer: int,
+              N: int, H: int) -> Tensor:
+    """(B, N, H) bool: the elements that layer ``layer``'s dropout keeps.
+
+    ``rate`` is a Python rate, or a threshold tensor: int32 holding the
+    bit pattern of the uint32 threshold (``nn/drop_override.py``'s
+    ``DropRate.thresh``), 0-d or broadcasting against (B, N, H), as kernels
+    B and D read one per configuration from memory."""
+    bits = dropout_bits(seed, B, layer, N, H)
+    if isinstance(rate, Tensor):
+        return bits < (rate.to(torch.int64) & _MASK32)
+    return bits < threshold(rate)

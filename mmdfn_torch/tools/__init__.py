@@ -1,1 +1,2 @@
-"""Tools around the port: the reference-checkpoint importer."""
+"""Tools around the port: the reference-checkpoint importer, and a timer
+of kernels B and D alone for comparing two trees on one card."""

@@ -151,6 +151,20 @@ def epoch_loss(cfg: ExperimentConfig, losses: np.ndarray,
     return round(float(loss), 4)
 
 
+def epoch_metrics(cfg: ExperimentConfig, losses: np.ndarray,
+                  preds: Sequence[np.ndarray], labels: Sequence[np.ndarray],
+                  mask_sums: Sequence[float]) -> EpochMetrics:
+    """An epoch's metrics from its batch losses (float64) and each batch's
+    predictions and labels at its valid utterances."""
+    labels, preds = np.concatenate(labels), np.concatenate(preds)
+    n_classes = cfg.info["n_classes"]
+    return EpochMetrics(
+        loss=epoch_loss(cfg, losses, mask_sums),
+        acc=M.reference_rounding(M.accuracy(labels, preds)),
+        fscore=M.reference_rounding(M.f1_score(labels, preds, n_classes)),
+        labels=labels, preds=preds)
+
+
 class Trainer:
     """Trains the port's ``DialogueGNN`` (any graph family, multimodal or
     single-stream) or a non-graph baseline with the reference's loss,
@@ -364,17 +378,14 @@ class Trainer:
             last = self._optimizer_steps()
             for k, hists in enumerate(histograms_to_host(hist_rows)):
                 self.grad_hist_sink(last - len(hist_rows) + k + 1, hists)
-        labels, preds = np.concatenate(labels), np.concatenate(preds)
-        n_classes = cfg.info["n_classes"]
-        result = EpochMetrics(
-            loss=epoch_loss(cfg, losses, mask_sums),
-            acc=M.reference_rounding(M.accuracy(labels, preds)),
-            fscore=M.reference_rounding(M.f1_score(labels, preds, n_classes)),
-            labels=labels, preds=preds, throughput=meter.summary())
+        result = epoch_metrics(cfg, losses, preds, labels, mask_sums)
+        result.throughput = meter.summary()
         if full_report:
             names = cfg.info["target_names"]
-            result.report = M.classification_report(labels, preds, names)
-            result.per_class_acc = M.per_class_accuracy(labels, preds, names)
+            result.report = M.classification_report(result.labels,
+                                                    result.preds, names)
+            result.per_class_acc = M.per_class_accuracy(result.labels,
+                                                        result.preds, names)
         return result
 
     def _gather_predictions(self, preds: List[Tensor]) -> List[Tensor]:

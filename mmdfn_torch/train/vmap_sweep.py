@@ -4,39 +4,50 @@ epoch by epoch over one batcher, each with its own selection and early
 stop, behind one resumable checkpoint.
 
 The reference runs its grids as nested bash loops, one process per
-combination (``script/run_train_ie.sh:26-60``).  The JAX package stacks
-the K configurations' parameters on a leading axis and ``jax.vmap``s one
-step over them.  The port gives each configuration its own model, Adam and
-loss, and on each batch (copied to the device once) steps them one after
-another through the same kernels as a run alone.  What may vary inside a
-group is what JAX stacks: ``lr``, ``l2``, ``gamma`` and, on the graph path,
-``dropout``; any other key must be equal across the group and folds into
-the shared config, and the layer count splits a grid into groups
-(:func:`group_combos`: IEMOCAP's 32 combinations are 2 groups of 16,
-MELD's 48 are 3).
+combination (``script/run_train_ie.sh:26-60``).  As the JAX package does,
+the group stacks the K configurations' parameters on a leading axis and
+maps one train step and one eval step over them: ``torch.func.vmap`` of
+``torch.func.functional_call`` over the stacked parameters (the batch is
+not mapped), one ``backward()`` of the K losses' sum (the configurations
+share no parameter, so each gets its own gradient), and one Adam over the
+stack (``train/optim.py:StackedAdam``, JAX's ``_adam_update`` with its
+freeze mask).  Every matmul of the model becomes K-times batched, and
+kernels A-D run once a batch for the whole group: their wrappers' ``vmap``
+rules make one launch over a config axis (``ops/bigru.py``,
+``ops/gcnii.py``).  What may vary inside a group is what JAX stacks:
+``lr``, ``l2``, ``gamma`` and, on the graph path, ``dropout``; any other
+key must be equal across the group and folds into the shared config, and
+the layer count splits a grid into groups (:func:`group_combos`: IEMOCAP's
+32 combinations are 2 groups of 16, MELD's 48 are 3).
 
 Where the port departs from the JAX group, and why:
 
 * Dropout is seeded per configuration as its run alone would seed it:
-  step i of epoch e draws from ``Trainer.step_seed(e, i)``, so
-  configuration k in a group reproduces configuration k trained alone, bit
-  for bit, with dropout on too.  JAX splits one key over the K
-  configurations (``vmap_sweep.py:266``); its threefry draws cannot be
-  matched anyway, and the reference seeds every run with 2021.
-* ``nn/drop_override.py`` has no counterpart.  Each configuration's model
-  is built from ``dataclasses.replace(cfg, dropout=rate)``, and kernels B
-  and D take their keep threshold as a host scalar on every call
-  (``ops/gcnii.py:340,496``), so a rate per configuration needs no
-  override.  JAX's override reaches only the sites tagged
-  ``rate_tag="dropout"``; its untagged ones (``nn/attention.py:163,233``,
-  ``nn/fusion.py:142``) take rates that no graph family builds from
-  ``cfg.dropout`` (the gated head's 0.5, TFN's 0.4, MFN's 0.2, unused
-  multi-head attention), so replacing ``cfg.dropout`` changes the same
-  sites as the override does.
-* A frozen (early-stopped) configuration takes no step at all, so torch
-  Adam does not advance its step count, as JAX's freeze mask keeps ``t``
-  (``vmap_sweep.py:92-117``).  It is still evaluated and still gets its
-  history rows, with ``train_loss`` None: it computed none.
+  step i of epoch e draws from ``Trainer.step_seed(e, i)``, which depends
+  on ``cfg.seed`` only, so every configuration of a group shares it, and
+  the draws are made once for the group (``vmap``'s ``randomness=
+  "same"``).  Configuration k therefore draws its run alone's bits, dropout
+  on too.  JAX splits one key over the K configurations
+  (``vmap_sweep.py:266``); its threefry draws cannot be matched anyway,
+  and the reference seeds every run with 2021.
+* Rates that differ ride the config axis through ``nn/drop_override.py``
+  (JAX's module of that name): the sites built from ``cfg.dropout`` (tag
+  ``"dropout"``) compare the shared draw with each configuration's keep
+  probability, and kernels B and D read each one's keep threshold and
+  scale from memory.  Under the override every tagged site draws, so a
+  rate-0 configuration beside a rate-0.4 one keeps all (bit for bit its
+  run alone's values) but draws where its run alone does not: an untagged
+  site after it (the gated head's 0.5, TFN's 0.4, MFN's 0.2) then takes
+  later bits of the step's generator than in its run alone.  A group whose
+  configurations share one rate folds it into the shared config and draws
+  as a run alone does.
+* Focal loss's ``(1 - pt) ** gamma`` is computed for each distinct gamma
+  of the group with its Python exponent, as a run alone computes it, and
+  each configuration takes its own (``losses.focal_loss``).
+* A frozen (early-stopped) configuration is computed but not updated: its
+  parameters, Adam moments and step count stay (JAX's freeze mask).  It
+  is still evaluated and still gets its history rows, with ``train_loss``
+  None, as before.
 * Each configuration's loss is its ``Trainer``'s (focal loss with its
   ``gamma``; the masked NLL for a non-graph baseline), and the epoch's
   train loss is aggregated as ``Trainer.run_epoch`` aggregates it.
@@ -46,18 +57,37 @@ Where the port departs from the JAX group, and why:
 * With a ``mesh`` (``runtime/mesh.py``; JAX: the config axis sharded
   over the mesh's data axis, ``vmap_sweep.py:160-217``), the K configs
   split into contiguous blocks over the data ranks, and each rank steps
-  and evaluates its own block (a ragged K gives the last rank fewer).
-  JAX pads the config axis with frozen copies; a model per config needs
-  none.  Every rank keeps a model and an Adam state for each config, and
-  after each epoch the ranks exchange their configs' counters and
-  histories, so that each holds the whole group's and all stop together;
-  where the group checkpoints, the first rank gathers the other ranks'
-  models and Adam states and writes them as one process does, so a cut
+  and evaluates its own block as one batched step (a ragged K gives the
+  last rank fewer).  JAX pads the config axis with frozen copies; a block
+  of its own needs none.  Every rank keeps the whole stack, and after each
+  epoch the ranks exchange their configs' counters and histories, so that
+  each holds the whole group's and all stop together; where the group
+  checkpoints, the first rank gathers the other ranks' configurations
+  (weights and Adam states) and writes them as one process does, so a cut
   group resumes on any number of ranks.
+* Each configuration keeps a ``Trainer`` (``trainers[k]``) whose model's
+  parameters are views of its slice of the stack, and whose optimiser is
+  its slice of the stacked Adam in ``torch.optim.Adam``'s layout: the
+  checkpoint holds each configuration's ``state_dict`` and Adam state as a
+  run alone writes them.
+* How close a configuration in a group stays to its run alone.  On the
+  CPU (one thread) it is bit for bit for the models whose ops treat each
+  configuration's slice as they treat it alone; the linear layers are
+  made so (``nn/linear.py``: torch's batching rule for ``linear`` splits
+  the bias add from the product).  A ``sigmoid`` or ``tanh`` over
+  a whole contiguous tensor (the MFN and gated heads' gates, the
+  DialogueRNN's cells) runs the CPU kernel's vectorised loop and scalar
+  tail over other elements once K slices are stacked, a last-bit
+  difference.  On the card the kernels' config-axis launches equal their
+  K solo launches bit for bit, and cuBLAS's batched products and the
+  batched reductions sum in another order: the group's first step is
+  within 1e-7 of the solo step's loss and 4e-6 of each gradient's scale
+  (``chip_smoke.py``'s sweep phase).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -67,15 +97,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.func import functional_call, vmap
 
 from mmdfn_torch.config import ExperimentConfig
 from mmdfn_torch.data.batching import BucketBatcher
 from mmdfn_torch.device import resolve_device
+from mmdfn_torch.losses import focal_loss, masked_nll_loss
+from mmdfn_torch.models.dialogue_gnn import TAG
+from mmdfn_torch.nn import drop_override
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
 from mmdfn_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, is_first_rank
-from mmdfn_torch.train.optim import torch_adam
-from mmdfn_torch.train.trainer import Trainer, epoch_loss, prepare_inputs
+from mmdfn_torch.train.optim import ConfigAdam, StackedAdam
+from mmdfn_torch.train.trainer import (EpochMetrics, Trainer, epoch_loss,
+                                       epoch_metrics, model_text,
+                                       prepare_inputs)
 from mmdfn_torch.weights import build_model
+
+Tensor = torch.Tensor
 
 
 def _canon_combos(combos):
@@ -123,8 +161,8 @@ class _GroupOptimizers:
 
 
 class VmapSweep:
-    """Train K same-shape configs as one group, each config's model stepped
-    in turn on every batch.
+    """Train K same-shape configs as one group: one batched step over
+    their stacked parameters on every batch.
 
     ``model`` gives every config its starting weights (default: the shared
     config's model, fresh from ``cfg.seed``: one init for all, as JAX
@@ -181,6 +219,17 @@ class VmapSweep:
         else:
             self.droprate = None
         self.device = resolve_device(device)
+        # one rate for the whole group folds into the shared config (every
+        # site draws as a run alone does); rates that differ ride the
+        # config axis (nn/drop_override.py)
+        self._drop = None
+        if self.droprate is not None:
+            if len(set(self.droprate)) == 1:
+                self.cfg = dataclasses.replace(self.cfg,
+                                               dropout=self.droprate[0])
+            else:
+                self._drop = drop_override.make_drop_rate(
+                    self.droprate, device=self.device)
         base = model if model is not None else build_model(self.cfg)
         self._init = {k: v.detach().cpu().clone()
                       for k, v in base.state_dict().items()}
@@ -193,25 +242,129 @@ class VmapSweep:
             cfg_k = dataclasses.replace(self.cfg, **over)
             self.trainers.append(Trainer(cfg_k, device=self.device,
                                          model=build_model(cfg_k, self._init)))
+        # the stack: parameter n of configuration k is params[n][k], and
+        # configuration k's model holds views of its slices
+        self.params: Dict[str, Tensor] = {}
+        for n, p in self.trainers[0].model.named_parameters():
+            self.params[n] = torch.stack([
+                tr.model.get_parameter(n).detach() for tr in self.trainers
+            ]).requires_grad_(p.requires_grad)
+        for k, tr in enumerate(self.trainers):
+            for n, stacked in self.params.items():
+                mod, _, attr = n.rpartition(".")
+                owner = tr.model.get_submodule(mod)
+                setattr(owner, attr, torch.nn.Parameter(
+                    stacked.detach()[k], requires_grad=stacked.requires_grad))
+        # the template the batched step calls with the stacked parameters
+        self.model = self.trainers[0].model
         self._models = torch.nn.ModuleList([tr.model for tr in self.trainers])
         self._optimizers = _GroupOptimizers(self.trainers)
+        gammas = [tr.cfg.gamma for tr in self.trainers]
+        self._gammas = tuple(dict.fromkeys(gammas))
+        self._gsel = torch.tensor([self._gammas.index(g) for g in gammas],
+                                  device=self.device)
+        self.alpha = self.trainers[0].alpha
+        self._new_adam()
 
     # ------------------------------------------------------------------
+    def _new_adam(self) -> None:
+        """A fresh stacked Adam, each config's trainer holding its slice."""
+        self.adam = StackedAdam(list(self.params.values()),
+                                [tr.cfg.lr for tr in self.trainers],
+                                [tr.cfg.l2 for tr in self.trainers])
+        for k, tr in enumerate(self.trainers):
+            tr.optimizer = ConfigAdam(self.adam, k)
+
     def init_states(self) -> None:
         """Every config back at the group's starting weights, with a fresh
         Adam."""
-        for tr in self.trainers:
-            tr.model.load_state_dict(self._init)
-            tr.optimizer = torch_adam(tr.model.parameters(), tr.cfg.lr,
-                                      tr.cfg.l2)
+        with torch.no_grad():
+            for n, stacked in self.params.items():
+                stacked.copy_(self._init[n].to(stacked.device).expand_as(
+                    stacked))
+        self._new_adam()
 
-    def step(self, inputs: Dict[str, torch.Tensor], epoch: int, i: int,
+    def _loss(self, logp: Tensor, inputs: Dict[str, Tensor],
+              gsel: Tensor) -> Tensor:
+        """One configuration's loss, as its ``Trainer._loss`` (its gamma
+        picked by ``gsel`` from the group's)."""
+        cfg = self.cfg
+        if cfg.graph_model and cfg.loss == "FocalLoss":
+            return focal_loss(logp, inputs["label"], inputs["umask"],
+                              gamma=(self._gammas, gsel), alpha=self.alpha)
+        return masked_nll_loss(logp, inputs["label"], inputs["umask"],
+                               weight=self.alpha)
+
+    def _batched(self, inputs: Dict[str, Tensor], train: bool,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[Tensor, Tensor]:
+        """This rank's configurations' losses (K,) and log-probs (K, B, L,
+        C) on a batch: the model over the stacked parameters under
+        ``vmap``, one draw of each dropout for all (``randomness="same"``),
+        each tagged site at its configuration's rate where the rates
+        differ (training only)."""
+        lo, hi = self._own.start, self._own.stop
+        params = {n: t[lo:hi] for n, t in self.params.items()}
+        args = (model_text(self.cfg, inputs), inputs["qmask"],
+                inputs["umask"], inputs["audio"], inputs["visual"])
+        kw = dict(train=True, generator=generator) if train else {}
+        rate = (drop_override.DropRate(*(t[lo:hi] for t in self._drop))
+                if train and self._drop is not None else None)
+
+        def one(p, gsel, rate):
+            ctx = (drop_override.override({TAG: rate}) if rate is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                logp = functional_call(self.model, p, args, kw)
+            return self._loss(logp, inputs, gsel), logp
+
+        return vmap(one, in_dims=(0, 0, None if rate is None else 0),
+                    randomness="same")(params, self._gsel[lo:hi], rate)
+
+    def step(self, inputs: Dict[str, Tensor], epoch: int, i: int,
              active: Sequence[bool]) -> List[Optional[torch.Tensor]]:
-        """Batch i of an epoch for the group: each active config's train
-        step, seeded as its run alone seeds that step; each config's loss,
-        on the device (None where the config is frozen)."""
-        return [tr.train_step(inputs, tr.step_seed(epoch, i))[0] if on
-                else None for tr, on in zip(self.trainers, active)]
+        """Batch i of an epoch for the group: one batched train step of
+        this rank's configurations, seeded as each one's run alone seeds
+        that step, and one Adam update of the active ones; each config's
+        loss, on the device (None where the config is frozen or another
+        rank's)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.trainers[0].step_seed(epoch, i))
+        self.adam.zero_grad()
+        losses, _ = self._batched(inputs, train=True, generator=gen)
+        losses.sum().backward()
+        self.adam.step(active)
+        losses = losses.detach()
+        lo = self._own.start
+        return [losses[k - lo] if k in self._own and active[k] else None
+                for k in range(self.K)]
+
+    def evaluate(self, batches) -> Dict[int, EpochMetrics]:
+        """Each of this rank's configurations' metrics over ``batches``
+        ((Batch, inputs) pairs), from one batched eval step a batch, as
+        ``Trainer.run_epoch`` gives them for that configuration alone."""
+        losses, preds, masks, labels, mask_sums = [], [], [], [], []
+        with torch.no_grad():
+            for batch, inputs in batches:
+                loss, logp = self._batched(inputs, train=False)
+                m = batch.umask.reshape(-1) > 0
+                losses.append(loss)
+                preds.append(logp.argmax(dim=-1))
+                masks.append(m)
+                mask_sums.append(float(m.sum()))
+                labels.append(batch.label.reshape(-1)[m])
+        own = list(self._own)
+        if not losses:
+            nan, empty = float("nan"), np.zeros((0,), np.int64)
+            return {k: EpochMetrics(nan, nan, nan, empty, empty)
+                    for k in own}
+        # one copy back per epoch
+        losses = torch.stack(losses).cpu().numpy().astype(np.float64)
+        preds = [p.reshape(len(own), -1).cpu().numpy() for p in preds]
+        return {k: epoch_metrics(self.trainers[k].cfg, losses[:, j],
+                                 [p[j][m] for p, m in zip(preds, masks)],
+                                 labels, mask_sums)
+                for j, k in enumerate(own)}
 
     def _result(self, best_epoch, all_f, all_a, history) -> GroupResult:
         K = self.K
@@ -351,9 +504,10 @@ class VmapSweep:
                         if loss is not None:
                             losses[k].append(loss)
                 mask_sums.append(float((batch.umask > 0).sum()))
+            evaluated = self.evaluate(test_batches)
             for k in self._own:
                 tr = self.trainers[k]
-                te = tr.run_epoch(test_batches, epoch=e)
+                te = evaluated[k]
                 train_loss = (epoch_loss(tr.cfg, torch.stack(losses[k]).cpu()
                                          .numpy().astype(np.float64),
                                          mask_sums)
@@ -430,8 +584,8 @@ def run_grouped_sweep(base_cfg: ExperimentConfig, combos: Sequence[dict],
              f" over {mesh[DATA_AXIS].size()} data ranks")
     for static, group in group_combos(combos):
         if verbose and is_first_rank():
-            print(f"group {static}: {len(group)} configs, stepped in "
-                  f"turn{where}")
+            print(f"group {static}: {len(group)} configs, one batched "
+                  f"step{where}")
         group_dir = None
         if save_dir:
             slug = "_".join(f"{k}{v}" for k, v in sorted(static.items())) \

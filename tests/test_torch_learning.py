@@ -119,7 +119,7 @@ def test_vmap_sweep_cli_trains_one_group_and_skips_it(tmp_path, capsys):
             "--out_dir", str(out)]
     assert sweep.main(argv) == 0
     first = capsys.readouterr().out
-    assert "2 configs, stepped in turn" in first and "BEST:" in first
+    assert "2 configs, one batched step" in first and "BEST:" in first
     summary = (out / "summary.jsonl").read_text()
     rows = [json.loads(l) for l in summary.splitlines()]
     todo = list(sweep.combos("IEMOCAP"))[:2]
