@@ -85,7 +85,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    and None), and one served dialogue against the plain model; the fusion
    heads gated, mfn, tfn_only and lmf_only each serve it; kernels B
    (training and serve mode) and D alone at GF2's and DeepGCN's shapes;
-8. single: the single-stream path and the non-graph baselines at the
+8. nonvariant: the original GCNII update (``variant=False``: each
+   layer's weight (H, H), kernels B and D on its fold ``[(1-α) W; α W]``):
+   kernel B serving at bucket 64 (N = 192, 16 layers, the reason-LSTM)
+   and, at the training shapes (B = 32, N = 240, rate 0.4), its training
+   mode and kernel D through autograd, each against the unfolded plain
+   version (at the kernels' ReLU decisions) and timed beside the same
+   call on the variant's weights, with the non-variant function's bound;
+   the flagship's step with ``MMGCN(variant=False, reason_flag=True)``
+   against the plain step, 3 timed steps (B 49, D 116 a step) and one
+   served dialogue against the plain model; DeepGCN's three non-variant
+   stacks (N = 80) against the plain step; and the native packer beside
+   numpy's at the IEMOCAP and MELD training batches, the same bytes;
+9. single: the single-stream path and the non-graph baselines at the
    flagship's batch and settings: early-fusion DeepGCN (a,v,l
    concatenated, 2024 wide, into ``linear_`` and the LSTM base with the
    CRN, 16 layers with the reason-LSTM) against its plain step (held at
@@ -98,13 +110,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    heads and of relation on the DialogRNN base; and the plain bi-LSTM
    (beside cuDNN's ``nn.LSTM``) and bidirectional DialogueRNN recurrences
    alone at B = 32, L = 80;
-9. learn: ``tests/test_torch_learning.py``'s whole run through kernels
+10. learn: ``tests/test_torch_learning.py``'s whole run through kernels
    A-D with dropout 0.4 (the flagship, 12 epochs at B = 8 on 96 dialogues
    of a separable synthetic task): best test F1 >= 95, train F1 at the
    best epoch >= 95, epoch-0 train F1 < 60; the per-epoch history, then
    the step alone timed and profiled on the run's batches (median wall,
    device busy and idle share, launches a step);
-10. sweep: the grouped sweep (``train/vmap_sweep.py``: one batched step
+11. sweep: the grouped sweep (``train/vmap_sweep.py``: one batched step
    over the K configurations' stacked parameters) at the flagship's
    widths on 64 dialogues of U[20, 80] turns.  First kernels A-D with
    their config axis at the training shapes, K = 4: each config-axis
@@ -128,7 +140,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``cli.sweep --vmap --limit 4 --epochs 1`` runs twice on one directory,
    the second skipping the finished group with the same
    ``summary.jsonl``;
-11. daily: DailyDialogue at the JAX package's default widths (the
+12. daily: DailyDialogue at the JAX package's default widths (the
    TextCNN over 20 words of a 5000-word table, 300-wide embeddings, 50
    filters of widths 3, 4, 5; D_e 100, D_g = D_p 150, windows 10/10) on
    ``make_synthetic_daily_pickle``'s token batches (B = 32 dialogues of
@@ -144,7 +156,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    predictions must equal ``DailyTrainer.evaluate``'s of the saved
    weights); a frozen pretrained table bit-equal after a step that moved
    ``fc``;
-12. raw: the raw-input model (``RawInputDialogueGNN``: a log-mel
+13. raw: the raw-input model (``RawInputDialogueGNN``: a log-mel
    frontend over 3 s of 16 kHz audio and a DenseNet-BC over 48 x 48 x 3
    face crops, in front of the flagship at its widths, 16 layers with the
    reason-LSTM, dropout 0.4) on the train phase's batch recipe (B = 32, L
@@ -159,7 +171,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    numpy's of the same gradients on the host, and 6 Adam steps without
    dropout at the flagship's lr 3e-4 whose loss must fall (and 6 at 3e-3,
    with the kernels and with the plain versions, reported);
-13. parallel: the multi-device layer on the one card, its ranks started
+14. parallel: the multi-device layer on the one card, its ranks started
    by ``runtime/launch.py`` (two ranks share the card over gloo, so their
    walls measure sharing, not scaling): (a) the flagship at the train
    phase's settings, dropout 0, on 2 data ranks of 16 dialogues (B = 32
@@ -1017,8 +1029,10 @@ def relu_decisions(torch, args, kw, plain_args):
     on the stored h1, which are kernel D's P2 and P3 on the same operands),
     and where they differ from the plain recompute's ``pre > 0`` on the
     plain step's operands ``plain_args``: (masks, flips, max |pre| among
-    the flips, the forward's tolerance)."""
-    from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
+    the flips, the forward's tolerance).  Without the variant the kernels
+    run on W's fold and the plain recompute takes ``r @ W``."""
+    from mmdfn_torch.ops import (fold_weights, gcnii_stack_fwd,
+                                 gcnii_stack_plain)
     from mmdfn_torch.ops.gcnii import RESIDUALS, TILED, _forward
 
     adj, h, h0, W, theta, ih, hh, lb = args
@@ -1027,21 +1041,25 @@ def relu_decisions(torch, args, kw, plain_args):
     slabs = lambda: [torch.zeros(B, nl, N, Hh, device=h.device)
                      for _ in RESIDUALS]
     res, res_p = slabs(), slabs()
+    kw = {k: v for k, v in kw.items() if k != "folded"}
+    variant, alpha = kw.get("variant", True), kw["alpha"]
     with torch.no_grad():
         gcnii_stack_fwd(*args, residuals=res, **kw)
         want = gcnii_stack_plain(*plain_args, residuals=res_p, **kw)
         tol = KERNEL_B_RTOL * max(1.0, float(want.abs().max()))
         adj_p, _, h0_p, W_p, theta_p = plain_args[:5]
-        alpha = kw["alpha"]
+        W_k = W if variant else fold_weights(W, alpha)
         masks, flips, flip_pre = [], 0, 0.0
         for l in range(nl):
             masks.append(_forward(
-                adj, res[3][:, l].contiguous(), h0, W[l:l + 1],
+                adj, res[3][:, l].contiguous(), h0, W_k[l:l + 1],
                 theta[l:l + 1], None, None, None, alpha=alpha, reason=False,
                 rate=0.0, seed=None, residuals=None, design=TILED) > 0)
             hi = adj_p @ res_p[3][:, l]
-            pre = theta_p[l] * (hi @ W_p[l, :Hh] + h0_p @ W_p[l, Hh:]) \
-                + (1.0 - theta_p[l]) * ((1.0 - alpha) * hi + alpha * h0_p)
+            r = (1.0 - alpha) * hi + alpha * h0_p
+            support = (hi @ W_p[l, :Hh] + h0_p @ W_p[l, Hh:] if variant
+                       else r @ W_p[l])
+            pre = theta_p[l] * support + (1.0 - theta_p[l]) * r
             differ = masks[l] != (pre > 0.0)
             flips += int(differ.sum())
             if bool(differ.any()):
@@ -1585,6 +1603,271 @@ def families_phase(torch, dev) -> dict:
                                           nl=64),
         "gcnii_fwd_serve_DeepGCN": gcnii_case(torch, dev, 64, reason=False,
                                               modalities=1)}
+    return out
+
+
+def nonvariant_build(kind: str):
+    """``build`` (as :func:`trainer_for` takes it) of the config's model
+    with its GCNII stacks built with ``variant=False``: "MMGCN" (GDF's
+    ``graph_model``, the reason-LSTM) or "DeepGCN" (each modality's
+    ``DeepGCNII``).  The rest of the model keeps the config seed's
+    weights; the new stacks draw theirs from seed + 1."""
+    import torch
+
+    from mmdfn_torch.config import GRAPH_H
+    from mmdfn_torch.models.dialogue_gnn import TAG
+    from mmdfn_torch.models.mm_gcn import MMGCN, DeepGCNII
+    from mmdfn_torch.weights import build_model
+
+    def build(cfg):
+        model = build_model(cfg)
+        g = torch.Generator().manual_seed(cfg.seed + 1)
+        if kind == "MMGCN":
+            old = model.graph_model
+            new = MMGCN(old.graph_net.fcs[0].in_features,
+                        cfg.Deep_GCN_nlayers, GRAPH_H, lamda=cfg.lamda,
+                        alpha=cfg.alpha, use_residue=old.use_residue,
+                        modals=cfg.modals, reason_flag=True,
+                        modal_weight=cfg.modal_weight, dropout=cfg.dropout,
+                        rate_tag=TAG, variant=False)
+            new.reset_parameters(g)
+            model.graph_model = new
+            return model
+        for m in model.order:
+            old = getattr(model, f"graph_net_{m}")
+            new = DeepGCNII(old.fcs[0].in_features, cfg.Deep_GCN_nlayers,
+                            GRAPH_H, lamda=0.5, alpha=0.1,
+                            use_residue=old.use_residue,
+                            reason_flag=cfg.reason_flag, dropout=cfg.dropout,
+                            rate_tag=TAG, variant=False)
+            new.reset_parameters(g)
+            setattr(model, f"graph_net_{m}", new)
+        return model
+    return build
+
+
+def nonvariant_kernels(torch, dev) -> dict:
+    """Kernels B and D on the fold of the non-variant layer weights
+    (``ops.fold_weights``), each against the unfolded plain version and
+    timed beside the same call on the variant's (2H, H) weights: B's serve
+    mode at bucket 64 (one dialogue, N = 192, 16 layers, the
+    reason-LSTM), and at the training shapes (B = 32, N = 240, rate 0.4)
+    B's training mode and, through autograd, D and the fold's backward,
+    held at the kernels' ReLU decisions."""
+    from mmdfn_torch import ops
+    from mmdfn_torch.graph.adjacency import mm_big_adjacency
+    from mmdfn_torch.ops import (fold_weights, gcnii_stack_bwd,
+                                 gcnii_stack_fwd, gcnii_stack_plain)
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import (RESIDUALS, _design, gcnii_bwd_launches,
+                                       gcnii_fwd_launches)
+
+    nl, L = NLAYERS, 64
+    g = torch.Generator().manual_seed(L)
+    u = lambda *s: (torch.rand(*s, generator=g) * 0.2 - 0.1).to(dev)
+    adj = mm_big_adjacency([torch.randn(1, L, 2 * H, generator=g)
+                            for _ in range(3)], torch.ones(1, L)).to(dev)
+    N = 3 * L
+    h = torch.relu(torch.randn(1, N, H, generator=g)).to(dev)
+    theta = torch.log(0.5 / torch.arange(1, nl + 1) + 1.0).to(dev)
+    lstm = (u(4 * H, H).t(), u(4 * H, H).t(), u(4 * H))
+    W, W_v = u(nl, H, H), u(nl, 2 * H, H)
+    kw = dict(alpha=0.2, reason=True)
+    run = lambda W, variant: gcnii_stack_fwd(adj, h, h, W, theta, *lstm,
+                                             variant=variant, **kw)
+    plain = lambda: gcnii_stack_plain(adj, h, h, W, theta, *lstm,
+                                      variant=False, **kw)
+    want = plain()
+    ops.reset_launch_counts()
+    got = run(W, False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["gcnii_fwd"]
+    design = _design(1, N, _sm_count(dev))
+    check(launches == gcnii_fwd_launches(nl, True, design),
+          f"kernel B's serve launches without the variant: {launches}")
+    err = float((got - want).abs().max())
+    tol = KERNEL_B_RTOL * max(1.0, float(want.abs().max()))
+    check(err <= tol, f"kernel B (serve) without the variant vs plain at "
+                      f"N={N}: {err} > {tol}")
+    # the non-variant function's own work: per layer adj @ h, r @ W (2 N
+    # H^2, where the fold's products do 4), the update; the LSTM step
+    flops = nl * (2 * N * N * H + 2 * N * H * H + 6 * N * H
+                  + 16 * N * H * H + 12 * N * H)
+    nbytes = 4 * (N * N + 3 * N * H + nl * (H * H + 1)
+                  + 2 * H * 4 * H + 4 * H)
+    serve = {"shape": f"B=1 N={N} H={H} layers={nl} reason=True",
+             "design": design, "launches": launches, "max_abs_err": err,
+             "tolerance": tol, "ms": time_ms(torch, lambda: run(W, False), 20),
+             "variant_ms": time_ms(torch, lambda: run(W_v, True), 20),
+             "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
+             **bound(nbytes, flops)}
+
+    args, g = gcnii_train_inputs(torch, dev, TRAIN_B, TRAIN_L, nl=nl)
+    adj, h, h0, W_v, theta, ih, hh, lb = args
+    B, N = h.shape[:2]
+    W = (torch.rand(nl, H, H, generator=g) * 0.2 - 0.1).to(dev)
+    seed = torch.tensor([SEED + 54321], dtype=torch.int64, device=dev)
+    kw = dict(alpha=0.2, reason=True, rate=RATE, seed=seed)
+    operands = (adj, h, h0, W, theta, ih, hh, lb)
+    masks, flips, flip_pre, fwd_tol = relu_decisions(
+        torch, operands, {**kw, "variant": False}, operands)
+    check(flip_pre <= fwd_tol, f"ReLU decisions differ at |pre| = "
+                               f"{flip_pre} > {fwd_tol}")
+    dh = torch.randn(B, N, H, generator=g).to(dev)
+    leaves = lambda: [t.detach().clone().requires_grad_() for t in operands]
+
+    def step(fn, **more):
+        a = leaves()
+        out = fn(*a, **kw, variant=False, **more)
+        grads = torch.autograd.grad(out, [t for i, t in enumerate(a)
+                                          if i != 4], dh)
+        return out, grads
+    ops.reset_launch_counts()
+    out_k, grads_k = step(gcnii_stack_fwd)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    design = _design(B, N, _sm_count(dev))
+    check(counts["gcnii_fwd"] == gcnii_fwd_launches(nl, True, design)
+          and counts["gcnii_bwd"] == gcnii_bwd_launches(nl, True),
+          f"kernels B and D without the variant: {counts}")
+    out_p, grads_p = step(gcnii_stack_plain, relu_masks=masks)
+    fwd_err = float((out_k - out_p).detach().abs().max())
+    check(fwd_err <= fwd_tol, f"kernel B (training) without the variant vs "
+                              f"plain: {fwd_err} > {fwd_tol}")
+    bwd_err = {}
+    for name, a, b in zip(("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh",
+                           "db"), grads_k, grads_p):
+        e = float((a - b).abs().max()) / float(b.abs().max())
+        check(e <= KERNEL_D_RTOL, f"kernel D without the variant vs plain, "
+                                  f"{name}: {e} of its scale")
+        bwd_err[name] = e
+    slabs = lambda: [torch.zeros(B, nl, N, H, device=dev)
+                     for _ in RESIDUALS]
+    res, res_v = slabs(), slabs()
+    fwd = lambda W, variant, res: gcnii_stack_fwd(
+        adj, h, h0, W, theta, ih, hh, lb, residuals=res, variant=variant,
+        **kw)
+    fwd(W, False, res)
+    fwd(W_v, True, res_v)
+    W_fold = fold_weights(W, kw["alpha"])
+    bwd = lambda W, res: gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res,
+                                         dh, **kw)
+    # as gcnii_train_case counts them, with the non-variant function's
+    # support products: r @ W forward (2 R H^2, the fold's 4), and its
+    # recompute, its input gradient and dW backward (6 R H^2, the fold's
+    # 12); the weights (nl, H, H)
+    R = B * N
+    fwd_flops = nl * (2 * B * N * N * H + 18 * R * H * H + 20 * R * H)
+    fwd_bytes = 4 * (B * N * N + 3 * R * H + nl * (H * H + 1)
+                     + 2 * 4 * H * H + 4 * H + 4 * nl * R * H)
+    bwd_flops = nl * (6 * B * N * N * H + 54 * R * H * H + 40 * R * H)
+    bwd_bytes = 4 * (2 * B * N * N + 4 * R * H + 2 * nl * H * H
+                     + 2 * (8 * H * H + 4 * H) + 4 * nl * R * H)
+    train = {"shape": f"B={B} N={N} H={H} layers={nl} reason=True "
+                      f"rate={RATE}",
+             "launches": counts, "relu_decisions_differing": flips,
+             "max_abs_pre_where_they_differ": flip_pre,
+             "fwd_max_abs_err": fwd_err, "fwd_tolerance": fwd_tol,
+             "bwd_rel_err": bwd_err, "bwd_tolerance": KERNEL_D_RTOL,
+             "fwd_ms": time_ms(torch, lambda: fwd(W, False, res), 10),
+             "fwd_variant_ms": time_ms(torch, lambda: fwd(W_v, True, res_v),
+                                       10),
+             "fwd_bound": bound(fwd_bytes, fwd_flops),
+             "bwd_ms": time_ms(torch, lambda: bwd(W_fold, res), 10),
+             "bwd_variant_ms": time_ms(torch, lambda: bwd(W_v, res_v), 10),
+             "bwd_bound": bound(bwd_bytes, bwd_flops),
+             "fold_ms": time_ms(torch, lambda: fold_weights(W, 0.2), 10)}
+    return {"serve": serve, "train": train}
+
+
+def packer_times(reps: int = 5) -> dict:
+    """The native packer (``data/_native.py``) beside ``data/batching.py``'s
+    numpy path on the host, at the IEMOCAP and MELD training batches (B =
+    32 dialogues of U[20, 80] and U[5, 33] turns, their buckets): the
+    three modalities' features, the speakers, the mask and the labels, the
+    same bytes both ways; the median seconds of ``reps`` packs each."""
+    import numpy as np
+
+    from mmdfn_torch.data import _native, batching
+
+    if not _native.available():
+        return {"available": False}
+    rng = np.random.default_rng(SEED)
+    out = {"available": True}
+    for name, dims, lo, hi in (("IEMOCAP", (100, 1582, 342, 2), 20, TRAIN_L),
+                               ("MELD", (600, 300, 342, 9), 5, MELD_L)):
+        lengths = rng.integers(lo, hi + 1, TRAIN_B)
+        L = batching.bucket_length(int(lengths.max()),
+                                   batching.DEFAULT_BUCKETS)
+        feats = [[rng.standard_normal((n, D), dtype=np.float32)
+                  for n in lengths] for D in dims]
+        labels = [rng.integers(0, 6, n).astype(np.int32) for n in lengths]
+
+        def numpy_pack():
+            umask = np.zeros((TRAIN_B, L), np.float32)
+            label = np.zeros((TRAIN_B, L), np.int64)
+            for i, lab in enumerate(labels):
+                umask[i, :len(lab)] = 1.0
+                label[i, :len(lab)] = lab
+            return ([batching._pack(f, TRAIN_B, L, D)
+                     for f, D in zip(feats, dims)], umask, label)
+
+        def native_pack():
+            return ([_native.pack_f32(f, TRAIN_B, L, D)
+                     for f, D in zip(feats, dims)],
+                    *_native.pack_masks_labels(labels, TRAIN_B, L))
+
+        def median_s(fn):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            return sorted(times)[reps // 2]
+        a, b = numpy_pack(), native_pack()
+        check(all(x.tobytes() == y.tobytes()
+                  for x, y in zip([*a[0], a[1], a[2]], [*b[0], b[1], b[2]])),
+              f"the native packer's {name} batch differs from numpy's")
+        out[name] = {"bucket": L, "bytes": sum(x.nbytes for x in a[0]),
+                     "numpy_s": median_s(numpy_pack),
+                     "native_s": median_s(native_pack)}
+    return out
+
+
+def nonvariant_phase(torch, dev) -> dict:
+    """The original GCNII update (``variant=False``: each layer's weight
+    (H, H), kernels B and D on its fold): the kernels against the unfolded
+    plain version (:func:`nonvariant_kernels`); the flagship's training
+    step with ``MMGCN(variant=False, reason_flag=True)`` at its widths and
+    batch against the plain step at the kernels' ReLU decisions, 3 timed
+    steps (B 49, D 116 a step), one served dialogue against the plain
+    model; the same step check for DeepGCN's three ``DeepGCNII(variant=
+    False)`` stacks (N = 80 each); and the native packer's times."""
+    import numpy as np
+
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=1, n_test=1,
+                                      min_len=30, max_len=40, seed=SEED)
+        dialogue = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
+    out = {"kernels": nonvariant_kernels(torch, dev)}
+    cfg = family_config(graph_type="GDF", reason_flag=True)
+    build = nonvariant_build("MMGCN")
+    timed = timed_steps(torch, dev, cfg, batches, reps=3, build=build)
+    out["MMGCN"] = {
+        "step_check": step_check(torch, dev, cfg, batches[0],
+                                 hold_decisions=True, build=build),
+        "train": {k: timed[k] for k in TIMED_KEYS if k in timed},
+        "serve": serve_check(torch, dev, cfg, build(cfg), dialogue)[2]}
+    cfg = family_config(graph_type="DeepGCN")
+    out["DeepGCNII"] = {"step_check": step_check(
+        torch, dev, cfg, batches[0], hold_decisions=True,
+        build=nonvariant_build("DeepGCN"))}
+    out["packer"] = packer_times()
     return out
 
 
@@ -3043,6 +3326,7 @@ def main() -> int:
     results = {}
     for name, phase in (("serve", serve_phase), ("train", train_phase),
                         ("meld", meld_phase), ("families", families_phase),
+                        ("nonvariant", nonvariant_phase),
                         ("single", single_phase), ("learn", learn_phase),
                         ("sweep", sweep_phase), ("daily", daily_phase),
                         ("raw", raw_phase), ("parallel", parallel_phase)):

@@ -57,8 +57,6 @@ import sys
 
 import numpy as np
 
-_LATER = "a later slice of the port"
-
 # flags of the JAX CLI that tune XLA or the TPU and have no meaning here
 JAX_ONLY_FLAGS = (
     "--tpu_fast", "--matmul_precision", "--transfer_dtype", "--param_dtype",
@@ -175,7 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args):
     from mmdfn_torch.config import DATASET_INFO, ExperimentConfig
     if args.dataset not in DATASET_INFO:
-        raise NotImplementedError(f"--dataset {args.dataset}: {_LATER}")
+        raise ValueError(f"--dataset {args.dataset}: the port knows "
+                         f"{', '.join(DATASET_INFO)}")
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     if args.buckets:

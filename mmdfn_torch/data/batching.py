@@ -147,6 +147,9 @@ class BucketBatcher:
             L = bucket_length(max(len(d) for d in chunk), self.buckets)
             yield self._collate(chunk, L)
 
+    def num_batches(self) -> int:
+        return -(-len(self.dialogues) // self.batch_size)
+
     def _collate(self, chunk, L):
         return collate(chunk, self.batch_size, L, self.n_speakers)
 
@@ -166,3 +169,14 @@ class TokenBucketBatcher(BucketBatcher):
     def _collate(self, chunk, L):
         return collate_tokens(chunk, self.batch_size, L, self.n_speakers,
                               max_words=self.max_words)
+
+
+def make_epoch_batches(dialogues: Sequence, batch_size: int, n_speakers: int,
+                       epoch: int = 0, shuffle: bool = False,
+                       seed: int = 2021,
+                       buckets: Sequence[int] = DEFAULT_BUCKETS
+                       ) -> List[Batch]:
+    """One epoch's batches as a list (``mmdfn_tpu``'s helper of the same
+    name)."""
+    return list(BucketBatcher(dialogues, batch_size, n_speakers, buckets,
+                              shuffle, seed).epoch(epoch))

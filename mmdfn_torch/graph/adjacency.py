@@ -56,7 +56,8 @@ def angular_exact_similarity(cos: Tensor) -> Tensor:
     return 1.0 - _safe_arccos(cos.clamp(-1.0, 1.0)) / math.pi
 
 
-_SIM = {"angular": angular_similarity, "arccos": arccos_similarity}
+_SIM = {"angular": angular_similarity, "arccos": arccos_similarity,
+        "angular_exact": angular_exact_similarity}
 
 
 def intra_modal_similarity(x: Tensor, umask: Tensor,
@@ -133,6 +134,25 @@ def mm_big_adjacency(feats: Sequence[Tensor], umask: Tensor,
 WINDOW = 10   # MM_GCN2's cross-modal window (model_mm.py:352)
 
 
+def cross_mask(scheme: str, L: int, a: int, b: int,
+               device=None) -> Tensor:
+    """(L, L) bool: the cross-modal edges of ``mm_wo_speaker_adjacency``'s
+    block (a, b), a != b, rows utterance j of modality a, columns
+    utterance pin of modality b: "single" j = pin, "window" the band ``pin
+    - j`` in [-w, w-1] (w = ``WINDOW``) from the lower-indexed modality to
+    the higher, "fc" every ``j <= pin`` from the lower; the block from the
+    higher to the lower is its transpose."""
+    i = torch.arange(L, device=device)
+    delta = i[:, None] - i[None, :]
+    if scheme == "single":
+        lo_hi = delta == 0
+    elif scheme == "window":
+        lo_hi = (delta <= WINDOW) & (delta >= -(WINDOW - 1))
+    else:
+        lo_hi = delta <= 0
+    return lo_hi if a < b else lo_hi.t()
+
+
 def mm_wo_speaker_adjacency(feats: Sequence[Tensor], umask: Tensor,
                             scheme: str = "single") -> Tensor:
     """MMGCN2's ``mm_graph`` cross-modal adjacency
@@ -158,12 +178,6 @@ def mm_wo_speaker_adjacency(feats: Sequence[Tensor], umask: Tensor,
     delta = i[:, None] - i[None, :]
     eye = (delta == 0).to(torch.float32)
     units = [_safe_unit(f) for f in feats]
-    if scheme == "single":
-        lo_hi = delta == 0
-    elif scheme == "window":
-        lo_hi = (delta <= WINDOW) & (delta >= -(WINDOW - 1))
-    else:
-        lo_hi = delta <= 0
     rows = []
     for a in range(M):
         blocks = []
@@ -174,8 +188,8 @@ def mm_wo_speaker_adjacency(feats: Sequence[Tensor], umask: Tensor,
                 blocks.append(torch.where(delta != 0, sim, 0.0)
                               + eye[None] * m1[:, :, None])
             else:
-                keep = lo_hi if a < b else lo_hi.t()
-                blocks.append(torch.where(keep, sim, 0.0))
+                blocks.append(torch.where(
+                    cross_mask(scheme, L, a, b, umask.device), sim, 0.0))
         rows.append(torch.cat(blocks, dim=2))
     adj = torch.cat(rows, dim=1)
     return symmetric_normalize(adj, m1.repeat(1, M))
@@ -186,6 +200,25 @@ def gcnii_block_adjacency(x: Tensor, umask: Tensor) -> Tensor:
     baseline (``GCNII.create_big_adj``, ``model_GCN.py:287-310``):
     (B, L, L)."""
     return symmetric_normalize(intra_modal_similarity(x, umask), umask)
+
+
+def window_relation_adjacency(x: Tensor, umask: Tensor, window: int = 10,
+                              variant: str = "angular_exact") -> Tensor:
+    """The windowed-clique graph (``message_passing_relation_graph``,
+    ``model_GCN.py:386-409``, ``model_mm.py:527-550``): the reference's
+    union over every centre k of the pairs inside ``[k-w, k+w]`` is every
+    pair with ``0 < |i - j| <= 2w``, weighted by their similarity, plus
+    the identity, normalized: (B, L, L)."""
+    L = umask.shape[1]
+    i = torch.arange(L, device=umask.device)
+    dist = (i[:, None] - i[None, :]).abs()
+    in_window = (dist > 0) & (dist <= 2 * window)
+    n = _safe_unit(x)
+    sim = _SIM[variant](n @ n.transpose(1, 2))
+    m1 = umask.to(torch.float32)
+    adj = torch.where(in_window, sim, 0.0) * (m1[:, :, None] * m1[:, None, :])
+    adj = adj + torch.eye(L, device=umask.device)[None] * m1[:, :, None]
+    return symmetric_normalize(adj, umask)
 
 
 def directed_speaker_adjacency(x: Tensor, qmask: Tensor,

@@ -63,3 +63,11 @@ def masked_nll_loss(log_probs: Tensor, targets: Tensor, mask: Tensor,
     w = weight[targets.long()]
     return -(w * logpt * mask).sum() / global_sum(
         (w * mask).sum()).clamp(min=1e-8)
+
+
+def masked_mse_loss(pred: Tensor, target: Tensor, mask: Tensor) -> Tensor:
+    """Masked MSE (reference ``MaskedMSELoss``, ``code/loss.py:61-74``):
+    ``sum((pred * mask - target)^2) / max(sum(mask), 1)``, as
+    ``mmdfn_tpu``'s, which keeps it from the reference's AVEC regression."""
+    mask = mask.to(pred.dtype)
+    return ((pred * mask - target) ** 2).sum() / mask.sum().clamp(min=1.0)

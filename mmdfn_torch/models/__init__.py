@@ -37,8 +37,8 @@ def from_config(cfg: ExperimentConfig, gcn_spmm=None):
     if cfg.graph_model:
         return DialogueGNN.from_config(cfg, gcn_spmm=gcn_spmm)
     if cfg.dataset not in DATASET_INFO:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: a later slice of the port")
+        raise ValueError(f"dataset {cfg.dataset!r}: the port knows "
+                         f"{', '.join(DATASET_INFO)}")
     n_classes = cfg.info["n_classes"]
     if cfg.base_model in ("GRU", "LSTM"):
         cls = GRUModel if cfg.base_model == "GRU" else LSTMModel

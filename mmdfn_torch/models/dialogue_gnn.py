@@ -250,8 +250,8 @@ class DialogueGNN(nn.Module):
                     gcn_spmm: Optional[Callable] = None,
                     **widths) -> "DialogueGNN":
         if cfg.dataset not in DATASET_INFO:
-            raise NotImplementedError(
-                f"dataset {cfg.dataset!r}: a later slice of the port")
+            raise ValueError(f"dataset {cfg.dataset!r}: the port knows "
+                             f"{', '.join(DATASET_INFO)}")
         if cfg.dataset == "DailyDialogue":
             raise ValueError(
                 "dataset 'DailyDialogue' reads token ids: its model is "

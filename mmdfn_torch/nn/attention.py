@@ -1,10 +1,13 @@
 """The gated fusion head, the relation graph's edge attention and the
 sequence attentions of the single-stream heads and the baselines
 (``mmdfn_tpu/nn/attention.py`` ``MMGatedAttention``,
-``MaskedEdgeAttention``, ``SimpleAttention``, ``MatchingAttention``), as
-plain tensor ops.  Parameter names are the reference's."""
+``MaskedEdgeAttention``, ``SimpleAttention``, ``MatchingAttention``,
+``MultiHeadAttention``), as plain tensor ops.  Parameter names are the
+reference's."""
 
 from __future__ import annotations
+
+import math
 
 from typing import Optional
 
@@ -12,7 +15,7 @@ import torch
 from torch import nn
 
 from mmdfn_torch.nn.dropout import dropout
-from mmdfn_torch.nn.init import reset_linears
+from mmdfn_torch.nn.init import reset_linears, reset_uniform
 from mmdfn_torch.nn.linear import Linear
 
 Tensor = torch.Tensor
@@ -137,6 +140,78 @@ class MatchingAttention(nn.Module):
         if squeeze:
             return pooled[:, 0], alpha[:, 0]
         return pooled, alpha
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention (reference ``model.py:88-165``, the JAX
+    package's ``MultiHeadAttention``): ``w_k`` and ``w_q`` project to
+    ``n_head`` heads of ``hidden_dim``, scored by ``dot_product``,
+    ``scaled_dot_product``, ``mlp`` (``tanh([k | q] @ weight)``) or
+    ``bi_linear`` (``q weight k^T``); the heads are concatenated, ``proj``
+    maps them to ``out_dim`` and dropout follows.  The scores are
+    softmaxed over the keys, or with ``faithful_softmax_dim0`` over the
+    fused head-batch axis, as the reference does (``model.py:160``)."""
+
+    def __init__(self, embed_dim: int, hidden_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, n_head: int = 1,
+                 score_function: str = "dot_product", dropout: float = 0.0,
+                 faithful_softmax_dim0: bool = False):
+        super().__init__()
+        if score_function not in ("dot_product", "scaled_dot_product",
+                                  "mlp", "bi_linear"):
+            raise ValueError("invalid score_function")
+        self.hidden_dim = hidden_dim or embed_dim // n_head
+        self.n_head = n_head
+        self.score_function = score_function
+        self.dropout = dropout
+        self.faithful_softmax_dim0 = faithful_softmax_dim0
+        d = self.hidden_dim
+        self.w_k = Linear(embed_dim, n_head * d)
+        self.w_q = Linear(embed_dim, n_head * d)
+        self.proj = Linear(n_head * d, out_dim or embed_dim)
+        if score_function == "mlp":
+            self.weight = nn.Parameter(torch.empty(2 * d))
+        elif score_function == "bi_linear":
+            self.weight = nn.Parameter(torch.empty(d, d))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The reference's: ``weight`` U(-1/sqrt(hidden), .), the linears
+        torch's defaults."""
+        if hasattr(self, "weight"):
+            reset_uniform([self.weight], 1.0 / math.sqrt(self.hidden_dim),
+                          generator)
+        reset_linears(self, generator)
+
+    def forward(self, k: Tensor, q: Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """k (B, Lk, E) and q (B, Lq, E) (or (B, E), one step) -> (out
+        (B, Lq, out_dim), scores (n_head B, Lq, Lk))."""
+        q = q[:, None] if q.dim() == 2 else q
+        k = k[:, None] if k.dim() == 2 else k
+        B, Lk, _ = k.shape
+        Lq, nh, d = q.shape[1], self.n_head, self.hidden_dim
+        # heads to the front: row n = head * B + b
+        kx = self.w_k(k).view(B, Lk, nh, d).permute(2, 0, 1, 3) \
+            .reshape(nh * B, Lk, d)
+        qx = self.w_q(q).view(B, Lq, nh, d).permute(2, 0, 1, 3) \
+            .reshape(nh * B, Lq, d)
+        if self.score_function == "mlp":
+            kq = torch.cat([kx[:, None].expand(-1, Lq, -1, -1),
+                            qx[:, :, None].expand(-1, -1, Lk, -1)], dim=-1)
+            score = torch.tanh(kq @ self.weight)
+        elif self.score_function == "bi_linear":
+            score = (qx @ self.weight) @ kx.transpose(1, 2)
+        else:
+            score = qx @ kx.transpose(1, 2)
+            if self.score_function == "scaled_dot_product":
+                score = score / math.sqrt(d)
+        score = torch.softmax(score, dim=0 if self.faithful_softmax_dim0
+                              else -1)
+        out = torch.cat((score @ kx).split(B, dim=0), dim=-1)
+        out = dropout(self.proj(out), self.dropout if train else 0.0,
+                      generator)
+        return out, score
 
 
 class MaskedEdgeAttention(nn.Module):

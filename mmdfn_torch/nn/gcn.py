@@ -4,7 +4,8 @@ three reference wirings, and the plain two-layer GCN of the GCN3 baseline.
 ``fc_in`` and ReLU give ``h = h0``; then per layer l = 1..nlayers, with
 ``theta_l = log(lamda / l + 1)``: the shared reason-LSTM step (gates
 i, f, g, o; bias ``b_ih + b_hh``; state carried across layers), the GCNII
-variant update, ReLU, dropout and the additive skip ``+q``.  In training
+update (:func:`gcnii_conv`: the variant's by default, the original's with
+``variant=False``), ReLU, dropout and the additive skip ``+q``.  In training
 the input x is dropped before ``fc_in`` and h after its ReLU, with h0 kept
 undropped (``mmdfn_tpu/nn/gcn.py:159-165``), and each layer's dropout bits
 come from Philox under a seed drawn from the step's generator.  The layer
@@ -26,14 +27,31 @@ from mmdfn_torch.nn import drop_override
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.nn.init import reset_linear, reset_linears, reset_uniform
 from mmdfn_torch.nn.linear import Linear
-from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain, is_batched
+from mmdfn_torch.ops import (fold_weights, gcnii_stack_fwd, gcnii_stack_plain,
+                             is_batched)
 
 Tensor = torch.Tensor
 
 
+def gcnii_conv(h: Tensor, adj: Tensor, h0: Tensor, W: Tensor,
+               theta: Tensor, alpha: float, variant: bool,
+               spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None
+               ) -> Tensor:
+    """One GCNII graph convolution (``mmdfn_tpu/nn/gcn.py:gcnii_conv``,
+    reference ``model_GCN.py:176-189``): ``hi = adj @ h`` (or
+    ``spmm(adj, h)``); the variant's ``support = [hi | h0]``, else
+    ``support = r``; with ``r = (1-α) hi + α h0`` the output is
+    ``θ (support @ W) + (1-θ) r``, before the ReLU."""
+    hi = adj @ h if spmm is None else spmm(adj, h)
+    r = (1.0 - alpha) * hi + alpha * h0
+    support = torch.cat([hi, h0], dim=-1) if variant else r
+    return theta * (support @ W) + (1.0 - theta) * r
+
+
 class GraphConvolution(nn.Module):
-    """One GCNII layer's weight, (2H, H) for the variant, applied as
-    ``support @ weight`` (reference ``model_GCN.py:160-189``)."""
+    """One GCNII layer's weight, (2H, H) for the variant and (H, H)
+    without, applied as ``support @ weight`` (reference
+    ``model_GCN.py:160-189``)."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -66,6 +84,9 @@ class GCNIIStack(nn.Module):
     * ``MM_GCN2``'s loop (GF2): ``has_fc_in=False``,
       ``dropout_mode='before'``, ``post_loop_dropout=True``: h = h0 = x.
 
+    ``variant=False`` builds each layer's weight (H, H), the original GCNII
+    update; kernels B and D then run on its fold (``ops.fold_weights``).
+
     ``spmm`` replaces each layer's ``adj @ h`` (the node-sharded product
     of a mesh with a model axis, ``parallel/graph_parallel.py``).  With it
     the stack runs its plain version on any device and launches neither
@@ -82,7 +103,7 @@ class GCNIIStack(nn.Module):
                  has_fc_in: bool = True, dropout_mode: str = "after",
                  post_loop_dropout: bool = False,
                  spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
-                 rate_tag: Optional[str] = None):
+                 rate_tag: Optional[str] = None, variant: bool = True):
         super().__init__()
         if dropout_mode not in ("after", "before", "none"):
             raise ValueError(f"dropout_mode {dropout_mode!r}")
@@ -93,6 +114,7 @@ class GCNIIStack(nn.Module):
                              "dropout and without the reason-LSTM only")
         self.nhidden = nhidden
         self.alpha = alpha
+        self.variant = variant
         self.dropout = dropout
         self.reason_flag = reason_flag
         self.has_fc_in = has_fc_in
@@ -105,7 +127,8 @@ class GCNIIStack(nn.Module):
         if has_fc_in:
             self.fcs = nn.ModuleList([Linear(nfeat, nhidden)])
         self.convs = nn.ModuleList(
-            [GraphConvolution(2 * nhidden, nhidden) for _ in range(nlayers)])
+            [GraphConvolution((2 if variant else 1) * nhidden, nhidden)
+             for _ in range(nlayers)])
         self.rnn = ReasonLSTM(nhidden) if reason_flag else None
         self.register_buffer(
             "theta", torch.log(lamda / torch.arange(1, nlayers + 1,
@@ -126,10 +149,12 @@ class GCNIIStack(nn.Module):
 
     def _packed(self) -> tuple:
         """The layer weights as kernel B takes them: W stacked to
-        (nlayers, 2H, H), the LSTM weights contiguous as (H, 4H) and
+        (nlayers, 2H, H) (or (nlayers, H, H)), its fold without the
+        variant (else None), the LSTM weights contiguous as (H, 4H) and
         ``b_ih + b_hh``.  With autograd off (serving) they are built once
         and rebuilt only after a parameter moves or is written in place;
-        with autograd on they are built afresh so gradients reach them."""
+        with autograd on they are built afresh so gradients reach them
+        (the fold is then left to ``gcnii_stack_fwd``, inside the graph)."""
         params = [c.weight for c in self.convs]
         if self.rnn is not None:
             params += list(self.rnn.parameters())
@@ -141,13 +166,15 @@ class GCNIIStack(nn.Module):
         if keep and self._cache is not None and self._cache[0] == key:
             return self._cache[1]
         W = torch.stack([conv.weight for conv in self.convs])
+        folded = (fold_weights(W, self.alpha)
+                  if keep and not self.variant else None)
         if self.reason_flag:
             r = self.rnn
-            packed = (W, r.weight_ih_l0.t().contiguous(),
+            packed = (W, folded, r.weight_ih_l0.t().contiguous(),
                       r.weight_hh_l0.t().contiguous(),
                       r.bias_ih_l0 + r.bias_hh_l0)
         else:
-            packed = (W, None, None, None)
+            packed = (W, folded, None, None, None)
         self._cache = (key, packed) if keep else None
         return packed
 
@@ -157,7 +184,7 @@ class GCNIIStack(nn.Module):
         """Returns (x, h): the input as the residue concat takes it
         (dropped in training, as the reference reuses its mutated ``x``)
         and the final hidden state."""
-        W, *lstm = self._packed()
+        W, folded, *lstm = self._packed()
         rate = self.dropout if train else 0.0
         tag = self.rate_tag
         # under an override (the grouped sweep) the stack always draws, as
@@ -190,12 +217,14 @@ class GCNIIStack(nn.Module):
         if self.spmm is None:
             h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
                                 alpha=self.alpha, reason=self.reason_flag,
-                                rate=in_loop, seed=seed)
+                                rate=in_loop, seed=seed, variant=self.variant,
+                                folded=folded)
         else:
             h = gcnii_stack_plain(adj, h, h0, W, self.theta, *lstm,
                                   alpha=self.alpha, reason=self.reason_flag,
                                   rate=in_loop, seed=seed, spmm=self.spmm,
-                                  relu_inputs=self.relu_inputs)
+                                  relu_inputs=self.relu_inputs,
+                                  variant=self.variant)
         if self.post_loop_dropout and self.dropout_mode != "before":
             h = dropout(h, rate, generator, tag)
         return x, h

@@ -147,6 +147,37 @@ class GRUCellStep(nn.Module):
         return (1.0 - z) * n + z * h
 
 
+class LSTMCellStep(nn.Module):
+    """One LSTM cell step, carried by the caller (``mmdfn_tpu/nn/rnn.py:
+    LSTMCellStep``, the reason-LSTM's cell of ``model_GCN.py:458-467``):
+    gates i, f, g, o from ``x @ w_ih + b_ih + h @ w_hh + b_hh`` with the
+    weights (H, 4H) in the JAX orientation, all drawn U(-1/sqrt(H), .).
+    ``forward(x, (h, c))`` returns ``(h', (h', c'))``."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        H = hidden_size
+        self.w_ih = nn.Parameter(torch.empty(H, 4 * H))
+        self.w_hh = nn.Parameter(torch.empty(H, 4 * H))
+        self.b_ih = nn.Parameter(torch.empty(4 * H))
+        self.b_hh = nn.Parameter(torch.empty(4 * H))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        k = 1.0 / math.sqrt(self.w_hh.shape[0])
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-k, k, generator=generator)
+
+    def forward(self, x: Tensor, carry: Tuple[Tensor, Tensor]):
+        h, c = carry
+        g = x @ self.w_ih + self.b_ih + h @ self.w_hh + self.b_hh
+        i, f, gg, o = g.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return h, (h, c)
+
+
 def crn_party_delta(rnn: BiRNN, x: Tensor, qmask: Tensor,
                     umask: Tensor, *, train: bool = False,
                     generator: Optional[torch.Generator] = None) -> Tensor:

@@ -1,5 +1,5 @@
-"""Kernels B and D: the GCNII stack (GCNII_lyc, variant=True) forward, with
-a training mode, and backward.
+"""Kernels B and D: the GCNII stack (GCNII_lyc) forward, with a training
+mode, and backward.
 
 Kernel B replaces ``mmdfn_tpu/ops/pallas_gcnii.py:gcnii_stack_fused`` and
 ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_fwd`` (``csrc/gcnii_fwd.cu``):
@@ -48,6 +48,13 @@ its configuration, so configuration k draws the bits its run alone
 draws.  Under ``torch.func.vmap`` the Functions' ``vmap`` rules move the
 config axis to the front and make that one launch, which autograd
 records: the backward is one config-axis launch of kernel D.
+
+The original GCNII update (``variant=False``: W (nl, H, H), support = r =
+(1-α) hi + α h0) runs the same kernels on the fold of W,
+``[(1-α) W; α W]`` (:func:`fold_weights`, as
+``mmdfn_tpu/ops/pallas_gcnii.py:121-125`` folds it): ``r @ W`` equals
+``[hi | h0] @ W_cat``, and autograd carries kernel D's ``dW_cat`` back
+through the fold.  Its plain version computes ``r @ W`` unfolded.
 """
 
 from __future__ import annotations
@@ -231,11 +238,13 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                       residuals: Optional[Sequence[Tensor]] = None,
                       relu_masks: Optional[Sequence[Tensor]] = None,
                       relu_inputs: Optional[list] = None,
-                      spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None
-                      ) -> Tensor:
+                      spmm: Optional[Callable[[Tensor, Tensor],
+                                              Tensor]] = None,
+                      variant: bool = True) -> Tensor:
     """Plain PyTorch version of :func:`gcnii_stack_fwd` (same contract);
     differentiable by autograd.  The dropout mask comes from
     :mod:`mmdfn_torch.ops.philox`, bit-equal to the kernel's.
+    ``variant=False`` computes ``r @ W[l]`` itself, not through the fold.
 
     ``spmm``, when given, computes each layer's ``adj @ h`` in place of the
     batched product (the node-sharded product,
@@ -265,8 +274,8 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
         if residuals is not None:
             residuals[3][:, l] = h.detach()
         hi = adj @ h if spmm is None else spmm(adj, h)
-        support = hi @ W[l, :H] + h0 @ W[l, H:]
         r = (1.0 - alpha) * hi + alpha * h0
+        support = (hi @ W[l, :H] + h0 @ W[l, H:]) if variant else r @ W[l]
         pre = theta[l] * support + (1.0 - theta[l]) * r
         if relu_inputs is not None:
             relu_inputs.append(pre.detach())
@@ -306,12 +315,17 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                     lstm_b: Optional[Tensor] = None, *, alpha: float,
                     reason: bool, rate=0.0,
                     seed: Optional[Tensor] = None,
-                    residuals: Optional[Sequence[Tensor]] = None) -> Tensor:
+                    residuals: Optional[Sequence[Tensor]] = None,
+                    variant: bool = True,
+                    folded: Optional[Tensor] = None) -> Tensor:
     """GCNII stack forward (deterministic at ``rate = 0``).
 
     Args:
       adj: (B, N, N) normalized adjacency; h: (B, N, H) loop-entry hidden;
-      h0: (B, N, H) residual anchor; W: (nlayers, 2H, H); theta: (nlayers,);
+      h0: (B, N, H) residual anchor; W: (nlayers, 2H, H), or (nlayers, H,
+      H) with ``variant=False`` (the kernels then run on its fold, or on
+      ``folded`` where the caller keeps ``fold_weights(W, alpha)``);
+      theta: (nlayers,);
       lstm_ih / lstm_hh: (H, 4H) reason-LSTM weights in the JAX orientation
       (a transposed view of torch's (4H, H) weights is copied contiguous,
       so that the kernel's weight reads coalesce);
@@ -331,12 +345,16 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
       carry the config axis) the kernels take the whole group in one
       launch.
     """
-    args = (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b)
     opts = dict(alpha=alpha, reason=reason, rate=rate, seed=seed)
     if _mode.plain:
-        return gcnii_stack_plain(*args, residuals=residuals, **opts)
+        return gcnii_stack_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh,
+                                 lstm_b, residuals=residuals, variant=variant,
+                                 **opts)
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcnii_stack_fwd: no kernel for {h.device}")
+    if not variant:
+        W = fold_weights(W, alpha) if folded is None else folded
+    args = (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b)
     dyn = hasattr(rate, "thresh")
     fn_args = (*args, *_rate_ops(rate), seed, alpha, reason,
                None if dyn else rate)
@@ -348,6 +366,14 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
             t is not None and t.requires_grad for t in args):
         return GCNIIStackTrain.apply(*fn_args)[0]
     return _forward(*args, residuals=residuals, **opts)
+
+
+def fold_weights(W: Tensor, alpha: float) -> Tensor:
+    """The non-variant layer weights W (..., nl, H, H) as the kernels take
+    the variant's: ``[(1-α) W; α W]`` (..., nl, 2H, H), so that
+    ``[hi | h0] @ W_cat = ((1-α) hi + α h0) @ W``.  Differentiable: the
+    gradient of W is ``(1-α) dW_cat[:H] + α dW_cat[H:]``."""
+    return torch.cat([(1.0 - alpha) * W, alpha * W], dim=-2)
 
 
 def _rate_args(drop: bool, thresh, inv_keep, K: int, dev) -> tuple:

@@ -4,9 +4,9 @@ that ``csrc/philox.cuh`` draws inside the GCNII kernels, bit for bit.
 Key = the 64-bit step seed, counter = (b, layer, node, channel), bits = word
 0 of the output; keep <=> ``bits < threshold(rate)``, kept values scaled by
 ``1 / (1 - rate)``.  Words are uint32 values held in int64 tensors; the
-32 x 32 -> 64-bit product that Philox needs is split into two 48-bit
-products, which int64 holds exactly.  Like the TPU kernel's hardware PRNG,
-this does not reproduce ``jax.random``'s bits.
+32 x 32 -> 64-bit product that Philox needs is the int64 product, which
+wraps modulo 2^64 and so keeps all 64 bits.  Like the TPU kernel's hardware
+PRNG, this does not reproduce ``jax.random``'s bits.
 """
 
 from __future__ import annotations
@@ -29,11 +29,11 @@ def threshold(rate: float) -> int:
 
 
 def _mulhilo(m: int, c: Tensor):
-    """(hi, lo) words of the 64-bit product of the constant m and c."""
-    p_lo = c * (m & 0xFFFF)                 # < 2^48
-    p_hi = c * (m >> 16)                    # < 2^48
-    s = p_lo + ((p_hi & 0xFFFF) << 16)      # < 2^49
-    return (p_hi >> 16) + (s >> 32), s & _MASK32
+    """(hi, lo) words of the 64-bit product of the constant m and c: the
+    int64 product holds its bits (past 2^63 as a negative number, whose
+    arithmetic shift keeps the high word's bits under the mask)."""
+    p = c * m
+    return (p >> 32) & _MASK32, p & _MASK32
 
 
 def philox4x32(c0: Tensor, c1: Tensor, c2: Tensor, c3: Tensor,

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from mmdfn_torch.nn.gcn import gcnii_conv
 from mmdfn_torch.runtime.mesh import MODEL_AXIS, all_gather, reduce_scatter
 
 Tensor = torch.Tensor
@@ -157,15 +158,10 @@ def sharded_gcnii_stack(mesh, adj: Tensor, h: Tensor, h0: Tensor,
     rows = _rows(mesh, h.shape[0])
     group = mesh[MODEL_AXIS].get_group()
     adj_cols, h_loc, h0_loc = adj[:, rows], h[rows], h0[rows]
+    spmm = lambda a, x: _ReduceScatter.apply(a @ x, group, 0)
     for l in range(W.shape[0]):
-        hi = _ReduceScatter.apply(adj_cols @ h_loc, group, 0)
-        if variant:
-            support = torch.cat([hi, h0_loc], dim=-1)
-            r = (1.0 - alpha) * hi + alpha * h0_loc
-        else:
-            support = r = (1.0 - alpha) * hi + alpha * h0_loc
         # the rows this rank owns: what its column block of adj multiplies
         # in the next layer's partial product
-        h_loc = torch.relu(theta[l] * (support @ W[l])
-                           + (1.0 - theta[l]) * r)
+        h_loc = torch.relu(gcnii_conv(h_loc, adj_cols, h0_loc, W[l],
+                                      theta[l], alpha, variant, spmm))
     return h_loc

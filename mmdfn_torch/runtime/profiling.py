@@ -3,12 +3,15 @@
 
 * :class:`ThroughputMeter`: dialogues/s and utterances/s of a region;
 * :func:`trace`: a torch.profiler trace of a region, written for
-  TensorBoard's profile plugin or Perfetto;
+  TensorBoard's profile plugin or Perfetto; :func:`annotate` names a
+  sub-region on its timeline;
 * :func:`device_time_ms` / :func:`device_busy_ms`: what a callable keeps
   the card busy, and the window it spans;
 * :func:`debug_numerics`: autograd's anomaly mode with NaN checks;
 * :func:`grad_histograms_device`: per-parameter gradient histograms
-  reduced on the device (the ``--tensorboard`` histograms).
+  reduced on the device (the ``--tensorboard`` histograms), and
+  :func:`grad_histograms`, numpy's on the host;
+* :class:`JsonlWriter`: an append-only JSON-lines metric stream.
 
 ``mmdfn_tpu``'s ``enable_compilation_cache`` has no counterpart: it is
 XLA's cache, and the kernels' build directory already keeps what nvcc
@@ -18,7 +21,9 @@ built.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
@@ -139,6 +144,13 @@ def device_busy_ms(run: Callable[[], object]) -> Optional[float]:
     return None if t is None else t[0]
 
 
+def annotate(name: str):
+    """A named sub-region of a traced step (``torch.profiler``'s
+    ``record_function``), shown on the trace's timeline; a context
+    manager."""
+    return torch.profiler.record_function(name)
+
+
 def debug_numerics(enable: bool = True) -> None:
     """Autograd's anomaly mode, with its NaN check: a backward that makes a
     NaN raises, naming the forward operator that led to it."""
@@ -206,3 +218,28 @@ def histograms_to_host(rows: List[Dict[str, Dict]]) -> List[Dict[str, Dict]]:
                 at += n
         out.append(step)
     return out
+
+
+def grad_histograms(grads: Mapping[str, torch.Tensor],
+                    bins: int = 64) -> Dict[str, tuple]:
+    """Per-parameter gradient histograms on the host:
+    ``{name: (counts, bin_edges)}`` as ``np.histogram`` gives them (one
+    copy of each gradient to the host)."""
+    return {name: np.histogram(g.detach().cpu().numpy().ravel(), bins=bins)
+            for name, g in grads.items()}
+
+
+class JsonlWriter:
+    """An append-only JSON-lines metric stream: one row a ``write``,
+    flushed at once."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, "a")
+
+    def write(self, row: dict) -> None:
+        self._f.write(json.dumps(row, default=float) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()

@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pickle
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -121,10 +121,15 @@ def check_family(cfg: ExperimentConfig) -> None:
             "base with attn1 edge weights only")
 
 
-def import_state_dict(sd: Mapping[str, Any], cfg: ExperimentConfig
+def import_state_dict(sd: Mapping[str, Any], cfg: ExperimentConfig,
+                      model: Optional[torch.nn.Module] = None
                       ) -> torch.nn.Module:
-    """The config's port model with the reference weights ``sd`` (tensors
-    or arrays) loaded strictly, the dead prefixes dropped first.
+    """The config's port model (or ``model``, a template built for it, as
+    the JAX importer takes a parameter tree: one whose GCNII stacks were
+    built with ``variant=False`` takes the reference's non-variant
+    ``GraphConvolution(nhidden, nhidden)`` layers) with the reference
+    weights ``sd`` (tensors or arrays) loaded strictly, the dead prefixes
+    dropped first.
 
     Raises:
       NotImplementedError: the config selects a family the port lacks.
@@ -134,7 +139,8 @@ def import_state_dict(sd: Mapping[str, Any], cfg: ExperimentConfig
       ValueError: a key whose shape differs from the model's.
     """
     check_family(cfg)
-    model = models.from_config(cfg)
+    if model is None:
+        model = models.from_config(cfg)
     dead = dead_prefixes(model)
     live = {k: v for k, v in sd.items() if not k.startswith(dead)}
     want = model.state_dict()

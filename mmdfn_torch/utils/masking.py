@@ -13,6 +13,18 @@ def lengths_from_mask(umask: Tensor) -> Tensor:
     return (umask > 0).sum(dim=-1)
 
 
+def mask_from_lengths(lengths: Tensor, max_len: int) -> Tensor:
+    """(B,) lengths -> (B, max_len) float mask."""
+    pos = torch.arange(max_len, device=lengths.device)[None, :]
+    return (pos < lengths[:, None]).to(torch.float32)
+
+
+def pair_mask(umask: Tensor) -> Tensor:
+    """(B, L) -> (B, L, L) outer-product validity mask for adjacencies."""
+    m = umask.to(torch.float32)
+    return m[:, :, None] * m[:, None, :]
+
+
 def flip_valid(x: Tensor, umask: Tensor) -> Tensor:
     """Reverse each sequence within its valid prefix, pads left in place
     (the reference's ``_reverse_seq``, ``model.py:1008-1017``): position t

@@ -48,6 +48,8 @@ def _linear(sd: "OrderedDict", prefix: str, p: Mapping) -> None:
 
 
 def _convs(sd: "OrderedDict", prefix: str, conv_w) -> None:
+    """Each layer of ``conv_w``, (nl, 2H, H) or, without the variant,
+    (nl, H, H), as ``convs.{i}.weight``."""
     for i, w in enumerate(np.asarray(conv_w)):   # torch.mm's orientation
         sd[f"{prefix}convs.{i}.weight"] = _t(w)
 

@@ -8,6 +8,7 @@ reference-keyed baseline checkpoints."""
 
 import io
 import json
+from functools import partial
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from mmdfn_tpu.models.baselines import DialogueRNN as JDialogueRNN
 from mmdfn_tpu.nn.rnn import BiRNN as JBiRNN
 from mmdfn_tpu.tools.import_torch_checkpoint import state_dict_to_params
 from mmdfn_tpu.train import Trainer as JTrainer
+from mmdfn_tpu.train import TrainState
 from mmdfn_tpu.train.trainer import prepare_inputs as j_prepare_inputs
 
 from mmdfn_torch.cli import run_train_erc, serve
@@ -48,6 +50,18 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
+
+
+def _value_and_grad(jf, x, R):
+    """``jf(x)`` and the gradient of ``sum(jf(x) R)`` in one compile."""
+    return map(np.asarray, fast_jit(lambda u: (jf(u), jax.grad(
+        lambda v: jnp.sum(jf(v) * R))(u)))(x))
 
 
 def _uniform(rng, shapes, bound=0.3):
@@ -83,8 +97,7 @@ def test_dialogue_rnn_matches_jax(attention, listener):
                                  "dialog_rnn_f."))
     R = rng.standard_normal((B, L, D_e)).astype(np.float32)
     jf = lambda u: jm.apply({"params": params}, u, qmask)[0]
-    want = np.asarray(jf(U))
-    jgrad = np.asarray(jax.grad(lambda u: jnp.sum(jf(u) * R))(U))
+    want, jgrad = _value_and_grad(jf, U, R)
     x = torch.from_numpy(U).requires_grad_()
     got = model(x, torch.from_numpy(qmask))
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
@@ -109,8 +122,7 @@ def test_bilstm_matches_jax_with_holes_in_the_mask():
                                  "lstm."))
     R = rng.standard_normal((B, L, 2 * H)).astype(np.float32)
     jf = lambda u: jm.apply({"params": params}, u, mask)
-    want = np.asarray(jf(x))
-    jgrad = np.asarray(jax.grad(lambda u: jnp.sum(jf(u) * R))(x))
+    want, jgrad = _value_and_grad(jf, x, R)
     t = torch.from_numpy(x).requires_grad_()
     got = model(t, torch.from_numpy(mask))
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
@@ -167,7 +179,7 @@ def test_baseline_models_match_jax(case):
     for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(back),
                                  jax.tree_util.tree_leaves_with_path(params)):
         np.testing.assert_array_equal(a, b, jax.tree_util.keystr(path))
-    want = np.asarray(jax.jit(lambda p, *a: jtr.model.apply(
+    want = np.asarray(fast_jit(lambda p, *a: jtr.model.apply(
         {"params": p}, *a, deterministic=True))(params, *args))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args)).numpy()
@@ -186,7 +198,9 @@ def pickle_path(tmp_path_factory):
 def _bridged(kw, seed=2):
     tr = Trainer(ExperimentConfig(**kw), device="cpu")
     jtr = JTrainer(JConfig(**kw))
-    params = jtr.init_state(seed=seed).params
+    # init_state's parameters, in one compile
+    params = fast_jit(jtr._init_variables)(jax.random.PRNGKey(seed),
+                                           jtr._example_inputs())["params"]
     tr.model.load_state_dict(params_from_jax(params))
     return tr, jtr, params
 
@@ -199,9 +213,9 @@ def test_three_trainer_steps_of_the_lstm_baseline_match_jax(pickle_path):
               batch_size=2, class_weight=True, buckets=(12,))
     tr, jtr, params = _bridged(kw)
     assert jtr.loss_kind == "nll"
-    state = (params, jtr.tx.init(params))
+    state = (params, fast_jit(jtr.tx.init)(params))
 
-    @jax.jit
+    @fast_jit
     def jstep(state, inputs):
         p, opt = state
         loss, grads = jax.value_and_grad(lambda q: jtr._loss(
@@ -269,8 +283,10 @@ def test_epoch_loss_weights_each_batch_by_its_utterances(pickle_path):
     sizes = [float(b.umask.sum()) for b in batches]
     assert len(batches) == 2 and sizes[0] != sizes[1]
     got = tr.run_epoch(batches)
-    _, want = jtr.run_epoch(jtr.init_state(seed=6).replace(params=params),
-                            batches)
+    state = TrainState(params=params,                    # init_state's
+                       opt_state=fast_jit(jtr.tx.init)(params),
+                       step=jnp.zeros((), jnp.int32))
+    _, want = jtr.run_epoch(state, batches)
     assert abs(got.loss - want.loss) <= 1e-4
     per = [float(tr.eval_step(prepare_inputs(b, tr.device))[0])
            for b in batches]
@@ -337,8 +353,8 @@ def test_baselines_import_as_jax_does(case):
     for k, v in source.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
     params = state_dict_to_params(sd, template)
-    want = np.asarray(jtr.model.apply({"params": params}, *args,
-                                      deterministic=True))
+    want = np.asarray(fast_jit(lambda p, *a: jtr.model.apply(
+        {"params": p}, *a, deterministic=True))(params, *args))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args)).numpy()
     valid = args[2] > 0

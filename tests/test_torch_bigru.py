@@ -1,6 +1,8 @@
 """Kernel A (masked bi-GRU layer) and the port's BiRNN / CRN encoder,
 held against the JAX package on the same numpy inputs."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,12 @@ from mmdfn_tpu.ops.pallas_rnn import fused_bigru_layer
 from mmdfn_torch.nn.rnn import BiRNN, crn_party_delta
 from mmdfn_torch.ops import bigru_layer_fwd, bigru_layer_plain
 from mmdfn_torch.weights import gru_from_jax
+
+
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,17 +55,18 @@ def test_plain_matches_jax_fused_kernel_and_scan():
     T = torch.from_numpy
     ys_f, ys_b = bigru_layer_fwd(T(xg_f), T(xg_b), T(wf), T(bf), T(wb), T(bb),
                                  T(mask))
-    jf, jb = fused_bigru_layer(*map(jnp.asarray, (xg_f, xg_b, wf, bf, wb, bb)),
-                               jnp.asarray(mask), interpret=True)
+    jf, jb = fast_jit(lambda *a: fused_bigru_layer(*a, interpret=True))(
+        *map(jnp.asarray, (xg_f, xg_b, wf, bf, wb, bb, mask)))
     # f32 recurrences of 9 steps; only the summation order differs
     np.testing.assert_allclose(ys_f.numpy(), np.asarray(jf), atol=1e-5)
     np.testing.assert_allclose(ys_b.numpy(), np.asarray(jb), atol=1e-5)
 
     h0 = jnp.zeros((B, H))
-    sf, _ = _gru_scan(jnp.asarray(xg_f), jnp.asarray(wf), jnp.asarray(bf), h0,
-                      mask=jnp.asarray(mask))
-    sb, _ = _gru_scan(jnp.asarray(xg_b[:, ::-1]), jnp.asarray(wb),
-                      jnp.asarray(bb), h0, mask=jnp.asarray(mask[:, ::-1]))
+    scan = fast_jit(lambda x, w, b, m: _gru_scan(x, w, b, h0, mask=m)[0])
+    sf = scan(jnp.asarray(xg_f), jnp.asarray(wf), jnp.asarray(bf),
+              jnp.asarray(mask))
+    sb = scan(jnp.asarray(xg_b[:, ::-1]), jnp.asarray(wb), jnp.asarray(bb),
+              jnp.asarray(mask[:, ::-1]))
     np.testing.assert_allclose(ys_f.numpy(), np.asarray(sf), atol=1e-5)
     np.testing.assert_allclose(ys_b.numpy(), np.asarray(sb)[:, ::-1], atol=1e-5)
 
@@ -82,8 +91,8 @@ def _jax_birnn(seed=0, B_=2, L_=7, D=20):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B_, L_, D)).astype(np.float32)
     jm = JBiRNN(H, num_layers=2, bidirectional=True, cell="gru")
-    params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x),
-                     jnp.ones((B_, L_)))["params"]
+    params = fast_jit(jm.init)(jax.random.PRNGKey(seed), jnp.asarray(x),
+                               jnp.ones((B_, L_)))["params"]
     pm = BiRNN(D, H)
     pm.load_state_dict(gru_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     return rng, x, jm, params, pm
@@ -93,7 +102,8 @@ def test_birnn_matches_jax():
     rng, x, jm, params, pm = _jax_birnn()
     umask = np.ones((2, 7), np.float32)
     umask[1, 5:] = 0.0
-    want = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(umask))
+    want = fast_jit(jm.apply)({"params": params}, jnp.asarray(x),
+                              jnp.asarray(umask))
     got = pm(torch.from_numpy(x), torch.from_numpy(umask))
     valid = umask > 0
     # two stacked f32 recurrences; summation order only
@@ -108,8 +118,8 @@ def test_crn_party_delta_matches_jax():
     spk = rng.integers(0, 2, size=(2, 7))
     qmask = np.eye(2, dtype=np.float32)[spk] * umask[..., None]
     rnn = lambda a, m, deterministic=True: jm.apply({"params": params}, a, m)
-    want = j_crn_party_delta(rnn, jnp.asarray(x), jnp.asarray(qmask),
-                             jnp.asarray(umask))
+    want = fast_jit(lambda *a: j_crn_party_delta(rnn, *a))(
+        jnp.asarray(x), jnp.asarray(qmask), jnp.asarray(umask))
     got = crn_party_delta(pm, *map(torch.from_numpy, (x, qmask, umask)))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-5)

@@ -3,6 +3,8 @@ package's ``_bigru_bwd`` (through ``jax.vjp`` of ``fused_bigru_layer`` in
 interpret mode) and against autograd through the port's plain forward; and
 the training forward of the port's BiRNN."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,12 @@ from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
                              bigru_layer_fwd, bigru_layer_plain, plain_ops)
 
 
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     # small tensors: with several test workers on a few cores, one torch
@@ -26,6 +34,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _vjp(f, args, dy):
+    """``f(*args)`` and its vjp of ``dy``, in one compile."""
+    def run(args, dy):
+        out, vjp = jax.vjp(f, *args)
+        return out, vjp(dy)
+    return fast_jit(run)(args, dy)
 
 
 H, B, L = 32, 3, 9
@@ -55,8 +71,8 @@ def test_bwd_plain_matches_jax_vjp_of_the_fused_kernel():
     got = _port_bwd(args, dy)
     xg_f, xg_b, wf, bf, wb, bb, mask = map(jnp.asarray, args)
     f = lambda *a: fused_bigru_layer(*a, mask, interpret=True)
-    _, vjp = jax.vjp(f, xg_f, xg_b, wf, bf, wb, bb)
-    want = vjp(tuple(map(jnp.asarray, dy)))
+    _, want = _vjp(f, (xg_f, xg_b, wf, bf, wb, bb),
+                   tuple(map(jnp.asarray, dy)))
     # f32 BPTT over 9 steps; only the summation order differs
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
@@ -141,8 +157,8 @@ def test_bwd_plain_with_the_saved_hg_matches_the_recompute_and_jax():
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
     xg_f, xg_b, wf, bf, wb, bb, mask = map(jnp.asarray, args)
     f = lambda *a: fused_bigru_layer(*a, mask, interpret=True)
-    _, vjp = jax.vjp(f, xg_f, xg_b, wf, bf, wb, bb)
-    want = vjp(tuple(map(jnp.asarray, dy)))
+    _, want = _vjp(f, (xg_f, xg_b, wf, bf, wb, bb),
+                   tuple(map(jnp.asarray, dy)))
     # f32 BPTT over 9 steps; only the summation order differs
     for a, b in zip(saved, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)

@@ -1,9 +1,12 @@
 """The port's data code and adjacency against the JAX package's."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mmdfn_tpu.data import batching as jbatching
@@ -64,8 +67,10 @@ def test_mm_big_adjacency_matches_jax(modal_weight):
     feats = [(rng.standard_normal((B, L, 8)) * umask[..., None]).astype(
         np.float32) for _ in range(3)]
     feats[1][0, 2] = feats[2][0, 2] = 0.0        # a zero-norm valid row
-    want = j_mm_big_adjacency([jnp.asarray(f) for f in feats],
-                              jnp.asarray(umask), modal_weight=modal_weight)
+    # in one compile, at XLA's CPU backend's lowest optimisation level
+    want = jax.jit(partial(j_mm_big_adjacency, modal_weight=modal_weight),
+                   compiler_options=dict(xla_backend_optimization_level=0))(
+        [jnp.asarray(f) for f in feats], jnp.asarray(umask))
     got = mm_big_adjacency([torch.from_numpy(f) for f in feats],
                            torch.from_numpy(umask), modal_weight=modal_weight)
     # f32 cosines on both sides (TF32 off on the card, HIGHEST in JAX)

@@ -4,6 +4,8 @@ bridge's round trip through ``mmdfn_tpu``'s reference-checkpoint importer,
 three ``Trainer`` steps of GF2, DeepGCN, relation and 'None', and the
 adjacency constructions the families add, each with its gradient."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,10 @@ def _one_torch_thread():
 
 
 NL = 2    # GCNII layers of GF, GDF and DeepGCN; GF2 has its fixed 64
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 DIMS = {"IEMOCAP": (100, 1582, 342, 2), "MELD": (600, 300, 342, 9)}
 
 
@@ -123,7 +129,7 @@ def test_family_logprobs_and_weight_bridge_match_jax(case):
     assert back.keys() == sd.keys()
     for k, v in sd.items():
         assert torch.equal(back[k], v), k
-    want = np.asarray(jax.jit(lambda p, *a: jm.apply(
+    want = np.asarray(fast_jit(lambda p, *a: jm.apply(
         {"params": p}, *a, deterministic=True))(params, *args))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args)).numpy()
@@ -171,9 +177,9 @@ def test_three_trainer_steps_match_the_jax_trainer(pickle_path, graph_type):
         lambda s: np.zeros(s.shape, s.dtype), shapes)
     params = state_dict_to_params(
         {k: v.numpy() for k, v in tr.model.state_dict().items()}, template)
-    state = (params, jtr.tx.init(params))
+    state = (params, fast_jit(jtr.tx.init)(params))
 
-    @jax.jit
+    @fast_jit
     def jstep(state, inputs, key):
         p, opt = state
         loss, grads = jax.value_and_grad(lambda q: jtr._loss(
@@ -253,7 +259,7 @@ def test_adjacency_graphs_and_their_gradients_match_jax(name, speakers):
     R = rng.standard_normal((B, N, N)).astype(np.float32)
 
     jref = lambda fs: ref(fs, jnp.asarray(qmask), jnp.asarray(umask))
-    want, jgrads = jax.jit(lambda fs: (jref(fs), jax.grad(
+    want, jgrads = fast_jit(lambda fs: (jref(fs), jax.grad(
         lambda f: jnp.sum(jref(f) * R))(fs)))([jnp.asarray(f) for f in feats])
     want = np.asarray(want)
     ts = [torch.from_numpy(f).requires_grad_() for f in feats]

@@ -4,6 +4,8 @@ not), ``DenseNetFrontend`` and its batch independence, and
 ``RawInputDialogueGNN``'s log-probs and three Adam steps of the focal loss
 on bridged weights, at ``tests/test_raw_input.py``'s sizes."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,12 @@ from mmdfn_torch.frontends import (DenseNetFrontend, LogMelFrontend,
 from mmdfn_torch.models import DialogueGNN, RawInputDialogueGNN
 from mmdfn_torch.train import Trainer
 from mmdfn_torch.weights import _frontend_from_jax, raw_params_from_jax
+
+
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,7 +91,7 @@ def test_log_mel_frontend_matches_jax(n_samples, frames):
     wav = rng.standard_normal((B, L, n_samples)).astype(np.float32)
     jm = JLogMel(out_dim=64, channels=16, **MEL)
     params = _jax_params(jm, jnp.asarray(wav), seed=1)
-    want = np.asarray(jax.jit(jm.apply)({"params": params},
+    want = np.asarray(fast_jit(jm.apply)({"params": params},
                                         jnp.asarray(wav)))
     pm = LogMelFrontend(out_dim=64, channels=16, **MEL)
     pm.load_state_dict(_bridge(params))
@@ -101,7 +109,7 @@ def test_densenet_frontend_matches_jax_and_is_batch_independent():
     kw = dict(out_dim=16, growth=8, block_config=(2, 2), stem_channels=16)
     jm = JDenseNet(**kw)
     params = _jax_params(jm, jnp.asarray(frames), seed=2)
-    want = np.asarray(jax.jit(jm.apply)({"params": params},
+    want = np.asarray(fast_jit(jm.apply)({"params": params},
                                         jnp.asarray(frames)))
     pm = DenseNetFrontend(**kw)
     pm.load_state_dict(_bridge(params))
@@ -169,7 +177,7 @@ def jax_run():
         updates, opt = tx.update(grads, opt, p)
         return optax.apply_updates(p, updates), opt, loss, logp, grads
 
-    p, opt = params, tx.init(params)
+    p, opt = params, fast_jit(tx.init)(params)
     losses = []
     for i in range(3):
         p, opt, loss, logp, grads = step(p, opt)

@@ -4,6 +4,8 @@ package (``jax.vjp`` of the f32 ``GCNIIStack`` scan, and of
 port's plain forward with live dropout; and the Philox bits that kernels B
 and D draw."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,12 @@ from mmdfn_torch.ops.gcnii import RESIDUALS, _lstm_step, interleave_gates
 from mmdfn_torch.weights import gcnii_from_jax
 
 
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     # small tensors: with several test workers on a few cores, one torch
@@ -33,6 +41,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _vjp(f, args, dy):
+    """``f(*args)`` and its vjp of ``dy``, in one compile."""
+    def run(args, dy):
+        out, vjp = jax.vjp(f, *args)
+        return out, vjp(dy)
+    return fast_jit(run)(args, dy)
+
+
 ALPHA, NL, H, N, B, D = 0.2, 4, 32, 12, 2, 24
 
 
@@ -41,10 +57,11 @@ def _inputs(seed, reason):
     lengths = np.array([N, N - 4])
     umask = (np.arange(N)[None] < lengths[:, None]).astype(np.float32)
     x = (rng.standard_normal((B, N, D)) * umask[..., None]).astype(np.float32)
-    adj = np.array(gcnii_block_adjacency(jnp.asarray(x), jnp.asarray(umask)))
+    adj = np.array(fast_jit(gcnii_block_adjacency)(jnp.asarray(x),
+                                                   jnp.asarray(umask)))
     jm = JGCNIIStack(nlayers=NL, nhidden=H, alpha=ALPHA, reason_flag=reason)
-    params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x),
-                     jnp.asarray(adj))["params"]
+    params = fast_jit(jm.init)(jax.random.PRNGKey(seed), jnp.asarray(x),
+                               jnp.asarray(adj))["params"]
     params = jax.tree_util.tree_map(np.array, params)
     theta = np.log(0.5 / np.arange(1, NL + 1) + 1.0).astype(np.float32)
     dh = rng.standard_normal((B, N, H)).astype(np.float32)
@@ -63,8 +80,8 @@ def test_module_gradients_match_jax_vjp_of_the_scan(reason):
     jax.vjp of the f32 scan, for every parameter and both inputs."""
     rng, x, adj, jm, params, theta, dh = _inputs(0, reason)
     f = lambda p, xx, aa: jm.apply({"params": p}, xx, aa)[1]
-    out, vjp = jax.vjp(f, params, jnp.asarray(x), jnp.asarray(adj))
-    jp, jx, jadj = vjp(jnp.asarray(dh))
+    out, (jp, jx, jadj) = _vjp(f, (params, jnp.asarray(x), jnp.asarray(adj)),
+                               jnp.asarray(dh))
 
     pm = GCNIIStack(D, NL, H, alpha=ALPHA, reason_flag=reason, dropout=0.0)
     pm.load_state_dict(gcnii_from_jax(params))
@@ -109,8 +126,8 @@ def test_bwd_plain_against_the_jax_train_kernel_at_rate_0():
     f = lambda a, he, hz, w, ih, hh, b: gcnii_stack_train(
         a, he, hz, w, jnp.asarray(theta), ih, hh, b, alpha=ALPHA,
         reason=True, rate=0.0, seed=0, interpret=True)
-    _, vjp = jax.vjp(f, *map(jnp.asarray, (adj, h, h0, W, *lstm)))
-    want = vjp(jnp.asarray(dh))
+    _, want = _vjp(f, tuple(map(jnp.asarray, (adj, h, h0, W, *lstm))),
+                   jnp.asarray(dh))
 
     T = torch.from_numpy
     _, res = _residuals(T(adj), T(h), T(h0), T(W), T(theta),

@@ -10,7 +10,7 @@ import torch
 
 from mmdfn_torch.graph.adjacency import mm_big_adjacency
 from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
-                             bigru_layer_fwd, bigru_layer_plain,
+                             bigru_layer_fwd, bigru_layer_plain, fold_weights,
                              gcnii_stack_bwd, gcnii_stack_bwd_plain,
                              gcnii_stack_fwd, gcnii_stack_plain, philox,
                              plain_ops)
@@ -295,6 +295,58 @@ def test_gcnii_train_kernels_match_plain(B, L, nl, reason):
         # f32; sums over up to B N rows and nl layers in another order
         s = float(b.abs().max().clamp(min=1e-6))
         assert float((a - b).abs().max()) <= 1e-4 * s, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reason", [True, False])
+@pytest.mark.parametrize("B,L", [(1, 64), (32, 80)])
+def test_nonvariant_stack_on_the_fold_matches_the_unfolded_plain(B, L,
+                                                                 reason):
+    """The original GCNII update (``variant=False``, W (nl, H, H)): kernel B
+    on W's fold serving (one dialogue: N = 192) and in training mode
+    (dropout 0.4; B = 32: N = 240), and kernel D with the fold's backward
+    through autograd, against the unfolded plain version: the output, and
+    every operand's gradient at kernel D's ReLU decisions."""
+    dev = _card()
+    args, g = _gcnii_args(dev, B, L, 16, reason, 97 * B + L)
+    W = (torch.rand(16, H, H, generator=g) * 0.2 - 0.1).to(dev)
+    args = (*args[:3], W, args[4], *(args[5:] if reason else (None,) * 3))
+    kw = dict(alpha=0.2, reason=reason, variant=False)
+    got = gcnii_stack_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = gcnii_stack_plain(*args, **kw)
+    scale = float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+
+    seed = torch.tensor([0x5DEECE66D4321], dtype=torch.int64, device=dev)
+    kw.update(rate=0.4, seed=seed)
+    res = [torch.zeros(B, 16, 3 * L, H, device=dev) for _ in RESIDUALS]
+    with torch.no_grad():
+        gcnii_stack_fwd(*args, residuals=res, **kw)
+    folded = (*args[:3], fold_weights(W, 0.2), *args[4:])
+    masks = _kernel_d_decisions(folded, res, reason, 1e-5 * scale)
+    dh = torch.randn(B, 3 * L, H, generator=g).to(dev)
+    live = [i for i, t in enumerate(args) if t is not None and i != 4]
+
+    def step(fn, **more):
+        leaves = [t if t is None else t.detach().clone().requires_grad_()
+                  for t in args]
+        out = fn(*leaves, **kw, **more)
+        return out, torch.autograd.grad(out, [leaves[i] for i in live], dh)
+    before = (gcnii_stack_fwd.launches, gcnii_stack_bwd.launches)
+    out, grads = step(gcnii_stack_fwd)
+    torch.cuda.synchronize()
+    design = _design(B, 3 * L, _sm_count(dev))
+    assert (gcnii_stack_fwd.launches - before[0],
+            gcnii_stack_bwd.launches - before[1]) == (
+        gcnii_fwd_launches(16, reason, design),
+        gcnii_bwd_launches(16, reason))
+    out_p, grads_p = step(gcnii_stack_plain, relu_masks=masks)
+    torch.testing.assert_close(out, out_p, atol=1e-5 * scale, rtol=0)
+    for i, a, b in zip(live, grads, grads_p):
+        # f32; sums over up to B N rows and 16 layers in another order
+        s = float(b.abs().max().clamp(min=1e-6))
+        assert float((a - b).abs().max()) <= 1e-4 * s, i
 
 
 @pytest.mark.gpu

@@ -4,6 +4,7 @@ streaming prefix-exactness; plus the port's checkpoint, CLI and bench."""
 
 import io
 import json
+from functools import partial
 
 import numpy as np
 import pytest
@@ -22,6 +23,12 @@ from mmdfn_torch.models import DialogueGNN
 from mmdfn_torch.serve import StreamingSession
 from mmdfn_torch.weights import (build_model, load_model, params_from_jax,
                                  save_model)
+
+
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,15 +64,15 @@ def models():
     jm = JDialogueGNN.from_config(jcfg)
     rng = np.random.default_rng(0)
     (text, audio, visual), qmask, umask = _batch(rng, 2, 8, [8, 5])
-    params = jm.init(jax.random.PRNGKey(7), text, qmask, umask, audio,
-                     visual, deterministic=True)["params"]
+    params = fast_jit(lambda k, *a: jm.init(k, *a, deterministic=True))(
+        jax.random.PRNGKey(7), text, qmask, umask, audio, visual)["params"]
     params = jax.tree_util.tree_map(np.array, params)
     cfg = ExperimentConfig(dataset="IEMOCAP", graph_type="GDF",
                            reason_flag=True, Deep_GCN_nlayers=NL)
     pm = DialogueGNN.from_config(cfg)
     pm.load_state_dict(params_from_jax(params))
     pm.eval()
-    fwd = jax.jit(lambda p, *a: jm.apply({"params": p}, *a,
+    fwd = fast_jit(lambda p, *a: jm.apply({"params": p}, *a,
                                          deterministic=True))
     return cfg, params, pm, fwd
 

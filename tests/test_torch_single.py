@@ -9,6 +9,7 @@ relation checkpoint."""
 import dataclasses
 import io
 import json
+from functools import partial
 
 import numpy as np
 import pytest
@@ -53,6 +54,10 @@ def _one_torch_thread():
 
 
 NL = 2
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 def _batch(rng, D_m, lengths, L, P=2):
@@ -116,7 +121,7 @@ def test_single_stream_logprobs_match_jax(case):
     sd = params_from_jax(params)
     assert sd.keys() == model.state_dict().keys()
     model.load_state_dict(sd)
-    want = np.asarray(jax.jit(lambda p, *a: jm.apply(
+    want = np.asarray(fast_jit(lambda p, *a: jm.apply(
         {"params": p}, *a, deterministic=True))(params, *args))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args)).numpy()
@@ -174,7 +179,7 @@ def test_matching_attention_matches_jax(att_type):
                     getattr(att, name).bias.copy_(torch.from_numpy(
                         np.asarray(p[name]["bias"])))
     for cand in (x, x[:, 0]):
-        want = jatt.apply(params, M, cand, mask)
+        want = fast_jit(jatt.apply)(params, M, cand, mask)
         got = att(torch.from_numpy(M), torch.from_numpy(cand),
                   torch.from_numpy(mask))
         for g, w in zip(got, want):
@@ -189,13 +194,13 @@ def test_simple_attention_and_flip_valid_match_jax():
     mask = (np.arange(L)[None] < np.array([[6], [3], [0]])).astype(
         np.float32)
     jatt = JSimpleAttention()
-    params = jatt.init(jax.random.PRNGKey(1), M)
+    params = fast_jit(jatt.init)(jax.random.PRNGKey(1), M)
     att = SimpleAttention(D)
     with torch.no_grad():
         att.scalar.weight.copy_(torch.from_numpy(
             np.asarray(params["params"]["scalar"]["kernel"]).T))
     for m in (None, mask):
-        want = jatt.apply(params, M, m)
+        want = fast_jit(jatt.apply)(params, M, m)
         got = att(torch.from_numpy(M),
                   None if m is None else torch.from_numpy(m))
         for g, w in zip(got, want):
@@ -204,7 +209,8 @@ def test_simple_attention_and_flip_valid_match_jax():
     # flip_valid on floats of three ranks and on integers: pads stay put
     for x in (M, M[..., 0], rng.standard_normal((B, L, 2, 3)).astype(
             np.float32), rng.integers(0, 9, (B, L))):
-        want = np.asarray(j_flip_valid(jnp.asarray(x), jnp.asarray(mask)))
+        want = np.asarray(fast_jit(j_flip_valid)(jnp.asarray(x),
+                                                 jnp.asarray(mask)))
         got = flip_valid(torch.from_numpy(x), torch.from_numpy(mask))
         np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got[2].numpy(), x[2])
@@ -231,11 +237,13 @@ def test_three_trainer_steps_of_early_fusion_deepgcn_match_jax(pickle_path):
     tr = Trainer(ExperimentConfig(**kw), device="cpu")
     jtr = JTrainer(JConfig(**kw))
     assert jtr.loss_kind == "focal"
-    params = jtr.init_state(seed=4).params
+    # init_state's parameters, in one compile
+    params = fast_jit(jtr._init_variables)(jax.random.PRNGKey(4),
+                                           jtr._example_inputs())["params"]
     tr.model.load_state_dict(params_from_jax(params))
-    state = (params, jtr.tx.init(params))
+    state = (params, fast_jit(jtr.tx.init)(params))
 
-    @jax.jit
+    @fast_jit
     def jstep(state, inputs, key):
         p, opt = state
         loss, grads = jax.value_and_grad(lambda q: jtr._loss(
@@ -342,8 +350,8 @@ def test_single_stream_relation_imports_as_jax_does(kw):
     for k, v in source.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
     params = state_dict_to_params(sd, template)
-    want = np.asarray(jm.apply({"params": params}, *args,
-                               deterministic=True))
+    want = np.asarray(fast_jit(lambda p, *a: jm.apply(
+        {"params": p}, *a, deterministic=True))(params, *args))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args)).numpy()
     valid = args[2] > 0

@@ -3,6 +3,7 @@ the bucket batcher, three ``Trainer`` steps of the flagship at dropout 0
 from bridged weights; and the port's ``fit`` with its checkpoints and CLI."""
 
 import json
+from functools import partial
 
 import numpy as np
 import pytest
@@ -31,6 +32,12 @@ from mmdfn_torch.runtime import checkpoint as ckpt_lib
 from mmdfn_torch.train import Trainer
 from mmdfn_torch.train import metrics as M
 from mmdfn_torch.train.trainer import prepare_inputs
+
+
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,7 +70,7 @@ def test_losses_match_jax(weighted):
                      alpha=None if w is None else T(w))
     jf = lambda x: j_focal_loss(x, jnp.asarray(label), jnp.asarray(mask),
                                 gamma=0.5, alpha=w)
-    want, jgrad = jax.value_and_grad(jf)(jnp.asarray(logp))
+    want, jgrad = fast_jit(jax.value_and_grad(jf))(jnp.asarray(logp))
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
     got.backward()       # pt is detached on both sides
     np.testing.assert_allclose(lp.grad.numpy(), np.asarray(jgrad),
@@ -136,9 +143,9 @@ def test_three_trainer_steps_match_the_jax_trainer(pickle_path):
         lambda s: np.zeros(s.shape, s.dtype), shapes)
     params = state_dict_to_params(
         {k: v.numpy() for k, v in tr.model.state_dict().items()}, template)
-    state = (params, jtr.tx.init(params))
+    state = (params, fast_jit(jtr.tx.init)(params))
 
-    @jax.jit
+    @fast_jit
     def jstep(state, inputs, key):
         p, opt = state
         loss, grads = jax.value_and_grad(lambda q: jtr._loss(

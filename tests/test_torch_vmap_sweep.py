@@ -10,9 +10,12 @@ against torch Adam, each kernel's vmap rule, and every model the group
 takes through the batched step."""
 
 import dataclasses
+from functools import partial
 
 import pytest
 import torch
+
+import jax
 
 from mmdfn_tpu.cli import sweep as j_sweep
 from mmdfn_tpu.config import ExperimentConfig as JConfig
@@ -28,6 +31,12 @@ from mmdfn_torch.runtime import launch
 from mmdfn_torch.train import Trainer
 from mmdfn_torch.train.vmap_sweep import VmapSweep, group_combos
 from mmdfn_torch.weights import build_model, params_from_jax
+
+
+# XLA's CPU backend at its lowest optimisation level: the same operations,
+# compiled in about two thirds of the time
+fast_jit = partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -334,9 +343,9 @@ def jax_steps(data, jax_group):
     group = JVmapSweep(cfg, STEP_COMBOS)
     init = jax.tree_util.tree_map(np.asarray, jax_group[1])
     K = len(STEP_COMBOS)
-    params = jax.tree_util.tree_map(
-        lambda p: jnp.broadcast_to(p[None], (K,) + p.shape), init)
-    m, v, _ = _adam_init(params)
+    params = fast_jit(lambda init: jax.tree_util.tree_map(
+        lambda p: jnp.broadcast_to(p[None], (K,) + p.shape), init))(init)
+    m, v, _ = fast_jit(_adam_init)(params)
     opt = (m, v, jnp.zeros((K,), jnp.float32))
     batches = list(JBatcher(JIEMOCAPDataset(data[0], True).dialogues(),
                             cfg.batch_size, cfg.info["n_speakers"],
@@ -355,7 +364,7 @@ def jax_steps(data, jax_group):
             opt[1]))
     inputs = j_prepare(cfg, batches[0])
     eval_loss, _ = group._eval_step(params, inputs)
-    logp = jax.jit(jax.vmap(lambda p: group.trainer.model.apply(
+    logp = fast_jit(jax.vmap(lambda p: group.trainer.model.apply(
         {"params": p}, inputs["text"], inputs["qmask"], inputs["umask"],
         inputs["audio"], inputs["visual"], deterministic=True)))(params)
     stacked = jax.tree_util.tree_map(np.asarray, params)
