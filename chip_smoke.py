@@ -171,7 +171,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    numpy's of the same gradients on the host, and 6 Adam steps without
    dropout at the flagship's lr 3e-4 whose loss must fall (and 6 at 3e-3,
    with the kernels and with the plain versions, reported);
-14. parallel: the multi-device layer on the one card, its ranks started
+14. fast: the JAX package's production configuration (``--tpu_fast``,
+   ``gcn_backend='pallas'``), kernels B and D in their bf16 mode (the TPU
+   training kernel's numerics; one tiled design): at the training shapes
+   (B = 32, N = 240, 16 layers, rate 0.4) B's training mode against its
+   plain bf16 version (the three bf16 residual slabs too) and D against
+   its plain bf16 backward at its own ReLU decisions (read from its tdpre
+   slab; each that differs from the plain recompute on the same slabs
+   within ``BF16_RTOL`` of max |h| of 0), each held by ``bf16_agree`` (at
+   most ``BF16_SHARE`` of the elements past ``BF16_RTOL`` of the scale,
+   one bf16 step of the element beside it for the outputs that are
+   rounded to bf16, none past ``BF16_CAP`` of the scale beside that step)
+   and timed beside the f32 mode in the same call;
+   the residual bytes of both modes; B serving one dialogue at bucket 64
+   against plain, beside the f32 mode's design; a config axis of 4
+   (rates 0, 0.2, 0.4, 0.4) bit for bit its 4 solo calls; then the
+   flagship step built by ``run_train_erc``'s ``--tpu_fast`` on the train
+   phase's batch recipe: exactly A 4, C 4, B 49, D 116, its loss and
+   gradients against the plain bf16 step held at kernel D's decisions, 10
+   timed steps beside 10 parity steps (busy, host enqueue, idle share,
+   peak), the same step with ``variant=False`` stacks refused (JAX's bf16
+   layer scan is not ported), and one served 37-utterance dialogue
+   against the plain model (49 launches of B an append);
+15. parallel: the multi-device layer on the one card, its ranks started
    by ``runtime/launch.py`` (two ranks share the card over gloo, so their
    walls measure sharing, not scaling): (a) the flagship at the train
    phase's settings, dropout 0, on 2 data ranks of 16 dialogues (B = 32
@@ -214,8 +236,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit; bf16
+# on the tensor cores, dense)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 NLAYERS = 16             # the flagship's GCNII depth, for the kernel checks
@@ -234,6 +258,7 @@ HEAD_START_CYCLES_PER_CALL = 400_000   # ~0.2 ms of the card's clock
 PROFILE_TRIES = 3        # torch.profiler windows that device_ms opens before
                          # it falls back to the stream time
 PROFILE_MISSES = []      # the device_ms windows that saw no kernel
+SMI = None               # the card's name and power limit (nvidia-smi)
 CLI_TOL = 2e-4           # the server rounds log-probs to 4 decimals
 STEP_LOSS_RTOL = 1e-5    # training step, kernels vs plain: the loss
 STEP_GRAD_RTOL = 1e-4    # and every gradient, of its max |.|
@@ -246,8 +271,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, bf16_flops: float = 0.0) -> dict:
+    """The least time for the work: its bytes at the memory rate, or its
+    f32 operations and its products on bf16 operands each at its type's
+    peak, whichever is longer."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -348,8 +377,9 @@ def kernel_name(key: str) -> str:
 # epilogue's type
 KERNEL_B_PARTS = ("F1Cell", "F2Hi", "F3Update", "gcnii_fwd_init",
                   "gcnii_layer_kernel", "gcnii_resident_kernel")
-KERNEL_D_PARTS = ("P1Gates", "P2Hi", "P3Pre", "P4DProj", "P5DAdj", "P6Lstm",
-                  "P7LstmIn", "WgradW", "WgradLstm", "gcnii_reduce_kernel")
+KERNEL_D_PARTS = ("P1Gates", "P1CellB", "P2Hi", "P3Pre", "P4DProj", "P5DAdj",
+                  "P6Lstm", "P7LstmIn", "WgradW", "WgradLstm",
+                  "gcnii_reduce_kernel")
 
 
 def kernel_label(key: str) -> str:
@@ -1086,6 +1116,17 @@ def stack_calls(cfg, L: int) -> list:
     return []
 
 
+def stack_design(model, B: int, N: int, sms: int) -> int:
+    """Kernel B's design for the model's GCNII stacks at B dialogues of N
+    nodes: the tiled design where they run in the bf16 mode, else the one
+    ``_design`` picks by shape."""
+    from mmdfn_torch.ops.gcnii import TILED, _design
+
+    if any(getattr(m, "bf16", False) for m in model.modules()):
+        return TILED
+    return _design(B, N, sms)
+
+
 def gru_encoders(model) -> int:
     """The model's bi-GRU encoders: each launches kernel A (C in
     training) twice a forward; the bi-LSTM and the DialogueRNN launch no
@@ -1216,8 +1257,7 @@ def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=(),
 
     from mmdfn_torch import ops
     from mmdfn_torch.ops.bigru import _sm_count
-    from mmdfn_torch.ops.gcnii import (_design, gcnii_bwd_launches,
-                                       gcnii_fwd_launches)
+    from mmdfn_torch.ops.gcnii import gcnii_bwd_launches, gcnii_fwd_launches
 
     tr = trainer_for(cfg, dev, build)
     for i in range(2):
@@ -1244,7 +1284,8 @@ def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=(),
     calls = stack_calls(cfg, L)
     sms = _sm_count(dev)
     want = {"gcnii_fwd": reps * sum(
-                gcnii_fwd_launches(nl, reason, _design(B, N, sms))
+                gcnii_fwd_launches(nl, reason,
+                                   stack_design(tr.model, B, N, sms))
                 for nl, reason, N in calls),
             "gcnii_bwd": reps * sum(gcnii_bwd_launches(nl, reason)
                                     for nl, reason, _ in calls)}
@@ -1364,7 +1405,7 @@ def serve_check(torch, dev, cfg, model, dialogues):
     from mmdfn_torch import ops
     from mmdfn_torch.data.batching import bucket_length
     from mmdfn_torch.ops.bigru import _sm_count
-    from mmdfn_torch.ops.gcnii import _design, gcnii_fwd_launches
+    from mmdfn_torch.ops.gcnii import gcnii_fwd_launches
     from mmdfn_torch.serve import StreamingSession
 
     session = StreamingSession(model, cfg, device=dev)
@@ -1391,7 +1432,7 @@ def serve_check(torch, dev, cfg, model, dialogues):
     check(counts["bigru_fwd"] == 2 * grus * n,
           f"bi-GRU launches {counts['bigru_fwd']} != 2 x {grus} x {n}")
     sms = _sm_count(dev)
-    want = sum(gcnii_fwd_launches(nl, reason, _design(1, N, sms))
+    want = sum(gcnii_fwd_launches(nl, reason, stack_design(model, 1, N, sms))
                for L in used for nl, reason, N in stack_calls(cfg, L))
     check(counts["gcnii_fwd"] == want,
           f"GCNII launches {counts['gcnii_fwd']} != {want}")
@@ -1629,7 +1670,9 @@ def nonvariant_build(kind: str):
                         alpha=cfg.alpha, use_residue=old.use_residue,
                         modals=cfg.modals, reason_flag=True,
                         modal_weight=cfg.modal_weight, dropout=cfg.dropout,
-                        rate_tag=TAG, variant=False)
+                        rate_tag=TAG, variant=False,
+                        backend=cfg.gcn_backend,
+                        compute_dtype=cfg.gcn_compute_dtype)
             new.reset_parameters(g)
             model.graph_model = new
             return model
@@ -1639,7 +1682,9 @@ def nonvariant_build(kind: str):
                             GRAPH_H, lamda=0.5, alpha=0.1,
                             use_residue=old.use_residue,
                             reason_flag=cfg.reason_flag, dropout=cfg.dropout,
-                            rate_tag=TAG, variant=False)
+                            rate_tag=TAG, variant=False,
+                            backend=cfg.gcn_backend,
+                            compute_dtype=cfg.gcn_compute_dtype)
             new.reset_parameters(g)
             setattr(model, f"graph_net_{m}", new)
         return model
@@ -2979,6 +3024,391 @@ def raw_phase(torch, dev) -> dict:
     return out
 
 
+# the fast phase: the JAX package's production configuration (--tpu_fast),
+# kernels B and D in their bf16 mode
+
+# the bf16 mode against its plain version: both round at the TPU kernel's
+# points and differ by f32 summation order; where that moves a value
+# across a bf16 rounding boundary, by one bf16 step of it, which moves the
+# outputs it reaches (through adj, every node of its dialogue) by up to
+# ~2e-4 of their scale.  So at most BF16_SHARE of the elements may lie
+# past BF16_RTOL of the scale (past one bf16 step of the element beside
+# it, for the outputs rounded to bf16), and none past BF16_CAP of it; the
+# f32 mode lies ~1e-3 of the scale from the bf16 function in most elements
+BF16_RTOL, BF16_SHARE, BF16_CAP = 1e-4, 1e-3, 1e-3
+FAST_GRAD_RTOL = 3e-4   # the fast step's gradients, kernels vs plain, of
+                        # each one's max abs (fast_step_check; 1.0e-4 was
+                        # measured)
+
+
+def bf16_agree(torch, got, want, what, rounded=False, scale=None) -> dict:
+    """The bf16 mode's output ``got`` against the plain version's ``want``
+    (see ``BF16_RTOL``); the max abs error and the share of the elements
+    past the bound."""
+    s = float(want.abs().max().clamp(min=1e-6)) if scale is None else scale
+    d = (got.float() - want.float()).abs()
+    step = 2.0 ** -7 * want.float().abs() if rounded else 0.0
+    share, err = (float((d > BF16_RTOL * s + step).float().mean()),
+                  float(d.max()))
+    check(share <= BF16_SHARE and bool((d <= BF16_CAP * s + step).all()),
+          f"{what}, bf16 mode vs plain: {share} of the elements past the "
+          f"bound, max {err}, scale {s}")
+    return {"max_abs_err": err, "share_past_bound": share, "scale": s}
+
+
+def kernel_d_decisions(torch, tol) -> tuple:
+    """Kernel D's ReLU decisions in its last bf16-mode call (its tdpre slab
+    is nonzero where the ReLU passed; ``gcnii_stack_bwd.keep_last``)
+    against the plain bf16 recompute of each layer's pre from the same bf16
+    slabs, wherever the gradient past the ReLU is not zero: two summation
+    orders may decide apart only where |pre| is within ``tol`` of 0.
+    Returns (the kernel's masks, the plain backward at them, the flips,
+    max |pre| among the flips)."""
+    from mmdfn_torch.ops import gcnii_stack_bwd, gcnii_stack_bwd_plain
+
+    args, kw, tdpre = gcnii_stack_bwd.last
+    masks = [t != 0 for t in tdpre]
+    seen = []
+    with torch.no_grad():
+        ref = gcnii_stack_bwd_plain(*args, relu_masks=masks,
+                                    relu_inputs=seen, **kw)
+    flips, flip_pre = 0, 0.0
+    for m, (pre, g) in zip(masks, seen):
+        differ = (g != 0) & (m != (pre > 0))
+        flips += int(differ.sum())
+        if bool(differ.any()):
+            flip_pre = max(flip_pre, float(pre[differ].abs().max()))
+    check(flip_pre <= tol, f"kernel D's bf16 ReLU decisions differ from the "
+                           f"plain recompute at |pre| = {flip_pre} > {tol}")
+    return masks, ref, flips, flip_pre
+
+
+def fast_kernels(torch, dev) -> dict:
+    """Kernels B and D in their bf16 mode at the flagship's training shapes
+    (B = 32 dialogues of U[20, 80] turns, N = 240, 16 layers, the
+    reason-LSTM, rate 0.4) against their plain bf16 versions (D at its own
+    ReLU decisions, read from its tdpre slab), each timed beside the f32
+    mode in the same call (f32, bf16, bf16, f32); D's decisions where they
+    differ from the plain recompute, each within the forward's tolerance
+    of 0 (:func:`kernel_d_decisions`); the residual bytes of both modes; kernel B serving one dialogue at bucket 64 (N = 192, rate
+    0, the tiled design) against plain, beside the f32 mode's design; and
+    a config axis of 4 (rates ``CONFIG_RATES``) against 4 solo calls, bit
+    for bit."""
+    from mmdfn_torch.nn.drop_override import make_drop_rate
+    from mmdfn_torch.ops import (gcnii_stack_bwd, gcnii_stack_bwd_plain,
+                                 gcnii_stack_fwd, gcnii_stack_plain)
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS_BF16, _design,
+                                       _forward, gcnii_bwd_launches,
+                                       gcnii_fwd_launches, residual_slabs)
+
+    args, g = gcnii_train_inputs(torch, dev, TRAIN_B, TRAIN_L)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    B, N, _ = h.shape
+    nl = W.shape[0]
+    seed = torch.tensor([SEED + 12345], dtype=torch.int64, device=dev)
+    opts = dict(alpha=0.2, reason=True, rate=RATE, seed=seed)
+    slabs = lambda bf16: residual_slabs((B, nl, N, H), bf16, dev)
+    res16, res16_p, res32 = slabs(True), slabs(True), slabs(False)
+    fwd16 = lambda: gcnii_stack_fwd(*args, residuals=res16, bf16=True,
+                                    **opts)
+    fwd32 = lambda: gcnii_stack_fwd(*args, residuals=res32, **opts)
+    plain16 = lambda: gcnii_stack_plain(*args, residuals=res16_p, bf16=True,
+                                        **opts)
+    n0 = gcnii_stack_fwd.launches
+    out = fwd16()
+    check(gcnii_stack_fwd.launches - n0 == gcnii_fwd_launches(
+        nl, True, DESIGNS["tiled"]), "kernel B's bf16 mode: its launches")
+    fwd32()
+    torch.cuda.synchronize()
+    want = plain16()
+    scale = max(1.0, float(want.abs().max()))
+    fwd = bf16_agree(torch, out, want, "kernel B (training mode)",
+                     scale=scale)
+    for a, b, name in zip(res16, res16_p, RESIDUALS_BF16):
+        bf16_agree(torch, a, b, f"kernel B's residual {name}", rounded=True,
+                   scale=scale)
+
+    dh = torch.randn(B, N, H, generator=g).to(dev)
+    bwd_args = (adj, h0, W, theta, ih, hh, lb)
+    bwd16 = lambda: gcnii_stack_bwd(*bwd_args, res16, dh, bf16=True, **opts)
+    bwd32 = lambda: gcnii_stack_bwd(*bwd_args, res32, dh, **opts)
+    gcnii_stack_bwd.keep_last = True
+    try:
+        n0 = gcnii_stack_bwd.launches
+        got = bwd16()
+        check(gcnii_stack_bwd.launches - n0 == gcnii_bwd_launches(nl, True),
+              "kernel D's bf16 mode: its launches")
+        torch.cuda.synchronize()
+        _, ref, flips, flip_pre = kernel_d_decisions(torch,
+                                                     BF16_RTOL * scale)
+    finally:
+        gcnii_stack_bwd.keep_last = False
+        gcnii_stack_bwd.last = None
+    check(all(torch.equal(t, t.to(torch.bfloat16).float())
+              for t in (got[0], got[2], got[3])),
+          "kernel D's d_adj, d_h0 and dW are rounded to bf16")
+    names = ("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh", "db")
+    bwd = {n: bf16_agree(torch, a, b, f"kernel D's {n}",
+                         rounded=n in ("d_adj", "d_h0", "dW"))
+           for n, a, b in zip(names, got, ref)}
+
+    ms = {k: [] for k in ("fwd_f32", "fwd_bf16", "bwd_f32", "bwd_bf16")}
+    for mode in ("f32", "bf16", "bf16", "f32"):
+        ms[f"fwd_{mode}"].append(time_ms(
+            torch, fwd16 if mode == "bf16" else fwd32, 10))
+        ms[f"bwd_{mode}"].append(time_ms(
+            torch, bwd16 if mode == "bf16" else bwd32, 10))
+    bwd_plain16 = lambda: gcnii_stack_bwd_plain(*bwd_args, res16, dh,
+                                                bf16=True, **opts)
+
+    R = B * N
+    # the f32 mode's operations (gcnii_train_case), of which the products
+    # on bf16 operands, adj @ bf16(h1) and [bf16(hi) | h0] @ W (2 B N^2 H
+    # + 4 R H^2 a layer, in the forward and in D's recompute), count at the
+    # bf16 tensor-core rate and the rest at the f32 rate; bytes: each input
+    # read once, each output written once, bf16 where the mode keeps bf16
+    bf16_flops = nl * (2 * B * N * N * H + 4 * R * H * H)
+    fwd_flops = nl * (16 * R * H * H + 20 * R * H)
+    bwd_flops = nl * (4 * B * N * N * H + 56 * R * H * H + 40 * R * H)
+    lstm_b = 4 * (8 * H * H + 4 * H)
+    fwd_bytes = (2 * B * N * N + 4 * R * H + 2 * R * H + 2 * nl * 2 * H * H
+                 + 4 * nl + lstm_b + 4 * R * H + 3 * 2 * nl * R * H)
+    bwd_bytes = (2 * B * N * N + 2 * R * H + 2 * nl * 2 * H * H + 4 * nl
+                 + lstm_b + 3 * 2 * nl * R * H + 4 * R * H
+                 + 4 * B * N * N + 3 * 4 * R * H + 4 * nl * 2 * H * H
+                 + lstm_b)
+    shape = (f"B={B} N={N} H={H} layers={nl} reason=True rate={RATE} "
+             f"bf16 mode")
+    result = {
+        "fwd": {"shape": f"{shape} residuals", **fwd,
+                "tolerance": f"share <= {BF16_SHARE} past {BF16_RTOL} x "
+                             f"max|h|, none past {BF16_CAP} x max|h|",
+                "ms": min(ms["fwd_bf16"]), "ms_runs": ms["fwd_bf16"],
+                "f32_mode_ms_runs": ms["fwd_f32"],
+                "plain_ms": time_ms(torch, plain16, 2), "library_ms": None,
+                **bound(fwd_bytes, fwd_flops, bf16_flops)},
+        "bwd": {"shape": shape, "by_output": bwd,
+                "max_abs_err": max(v["max_abs_err"] for v in bwd.values()),
+                "relu_decisions_differing_from_plain": flips,
+                "max_abs_pre_where_they_differ": flip_pre,
+                "decision_tolerance": BF16_RTOL * scale,
+                "tolerance": f"share <= {BF16_SHARE} past {BF16_RTOL} x "
+                             "max|grad| (+ one bf16 step of the element "
+                             f"for d_adj, d_h0, dW), none past {BF16_CAP} "
+                             "x max|grad| (+ that step), at kernel D's "
+                             "ReLU decisions",
+                "ms": min(ms["bwd_bf16"]), "ms_runs": ms["bwd_bf16"],
+                "f32_mode_ms_runs": ms["bwd_f32"],
+                "plain_ms": time_ms(torch, bwd_plain16, 2),
+                "library_ms": None,
+                **bound(bwd_bytes, bwd_flops, bf16_flops)},
+        "residual_bytes": {"bf16": sum(r.numel() * r.element_size()
+                                       for r in res16),
+                           "f32": sum(r.numel() * r.element_size()
+                                      for r in res32)}}
+
+    # serving one dialogue at bucket 64: the tiled design's bf16 mode
+    from mmdfn_torch.graph.adjacency import mm_big_adjacency
+    gs = torch.Generator().manual_seed(64)
+    L = 64
+    adj1 = mm_big_adjacency([torch.randn(1, L, 2 * H, generator=gs)
+                             for _ in range(3)], torch.ones(1, L)).to(dev)
+    h1 = torch.relu(torch.randn(1, 3 * L, H, generator=gs)).to(dev)
+    sargs = (adj1, h1, h1, *args[3:])
+    serve16 = lambda: gcnii_stack_fwd(*sargs, alpha=0.2, reason=True,
+                                      bf16=True)
+    serve32 = lambda: gcnii_stack_fwd(*sargs, alpha=0.2, reason=True)
+    s_want = gcnii_stack_plain(*sargs, alpha=0.2, reason=True, bf16=True)
+    s_agree = bf16_agree(torch, serve16(), s_want, "kernel B serving",
+                         scale=max(1.0, float(s_want.abs().max())))
+    design32 = next(k for k, v in DESIGNS.items()
+                    if v == _design(1, 3 * L, _sm_count(dev)))
+    result["serve"] = {
+        "shape": f"B=1 N={3 * L} layers={nl} reason=True bf16 mode, tiled",
+        **s_agree, "ms": time_ms(torch, serve16, 20),
+        "f32_mode_ms": time_ms(torch, serve32, 20),
+        "f32_mode_design": design32,
+        "f32_tiled_ms": time_ms(torch, lambda: _forward(
+            *sargs, alpha=0.2, reason=True, rate=0.0, seed=None,
+            residuals=None, design=DESIGNS["tiled"]), 20)}
+
+    # a config axis of 4 against 4 solo calls, bit for bit
+    K = len(CONFIG_RATES)
+    sets = [gcnii_train_inputs(torch, dev, TRAIN_B, TRAIN_L, seed=60 + k)[0]
+            for k in range(K)]
+    per = [torch.stack([s[i] for s in sets]) for i in (0, 1, 2, 3, 5, 6, 7)]
+    rate = make_drop_rate(CONFIG_RATES, device=dev)
+    res_k = residual_slabs((K, B, nl, N, H), True, dev)
+    kopts = dict(alpha=0.2, reason=True, bf16=True)
+    n0 = (gcnii_stack_fwd.launches, gcnii_stack_bwd.launches)
+    out_k = _forward(*per[:4], theta, *per[4:], rate=rate, seed=seed,
+                     residuals=res_k, **kopts)
+    dh_k = torch.randn(K, B, N, H, generator=g).to(dev)
+    got_k = gcnii_stack_bwd(per[0], per[2], per[3], theta, *per[4:], res_k,
+                            dh_k, rate=rate, seed=seed, **kopts)
+    check((gcnii_stack_fwd.launches - n0[0], gcnii_stack_bwd.launches
+           - n0[1]) == (gcnii_fwd_launches(nl, True, DESIGNS["tiled"]),
+                        gcnii_bwd_launches(nl, True)),
+          "the config axis: one call of B and of D")
+    for k, r in enumerate(CONFIG_RATES):
+        a_k, s_k = sets[k], seed if r else None
+        res_1 = residual_slabs((B, nl, N, H), True, dev)
+        want_k = _forward(*a_k, rate=r, seed=s_k, residuals=res_1, **kopts)
+        check(torch.equal(out_k[k], want_k) and all(
+            torch.equal(a[k], b) for a, b in zip(res_k, res_1)),
+              f"bf16 config axis, kernel B: configuration {k}")
+        grads_1 = gcnii_stack_bwd(a_k[0], a_k[2], a_k[3], theta, *a_k[5:],
+                                  res_1, dh_k[k], rate=r, seed=s_k, **kopts)
+        check(all(torch.equal(a[k], b) for a, b in zip(got_k, grads_1)),
+              f"bf16 config axis, kernel D: configuration {k}")
+    result["config_axis"] = {"K": K, "rates": list(CONFIG_RATES),
+                             "bit_equal_to_solo_calls": True}
+    return result
+
+
+def fast_step_check(torch, dev, cfg, batch) -> dict:
+    """One ``--tpu_fast`` training step with the kernels and one under
+    ``ops.plain_ops()`` (the bf16 mode's plain versions, the plain
+    backward from the bf16 carries) from the same weights and seed, the
+    plain backward held at kernel D's ReLU decisions (read from its tdpre
+    slab: in bf16 a decision moves with a bf16 step of hi, so near 0 the
+    two recomputes decide apart more often than in f32), each decision
+    that differs from the plain recompute on the step's own slabs within
+    the forward's tolerance of 0 (:func:`kernel_d_decisions`, at
+    ``BF16_RTOL`` of the stack's max |h|): the launches (A
+    4, C 4, B 49, D 116), the loss to ``STEP_LOSS_RTOL`` relative, and
+    every gradient within ``FAST_GRAD_RTOL`` of its max abs (the layer
+    weights' beside one bf16 step of each element, as they are dW rounded
+    to bf16): the stack rounds d_adj, d_h0 and dW to bf16, and where the
+    kernel's and the plain version's f32 sums round to adjacent bf16
+    numbers, the gradients upstream of them (the encoders', through the
+    adjacency and h0) sum those steps into small differences (1.0e-4 of
+    the scale at most on the card; the kernels alone are held tighter in
+    :func:`fast_kernels`)."""
+    import contextlib
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.ops import gcnii as gcnii_ops
+
+    def one(plain, masks=None):
+        tr = trainer_for(cfg, dev)
+        orig = gcnii_ops.gcnii_stack_bwd_plain
+        if masks is not None:
+            gcnii_ops.gcnii_stack_bwd_plain = lambda *a, **k: orig(
+                *a, relu_masks=masks, **k)
+        gcnii_ops.gcnii_stack_bwd.keep_last = not plain
+        try:
+            with ops.plain_ops() if plain else contextlib.nullcontext():
+                loss, _ = tr.train_step(batch, seed=1)
+            torch.cuda.synchronize()
+            decisions = None
+            if not plain:    # the step's one stack call
+                h_slab = gcnii_ops.gcnii_stack_bwd.last[0][7][0]
+                tol = BF16_RTOL * max(1.0, float(h_slab.float().abs().max()))
+                kmasks, _, flips, flip_pre = kernel_d_decisions(torch, tol)
+                decisions = (kmasks, flips, flip_pre, tol)
+        finally:
+            gcnii_ops.gcnii_stack_bwd_plain = orig
+            gcnii_ops.gcnii_stack_bwd.keep_last = False
+            gcnii_ops.gcnii_stack_bwd.last = None
+        grads = {n: p.grad for n, p in tr.model.named_parameters()}
+        return float(loss), grads, decisions
+
+    ops.reset_launch_counts()
+    loss_k, grads_k, (masks, flips, flip_pre, tol) = one(False)
+    counts = ops.launch_counts()
+    check(counts == {"bigru_fwd": 4, "bigru_bwd": 4, "gcnii_fwd": 49,
+                     "gcnii_bwd": 116}, f"the fast step's launches {counts}")
+    loss_p, grads_p, _ = one(True, masks)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"the fast step's loss {loss_k} vs plain {loss_p}")
+    errs = {}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        check(gk is not None and float(gk.abs().max()) > 0,
+              f"no gradient reached {name}")
+        s = float(gp.abs().max())
+        d = (gk - gp).abs()
+        # the layer weights' gradients are dW, rounded to bf16: one bf16
+        # step of the element beside the bound
+        step = 2.0 ** -7 * gp.abs() if ".convs." in name else 0.0
+        errs[name] = [float((d - step).max()) / s,
+                      float((d > BF16_RTOL * s + step).float().mean())]
+    worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
+    check(worst[0][1][0] <= FAST_GRAD_RTOL,
+          f"the fast step's gradients vs plain: {worst[:5]}")
+    return {"launches": counts, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_err, "grad_max_rel_err": worst[0][1][0],
+            "tolerance": FAST_GRAD_RTOL,
+            "held_at_kernel_d_decisions": True,
+            "relu_decisions_differing_from_plain": flips,
+            "max_abs_pre_where_they_differ": flip_pre,
+            "decision_tolerance": tol,
+            "grads_top_rel_err_and_share_past_1e-4": [
+                [n, *e] for n, e in worst[:6]]}
+
+
+def fast_phase(torch, dev) -> dict:
+    """The JAX package's production configuration: the kernels in their
+    bf16 mode (:func:`fast_kernels`); the flagship's training step built
+    by ``run_train_erc``'s ``--tpu_fast`` on the train phase's batch
+    recipe, against its plain step (:func:`fast_step_check`), timed beside
+    the parity step in the same call (10 steps each: launches, wall, host
+    enqueue, device busy, idle share, peak); the same step with
+    ``variant=False`` stacks, which JAX runs as its bf16 layer scan,
+    refused; and one served 37-utterance dialogue against the plain
+    model."""
+    import dataclasses
+
+    import numpy as np
+
+    from mmdfn_torch.cli import run_train_erc
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.weights import build_model
+
+    kernels = fast_kernels(torch, dev)
+    argv = ["--dataset", "IEMOCAP", "--graph_type", "GDF", "--reason_flag",
+            "--class_weight", "--Deep_GCN_nlayers", str(NLAYERS),
+            "--batch-size", str(TRAIN_B), "--speaker_weights", "3-0-1",
+            "--dropout", str(RATE), "--seed", str(SEED)]
+    parse = lambda a: run_train_erc.config_from_args(
+        run_train_erc.build_parser().parse_args(a))
+    parity, cfg = parse(argv), parse(argv + ["--tpu_fast"])
+    check(cfg.gcn_backend == "pallas" and dataclasses.replace(
+        cfg, **{k: getattr(parity, k) for k in cfg.TPU_FAST_KNOBS})
+          == parity, "--tpu_fast sets the preset's knobs and no other")
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(4)]
+    checked = fast_step_check(torch, dev, cfg, batches[0])
+    try:
+        trainer_for(cfg, dev, nonvariant_build("MMGCN")).train_step(
+            batches[0], seed=1)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "not ported" in refused,
+          "variant=False under --tpu_fast did not raise")
+    timed_parity = timed_steps(torch, dev, parity, batches)
+    timed_fast = timed_steps(torch, dev, cfg, batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=1, n_test=1,
+                                      min_len=30, max_len=40, seed=SEED)
+        dialogue = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
+    served = serve_check(torch, dev, cfg, build_model(cfg), dialogue)[2]
+    keys = ("launches", "launches_per_step", "step_ms_median",
+            "dialogues_per_sec", "host_enqueue_ms_per_step",
+            "stream_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "gcnii_fwd_kernels", "gcnii_bwd_kernels", "step_peak_mem_gb")
+    return {"card": SMI, "kernels": kernels, "step_check": checked,
+            "variant_false_refused": refused,
+            "train_fast": {k: timed_fast.get(k) for k in keys},
+            "train_parity_same_call": {k: timed_parity.get(k) for k in keys},
+            "serve": served}
+
+
 # the parallel phase: 2 ranks share the card over gloo; a small pickle for
 # the command lines (one epoch of 2 training batches of B = 32)
 PARALLEL_RANKS = 2
@@ -3263,8 +3693,9 @@ def main() -> int:
     from mmdfn_torch.device import resolve_device
     from mmdfn_torch.ops import _build
 
+    global SMI
     dev = resolve_device("cuda")        # also sets the f32 (no TF32) policy
-    smi = subprocess.run(
+    smi = SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
@@ -3329,7 +3760,8 @@ def main() -> int:
                         ("nonvariant", nonvariant_phase),
                         ("single", single_phase), ("learn", learn_phase),
                         ("sweep", sweep_phase), ("daily", daily_phase),
-                        ("raw", raw_phase), ("parallel", parallel_phase)):
+                        ("raw", raw_phase), ("fast", fast_phase),
+                        ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0
@@ -3337,12 +3769,13 @@ def main() -> int:
     print(json.dumps({"phase_s": seconds,
                       "profile_windows_without_kernels": PROFILE_MISSES}),
           flush=True)
-    train = results["train"]
+    train, fast = results["train"], results["fast"]
 
     # the line's numbers: the training step's shapes (the party streams'
     # B = 192 for the bi-GRU kernels; B = 32, N = 240 for the GCNII stack);
     # launches from the training step's main-path run
     big = (6 * TRAIN_B, TRAIN_L)
+    fast_launches = fast["train_fast"]["launches"]
     report = [
         ("bigru_fwd", "cuda", "mmdfn_torch/csrc/bigru_fwd.cu",
          "mmdfn_tpu/ops/pallas_rnn.py:266", cases_a[big],
@@ -3361,17 +3794,30 @@ def main() -> int:
          case_bd["bwd"]["max_abs_err"],
          f"{KERNEL_D_RTOL} x max|grad| of each gradient, at kernel D's ReLU "
          "decisions"),
+        # the bf16 modes (--tpu_fast): launches from the fast phase's step
+        ("gcnii_fwd_bf16", "cuda", "mmdfn_torch/csrc/gcnii_fwd.cu",
+         "mmdfn_tpu/ops/pallas_gcnii_train.py:472", fast["kernels"]["fwd"],
+         max(fast["kernels"]["fwd"]["max_abs_err"],
+             fast["kernels"]["serve"]["max_abs_err"]),
+         fast["kernels"]["fwd"]["tolerance"]),
+        ("gcnii_bwd_bf16", "cuda", "mmdfn_torch/csrc/gcnii_bwd.cu",
+         "mmdfn_tpu/ops/pallas_gcnii_train.py:526", fast["kernels"]["bwd"],
+         fast["kernels"]["bwd"]["max_abs_err"],
+         fast["kernels"]["bwd"]["tolerance"]),
     ]
     kernels = []
     for name, route, source, replaces, case, err, tol in report:
+        launches = (fast_launches[name[:-5]] if name.endswith("_bf16")
+                    else train["launches"][name])
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": train["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "tolerance": tol, "shape": case["shape"],
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"]})
-    check(set(ops.WRAPPERS) == {k["name"] for k in kernels},
+    check(set(ops.WRAPPERS) == {k["name"].removesuffix("_bf16")
+                                for k in kernels},
           "every kernel of the path is in the report")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

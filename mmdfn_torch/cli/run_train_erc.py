@@ -18,7 +18,13 @@ on the card, or on the CPU with ``--device cpu`` (or ``--no_cuda``):
         --base_model GRU --data_dir dailydialog.pkl
 
 Every flag of the JAX CLI is accepted with the same name and default,
-except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`).  Every graph
+except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`).  ``--tpu_fast``
+sets the JAX package's production configuration
+(``ExperimentConfig.with_tpu_fast``): the GDF/GF stack then runs in the
+TPU training kernel's bf16 numerics (kernels B and D's bf16 mode), while
+GF2 and DeepGCN, whose stacks JAX runs as its bf16 layer scan, raise
+(that mode is not ported yet); the relation, GCN3 and None families and
+the baselines run no GCNII stack and train as without it.  Every graph
 family trains with any multimodal ``--mm_fusion_mthd``; relation,
 DeepGCN, GCN3 and None also on one stream (``--no_multi_modal --modals
 l``, or ``--mm_fusion_mthd concat``: early fusion) over the bases LSTM,
@@ -59,10 +65,13 @@ import numpy as np
 
 # flags of the JAX CLI that tune XLA or the TPU and have no meaning here
 JAX_ONLY_FLAGS = (
-    "--tpu_fast", "--matmul_precision", "--transfer_dtype", "--param_dtype",
-    "--gcn_compute_dtype", "--rnn_compute_dtype", "--gcn_scan_unroll",
-    "--gcn_scan_remat", "--rnn_fuse_directions", "--rnn_scan_remat",
-    "--rnn_backend", "--gcn_backend", "--gcn_bwd_block", "--rng_impl")
+    "--matmul_precision", "--transfer_dtype", "--param_dtype",
+    "--gcn_scan_unroll", "--gcn_scan_remat", "--rnn_fuse_directions")
+# the JAX CLI's off-values of the knobs, which its config keeps as None
+# (mmdfn_tpu/cli/run_train_erc.py:199-210)
+OFF_VALUES = {"gcn_compute_dtype": "float32", "rnn_compute_dtype": "float32",
+              "rnn_backend": "xla", "gcn_backend": "xla",
+              "rng_impl": "threefry"}
 # the TensorBoard histograms' bins (mmdfn_tpu: 64 under --tensorboard)
 GRAD_HIST_BINS = 64
 
@@ -156,6 +165,37 @@ def build_parser() -> argparse.ArgumentParser:
         help="the relation family's edge weights")
     add("--buckets", type=str, default=None,
         help="comma-separated padding lengths, e.g. 16,32,64,128,200")
+    # the JAX package's performance knobs, as the port reads them
+    add("--tpu_fast", action="store_true",
+        help="the JAX package's production configuration (every knob of "
+             "ExperimentConfig.TPU_FAST_KNOBS; a knob also given explicitly "
+             "keeps its value): the GDF/GF stack in the TPU training "
+             "kernel's bf16 numerics; GF2 and DeepGCN raise (JAX's bf16 "
+             "layer scan is not ported)")
+    add("--gcn_backend", type=str, default=None,
+        choices=["xla", "pallas", "pallas_fused"],
+        help="'pallas' / 'pallas_fused': the GCNII stack in the TPU "
+             "training kernel's bf16 numerics (kernels B and D's bf16 "
+             "mode) wherever JAX takes that kernel; 'xla': f32")
+    add("--gcn_compute_dtype", type=str, default=None,
+        choices=["float32", "bfloat16"],
+        help="'bfloat16' where JAX runs the GCNII layer scan in bf16 (no "
+             "fused kernel): not ported, raises")
+    add("--rnn_compute_dtype", type=str, default=None,
+        choices=["float32", "bfloat16"],
+        help="'bfloat16' (the encoders' bf16 scans): not ported, raises")
+    add("--gcn_bwd_block", type=int, default=None,
+        help="accepted; changes nothing: kernel D contracts all rows in one "
+             "product (the same sums up to their order)")
+    add("--rnn_backend", type=str, default=None, choices=["xla", "pallas"],
+        help="accepted; changes nothing: kernels A and C compute the f32 "
+             "recurrence of either JAX backend")
+    add("--rnn_scan_remat", action="store_true", default=False,
+        help="accepted; changes nothing: JAX's remat saves memory only")
+    add("--rng_impl", type=str, default=None,
+        choices=["threefry", "rbg", "unsafe_rbg"],
+        help="accepted; changes nothing: the port's dropout draws are its "
+             "own (Philox, torch's generator) and match neither JAX's")
     add("--device", type=str, default=None,
         help="'cuda' (the default) or 'cpu' for the plain PyTorch versions; "
              "with --n_data_devices / --n_model_devices, 'cuda:N' runs "
@@ -181,7 +221,19 @@ def config_from_args(args):
         kw["buckets"] = tuple(int(b) for b in args.buckets.split(","))
     else:
         kw.pop("buckets", None)
-    return ExperimentConfig(**kw)
+    # mmdfn_tpu/cli/run_train_erc.py:186-214: the knobs as given (an
+    # explicit opt-out such as --gcn_backend xla beats --tpu_fast), then the
+    # off-values normalised to None
+    given = {k: kw.get(k) for k in ExperimentConfig.TPU_FAST_KNOBS}
+    for k, off in OFF_VALUES.items():
+        if kw.get(k) == off:
+            kw[k] = None
+    cfg = ExperimentConfig(**kw)
+    if getattr(args, "tpu_fast", False):
+        cfg = dataclasses.replace(cfg, **{
+            k: v for k, v in ExperimentConfig.TPU_FAST_KNOBS.items()
+            if given.get(k) in (None, False)})
+    return cfg
 
 
 def load_dialogues(cfg, data_dir: str):

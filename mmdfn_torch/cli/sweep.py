@@ -96,14 +96,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "over this many devices (config parallelism; each "
                          "device trains its slice of the grid)")
     ap.add_argument("--tpu_fast", action="store_true", default=False,
-                    help="accepted for mmdfn_tpu's command lines; changes "
-                         "nothing, since the port runs at the parity "
-                         "defaults")
+                    help="run every combination in the JAX package's "
+                         "production configuration (the preset of "
+                         "run_train_erc --tpu_fast): the GDF/GF stack in "
+                         "the TPU training kernel's bf16 numerics")
     ap.add_argument("--device", type=str, default=None,
                     help="'cuda' (the default) or 'cpu'; with "
                          "--n_data_devices, 'cuda:N' runs every rank on "
                          "card N over gloo")
     return ap
+
+
+def base_config(args):
+    """The configuration every combination starts from
+    (``mmdfn_tpu/cli/sweep.py:102-106``)."""
+    from mmdfn_torch.config import ExperimentConfig
+
+    base = ExperimentConfig(dataset=args.dataset, epochs=args.epochs,
+                            batch_size=args.batch_size, seed=args.seed)
+    return base.with_tpu_fast() if args.tpu_fast else base
 
 
 def main(argv=None) -> int:
@@ -135,8 +146,7 @@ def _sweep(args, mesh=None) -> int:
     from mmdfn_torch.runtime.mesh import is_first_rank
     from mmdfn_torch.train import Trainer
 
-    base = ExperimentConfig(dataset=args.dataset, epochs=args.epochs,
-                            batch_size=args.batch_size, seed=args.seed)
+    base = base_config(args)
     train, valid, test = load_dialogues(base, args.data_dir)
 
     summary_path = os.path.join(out_dir, "summary.jsonl")

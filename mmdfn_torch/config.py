@@ -7,7 +7,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -119,6 +119,29 @@ class ExperimentConfig:
     sort_batches_by_length: bool = False    # training batches of similar
                                             # lengths (less padding)
     log_jsonl: Optional[str] = None
+    # the JAX package's performance knobs (mmdfn_tpu/config.py:129-184),
+    # as the port reads them:
+    gcn_compute_dtype: Optional[str] = None  # 'bfloat16' where JAX runs the
+                                            # layer scan in bf16 (no fused
+                                            # kernel): not ported, raises
+    rnn_compute_dtype: Optional[str] = None  # 'bfloat16': not ported, raises
+    rnn_scan_remat: bool = False            # accepted: kernels A and C keep
+                                            # what the backward reads either
+                                            # way (memory only in JAX)
+    rng_impl: Optional[str] = None          # accepted: the port's dropout
+                                            # draws are its own (Philox and
+                                            # torch's generator) either way
+    gcn_backend: Optional[str] = None       # 'pallas' / 'pallas_fused': the
+                                            # GCNII stack in the TPU training
+                                            # kernel's bf16 numerics (kernels
+                                            # B and D's bf16 mode), where
+                                            # JAX's GCNIIStack takes that
+                                            # kernel (nn/gcn.py:GCNIIStack)
+    gcn_bwd_block: Optional[int] = None     # accepted: kernel D contracts
+                                            # all rows in one product
+    rnn_backend: Optional[str] = None       # accepted: kernels A and C
+                                            # compute either JAX backend's
+                                            # f32 function
     # DailyDialogue's token frontend (mmdfn_tpu/config.py:190-194)
     vocab_size: int = 5000
     max_words: int = 20                     # the word axis, fixed per epoch
@@ -170,6 +193,28 @@ class ExperimentConfig:
         if self.class_weight:
             return np.asarray(self.info["class_weights"], dtype=np.float32)
         return None
+
+    # the JAX package's production configuration (mmdfn_tpu/config.py:
+    # 222-236): in the port, the GCNII stack's bf16 mode where JAX takes
+    # its fused training kernel; the other knobs change nothing here
+    TPU_FAST_KNOBS = dict(
+        gcn_compute_dtype="bfloat16", rnn_scan_remat=True,
+        rnn_backend="pallas", gcn_backend="pallas", gcn_bwd_block=2,
+        rng_impl="rbg")
+
+    def with_tpu_fast(self) -> "ExperimentConfig":
+        """This config with every knob of ``TPU_FAST_KNOBS`` set."""
+        return replace(self, **self.TPU_FAST_KNOBS)
+
+    def check_ported(self) -> None:
+        """Raise for a knob whose function the port does not compute yet:
+        the encoders' bf16 scans (``rnn_compute_dtype='bfloat16'``).  The
+        GCNII stack's bf16 scan is refused where a stack is built
+        (``nn/gcn.py:GCNIIStack``)."""
+        if self.rnn_compute_dtype == "bfloat16":
+            raise NotImplementedError(
+                "rnn_compute_dtype='bfloat16' (the encoders' bf16 scans) is "
+                "not ported yet; the port computes the f32 recurrence only")
 
 
 def flagship_config(nlayers: int = 16, seed: int = 2021) -> ExperimentConfig:

@@ -74,11 +74,30 @@
 // configuration's B N rows only, split as its run alone splits them, so
 // each configuration's dW and LSTM gradients are its run alone's sums.
 //
-// C interface: device pointers to contiguous f32 arrays; the stream is the
-// caller's.  gcnii_bwd runs the whole backward and returns the number of
-// kernels it launched, or minus the CUDA error of the first launch that
-// failed (cudaGetLastError() after each launch).
+// The bf16 mode (use_bf16 = 1; the JAX package's production configuration)
+// is _bwd_kernel's own numerics (pallas_gcnii_train.py:236-321, 637-638):
+// adj, h0 and W arrive as f32 tensors holding bf16 values, the residuals
+// are three bf16 slabs (h, lh, lc; no h1 slab), and each layer is
+// recomputed from those bf16 carries, the LSTM step included.  P1 then
+// runs on the interleaved [W_ih; W_hh; b] (as kernel B's F1) so that its
+// epilogue holds a channel's four gates: it writes the activated gates as
+// P1Gates does and the recomputed h1, as it is (for P5) and rounded to
+// bf16 (for P2).  P2 is adj @ bf16(h1) and also writes bf16(hi), P3
+// [bf16(hi) | h0] W[l] (bf16 values, f32 sums, as in kernel B); the rest,
+// and every gradient product, is f32 with hi and h1 unrounded (:283-321).
+// The products that read a bf16 slab (P1; P2 and P5 without reason; the
+// LSTM weights' gradient) widen it as they stage it (gemm_f32.cuh).  d_adj
+// (P5's last layer), d_h0 (P4's) and dW (its sum) are rounded to bf16
+// where they are last written (:637-638); d_h_entry and the LSTM gradients
+// stay f32.  The same launches.
+//
+// C interface: device pointers to contiguous f32 arrays (in the bf16 mode
+// the residual slabs bf16); the stream is the caller's.
+// gcnii_bwd runs the whole backward and returns the number of kernels it
+// launched, or minus the CUDA error of the first launch that failed
+// (cudaGetLastError() after each launch).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -88,6 +107,9 @@
 namespace {
 
 using gemm::Operand;
+using gemm::bf16;
+using gemm::round_bf16;
+using gemm::widen;
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -132,6 +154,44 @@ struct P1Gates {
   }
 };
 
+// P1 of the bf16 mode: the chunk at column c holds channel c / 4's gates
+// (the interleaved weights, as kernel B's F1Cell); the activated gates in
+// P1Gates' layout, and the LSTM step from the bf16 carries: h1, and h1
+// rounded to bf16.
+struct P1CellB : gemm::Chunk4 {
+  Dims d;
+  const float* bias;   // (4H) a configuration, interleaved as the weights
+  long long bias_ks;   // the next configuration's bias: bias_ks further
+  int Bc;
+  const bf16* lc;      // (B, nl, N, H)
+  float* gates;        // (B, N, 4H)
+  float* h1;           // (B, N, H)
+  float* h1r;          // (B, N, H)
+  struct In { float bi, bf, bg, bo, lc; };
+  __device__ P1CellB for_batch(int b) const {
+    P1CellB e = *this;
+    e.bias = bias + (b / Bc) * bias_ks;
+    return e;
+  }
+  __device__ In load(int b, int r, int c) const {
+    return {bias[c], bias[c + 1], bias[c + 2], bias[c + 3],
+            widen(lc[d.slab(b, r, c / 4, d.H)])};
+  }
+  __device__ void operator()(int b, int r, int c, float4 v, In in) const {
+    const int ch = c / 4, H = d.H;
+    const float ig = sigmoidf_(v.x + in.bi), fg = sigmoidf_(v.y + in.bf);
+    const float gg = tanhf(v.z + in.bg), og = sigmoidf_(v.w + in.bo);
+    float* g = gates + ((long long)b * d.N + r) * 4 * H + ch;
+    g[0] = ig;
+    g[H] = fg;
+    g[2 * H] = gg;
+    g[3 * H] = og;
+    const float hn = og * tanhf(fg * in.lc + ig * gg);
+    h1[d.o(b, r, ch)] = hn;
+    h1r[d.o(b, r, ch)] = round_bf16(hn);
+  }
+};
+
 // P2: hi = adj h1 into layer l's slab of the (nl, B, N, H) hi store.
 struct P2Hi {
   float* out;
@@ -140,6 +200,20 @@ struct P2Hi {
   __device__ In load(int, int, int) const { return {}; }
   __device__ void operator()(int b, int r, int c, float v, In) const {
     out[((long long)b * N + r) * H + c] = v;
+  }
+};
+
+// P2 of the bf16 mode: hi, and bf16(hi) for P3.
+struct P2HiB {
+  float* out;
+  float* hir;
+  int N, H;
+  using In = gemm::NoIn;
+  __device__ In load(int, int, int) const { return {}; }
+  __device__ void operator()(int b, int r, int c, float v, In) const {
+    const long long o = ((long long)b * N + r) * H + c;
+    out[o] = v;
+    hir[o] = round_bf16(v);
   }
 };
 
@@ -217,6 +291,18 @@ struct SplitCols {
 struct P4DProj : SplitCols {};
 struct P7LstmIn : SplitCols {};
 
+// P4 of the bf16 mode: at the last layer (rnd) d_h0 is final, rounded to
+// bf16.
+struct P4DProjB : SplitCols {
+  int rnd;
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    if (c < d.H)
+      lo[d.o(b, r, c)] = in.old + v;
+    else
+      hi[d.o(b, r, c - d.H)] = rnd ? round_bf16(in.old + v) : in.old + v;
+  }
+};
+
 // P5: d_adj (+)= d_hi h1^T.
 struct P5DAdj {
   float* dadj;
@@ -230,13 +316,23 @@ struct P5DAdj {
   }
 };
 
+// P5 of the bf16 mode: at the last layer (rnd) d_adj is final, rounded.
+struct P5DAdjB : P5DAdj {
+  int rnd;
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    const float x = in.old + v;
+    dadj[((long long)b * N + r) * N + c] = rnd ? round_bf16(x) : x;
+  }
+};
+
 // P6: v = d_h1 = (adj^T d_hi)(r, c).  Without reason dh = d_h1; with it,
-// the LSTM step's backward (the gates from P1).
-struct P6Lstm {
+// the LSTM step's backward (the gates from P1).  TL: the lc slab's type.
+template <class TL>
+struct P6LstmT {
   Dims d;
   int reason, first;
   const float* gates;   // (B, N, 4H), activated
-  const float* res_lc;  // (B, nl, N, H)
+  const TL* res_lc;     // (B, nl, N, H)
   float* dh;
   float* dlh;
   float* dlc;
@@ -247,7 +343,7 @@ struct P6Lstm {
     const int H = d.H;
     const long long o = d.o(b, r, c);
     const float* g = gates + ((long long)b * d.N + r) * 4 * H + c;
-    return {g[0], g[H], g[2 * H], g[3 * H], res_lc[d.slab(b, r, c, H)],
+    return {g[0], g[H], g[2 * H], g[3 * H], widen(res_lc[d.slab(b, r, c, H)]),
             first ? 0.0f : dlh[o], first ? 0.0f : dlc[o]};
   }
   __device__ void operator()(int b, int r, int c, float v, In in) const {
@@ -270,6 +366,8 @@ struct P6Lstm {
   }
 };
 
+using P6Lstm = P6LstmT<float>;
+
 // A split-K product's partial sums: part[blockIdx.z] is (M, N).
 struct Partial {
   float* part;
@@ -284,7 +382,9 @@ struct Partial {
 struct WgradW : Partial {};
 struct WgradLstm : Partial {};
 
-// out[g][e] = sum over s of part[g][s][e], in split order.
+// out[g][e] = sum over s of part[g][s][e], in split order; RND: rounded to
+// bf16 (the bf16 mode's dW).
+template <bool RND>
 __global__ void gcnii_reduce_kernel(const float* __restrict__ part,
                                     int splits, long long E,
                                     float* __restrict__ out) {
@@ -294,7 +394,7 @@ __global__ void gcnii_reduce_kernel(const float* __restrict__ part,
     const float* p = part + (long long)g * splits * E + e;
     float acc = 0.0f;
     for (int s = 0; s < splits; ++s) acc += p[s * E];
-    out[(long long)g * E + e] = acc;
+    out[(long long)g * E + e] = RND ? round_bf16(acc) : acc;
   }
 }
 
@@ -307,6 +407,15 @@ cudaError_t wide(const Operand& A, const Operand& B, int M, int N, int K,
                                                 splits, epi, st);
 }
 
+// The wide tile with its registers not capped: the bf16 mode's products
+// whose register-staged operands take a few more.
+template <bool AKC, bool BKC, class OA, class OB, class Epi>
+cudaError_t wide1(const OA& A, const OB& B, int M, int N, int K, int batches,
+                  int splits, const Epi& epi, cudaStream_t st) {
+  return gemm::launch<128, 128, 8, AKC, BKC, 1>(A, B, M, N, K, batches,
+                                                splits, epi, st);
+}
+
 template <bool AKC, bool BKC, class Epi>
 cudaError_t narrow(const Operand& A, const Operand& B, int M, int N, int K,
                    int batches, const Epi& epi, cudaStream_t st) {
@@ -315,21 +424,147 @@ cudaError_t narrow(const Operand& A, const Operand& B, int M, int N, int K,
 }
 
 // The products with H = 100 columns launch one block per SM at most (B x
-// N / 64 blocks): their registers need no cap.
-template <bool AKC, bool BKC, class Epi>
-cudaError_t narrow100(const Operand& A, const Operand& B, int M, int N,
-                      int K, int batches, const Epi& epi, cudaStream_t st) {
+// N / 64 blocks): their registers need no cap (nor the bf16 mode's).
+template <bool AKC, bool BKC, class OA, class OB, class Epi>
+cudaError_t narrow100(const OA& A, const OB& B, int M, int N, int K,
+                      int batches, const Epi& epi, cudaStream_t st) {
   return gemm::launch<64, 128, 4, AKC, BKC, 1>(A, B, M, N, K, batches, 1,
                                                epi, st);
 }
 
 cudaError_t reduce(const float* part, int groups, int splits, long long E,
-                   float* out, cudaStream_t st) {
+                   float* out, cudaStream_t st, bool rnd = false) {
   const long long want = (E + 255) / 256;
   const unsigned blocks = (unsigned)(want < 4096 ? want : 4096);
-  gcnii_reduce_kernel<<<dim3(blocks, groups), 256, 0, st>>>(part, splits, E,
-                                                           out);
+  if (rnd)
+    gcnii_reduce_kernel<true><<<dim3(blocks, groups), 256, 0, st>>>(
+        part, splits, E, out);
+  else
+    gcnii_reduce_kernel<false><<<dim3(blocks, groups), 256, 0, st>>>(
+        part, splits, E, out);
   return cudaGetLastError();
+}
+
+// The bf16 mode's walk and sums (see the note at the top).  h1s: the
+// layer's recomputed h1, then bf16(h1) and bf16(hi) held in f32, (B, N, H)
+// each.  wl: [W_ih; W_hh; b] interleaved, (2H + 1, 4H) a configuration,
+// read with reason.
+int backward_bf16(const float* adj, const float* h0, const float* W,
+                  const float* theta, float alpha, const bf16* res_h,
+                  const bf16* res_lh, const bf16* res_lc, float* h1s,
+                  const float* wl, const float* ih, const float* hh,
+                  const float* dh_out, float* dh, float* dlh, float* dlc,
+                  float* d_hi, float* dh0, float* dadj, float* hi,
+                  float* tdpre, float* gates, float* dgates, float* part_w,
+                  float* part_l, float* dW, float* dl, int drop,
+                  const philox::Rate& rate, const long long* seed, int reason,
+                  int nl, int K, int Bc, int N, int H, int splits_w,
+                  int splits_l, cudaStream_t st) {
+  const int G = 4 * H;
+  const int B = K * Bc;
+  const long long NH = (long long)N * H, NN = (long long)N * N;
+  const long long RH = (long long)B * NH;
+  const long long CH = (long long)Bc * NH;
+  const long long WK = (long long)nl * 2 * H * H, LK = (long long)H * G;
+  const long long WLK = (2LL * H + 1) * G;   // a configuration's wl
+  const int R = Bc * N;
+  float* h1f = h1s;
+  float* h1r = h1s + RH;
+  float* hir = h1s + 2 * RH;
+  int launches = 0;
+  cudaError_t err = cudaSuccess;
+#define GCNII_LAUNCH(call)                    \
+  do {                                        \
+    err = (call);                             \
+    if (err != cudaSuccess) return -(int)err; \
+    ++launches;                               \
+  } while (0)
+
+  for (int l = nl - 1; l >= 0; --l) {
+    const Dims d{N, H, nl, l};
+    const int first = l == nl - 1, last = l == 0;
+    const float* dh_src = first ? dh_out : dh;
+    const bf16* h_l = res_h + l * NH;   // (B, nl, N, H) at layer l
+    float* hi_l = hi + l * RH;
+    float* tdpre_l = tdpre + l * RH;
+    const float* W_l = W + (long long)l * 2 * H * H;
+    if (reason)   // P1
+      GCNII_LAUNCH((wide1<true, false>(
+          gemm::cat(h_l, nl * NH, res_lh + l * NH, nl * NH, H, 1, H, true),
+          gemm::grouped(gemm::dense(wl, 0, 1, G), Bc, WLK, WLK), N, G, 2 * H,
+          B, 1,
+          P1CellB{{}, d, wl + 2LL * H * G, WLK, Bc, res_lc, gates, h1f, h1r},
+          st)));
+    // P2: the layer's bf16 h1 (without reason: its bf16 h, from the slab)
+    const P2HiB p2{hi_l, hir, N, H};
+    if (reason)
+      GCNII_LAUNCH((narrow100<true, false>(
+          gemm::dense(adj, NN, N, 1),
+          gemm::dense(static_cast<const float*>(h1r), NH, 1, H), N, H, N, B,
+          p2, st)));
+    else
+      GCNII_LAUNCH((narrow100<true, false>(
+          gemm::dense(adj, NN, N, 1), gemm::dense(h_l, nl * NH, 1, H), N, H,
+          N, B, p2, st)));
+    // P3
+    GCNII_LAUNCH((narrow100<true, false>(
+        gemm::cat(static_cast<const float*>(hir), NH, h0, NH, H, 1, H, true),
+        gemm::grouped(gemm::dense(W_l, 0, 1, H), Bc, WK, WK), N, H, 2 * H, B,
+        P3Pre{d, hi_l, h0, dh_src, theta + l, alpha, drop, Bc, rate, seed,
+              first, tdpre_l, d_hi, dh0},
+        st)));
+    // P4
+    GCNII_LAUNCH((narrow<true, true>(
+        gemm::dense(static_cast<const float*>(tdpre_l), NH, H, 1),
+        gemm::grouped(gemm::dense(W_l, 0, H, 1), Bc, WK, WK), N, 2 * H, H, B,
+        P4DProjB{{d, d_hi, d_hi, dh0, 1}, last}, st)));
+    // P5: d_adj += d_hi h1^T, h1 unrounded (without reason: the bf16 h)
+    const Operand dhi_rows = gemm::dense(static_cast<const float*>(d_hi), NH,
+                                         H, 1);
+    if (reason)
+      GCNII_LAUNCH((narrow<true, true>(
+          dhi_rows, gemm::dense(static_cast<const float*>(h1f), NH, H, 1), N,
+          N, H, B, P5DAdjB{{dadj, N, first}, last}, st)));
+    else
+      GCNII_LAUNCH((narrow100<true, true>(
+          dhi_rows, gemm::dense(h_l, nl * NH, H, 1), N, N, H, B,
+          P5DAdjB{{dadj, N, first}, last}, st)));
+    // P6
+    GCNII_LAUNCH((narrow100<false, false>(
+        gemm::dense(adj, NN, 1, N),
+        gemm::dense(static_cast<const float*>(d_hi), NH, 1, H), N, H, N, B,
+        P6LstmT<bf16>{d, reason, first, gates, res_lc, dh, dlh, dlc, dgates},
+        st)));
+    if (reason)   // P7
+      GCNII_LAUNCH((narrow<true, true>(
+          gemm::dense(static_cast<const float*>(dgates) + (long long)l * N * G,
+                      (long long)nl * N * G, G, 1),
+          gemm::grouped(gemm::cat(ih, 0, hh, 0, G, 1, H, false), Bc, LK, LK),
+          N, 2 * H, G, B, P7LstmIn{{d, dh_src, dh, dlh, 0}}, st)));
+  }
+
+  // dW as in gcnii_bwd; rounded to bf16 in its sum
+  GCNII_LAUNCH((wide<false, false>(
+      gemm::grouped(gemm::cat(static_cast<const float*>(hi), RH, h0, 0, 1, H,
+                              H, false),
+                    nl, CH - nl * RH, CH),
+      gemm::grouped(gemm::dense(static_cast<const float*>(tdpre), RH, 1, H),
+                    nl, CH - nl * RH, CH - nl * RH),
+      2 * H, H, R, K * nl, splits_w, WgradW{{part_w, 2 * H, H}}, st)));
+  GCNII_LAUNCH(reduce(part_w, K * nl, splits_w, 2LL * H * H, dW, st, true));
+  if (reason) {   // on the bf16 h and lh slabs
+    auto A = gemm::cat(res_h, nl * CH, res_lh, nl * CH, 1, H, H, false);
+    A.one_row = 2 * H;
+    GCNII_LAUNCH((wide1<false, false>(
+        A,
+        gemm::dense(static_cast<const float*>(dgates),
+                    (long long)Bc * nl * N * G, 1, G),
+        2 * H + 1, G, R * nl, K, splits_l, WgradLstm{{part_l, 2 * H + 1, G}},
+        st)));
+    GCNII_LAUNCH(reduce(part_l, K, splits_l, (2LL * H + 1) * G, dl, st));
+  }
+#undef GCNII_LAUNCH
+  return launches;
 }
 
 }  // namespace
@@ -340,6 +575,9 @@ cudaError_t reduce(const float* part, int groups, int splits, long long E,
 // and part_l (K, splits_l, 2H + 1, 4H).  dh_out is read only; dh, dlh,
 // dlc, d_hi, dh0 and dadj need no initial value.  dW is (K, nl, 2H, H);
 // dl is [dW_ih; dW_hh; db], (K, 2H + 1, 4H), written only with reason.
+// use_bf16 = 1: the bf16 mode (see the note at the top): adj, h0 and W
+// hold bf16 values, res_h, res_lh and res_lc are bf16, res_h1 is
+// backward_bf16's h1s scratch, and wl its interleaved LSTM weights.
 extern "C" int gcnii_bwd(
     const float* adj, const float* h0, const float* W, const float* theta,
     float alpha, const float* res_h, const float* res_lh,
@@ -350,7 +588,8 @@ extern "C" int gcnii_bwd(
     float* dW, float* dl, int drop, const unsigned int* thresh_k,
     const float* inv_keep_k, unsigned int thresh, float inv_keep,
     const long long* seed, int reason, int nl, int K, int Bc, int N, int H,
-    int splits_w, int splits_l, void* stream) {
+    int splits_w, int splits_l, int use_bf16, const float* wl,
+    void* stream) {
   if (H > 128 || K <= 0 || Bc <= 0 || N <= 0 || nl <= 0 || splits_w <= 0 ||
       splits_l <= 0)
     return -(int)cudaErrorInvalidValue;
@@ -358,6 +597,15 @@ extern "C" int gcnii_bwd(
   const int G = 4 * H;
   const int B = K * Bc;   // the dialogues of all configurations
   const philox::Rate rate{thresh_k, inv_keep_k, thresh, inv_keep};
+  if (use_bf16) {
+    auto b16 = [](const float* p) { return reinterpret_cast<const bf16*>(p); };
+    return backward_bf16(adj, h0, W, theta, alpha, b16(res_h),
+                         b16(res_lh), b16(res_lc), const_cast<float*>(res_h1),
+                         wl, ih, hh, dh_out, dh, dlh, dlc, d_hi, dh0, dadj, hi,
+                         tdpre, gates, dgates, part_w, part_l, dW, dl, drop,
+                         rate, seed, reason, nl, K, Bc, N, H, splits_w,
+                         splits_l, st);
+  }
   const long long NH = (long long)N * H, NN = (long long)N * N;
   const long long RH = (long long)B * NH;
   const long long CH = (long long)Bc * NH;   // a configuration's rows

@@ -26,6 +26,23 @@
 // (B = 32, N = 3 * 80 = 240, 16 layers, H = 100) each slab is 49 MB, 197 MB
 // for the four: a small share of the card's 80 GB.
 //
+// The bf16 mode (use_bf16 = 1; the JAX package's production configuration)
+// computes what the TPU kernel computes (pallas_gcnii_train.py, bf16 by
+// construction): adj, h0 and W arrive as f32 tensors holding bf16 values
+// (:691-697); F2 is adj @ bf16(h1) and F3 [bf16(hi) | h0] @ W[l], both on
+// bf16 values with f32 sums (:104-109,141-142; bf16 times bf16 is exact in
+// f32, so the f32 products compute them); the carries h, lh, lc, the LSTM
+// product and all elementwise work stay f32, kept as in serve mode (h in
+// out, lh a ping-pong pair, lc in place); and training mode writes three
+// bf16 residual slabs, the pre-layer h, lh, lc (:150-153; 74 MB at the
+// training shapes instead of 197), each by the launch that makes the
+// carry: layer 0's by the first launch, layer l + 1's lh and lc by F1 and
+// its h by F3 of layer l.  The same epilogues (their BF16 instance) round
+// F2's and F3's operands in f32 buffers: F1 writes bf16(h1) (without
+// reason F3 writes bf16 of the next h, the first launch bf16 of the entry
+// h), and F2 writes hi and bf16(hi).  The tiled design only (the resident
+// and row-wise designs have no bf16 mode), with the same launches.
+//
 // Bound: at the training shapes the stack does ~31 GFLOP (0.46 ms of the
 // card's f32 rate), and the four residual slabs add 197 MB of writes (~59
 // us of memory time): bound by operations.  At serve (B = 1, N = 3 * 200,
@@ -130,12 +147,14 @@
 // the dialogue's index within its configuration, so that configuration k
 // draws its run alone's bits.  K = 1 is a run alone.
 //
-// C interface: device pointers to contiguous f32 arrays; the stream is the
-// caller's.  gcnii_fwd runs the whole stack and returns the number of
-// kernels it launched, or minus the CUDA error of the first launch that
-// failed (cudaGetLastError() after each launch).
+// C interface: device pointers to contiguous f32 arrays (in the bf16 mode
+// the residual slabs bf16); the stream is the caller's.
+// gcnii_fwd runs the whole stack and returns the number of kernels it
+// launched, or minus the CUDA error of the first launch that failed
+// (cudaGetLastError() after each launch).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -147,6 +166,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using gemm::Operand;
+using gemm::bf16;
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -164,9 +184,26 @@ struct View {
   }
 };
 
+// A (B, N, H) bf16 state seen through a batch stride, as View; p null: not
+// kept.
+struct ViewB {
+  bf16* p;
+  long long bs;
+  int H;
+  __device__ __forceinline__ void put(long long b, long long i,
+                                      float v) const {   // i = r H + c
+    if (p) p[b * bs + i] = __float2bfloat16(v);
+  }
+  __device__ __forceinline__ void put(int b, int r, int c, float v) const {
+    put(b, (long long)r * H + c, v);
+  }
+};
+
 // F1: the chunk at column c holds the gates i, f, g, o of channel c / 4
-// (before their bias); the LSTM cell.
-struct F1Cell : gemm::Chunk4 {
+// (before their bias); the LSTM cell.  BF16 (the bf16 mode): also bf16(h1)
+// for F2 and the next layer's bf16 residuals lh = h1 and lc.
+template <bool BF16>
+struct F1CellT : gemm::Chunk4 {
   const float* bias;   // (4H) a configuration, interleaved as the weights
   long long bias_ks;   // the next configuration's bias: bias_ks further
   int Bc;              // dialogues a configuration
@@ -174,9 +211,11 @@ struct F1Cell : gemm::Chunk4 {
   View h1;             // the layer's LSTM output
   View lh_next;        // the next layer's pre-layer lh (= h1)
   View lc_next;        // and lc; in serve mode lc itself
+  View h1r;            // BF16: bf16(h1), F2's operand
+  ViewB res_lh, res_lc;   // BF16: the next layer's slabs; p null: not kept
   struct In { float bi, bf, bg, bo, lc; };
-  __device__ F1Cell for_batch(int b) const {   // dialogue b's bias
-    F1Cell e = *this;
+  __device__ F1CellT for_batch(int b) const {   // dialogue b's bias
+    F1CellT e = *this;
     e.bias = bias + (b / Bc) * bias_ks;
     return e;
   }
@@ -193,28 +232,41 @@ struct F1Cell : gemm::Chunk4 {
     *h1.at(b, r, ch) = hn;
     if (lh_next.p) *lh_next.at(b, r, ch) = hn;
     if (lc_next.p) *lc_next.at(b, r, ch) = cn;
+    if constexpr (BF16) {
+      *h1r.at(b, r, ch) = gemm::round_bf16(hn);
+      res_lh.put(b, r, ch, hn);
+      res_lc.put(b, r, ch, cn);
+    }
   }
 };
 
-// F2: hi = adj h1 into the (B, N, H) scratch.
-struct F2Hi {
+// F2: hi = adj h1 into the (B, N, H) scratch; BF16: and bf16(hi), F3's
+// operand, into hir.
+template <bool BF16>
+struct F2HiT {
   float* hi;
   int N, H;
+  float* hir;
   using In = gemm::NoIn;
   __device__ In load(int, int, int) const { return {}; }
   __device__ void operator()(int b, int r, int c, float v, In) const {
-    hi[((long long)b * N + r) * H + c] = v;
+    const long long o = ((long long)b * N + r) * H + c;
+    hi[o] = v;
+    if constexpr (BF16) hir[o] = gemm::round_bf16(v);
   }
 };
 
 // F3: v = (hi W1 + h0 W2)(r, c); the update, the dropout and the skip.
-struct F3Update {
+// BF16: h1_next gets bf16 of the new h, and res_next the next layer's bf16
+// h residual.
+template <bool BF16>
+struct F3UpdateT {
   const float* hi;     // (B, N, H)
   const float* h0;     // (B, N, H)
   View q;              // the pre-layer h (the skip)
   View out;            // the layer's output h
   View h1_next;        // without reason in training mode: the next
-                       // layer's h1 residual (= its h)
+                       // layer's h1 residual (= its h); BF16: its bf16(h1)
   const float* theta;  // theta[l]
   float alpha;
   int l, N, H, reason, drop, Bc;
@@ -227,9 +279,10 @@ struct F3Update {
   float ik;
   unsigned long long key;
   int b0;
+  ViewB res_next;      // BF16: p null: not kept
   struct In { float hi, h0, q, th; };
-  __device__ F3Update for_batch(int b) const {
-    F3Update e = *this;
+  __device__ F3UpdateT for_batch(int b) const {
+    F3UpdateT e = *this;
     const int k = b / Bc;
     e.b0 = k * Bc;
     e.ik = drop ? rate.inv_keep_of(k) : 1.0f;
@@ -250,21 +303,29 @@ struct F3Update {
       hn = philox::keep(key, b - b0, l, r, c, thr) ? hn * ik : 0.0f;
     if (reason) hn += in.q;
     *out.at(b, r, c) = hn;
-    if (h1_next.p) *h1_next.at(b, r, c) = hn;
+    if (h1_next.p) *h1_next.at(b, r, c) = BF16 ? gemm::round_bf16(hn) : hn;
+    if constexpr (BF16) res_next.put(b, r, c, hn);
   }
 };
 
 // h into the layer-0 state (and into h1's when h1.p); lh, lc zeroed.
+// BF16: h1 gets bf16(h), and layer 0's bf16 slabs h, lh = 0 and lc = 0.
+template <bool BF16>
 __global__ void gcnii_fwd_init(const float* __restrict__ h, View hs, View h1,
-                               View lh, View lc, long long NH,
-                               long long total) {
+                               View lh, View lc, ViewB rh, ViewB rlh,
+                               ViewB rlc, long long NH, long long total) {
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     const long long b = e / NH, i = e % NH;
     hs.p[b * hs.bs + i] = h[e];
-    if (h1.p) h1.p[b * h1.bs + i] = h[e];
+    if (h1.p) h1.p[b * h1.bs + i] = BF16 ? gemm::round_bf16(h[e]) : h[e];
     if (lh.p) lh.p[b * lh.bs + i] = 0.0f;
     if (lc.p) lc.p[b * lc.bs + i] = 0.0f;
+    if constexpr (BF16) {
+      rh.put(b, i, h[e]);
+      rlh.put(b, i, 0.0f);
+      rlc.put(b, i, 0.0f);
+    }
   }
 }
 
@@ -906,13 +967,126 @@ cudaError_t resident(const ResidentArgs& a, int B, cudaStream_t st) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <bool BF16 = false>
 cudaError_t init(const float* h, View hs, View h1, View lh, View lc, int B,
-                 long long NH, cudaStream_t st) {
+                 long long NH, cudaStream_t st, ViewB rh = {},
+                 ViewB rlh = {}, ViewB rlc = {}) {
   const long long total = B * NH;
   const long long want = (total + 255) / 256;
   const unsigned blocks = (unsigned)(want < 1024 ? want : 1024);
-  gcnii_fwd_init<<<blocks, 256, 0, st>>>(h, hs, h1, lh, lc, NH, total);
+  gcnii_fwd_init<BF16><<<blocks, 256, 0, st>>>(h, hs, h1, lh, lc, rh, rlh,
+                                               rlc, NH, total);
   return cudaGetLastError();
+}
+
+#define GCNII_LAUNCH(call)                    \
+  do {                                        \
+    err = (call);                             \
+    if (err != cudaSuccess) return -(int)err; \
+    ++launches;                               \
+  } while (0)
+
+// The tiled design's whole stack (see the note at the top).  BF16: the
+// bf16 mode, whose carries live as in serve mode with training mode's
+// bf16 slabs beside them; its scratch is hi, the lh pair, lc, bf16(hi) and
+// bf16(h1), 6 (B, N, H) f32.
+template <bool BF16>
+int tiled(const float* adj, const float* h, const float* h0, const float* W,
+          const float* theta, float alpha, const float* wl, float* out,
+          float* scratch, float* res_h, float* res_lh, float* res_lc,
+          float* res_h1, int drop, const philox::Rate& rate,
+          const long long* seed, int reason, int nl, int Bc, int B, int N,
+          int H, cudaStream_t st) {
+  const long long NH = (long long)N * H, NN = (long long)N * N;
+  const long long RH = (long long)B * NH;
+  const int G = 4 * H;
+  const bool keep = res_h != nullptr;      // residuals asked for
+  const bool train = keep && !BF16;        // the state in the f32 slabs
+  const long long sb = train ? nl * NH : NH;   // the state's batch stride
+  float* hi = scratch;
+  // serve mode only: the lh pair and lc after hi
+  float* lh_buf[2] = {scratch + RH, scratch + 2 * RH};
+  float* lc_buf = scratch + 3 * RH;
+  float* hir = BF16 ? scratch + 4 * RH : nullptr;   // bf16(hi)
+  float* h1r = BF16 ? scratch + 5 * RH : nullptr;   // bf16(h1)
+  auto slab = [&](float* p, int l) { return View{p + l * NH, sb, H}; };
+  const View none{nullptr, 0, H};
+  const ViewB noneb{nullptr, 0, H};
+  auto bslab = [&](float* p, int l) {   // layer l's bf16 slab, if kept
+    return BF16 && keep
+               ? ViewB{reinterpret_cast<bf16*>(p) + l * NH, nl * NH, H}
+               : noneb;
+  };
+  int launches = 0;
+  cudaError_t err = cudaSuccess;
+  const View h_0 = train ? slab(res_h, 0) : View{out, NH, H};
+  const View lh_0 = train ? slab(res_lh, 0) : View{lh_buf[0], NH, H};
+  const View lc_0 = train ? slab(res_lc, 0) : View{lc_buf, NH, H};
+  const View h1_0 = reason ? none
+                    : BF16 ? View{h1r, NH, H}
+                    : train ? slab(res_h1, 0)
+                            : none;
+  GCNII_LAUNCH(init<BF16>(h, h_0, h1_0, reason ? lh_0 : none,
+                          reason ? lc_0 : none, B, NH, st, bslab(res_h, 0),
+                          reason ? bslab(res_lh, 0) : noneb,
+                          reason ? bslab(res_lc, 0) : noneb));
+
+  for (int l = 0; l < nl; ++l) {
+    const bool last = l + 1 == nl;
+    const View h_l = train ? slab(res_h, l) : View{out, NH, H};
+    const View h_next =
+        train && !last ? slab(res_h, l + 1) : View{out, NH, H};
+    View h1_l = h_l;
+    if (reason) {
+      F1CellT<BF16> f1{};
+      f1.bias = wl + 2LL * H * G;
+      f1.bias_ks = (2LL * H + 1) * G;
+      f1.Bc = Bc;
+      View lh_l;
+      if (train) {
+        lh_l = slab(res_lh, l);
+        f1.lc = slab(res_lc, l);
+        f1.h1 = h1_l = slab(res_h1, l);
+        f1.lh_next = last ? none : slab(res_lh, l + 1);
+        f1.lc_next = last ? none : slab(res_lc, l + 1);
+      } else {   // h1 is the next layer's lh; lc in place
+        lh_l = View{lh_buf[l % 2], NH, H};
+        f1.h1 = h1_l = View{lh_buf[(l + 1) % 2], NH, H};
+        f1.lc = f1.lc_next = View{lc_buf, NH, H};
+        f1.lh_next = none;
+      }
+      f1.h1r = View{h1r, NH, H};
+      f1.res_lh = last ? noneb : bslab(res_lh, l + 1);
+      f1.res_lc = last ? noneb : bslab(res_lc, l + 1);
+      const Operand A =
+          gemm::cat(h_l.p, h_l.bs, lh_l.p, lh_l.bs, H, 1, H, true);
+      const Operand Bw = gemm::grouped(gemm::dense(wl, 0, 1, G), Bc,
+                                       (2LL * H + 1) * G, (2LL * H + 1) * G);
+      GCNII_LAUNCH(wide(A, Bw, N, G, 2 * H, B, f1, st));
+    }
+    {   // F2 (BF16: on bf16(h1))
+      const Operand A = gemm::dense(adj, NN, N, 1);
+      const Operand Bh = BF16 ? gemm::dense(h1r, NH, 1, H)
+                              : gemm::dense(h1_l.p, h1_l.bs, 1, H);
+      const F2HiT<BF16> f2{hi, N, H, hir};
+      GCNII_LAUNCH(narrow100(A, Bh, N, H, N, B, f2, st));
+    }
+    {   // F3 (BF16: on bf16(hi))
+      const Operand A = gemm::cat(BF16 ? hir : hi, NH, h0, NH, H, 1, H, true);
+      const long long wk = (long long)nl * 2 * H * H;   // a configuration's W
+      const Operand Bw = gemm::grouped(
+          gemm::dense(W + (long long)l * 2 * H * H, 0, 1, H), Bc, wk, wk);
+      const View h1_next = reason || last ? none
+                           : BF16 ? View{h1r, NH, H}
+                           : train ? slab(res_h1, l + 1)
+                                   : none;
+      F3UpdateT<BF16> f3{hi, h0, h_l, h_next, h1_next, theta + l, alpha, l,
+                         N, H, reason, drop, Bc, rate, seed};
+      f3.res_next = last ? noneb : bslab(res_h, l + 1);
+      GCNII_LAUNCH(narrow100(A, Bw, N, H, 2 * H, B, f3, st));
+    }
+  }
+  return launches;
 }
 
 }  // namespace
@@ -927,6 +1101,9 @@ cudaError_t init(const float* h, View hs, View h1, View lh, View lc, int B,
 // (B, N, H) for hi in the tiled design's training mode, else 4 (B, N, H)
 // (tiled: hi, the two lh buffers and lc; row-wise: two h1 buffers, lh, lc);
 // the resident design keeps its state in shared memory and reads none.
+// use_bf16 = 1: the bf16 mode (the tiled design; see the note at the top):
+// adj, h0 and W hold bf16 values, the three residual slabs res_h, res_lh,
+// res_lc are bf16 (res_h1 unused), and scratch is 6 (B, N, H) f32.
 extern "C" int gcnii_fwd(
     const float* adj, const float* h, const float* h0, const float* W,
     const float* theta, float alpha, const float* wl, const float* ih,
@@ -934,24 +1111,19 @@ extern "C" int gcnii_fwd(
     float* res_h, float* res_lh, float* res_lc, float* res_h1, int drop,
     const unsigned int* thresh_k, const float* inv_keep_k,
     unsigned int thresh, float inv_keep, const long long* seed, int reason,
-    int design, int nl, int K, int Bc, int N, int H, void* stream) {
+    int design, int nl, int K, int Bc, int N, int H, int use_bf16,
+    void* stream) {
   if (H > kHMax || K <= 0 || Bc <= 0 || N <= 0 || nl <= 0 ||
-      (design != kTiled && design != kRowwise && design != kResident))
+      (design != kTiled && design != kRowwise && design != kResident) ||
+      (use_bf16 && design != kTiled))
     return -(int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int B = K * Bc;   // the dialogues of all configurations
   const philox::Rate rate{thresh_k, inv_keep_k, thresh, inv_keep};
-  const long long NH = (long long)N * H, NN = (long long)N * N;
+  const long long NH = (long long)N * H;
   const long long RH = (long long)B * NH;
-  const bool train = res_h != nullptr;
   int launches = 0;
   cudaError_t err = cudaSuccess;
-#define GCNII_LAUNCH(call)                    \
-  do {                                        \
-    err = (call);                             \
-    if (err != cudaSuccess) return -(int)err; \
-    ++launches;                               \
-  } while (0)
 
   if (design == kResident) {
     const ResidentArgs a{adj,   h,     h0,     W,      theta,  wl,
@@ -994,69 +1166,13 @@ extern "C" int gcnii_fwd(
     return launches;
   }
 
-  const int G = 4 * H;
-  const long long sb = train ? nl * NH : NH;   // the state's batch stride
-  float* hi = scratch;
-  // serve mode only: the lh pair and lc after hi
-  float* lh_buf[2] = {scratch + RH, scratch + 2 * RH};
-  float* lc_buf = scratch + 3 * RH;
-  auto slab = [&](float* p, int l) { return View{p + l * NH, sb, H}; };
-  const View none{nullptr, 0, H};
-  const View h_0 = train ? slab(res_h, 0) : View{out, NH, H};
-  const View lh_0 = train ? slab(res_lh, 0) : View{lh_buf[0], NH, H};
-  const View lc_0 = train ? slab(res_lc, 0) : View{lc_buf, NH, H};
-  GCNII_LAUNCH(init(h, h_0, train && !reason ? slab(res_h1, 0) : none,
-                    reason ? lh_0 : none, reason ? lc_0 : none, B, NH, st));
-
-  for (int l = 0; l < nl; ++l) {
-    const bool last = l + 1 == nl;
-    const View h_l = train ? slab(res_h, l) : View{out, NH, H};
-    const View h_next =
-        train && !last ? slab(res_h, l + 1) : View{out, NH, H};
-    View h1_l = h_l;
-    if (reason) {
-      F1Cell f1{};
-      f1.bias = wl + 2LL * H * G;
-      f1.bias_ks = (2LL * H + 1) * G;
-      f1.Bc = Bc;
-      View lh_l;
-      if (train) {
-        lh_l = slab(res_lh, l);
-        f1.lc = slab(res_lc, l);
-        f1.h1 = h1_l = slab(res_h1, l);
-        f1.lh_next = last ? none : slab(res_lh, l + 1);
-        f1.lc_next = last ? none : slab(res_lc, l + 1);
-      } else {   // h1 is the next layer's lh; lc in place
-        lh_l = View{lh_buf[l % 2], NH, H};
-        f1.h1 = h1_l = View{lh_buf[(l + 1) % 2], NH, H};
-        f1.lc = f1.lc_next = View{lc_buf, NH, H};
-        f1.lh_next = none;
-      }
-      const Operand A =
-          gemm::cat(h_l.p, h_l.bs, lh_l.p, lh_l.bs, H, 1, H, true);
-      const Operand Bw = gemm::grouped(gemm::dense(wl, 0, 1, G), Bc,
-                                       (2LL * H + 1) * G, (2LL * H + 1) * G);
-      GCNII_LAUNCH(wide(A, Bw, N, G, 2 * H, B, f1, st));
-    }
-    {   // F2
-      const Operand A = gemm::dense(adj, NN, N, 1);
-      const Operand Bh = gemm::dense(h1_l.p, h1_l.bs, 1, H);
-      const F2Hi f2{hi, N, H};
-      GCNII_LAUNCH(narrow100(A, Bh, N, H, N, B, f2, st));
-    }
-    {   // F3
-      const Operand A = gemm::cat(hi, NH, h0, NH, H, 1, H, true);
-      const long long wk = (long long)nl * 2 * H * H;   // a configuration's W
-      const Operand Bw = gemm::grouped(
-          gemm::dense(W + (long long)l * 2 * H * H, 0, 1, H), Bc, wk, wk);
-      const F3Update f3{hi, h0, h_l, h_next,
-                        train && !reason && !last ? slab(res_h1, l + 1)
-                                                  : none,
-                        theta + l, alpha, l, N, H, reason, drop, Bc, rate,
-                        seed};
-      GCNII_LAUNCH(narrow100(A, Bw, N, H, 2 * H, B, f3, st));
-    }
-  }
+  return use_bf16 ? tiled<true>(adj, h, h0, W, theta, alpha, wl, out,
+                                scratch, res_h, res_lh, res_lc, res_h1, drop,
+                                rate, seed, reason, nl, Bc, B, N, H, st)
+                  : tiled<false>(adj, h, h0, W, theta, alpha, wl, out,
+                                 scratch, res_h, res_lh, res_lc, res_h1,
+                                 drop, rate, seed, reason, nl, Bc, B, N, H,
+                                 st);
 #undef GCNII_LAUNCH
-  return launches;
 }
+

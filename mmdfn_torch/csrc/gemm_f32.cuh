@@ -32,14 +32,40 @@
 // be a multiple of 4.  An epilogue may resolve what depends on its batch
 // alone (a configuration's weights or rate) once a block, in a method
 // `Epi for_batch(int z) const`; without one it is used as given.
+//
+// bf16 operands (the GCNII kernels' bf16 mode): bf16 times bf16 is exact in
+// f32, so a product on bf16 values is the f32 sum of the exact products,
+// as the TPU's bf16 dot with f32 accumulation.  Most of them arrive as f32
+// tensors that hold bf16 values (rounded by round_bf16 in an epilogue) and
+// take the cp.async path.  A segment stored in bf16 (OperandT<T0, T1>, each
+// of float or bf16: kernel D reads the bf16 residual slabs so) is widened
+// to f32 as it is staged, into the same shared-memory slices and register
+// tiles, through registers (cp.async cannot widen): its slice t + 2 is read
+// from global memory before slice t is multiplied and stored to shared
+// memory after, so that the multiply hides the reads.  As load_slice, a
+// thread reads groups of 4 elements along the contiguous axis from one
+// address (8 bytes at once where 4 bf16 are aligned), and an edge group
+// element by element.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 namespace gemm {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+// x rounded to bf16 (to nearest even) and held in f32: a bf16 operand that
+// the cp.async path stages as f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 constexpr int BK = 8;       // depth of a slice
 constexpr int STAGES = 3;   // slices in flight
@@ -54,9 +80,10 @@ struct Chunk4 {};
 template <class Epi>
 constexpr bool kChunked = std::is_base_of<Chunk4, Epi>::value;
 
-struct Operand {
-  const float* p0;      // segment 0
-  const float* p1;      // segment 1: index >= split along k or rows
+template <class T0, class T1 = T0>
+struct OperandT {
+  const T0* p0;         // segment 0
+  const T1* p1;         // segment 1: index >= split along k or rows
   long long bs0, bs1;   // batch strides of the segments (elements)
   long long rs, ks;     // strides of a row and of k
   int split;            // where segment 1 starts; a large value: never
@@ -65,7 +92,11 @@ struct Operand {
   int zg;               // batches a group
   long long gs0, gs1;   // group strides of the segments (elements)
 
-  // element (r, k) of batch z, whose group is zgrp = z / zg
+  // both segments f32: staged by cp.async
+  static constexpr bool kF32 =
+      std::is_same<T0, float>::value && std::is_same<T1, float>::value;
+
+  // element (r, k) of batch z, whose group is zgrp = z / zg (f32 only)
   __device__ __forceinline__ const float* at(int z, int zgrp, int r,
                                              int k) const {
     if (r == one_row) return &kOne;
@@ -78,26 +109,101 @@ struct Operand {
     }
     return p + z * bs + zgrp * gs + r * rs + k * ks;
   }
+
+  // 4 consecutive elements along the contiguous axis (k where KC, else the
+  // rows) from (gr, gk), widened; zeros outside rows < nrows, k < ke
+  template <bool KC>
+  __device__ __forceinline__ void get4(int z, int zgrp, int gr, int gk,
+                                       int nrows, int ke, float* v) const {
+    const int c = KC ? gk : gr;
+    const bool in = KC ? gr < nrows && gk + 3 < ke : gk < ke && gr + 3 < nrows;
+    const bool split_here = (split_k != 0) == KC;
+    const bool whole =
+        in && !(split_here && c < split && c + 3 >= split) &&
+        !(KC ? gr == one_row : one_row >= gr && one_row <= gr + 3);
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rr = gr + (KC ? 0 : j), kk = gk + (KC ? j : 0);
+        v[j] = rr < nrows && kk < ke ? get(z, zgrp, rr, kk) : 0.0f;
+      }
+      return;
+    }
+    int r = gr, k = gk;
+    bool second = false;
+    if (split_k) {
+      if (k >= split) { second = true; k -= split; }
+    } else if (r >= split) {
+      second = true; r -= split;
+    }
+    const long long o = (long long)r * rs + (long long)k * ks;
+    if (second)
+      load4(p1 + z * bs1 + zgrp * gs1 + o, v);
+    else
+      load4(p0 + z * bs0 + zgrp * gs0 + o, v);
+  }
+
+  __device__ __forceinline__ static void load4(const float* p, float* v) {
+    if ((reinterpret_cast<unsigned long long>(p) & 15) == 0) {
+      const float4 x = *reinterpret_cast<const float4*>(p);
+      v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = p[j];
+    }
+  }
+
+  __device__ __forceinline__ static void load4(const bf16* p, float* v) {
+    if ((reinterpret_cast<unsigned long long>(p) & 7) == 0) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);   // bf16 is the
+      v[0] = __uint_as_float(x.x << 16);                   // top half of
+      v[1] = __uint_as_float(x.x & 0xffff0000u);           // an f32
+      v[2] = __uint_as_float(x.y << 16);
+      v[3] = __uint_as_float(x.y & 0xffff0000u);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = widen(p[j]);
+    }
+  }
+
+  // the value of element (r, k) of batch z, widened to f32
+  __device__ __forceinline__ float get(int z, int zgrp, int r, int k) const {
+    if (r == one_row) return 1.0f;
+    bool second = false;
+    if (split_k) {
+      if (k >= split) { second = true; k -= split; }
+    } else if (r >= split) {
+      second = true; r -= split;
+    }
+    const long long o = (long long)r * rs + (long long)k * ks;
+    return second ? widen(p1[z * bs1 + zgrp * gs1 + o])
+                  : widen(p0[z * bs0 + zgrp * gs0 + o]);
+  }
 };
 
+using Operand = OperandT<float>;
+
 // A dense operand: element (r, k) at p + z bs + r rs + k ks.
-inline Operand dense(const float* p, long long bs, long long rs,
-                     long long ks) {
-  return Operand{p, p, bs, bs, rs, ks, 1 << 30, 0, -1, 1, 0, 0};
+template <class T>
+inline OperandT<T> dense(const T* p, long long bs, long long rs,
+                         long long ks) {
+  return OperandT<T>{p, p, bs, bs, rs, ks, 1 << 30, 0, -1, 1, 0, 0};
 }
 
 // Two operands side by side along k (split_k) or stacked along the rows,
 // with the same strides.
-inline Operand cat(const float* p0, long long bs0, const float* p1,
-                   long long bs1, long long rs, long long ks, int split,
-                   bool split_k) {
-  return Operand{p0, p1, bs0, bs1, rs, ks, split, split_k ? 1 : 0, -1,
-                 1, 0, 0};
+template <class T0, class T1>
+inline OperandT<T0, T1> cat(const T0* p0, long long bs0, const T1* p1,
+                            long long bs1, long long rs, long long ks,
+                            int split, bool split_k) {
+  return OperandT<T0, T1>{p0, p1, bs0, bs1, rs, ks, split, split_k ? 1 : 0,
+                          -1, 1, 0, 0};
 }
 
 // `o` with a group stride: batch z's segments start gs0 / gs1 further per
 // zg batches.
-inline Operand grouped(Operand o, int zg, long long gs0, long long gs1) {
+template <class O>
+inline O grouped(O o, int zg, long long gs0, long long gs1) {
   o.zg = zg;
   o.gs0 = gs0;
   o.gs1 = gs1;
@@ -188,6 +294,50 @@ __device__ __forceinline__ void load_slice(float* dst, const Operand& op,
   }
 }
 
+// A slice staged through registers (an operand with a bf16 segment): the
+// same slice and layout as load_slice, fetched into v and stored later.
+template <int ROWS, bool KC, int T>
+struct RegSlice {
+  static constexpr int S = ROWS + 4;
+  static constexpr int NG = BK * ROWS / 4;
+  static constexpr int NI = (NG + T - 1) / T;
+  float v[NI][4];
+
+  template <class Op>
+  __device__ __forceinline__ void fetch(const Op& op, int z, int zgrp,
+                                        int r0, int nrows, int k0, int ke,
+                                        int tid) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int g = tid + i * T;
+      if (NG % T == 0 || g < NG) {
+        const int r = KC ? g / (BK / 4) : g % (ROWS / 4) * 4;
+        const int k = KC ? g % (BK / 4) * 4 : g / (ROWS / 4);
+        op.template get4<KC>(z, zgrp, r0 + r, k0 + k, nrows, ke, v[i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst, int tid) const {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int g = tid + i * T;
+      if (NG % T == 0 || g < NG) {
+        const int r = KC ? g / (BK / 4) : g % (ROWS / 4) * 4;
+        const int k = KC ? g % (BK / 4) * 4 : g / (ROWS / 4);
+        float* d = dst + k * S + r;
+        if (KC) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d[j * S] = v[i][j];
+        } else {
+          *reinterpret_cast<float4*>(d) =
+              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        }
+      }
+    }
+  }
+};
+
 template <class Epi>
 __device__ __forceinline__ auto batch_epilogue(const Epi& e, int z, int)
     -> decltype(e.for_batch(z)) {
@@ -201,9 +351,9 @@ __device__ __forceinline__ Epi batch_epilogue(const Epi& e, int, long) {
 // GROUPED: whether a group stride applies (false: every batch's group is
 // 0, and the loads skip the group term, as for a run alone).
 template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, bool GROUPED,
-          class Epi>
+          class OA, class OB, class Epi>
 __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
-    gemm_kernel(const Operand A, const Operand B, int M, int N, int K,
+    gemm_kernel(const OA A, const OB B, int M, int N, int K,
                 int splits, int kchunk, const Epi epi_all) {
   constexpr int TN = 8;
   constexpr int TR = BM / TM, TC = BN / TN, T = TR * TC;
@@ -227,26 +377,46 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
+  // an operand with a bf16 segment goes through registers (see the top)
+  RegSlice<BM, AKC, T> ra;
+  RegSlice<BN, BKC, T> rb;
+
   // a ring of STAGES slices: slice t + STAGES - 1 is fetched while slice t
   // is multiplied; one barrier a slice
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < nk) {
-      load_slice<BM, AKC, T>(As[p], A, z, ga, m0, M, kb + p * BK, ke, tid);
-      load_slice<BN, BKC, T>(Bs[p], B, z, gb, n0, N, kb + p * BK, ke, tid);
+      if constexpr (OA::kF32) {
+        load_slice<BM, AKC, T>(As[p], A, z, ga, m0, M, kb + p * BK, ke, tid);
+      } else {
+        ra.fetch(A, z, ga, m0, M, kb + p * BK, ke, tid);
+        ra.store(As[p], tid);
+      }
+      if constexpr (OB::kF32) {
+        load_slice<BN, BKC, T>(Bs[p], B, z, gb, n0, N, kb + p * BK, ke, tid);
+      } else {
+        rb.fetch(B, z, gb, n0, N, kb + p * BK, ke, tid);
+        rb.store(Bs[p], tid);
+      }
     }
     cp_async_commit();
   }
   for (int t = 0; t < nk; ++t) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
+    const int p = t + STAGES - 1, nb = p % STAGES;
     {
-      const int p = t + STAGES - 1, nb = p % STAGES;
       if (p < nk) {
-        load_slice<BM, AKC, T>(As[nb], A, z, ga, m0, M, kb + p * BK, ke,
-                               tid);
-        load_slice<BN, BKC, T>(Bs[nb], B, z, gb, n0, N, kb + p * BK, ke,
-                               tid);
+        if constexpr (OA::kF32)
+          load_slice<BM, AKC, T>(As[nb], A, z, ga, m0, M, kb + p * BK, ke,
+                                 tid);
+        else
+          ra.fetch(A, z, ga, m0, M, kb + p * BK, ke, tid);
+        if constexpr (OB::kF32)
+          load_slice<BN, BKC, T>(Bs[nb], B, z, gb, n0, N, kb + p * BK, ke,
+                                 tid);
+        else
+          rb.fetch(B, z, gb, n0, N, kb + p * BK, ke, tid);
       }
       cp_async_commit();
     }
@@ -273,6 +443,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // slice p's registers into its buffer, which no thread reads until
+    // the barrier of step p
+    if (p < nk) {
+      if constexpr (!OA::kF32) ra.store(As[nb], tid);
+      if constexpr (!OB::kF32) rb.store(Bs[nb], tid);
     }
   }
   cp_async_wait<0>();
@@ -324,8 +500,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / 8), MINB)
 
 // Launches out = A B^T over `batches` batches and `splits` splits of K on
 // `st`; returns cudaGetLastError().
-template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, class Epi>
-cudaError_t launch(const Operand& A, const Operand& B, int M, int N, int K,
+template <int BM, int BN, int TM, bool AKC, bool BKC, int MINB, class OA,
+          class OB, class Epi>
+cudaError_t launch(const OA& A, const OB& B, int M, int N, int K,
                    int batches, int splits, const Epi& epi, cudaStream_t st) {
   constexpr int T = (BM / TM) * (BN / 8);
   // the loader steps along the contiguous axis with stride 1
@@ -339,10 +516,10 @@ cudaError_t launch(const Operand& A, const Operand& B, int M, int N, int K,
   const bool grouped = ((A.gs0 || A.gs1) && batches > A.zg) ||
                        ((B.gs0 || B.gs1) && batches > B.zg);
   if (grouped)
-    gemm_kernel<BM, BN, TM, AKC, BKC, MINB, true, Epi>
+    gemm_kernel<BM, BN, TM, AKC, BKC, MINB, true, OA, OB, Epi>
         <<<grid, T, 0, st>>>(A, B, M, N, K, splits, kchunk, epi);
   else
-    gemm_kernel<BM, BN, TM, AKC, BKC, MINB, false, Epi>
+    gemm_kernel<BM, BN, TM, AKC, BKC, MINB, false, OA, OB, Epi>
         <<<grid, T, 0, st>>>(A, B, M, N, K, splits, kchunk, epi);
   return cudaGetLastError();
 }

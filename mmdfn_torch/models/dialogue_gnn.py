@@ -129,14 +129,16 @@ class DialogueGNN(nn.Module):
                 reason_flag=cfg.reason_flag and gt == "GDF",
                 modal_weight=cfg.modal_weight, dropout=cfg.dropout,
                 n_speakers=info["n_speakers"], use_speaker=cfg.use_speaker,
-                use_modal=cfg.use_modal, spmm=gcn_spmm, rate_tag=TAG)
+                use_modal=cfg.use_modal, spmm=gcn_spmm, rate_tag=TAG,
+                backend=cfg.gcn_backend,
+                compute_dtype=cfg.gcn_compute_dtype)
             feat = M * (n_dim + GRAPH_H if res else GRAPH_H)
         elif gt == "GF2":
             self.graph_model = MMGCN2(
                 n_dim, GF2_NLAYERS, GRAPH_H, lamda=0.5, alpha=0.1,
                 use_residue=res, modals=cfg.modals,
                 graph_construct=cfg.graph_construct, dropout=cfg.dropout,
-                rate_tag=TAG)
+                rate_tag=TAG, compute_dtype=cfg.gcn_compute_dtype)
             feat = (n_dim if res else 0) + M * GRAPH_H
         else:
             if gt == "relation":
@@ -149,7 +151,9 @@ class DialogueGNN(nn.Module):
                 net = lambda: DeepGCNII(
                     n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=0.5,
                     alpha=0.1, use_residue=res, reason_flag=cfg.reason_flag,
-                    dropout=cfg.dropout, spmm=gcn_spmm, rate_tag=TAG)
+                    dropout=cfg.dropout, spmm=gcn_spmm, rate_tag=TAG,
+                    backend=cfg.gcn_backend,
+                    compute_dtype=cfg.gcn_compute_dtype)
                 width = n_dim + GRAPH_H if res else GRAPH_H
             elif gt == "GCN3":
                 net = lambda: GCN2Layers(n_dim, GRAPH_H, info["n_classes"],
@@ -207,7 +211,8 @@ class DialogueGNN(nn.Module):
                 n_dim, cfg.Deep_GCN_nlayers, GRAPH_H, lamda=cfg.lamda,
                 alpha=cfg.alpha, use_residue=res, reason_flag=cfg.reason_flag,
                 dropout=cfg.dropout, n_classes=n_classes, spmm=gcn_spmm,
-                rate_tag=TAG)
+                rate_tag=TAG, backend=cfg.gcn_backend,
+                compute_dtype=cfg.gcn_compute_dtype)
         elif gt == "GCN3":
             self.graph_net = GCN2Layers(n_dim, GRAPH_H, n_classes,
                                         use_residue=res, return_feature=False)
@@ -268,6 +273,7 @@ class DialogueGNN(nn.Module):
             raise NotImplementedError(
                 "base_model='DialogRNN' is single-stream only (as in the "
                 "reference)")
+        cfg.check_ported()
         return cls(cfg, gcn_spmm=gcn_spmm, **widths)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

@@ -4,7 +4,12 @@ ablation (graph type GF2, ``model_mm.py:183-258``) and the per-modality
 ``DeepGCNII`` baseline (graph type DeepGCN, ``model_GCN.py:224-285``).
 All three run the GCNII stack's kernels B and D; each takes ``variant``
 (``False``: the original GCNII update, through the fold of its (H, H)
-layer weights, ``nn/gcn.py:GCNIIStack``)."""
+layer weights, ``nn/gcn.py:GCNIIStack``), and ``compute_dtype`` (the
+config's ``gcn_compute_dtype``); MMGCN and DeepGCNII also ``backend``
+(``gcn_backend``), as the JAX package passes them
+(``mmdfn_tpu/models/mm_gcn.py:106-109,189,249-252``).  Only MMGCN's stack
+reaches the bf16 mode: MMGCN2's and DeepGCNII's wirings are JAX's layer
+scan, whose bf16 mode raises (``GCNIIStack``)."""
 
 from __future__ import annotations
 
@@ -43,7 +48,9 @@ class MMGCN(nn.Module):
                  dropout: float = 0.0, n_speakers: int = 2,
                  use_speaker: bool = False, use_modal: bool = False,
                  spmm: Optional[Callable] = None,
-                 rate_tag: Optional[str] = None, variant: bool = True):
+                 rate_tag: Optional[str] = None, variant: bool = True,
+                 backend: Optional[str] = None,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         if len(modals) < 2:
             raise ValueError("MMGCN needs at least two modalities")
@@ -57,7 +64,9 @@ class MMGCN(nn.Module):
         self.graph_net = GCNIIStack(n_dim, nlayers, nhidden, lamda=lamda,
                                     alpha=alpha, reason_flag=reason_flag,
                                     dropout=dropout, spmm=spmm,
-                                    rate_tag=rate_tag, variant=variant)
+                                    rate_tag=rate_tag, variant=variant,
+                                    backend=backend,
+                                    compute_dtype=compute_dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The embeddings N(0, 1) (``nn.Embedding``'s default), then the
@@ -111,11 +120,13 @@ class MMGCN2(GCNIIStack):
                  lamda: float = 0.5, alpha: float = 0.1,
                  use_residue: bool = True, modals: str = "avl",
                  graph_construct: str = "direct", dropout: float = 0.0,
-                 rate_tag: Optional[str] = None, variant: bool = True):
+                 rate_tag: Optional[str] = None, variant: bool = True,
+                 compute_dtype: Optional[str] = None):
         super().__init__(nhidden, nlayers, nhidden, lamda=lamda, alpha=alpha,
                          dropout=dropout, has_fc_in=False,
                          dropout_mode="before", post_loop_dropout=True,
-                         rate_tag=rate_tag, variant=variant)
+                         rate_tag=rate_tag, variant=variant,
+                         compute_dtype=compute_dtype)
         if graph_construct not in ("direct", "single", "window", "fc"):
             raise ValueError(f"graph_construct {graph_construct!r}")
         if use_residue and "l" not in modals:
@@ -165,11 +176,14 @@ class DeepGCNII(GCNIIStack):
                  use_residue: bool = True, reason_flag: bool = False,
                  dropout: float = 0.0, n_classes: Optional[int] = None,
                  spmm: Optional[Callable] = None,
-                 rate_tag: Optional[str] = None, variant: bool = True):
+                 rate_tag: Optional[str] = None, variant: bool = True,
+                 backend: Optional[str] = None,
+                 compute_dtype: Optional[str] = None):
         super().__init__(nfeat, nlayers, nhidden, lamda=lamda, alpha=alpha,
                          reason_flag=reason_flag, dropout=dropout,
                          dropout_mode="none", post_loop_dropout=True,
-                         spmm=spmm, rate_tag=rate_tag, variant=variant)
+                         spmm=spmm, rate_tag=rate_tag, variant=variant,
+                         backend=backend, compute_dtype=compute_dtype)
         self.use_residue = use_residue
         if n_classes is not None:
             self.fcs.append(Linear(

@@ -12,6 +12,18 @@ come from Philox under a seed drawn from the step's generator.  The layer
 loop is :func:`mmdfn_torch.ops.gcnii_stack_fwd`: kernel B, and under
 autograd kernel B's training mode with kernel D for the backward.  Every
 wiring runs the same kernels; only the dropouts around them differ.
+
+``backend='pallas'`` (or ``'pallas_fused'``; ``gcn_backend`` of the config)
+runs the stack in the TPU training kernel's bf16 numerics (kernels B and
+D's bf16 mode) wherever JAX's ``GCNIIStack`` takes that kernel
+(``mmdfn_tpu/nn/gcn.py:187-192``): the variant's update, dropout after
+each layer, no post-loop dropout, no node-sharded product, at most 64
+layers.  Elsewhere JAX runs its layer scan, in bf16 where
+``compute_dtype='bfloat16'``: that mode is not ported, and such a stack
+raises ``NotImplementedError`` rather than run in f32.  JAX's fallback
+off the TPU (live dropout takes the scan there, the interpreter's PRNG
+being a stub) is not copied: on the CPU the port runs the plain version
+of what the card runs.
 """
 
 from __future__ import annotations
@@ -70,6 +82,32 @@ class ReasonLSTM(nn.Module):
         self.bias_hh_l0 = nn.Parameter(torch.empty(4 * H))
 
 
+# the backends of the JAX package's fused GCNII training kernel, and the
+# most layers it takes (mmdfn_tpu/nn/gcn.py:187-189)
+FUSED_BACKENDS = ("pallas", "pallas_fused")
+FUSED_MAX_LAYERS = 64
+BF16_SCAN_MISSING = (
+    "gcn_compute_dtype='bfloat16' on the GCNII layer-scan path (MMGCN2, "
+    "non-lyc DeepGCNII, variant=False, post-loop dropout, more than 64 "
+    "layers or a model axis; the JAX package's bf16 scan mode) is not "
+    "ported yet")
+
+
+def fused_bf16(backend: Optional[str], compute_dtype: Optional[str], *,
+               variant: bool, dropout_mode: str, post_loop_dropout: bool,
+               nlayers: int, spmm) -> bool:
+    """Whether a stack runs in the bf16 mode: where JAX's ``GCNIIStack``
+    takes its fused training kernel (``mmdfn_tpu/nn/gcn.py:187-192``,
+    without the CPU-only fallback).  Raises ``NotImplementedError`` where
+    JAX runs its bf16 layer scan instead."""
+    fused = (backend in FUSED_BACKENDS and variant and dropout_mode == "after"
+             and spmm is None and not post_loop_dropout
+             and nlayers <= FUSED_MAX_LAYERS)
+    if not fused and compute_dtype == "bfloat16":
+        raise NotImplementedError(BF16_SCAN_MISSING)
+    return fused
+
+
 class GCNIIStack(nn.Module):
     """Deep GCNII stack; returns ``(x, h)`` (the input, for the residue
     concat, and the final hidden state).
@@ -87,6 +125,10 @@ class GCNIIStack(nn.Module):
     ``variant=False`` builds each layer's weight (H, H), the original GCNII
     update; kernels B and D then run on its fold (``ops.fold_weights``).
 
+    ``backend`` and ``compute_dtype``: the config's ``gcn_backend`` and
+    ``gcn_compute_dtype`` (:func:`fused_bf16`); ``self.bf16`` says whether
+    the stack runs in the bf16 mode.
+
     ``spmm`` replaces each layer's ``adj @ h`` (the node-sharded product
     of a mesh with a model axis, ``parallel/graph_parallel.py``).  With it
     the stack runs its plain version on any device and launches neither
@@ -103,7 +145,9 @@ class GCNIIStack(nn.Module):
                  has_fc_in: bool = True, dropout_mode: str = "after",
                  post_loop_dropout: bool = False,
                  spmm: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
-                 rate_tag: Optional[str] = None, variant: bool = True):
+                 rate_tag: Optional[str] = None, variant: bool = True,
+                 backend: Optional[str] = None,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         if dropout_mode not in ("after", "before", "none"):
             raise ValueError(f"dropout_mode {dropout_mode!r}")
@@ -124,6 +168,10 @@ class GCNIIStack(nn.Module):
         self.rate_tag = rate_tag
         self.relu_inputs: Optional[list] = None
         self._cache = None       # (parameter key, packed weights)
+        self.bf16 = fused_bf16(backend, compute_dtype, variant=variant,
+                               dropout_mode=dropout_mode,
+                               post_loop_dropout=post_loop_dropout,
+                               nlayers=nlayers, spmm=spmm)
         if has_fc_in:
             self.fcs = nn.ModuleList([Linear(nfeat, nhidden)])
         self.convs = nn.ModuleList(
@@ -218,7 +266,7 @@ class GCNIIStack(nn.Module):
             h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
                                 alpha=self.alpha, reason=self.reason_flag,
                                 rate=in_loop, seed=seed, variant=self.variant,
-                                folded=folded)
+                                folded=folded, bf16=self.bf16)
         else:
             h = gcnii_stack_plain(adj, h, h0, W, self.theta, *lstm,
                                   alpha=self.alpha, reason=self.reason_flag,

@@ -49,6 +49,21 @@ draws.  Under ``torch.func.vmap`` the Functions' ``vmap`` rules move the
 config axis to the front and make that one launch, which autograd
 records: the backward is one config-axis launch of kernel D.
 
+The bf16 mode (``bf16=True``; the JAX package's production configuration,
+``gcn_backend='pallas'``) computes what the TPU training kernel computes
+(``mmdfn_tpu/ops/pallas_gcnii_train.py``, bf16 by construction): adj, h0
+and W rounded to bf16 (``:691-697``); each layer's products on bf16
+operands with f32 sums, ``adj @ bf16(h1)`` and ``bf16(hi) @ W1 + h0 @ W2``
+(``:104-109,141-142``); the carries, the LSTM step and the elementwise
+work in f32; the residuals three bf16 slabs, the pre-layer h, lh and lc
+(``:150-153``, ``RESIDUALS_BF16``); the backward recomputes each layer,
+the LSTM step included, from those bf16 carries (``:245-271``) with its
+gradient products in f32, and rounds d_adj, d_h0 and dW to bf16
+(``:637-638``).  Kernel B runs it in its tiled design only.  With autograd
+on it always goes through :class:`GCNIIStackTrain` (inside
+``ops.plain_ops()`` too, on the plain versions), since autograd through
+the rounded forward is not the backward that recomputes from bf16 carries.
+
 The original GCNII update (``variant=False``: W (nl, H, H), support = r =
 (1-α) hi + α h0) runs the same kernels on the fold of W,
 ``[(1-α) W; α W]`` (:func:`fold_weights`, as
@@ -72,9 +87,9 @@ Tensor = torch.Tensor
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # adj, h, h0, W, theta, alpha, wl, ih, hh, lb, out, scratch, res_h, res_lh,
 # res_lc, res_h1, drop, thresh_k, inv_keep_k, thresh, inv_keep, seed,
-# reason, design, nl, K, B, N, H, stream
+# reason, design, nl, K, B, N, H, bf16, stream
 _ARGTYPES = ([_p] * 5 + [_f] + [_p] * 10 + [_i, _p, _p, _u, _f, _p]
-             + [_i] * 7 + [_p])
+             + [_i] * 8 + [_p])
 # kernel B's designs (gcnii_fwd.cu): three tiled products a layer, one
 # row-wise launch a layer, or the whole stack in one launch, a cluster of
 # CTAs a dialogue
@@ -93,9 +108,9 @@ RESIDENT_MAX_N = 384
 # adj, h0, W, theta, alpha, res_h, res_lh, res_lc, res_h1, ih, hh, lb,
 # dh_out, dh, dlh, dlc, d_hi, dh0, dadj, hi, tdpre, gates, dgates, part_w,
 # part_l, dW, dl, drop, thresh_k, inv_keep_k, thresh, inv_keep, seed,
-# reason, nl, K, B, N, H, splits_w, splits_l, stream
+# reason, nl, K, B, N, H, splits_w, splits_l, bf16, wl, stream
 _BWD_ARGTYPES = ([_p] * 4 + [_f] + [_p] * 22 + [_i, _p, _p, _u, _f, _p]
-                 + [_i] * 8 + [_p])
+                 + [_i] * 9 + [_p, _p])
 # row splits of the weight-gradient sums after the walk: dW (K = B N rows,
 # nl layers, 2 x 1 tiles each) and the LSTM's (K = B nl N, 2 x 4 tiles);
 # 8 x 32 and 32 x 8 blocks fill the card's 132 SMs about twice
@@ -110,8 +125,24 @@ def gcnii_bwd_splits(R: int, nl: int) -> Tuple[int, int]:
             max(1, min(_SPLITS_L, nl * R // _SPLIT_ROWS_MIN)))
 
 # the residual slabs, each (B, nlayers, N, H): the pre-layer h, lh, lc of
-# every layer and the layer's LSTM output h1
+# every layer and the layer's LSTM output h1; in the bf16 mode the first
+# three, in bf16
 RESIDUALS = ("h", "lh", "lc", "h1")
+RESIDUALS_BF16 = RESIDUALS[:3]
+
+
+def residual_slabs(shape, bf16: bool, dev) -> list:
+    """Empty residual slabs of ``shape`` (B, nlayers, N, H) for a mode:
+    four f32 ones, or three bf16 ones."""
+    if bf16:
+        return [torch.empty(shape, device=dev, dtype=torch.bfloat16)
+                for _ in RESIDUALS_BF16]
+    return [torch.empty(shape, device=dev) for _ in RESIDUALS]
+
+
+def to_bf16(x: Tensor) -> Tensor:
+    """``x`` rounded to bf16 (to nearest even) and held in its own type."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def gcnii_fwd_launches(nl: int, reason: bool, design: int = TILED) -> int:
@@ -240,9 +271,10 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                       relu_inputs: Optional[list] = None,
                       spmm: Optional[Callable[[Tensor, Tensor],
                                               Tensor]] = None,
-                      variant: bool = True) -> Tensor:
+                      variant: bool = True, bf16: bool = False) -> Tensor:
     """Plain PyTorch version of :func:`gcnii_stack_fwd` (same contract);
-    differentiable by autograd.  The dropout mask comes from
+    differentiable by autograd (in the f32 mode: in the bf16 mode the
+    backward is :func:`gcnii_stack_bwd_plain`'s, from the bf16 carries).  The dropout mask comes from
     :mod:`mmdfn_torch.ops.philox`, bit-equal to the kernel's.
     ``variant=False`` computes ``r @ W[l]`` itself, not through the fold.
 
@@ -260,22 +292,29 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
     that a check can compare two steps' decisions."""
     drop, thresh, inv_keep = _dropout_args(rate, seed)
     B, N, H = h.shape
+    rd = to_bf16 if bf16 else (lambda x: x)
+    if bf16:
+        if not variant or spmm is not None:
+            raise ValueError("the bf16 mode runs the variant's update on "
+                             "the batched product only")
+        adj, h0, W = rd(adj), rd(h0), rd(W)
     lh = torch.zeros_like(h)
     lc = torch.zeros_like(h)
     for l in range(W.shape[0]):
         q = h
-        if residuals is not None:
+        if residuals is not None:   # a bf16 slab rounds as it stores
             residuals[0][:, l] = h.detach()
             residuals[1][:, l] = lh.detach()
             residuals[2][:, l] = lc.detach()
         if reason:
             lh, lc, _ = _lstm_step(h, lh, lc, lstm_ih, lstm_hh, lstm_b)
             h = lh
-        if residuals is not None:
+        if residuals is not None and not bf16:
             residuals[3][:, l] = h.detach()
-        hi = adj @ h if spmm is None else spmm(adj, h)
+        hi = adj @ rd(h) if spmm is None else spmm(adj, h)
         r = (1.0 - alpha) * hi + alpha * h0
-        support = (hi @ W[l, :H] + h0 @ W[l, H:]) if variant else r @ W[l]
+        support = (rd(hi) @ W[l, :H] + h0 @ W[l, H:]) if variant \
+            else r @ W[l]
         pre = theta[l] * support + (1.0 - theta[l]) * r
         if relu_inputs is not None:
             relu_inputs.append(pre.detach())
@@ -289,11 +328,11 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
     return h
 
 
-def _check_all(expect, dev) -> None:
+def _check_all(expect, dev, dtype=torch.float32) -> None:
     for name, t, shape in expect:
-        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
                 or t.device != dev:
-            raise ValueError(f"{name}: expected float32 {tuple(shape)} on "
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
 
@@ -317,7 +356,8 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
                     seed: Optional[Tensor] = None,
                     residuals: Optional[Sequence[Tensor]] = None,
                     variant: bool = True,
-                    folded: Optional[Tensor] = None) -> Tensor:
+                    folded: Optional[Tensor] = None,
+                    bf16: bool = False) -> Tensor:
     """GCNII stack forward (deterministic at ``rate = 0``).
 
     Args:
@@ -335,7 +375,10 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
         step's 64-bit seed, one int64 on the device (read by the kernel,
         never by the host).
       residuals: when given, the four (B, nlayers, N, H) slabs named by
-        ``RESIDUALS``, filled in place for the backward.
+        ``RESIDUALS`` (the bf16 mode: the three bf16 ones of
+        ``RESIDUALS_BF16``), filled in place for the backward.
+      bf16: the TPU training kernel's numerics (see the module's note);
+        the variant's update only.
     Returns:
       (B, N, H) final hidden state (rows of masked nodes are garbage).
       With autograd on (and no ``residuals`` asked for) it goes through
@@ -346,26 +389,32 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
       launch.
     """
     opts = dict(alpha=alpha, reason=reason, rate=rate, seed=seed)
-    if _mode.plain:
+    if bf16 and not variant:
+        raise ValueError("gcnii_stack_fwd: the bf16 mode runs the variant's "
+                         "update only")
+    args = (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b)
+    dyn = hasattr(rate, "thresh")
+    fn_args = (*args, *_rate_ops(rate), seed, alpha, reason,
+               None if dyn else rate, bf16)
+    batched = any(_mode.is_batched(t) for t in fn_args)
+    train = residuals is None and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in args)
+    if _mode.plain and not (bf16 and (batched or train)):
         return gcnii_stack_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh,
                                  lstm_b, residuals=residuals, variant=variant,
-                                 **opts)
+                                 bf16=bf16, **opts)
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcnii_stack_fwd: no kernel for {h.device}")
     if not variant:
         W = fold_weights(W, alpha) if folded is None else folded
-    args = (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b)
-    dyn = hasattr(rate, "thresh")
-    fn_args = (*args, *_rate_ops(rate), seed, alpha, reason,
-               None if dyn else rate)
-    batched = any(_mode.is_batched(t) for t in fn_args)
+        fn_args = (adj, h, h0, W, *fn_args[4:])
     if batched and residuals is not None:
         raise ValueError("gcnii_stack_fwd: residual slabs are not taken "
                          "under vmap")
-    if batched or residuals is None and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in args):
+    if batched or train:
         return GCNIIStackTrain.apply(*fn_args)[0]
-    return _forward(*args, residuals=residuals, **opts)
+    return _forward(adj, h, h0, W, *args[4:], residuals=residuals, bf16=bf16,
+                    **opts)
 
 
 def fold_weights(W: Tensor, alpha: float) -> Tensor:
@@ -390,21 +439,22 @@ def _rate_args(drop: bool, thresh, inv_keep, K: int, dev) -> tuple:
 
 
 def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
-             reason, rate, seed, residuals, design=None):
+             reason, rate, seed, residuals, design=None, bf16=False):
     """Kernel B on CUDA tensors (``design``: one of ``DESIGNS``' values;
-    None: chosen by shape), the plain version on CPU tensors.  A 4-d ``W``
+    None: chosen by shape; the bf16 mode runs the tiled design), the plain
+    version on CPU tensors and inside ``ops.plain_ops()``.  A 4-d ``W``
     marks a config axis: one call for all K configurations."""
     cfg_axis = W.dim() == 4
-    if h.device.type == "cpu":
+    if h.device.type == "cpu" or _mode.plain:
         if not cfg_axis:
             return gcnii_stack_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh,
                                      lstm_b, alpha=alpha, reason=reason,
                                      rate=rate, seed=seed,
-                                     residuals=residuals)
+                                     residuals=residuals, bf16=bf16)
         plain = lambda adj, h, h0, W, ih, hh, b, res, th, ik: \
             gcnii_stack_plain(adj, h, h0, W, theta, ih, hh, b, alpha=alpha,
                               reason=reason, rate=_rate_of(th, ik, rate),
-                              seed=seed, residuals=res)
+                              seed=seed, residuals=res, bf16=bf16)
         return _mode.vmap_plain(plain, (adj, h, h0, W, lstm_ih, lstm_hh,
                                         lstm_b, residuals, *_rate_ops(rate)))
     *lead, B, N, H = h.shape
@@ -428,16 +478,28 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
                    ("lstm_hh", lstm_hh, k + (H, 4 * H)),
                    ("lstm_b", lstm_b, k + (4 * H,)))
     if residuals is not None:
-        expect += tuple((f"residual {n}", r, k + (B, nl, N, H))
-                        for n, r in zip(RESIDUALS, residuals))
+        names = RESIDUALS_BF16 if bf16 else RESIDUALS
+        if len(residuals) != len(names):
+            raise ValueError(f"expected {len(names)} residual slabs, got "
+                             f"{len(residuals)}")
+        _check_all(tuple((f"residual {n}", r, k + (B, nl, N, H))
+                         for n, r in zip(names, residuals)), dev,
+                   torch.bfloat16 if bf16 else torch.float32)
         if not all(r.is_contiguous() for r in residuals):
             raise ValueError("residual slabs must be contiguous")
-        res_ptrs = [r.data_ptr() for r in residuals]
+        res_ptrs = [r.data_ptr() for r in residuals] + [None] * (4 - len(
+            residuals))
     else:
         res_ptrs = [None] * 4
     _check_all(expect, dev)
     if K * B == 0 or N == 0 or nl == 0:
         return h.clone()
+    if bf16:
+        if design not in (None, TILED):
+            raise ValueError("gcnii_stack_fwd: the bf16 mode runs the tiled "
+                             "design only")
+        design = TILED
+        adj, h0, W = (to_bf16(t) for t in (adj, h0, W))
     if design is None:
         design = _design(K * B, N, _sm_count(dev), H)
     if not reason:      # never read by the kernels; any valid pointer will do
@@ -448,10 +510,13 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
         wl = interleave_gates(lstm_ih, lstm_hh, lstm_b).contiguous()
     out = torch.empty_like(h)
     # the tiled design's training mode keeps its state in the residual
-    # slabs and needs hi only, the resident design none (see the C entry's
-    # note)
+    # slabs and needs hi only, the resident design none; the bf16 mode its
+    # f32 carries as serving does, and bf16(hi) and bf16(h1) beside them
+    # (see the C entry's note)
     if design == RESIDENT:
         n_scratch = 0
+    elif bf16:
+        n_scratch = 6
     elif residuals is not None and design == TILED:
         n_scratch = 1
     else:
@@ -464,7 +529,7 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
     n = fn(ptr(adj), ptr(h), ptr(h0), ptr(W), ptr(theta), float(alpha),
            ptr(wl), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b), ptr(out),
            ptr(scratch), *res_ptrs, int(drop), ptr(th_k), ptr(ik_k), th, ik,
-           seed_ptr, int(reason), design, nl, K, B, N, H, stream)
+           seed_ptr, int(reason), design, nl, K, B, N, H, int(bf16), stream)
     _build.check(-n if n < 0 else 0, "gcnii_fwd launch")
     gcnii_stack_fwd.launches += n
     return out
@@ -476,17 +541,26 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
                           residuals: Sequence[Tensor], dh_out: Tensor, *,
                           alpha: float, reason: bool, rate: float = 0.0,
                           seed: Optional[Tensor] = None,
-                          relu_masks: Optional[Sequence[Tensor]] = None):
+                          relu_masks: Optional[Sequence[Tensor]] = None,
+                          bf16: bool = False,
+                          relu_inputs: Optional[list] = None):
     """Plain PyTorch version of :func:`gcnii_stack_bwd`: the reverse layer
     walk of ``_bwd_kernel`` (``mmdfn_tpu/ops/pallas_gcnii_train.py:183-394``,
     without the ``ablate`` paths), recomputing each layer from its pre-layer
-    residuals h, lh, lc and redrawing its dropout bits.
+    residuals h, lh, lc and redrawing its dropout bits.  In the bf16 mode
+    the residuals are the bf16 slabs, adj, h0 and W are taken rounded to
+    bf16, the recompute rounds where the forward does (``:236-271``), the
+    gradient products stay f32 with hi and h1 unrounded (``:283-321``), and
+    d_adj, d_h0 and dW come back rounded to bf16 (``:637-638``).
 
     ``relu_masks``, when given, are each layer's ReLU decisions (nlayers
     bool (B, N, H) tensors, True where the ReLU passes) in place of the
     recompute's ``pre > 0``: where ``pre`` lies within rounding of 0, two
     f32 recomputes in another summation order may decide either way, and a
     check holds a kernel against this version at the kernel's decisions.
+    ``relu_inputs``, when given, gets each layer's (pre, gradient past the
+    ReLU) in layer order, so that a check can tell where a kernel's
+    decisions differ from ``pre > 0`` and matter.
 
     Returns:
       (d_adj, d_h_entry, d_h0, dW, dW_ih, dW_hh, db): (B, N, N),
@@ -495,6 +569,8 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     """
     drop, thresh, inv_keep = _dropout_args(rate, seed)
     h_res, lh_res, lc_res = residuals[:3]
+    rd = to_bf16 if bf16 else (lambda x: x)
+    adj, h0, W = rd(adj), rd(h0), rd(W)
     B, N, H = h0.shape
     nl = W.shape[0]
     dh = dh_out
@@ -508,21 +584,23 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     dlb = h0.new_zeros(4 * H)
     rows = lambda x: x.reshape(-1, x.shape[-1])
     for l in range(nl - 1, -1, -1):
-        h, lh, lc = h_res[:, l], lh_res[:, l], lc_res[:, l]
+        h, lh, lc = (r[:, l].float() for r in (h_res, lh_res, lc_res))
         th = theta[l]
         if reason:
             h1, lc1, (i, f, gg, o) = _lstm_step(h, lh, lc, lstm_ih, lstm_hh,
                                                 lstm_b)
         else:
             h1 = h
-        hi = adj @ h1
-        pre = th * (hi @ W[l, :H] + h0 @ W[l, H:]) \
+        hi = adj @ rd(h1)
+        pre = th * (rd(hi) @ W[l, :H] + h0 @ W[l, H:]) \
             + (1.0 - th) * ((1.0 - alpha) * hi + alpha * h0)
         if drop:
             keep = _keep(seed, thresh, inv_keep, B, l, N, H)
             dh2 = torch.where(keep, dh * inv_keep, 0.0)
         else:
             dh2 = dh
+        if relu_inputs is not None:
+            relu_inputs.insert(0, (pre, dh2))
         passes = pre > 0.0 if relu_masks is None else relu_masks[l]
         dpre = torch.where(passes, dh2, 0.0)
         tdpre = th * dpre
@@ -549,14 +627,15 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
             dlc = dlc1 * f
         else:
             dh = d_h1
-    return dadj, dh, dh0, dW, dih, dhh, dlb
+    return rd(dadj), dh, rd(dh0), rd(dW), dih, dhh, dlb
 
 
 def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
                     lstm_ih: Optional[Tensor], lstm_hh: Optional[Tensor],
                     lstm_b: Optional[Tensor], residuals: Sequence[Tensor],
                     dh_out: Tensor, *, alpha: float, reason: bool,
-                    rate=0.0, seed: Optional[Tensor] = None):
+                    rate=0.0, seed: Optional[Tensor] = None,
+                    bf16: bool = False):
     """Kernel D: the gradients of the GCNII stack from the forward's
     residuals (``gcnii_stack_fwd(..., residuals=...)``) and the cotangent
     ``dh_out`` of its output; same contract as
@@ -566,23 +645,34 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     weight-gradient sums (4 kernels, 2 without reason); ``launches`` counts
     those CUDA kernel launches.  With a config axis (every operand but
     theta and the seed led by K) it is one call, and each configuration's
-    dW and LSTM gradients sum its own rows."""
+    dW and LSTM gradients sum its own rows.  The bf16 mode (``bf16``) reads
+    the three bf16 residual slabs, recomputes each layer's LSTM step from
+    them, and returns d_adj, d_h0 and dW rounded to bf16 (as f32 tensors).
+    With ``keep_last`` set on this function, a kernel call leaves ``last``:
+    its arguments as given (a tuple and a dict of the keyword arguments)
+    and its (nlayers, K B, N, H) tdpre slab, theta times the gradient past
+    the ReLU, zero where the ReLU was off (a check reads the kernel's ReLU
+    decisions from it)."""
     cfg_axis = W.dim() == 4
     if _mode.plain or h0.device.type == "cpu":
         if not cfg_axis:
             return gcnii_stack_bwd_plain(adj, h0, W, theta, lstm_ih,
                                          lstm_hh, lstm_b, residuals, dh_out,
                                          alpha=alpha, reason=reason,
-                                         rate=rate, seed=seed)
+                                         rate=rate, seed=seed, bf16=bf16)
         plain = lambda adj, h0, W, ih, hh, b, res, dh, th, ik: \
             gcnii_stack_bwd_plain(adj, h0, W, theta, ih, hh, b, res, dh,
                                   alpha=alpha, reason=reason,
-                                  rate=_rate_of(th, ik, rate), seed=seed)
+                                  rate=_rate_of(th, ik, rate), seed=seed,
+                                  bf16=bf16)
         return _mode.vmap_plain(plain, (adj, h0, W, lstm_ih, lstm_hh, lstm_b,
                                         list(residuals), dh_out,
                                         *_rate_ops(rate)))
     if h0.device.type != "cuda":
         raise ValueError(f"gcnii_stack_bwd: no kernel for {h0.device}")
+    given = ((adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b, list(residuals),
+              dh_out), dict(alpha=alpha, reason=reason, rate=rate, seed=seed,
+                            bf16=bf16))
     *lead, B, N, H = h0.shape
     K = lead[0] if cfg_axis else 1
     k = tuple(lead)
@@ -597,8 +687,13 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     expect = [("adj", adj, k + (B, N, N)), ("h0", h0, k + (B, N, H)),
               ("W", W, k + (nl, 2 * H, H)), ("theta", theta, (nl,)),
               ("dh_out", dh_out, k + (B, N, H))]
-    expect += [(f"residual {n}", r, k + (B, nl, N, H))
-               for n, r in zip(RESIDUALS, residuals)]
+    names = RESIDUALS_BF16 if bf16 else RESIDUALS
+    if len(residuals) != len(names):
+        raise ValueError(f"expected {len(names)} residual slabs, got "
+                         f"{len(residuals)}")
+    _check_all([(f"residual {n}", r, k + (B, nl, N, H))
+                for n, r in zip(names, residuals)], dev,
+               torch.bfloat16 if bf16 else torch.float32)
     if reason:
         lstm_ih, lstm_hh, lstm_b = (
             t.contiguous() for t in (lstm_ih, lstm_hh, lstm_b))
@@ -615,6 +710,14 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     if K * B == 0 or N == 0 or nl == 0:
         return (torch.zeros_like(adj), dh_out.clone(), torch.zeros_like(h0),
                 torch.zeros_like(W), *lstm_grads())
+    wl = h0          # never read outside the bf16 mode with reason
+    if bf16:
+        if reason:   # P1's gate columns interleaved, as kernel B's F1
+            wl = interleave_gates(lstm_ih, lstm_hh, lstm_b).contiguous()
+        adj, h0, W = (to_bf16(t) for t in (adj, h0, W))
+        # in res_h1's place: the layer's recomputed h1, then bf16(h1) and
+        # bf16(hi)
+        residuals = residuals + [torch.empty(3, K * B, N, H, device=dev)]
     if not reason:   # never read by the kernels; any valid pointer will do
         lstm_ih = lstm_hh = lstm_b = h0
     R = B * N
@@ -640,9 +743,11 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
            ptr(dadj), ptr(hi), ptr(tdpre), ptr(gates), ptr(dgates),
            ptr(part_w), ptr(part_l), ptr(dW), ptr(dl), int(drop), ptr(th_k),
            ptr(ik_k), th, ik, seed_ptr, int(reason), nl, K, B, N, H,
-           splits_w, splits_l, stream)
+           splits_w, splits_l, int(bf16), ptr(wl), stream)
     _build.check(-n if n < 0 else 0, "gcnii_bwd launch")
     gcnii_stack_bwd.launches += n
+    if gcnii_stack_bwd.keep_last:
+        gcnii_stack_bwd.last = (*given, tdpre)
     return (dadj, dh, dh0, dW, *lstm_grads())
 
 
@@ -665,30 +770,34 @@ class GCNIIStackTrain(torch.autograd.Function):
     differentiable); a rate per configuration comes as its ``thresh`` and
     ``inv_keep`` tensors (else None, and ``rate`` the Python rate).
     Under ``torch.func.vmap`` its rule makes one config-axis launch (with
-    autograd off, of kernel B alone, and the slabs are None)."""
+    autograd off, of kernel B alone, and the slabs are None).  ``bf16``
+    selects the bf16 mode, whose slabs are the three bf16 ones (the fourth
+    output is then None)."""
 
     @staticmethod
     def forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh,
-                inv_keep, seed, alpha, reason, rate):
+                inv_keep, seed, alpha, reason, rate, bf16):
         slab = (*h.shape[:-2], W.shape[-3], *h.shape[-2:])
-        residuals = [torch.empty(slab, device=h.device) for _ in RESIDUALS]
+        residuals = residual_slabs(slab, bf16, h.device)
         if not reason:        # the kernel writes no LSTM state without it
             residuals[1].zero_()
             residuals[2].zero_()
         out = _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
                        alpha=alpha, reason=reason,
                        rate=_rate_of(thresh, inv_keep, rate), seed=seed,
-                       residuals=residuals)
-        return (out, *residuals)
+                       residuals=residuals, bf16=bf16)
+        return (out, *residuals, *(None,) * (len(RESIDUALS) - len(
+            residuals)))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh, inv_keep,
-         seed, alpha, reason, rate) = inputs
-        ctx.mark_non_differentiable(*output[1:])
+         seed, alpha, reason, rate, bf16) = inputs
+        residuals = [r for r in output[1:] if r is not None]
+        ctx.mark_non_differentiable(*residuals)
         ctx.save_for_backward(adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
-                              thresh, inv_keep, seed, *output[1:])
-        ctx.opts = dict(alpha=alpha, reason=reason)
+                              thresh, inv_keep, seed, *residuals)
+        ctx.opts = dict(alpha=alpha, reason=reason, bf16=bf16)
         ctx.rate = rate
 
     @staticmethod
@@ -699,24 +808,26 @@ class GCNIIStackTrain(torch.autograd.Function):
             adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b, residuals, dh_out,
             rate=_rate_of(thresh, inv_keep, ctx.rate), seed=seed, **ctx.opts)
         lstm = (dih, dhh, db) if ctx.opts["reason"] else (None,) * 3
-        return (dadj, dh, dh0, dW, None, *lstm) + (None,) * 6
+        return (dadj, dh, dh0, dW, None, *lstm) + (None,) * 7
 
     @staticmethod
     def vmap(info, in_dims, *args):
         args = _mode.config_axis(info, in_dims, args, shared=(4, 10))
         if torch.is_grad_enabled():
             out = GCNIIStackTrain.apply(*args)
-            return out, (0,) * len(out)
+            return out, tuple(None if t is None else 0 for t in out)
         # serving: kernel B alone, which keeps no residuals
         (adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, thresh, inv_keep,
-         seed, alpha, reason, rate) = args
+         seed, alpha, reason, rate, bf16) = args
         out = _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
                        alpha=alpha, reason=reason,
                        rate=_rate_of(thresh, inv_keep, rate), seed=seed,
-                       residuals=None)
+                       residuals=None, bf16=bf16)
         return (out,) + (None,) * len(RESIDUALS), (0,) + (None,) * len(
             RESIDUALS)
 
 
 gcnii_stack_fwd.launches = 0
 gcnii_stack_bwd.launches = 0
+gcnii_stack_bwd.keep_last = False
+gcnii_stack_bwd.last = None

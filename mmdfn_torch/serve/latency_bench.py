@@ -8,7 +8,11 @@ synthetic dialogues utterance by utterance through
 Weights are fresh from ``--seed`` (latency does not depend on them) or
 come from ``--load_model``: the trainer's save directory (its ``best``
 checkpoint and the config in its meta; the summary then has its
-``ckpt_epoch``) or a ``weights.save_model`` file.
+``ckpt_epoch``) or a ``weights.save_model`` file.  ``--tpu_fast`` serves
+the JAX package's production configuration (the stack in the TPU training
+kernel's bf16 numerics, kernel B's bf16 mode), as
+``mmdfn_tpu/serve/latency_bench.py --tpu_fast`` does; the summary's
+``config`` says which.
 
     python -m mmdfn_torch.serve.latency_bench --out latency.json
 """
@@ -28,8 +32,11 @@ from mmdfn_torch.data.batching import SERVE_BUCKETS
 def run(cfg: Optional[ExperimentConfig] = None, n_dialogues: int = 6,
         min_len: int = 20, max_len: int = 60,
         buckets: Sequence[int] = SERVE_BUCKETS, seed: int = 0,
-        load_model: Optional[str] = None, device=None) -> dict:
-    """Measure per-utterance streaming latency; returns the summary dict."""
+        load_model: Optional[str] = None, device=None,
+        tpu_fast: bool = False) -> dict:
+    """Measure per-utterance streaming latency; returns the summary dict.
+    ``tpu_fast``: serve the config (the loaded one too) under
+    ``with_tpu_fast()``."""
     from mmdfn_torch.data.datasets import IEMOCAPDataset
     from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
     from mmdfn_torch.serve.streaming import measure_latency
@@ -38,8 +45,13 @@ def run(cfg: Optional[ExperimentConfig] = None, n_dialogues: int = 6,
     epoch = None
     if load_model is not None:
         cfg, model, epoch = load_served(load_model)
+        if tpu_fast:
+            cfg = cfg.with_tpu_fast()
+            model = build_model(cfg, model.state_dict())
     else:
         cfg = cfg or flagship_config(seed=seed)
+        if tpu_fast:
+            cfg = cfg.with_tpu_fast()
         model = build_model(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/iemocap_synth.pkl"
@@ -74,6 +86,9 @@ def main(argv=None) -> int:
                          "from --seed")
     ap.add_argument("--device", type=str, default="cuda",
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--tpu_fast", action="store_true",
+                    help="serve in the JAX package's production "
+                         "configuration (ExperimentConfig.with_tpu_fast)")
     args = ap.parse_args(argv)
     try:
         summary = run(cfg=flagship_config(args.nlayers, seed=args.seed),
@@ -81,10 +96,11 @@ def main(argv=None) -> int:
                       max_len=args.max_len,
                       buckets=tuple(int(b) for b in args.buckets.split(",")),
                       seed=args.seed, load_model=args.load_model,
-                      device=args.device)
+                      device=args.device, tpu_fast=args.tpu_fast)
     except ValueError as e:   # a directory it cannot serve (CheckpointError),
         print(e, file=sys.stderr)  # or a model whose input it cannot build
         return 1
+    summary["config"] = "tpu_fast" if args.tpu_fast else "parity-default"
     line = json.dumps(summary)
     print(line)
     if args.out:

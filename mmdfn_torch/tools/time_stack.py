@@ -8,9 +8,10 @@ own ``mmdfn_torch``):
     python mmdfn_torch/tools/time_stack.py --root . --label change
     python mmdfn_torch/tools/time_stack.py --root /path/to/parent --label parent
 
-It prints one JSON line: the label, the card's name and power limit, and
-each kernel's stream time per call (CUDA events, ``--reps`` chained calls
-after one warm-up)."""
+``--bf16`` times the kernels' bf16 mode (``--tpu_fast``; the three bf16
+residual slabs) instead of the f32 one.  It prints one JSON line: the
+label, the card's name and power limit, and each kernel's stream time per
+call (CUDA events, ``--reps`` chained calls after one warm-up)."""
 
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ def main() -> int:
                     help="the checkout whose mmdfn_torch is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 mode")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
     from mmdfn_torch.device import resolve_device
     from mmdfn_torch.ops import gcnii_stack_bwd, gcnii_stack_fwd
-    from mmdfn_torch.ops.gcnii import RESIDUALS
 
     dev = resolve_device("cuda")
     B, N, H, nl = 32, 240, 100, 16
@@ -48,7 +50,13 @@ def main() -> int:
     lb = rnd(4 * H, scale=0.1)
     seed = torch.tensor([2021], dtype=torch.int64, device=dev)
     opts = dict(alpha=0.2, reason=True, rate=0.4, seed=seed)
-    res = [torch.empty(B, nl, N, H, device=dev) for _ in RESIDUALS]
+    if args.bf16:
+        from mmdfn_torch.ops.gcnii import residual_slabs
+        opts["bf16"] = True
+        res = residual_slabs((B, nl, N, H), True, dev)
+    else:   # the f32 mode, as every version of the port writes it
+        from mmdfn_torch.ops.gcnii import RESIDUALS
+        res = [torch.empty(B, nl, N, H, device=dev) for _ in RESIDUALS]
     dh = rnd(B, N, H)
     fwd = lambda: gcnii_stack_fwd(adj, h, h0, W, theta, ih, hh, lb,
                                   residuals=res, **opts)
@@ -73,7 +81,7 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     print(json.dumps({"label": args.label, "card": card,
                       "shape": f"B={B} N={N} H={H} layers={nl} reason "
-                               f"rate 0.4",
+                               f"rate 0.4" + (" bf16" if args.bf16 else ""),
                       "fwd_ms": ms(fwd), "bwd_ms": ms(bwd)}), flush=True)
     return 0
 

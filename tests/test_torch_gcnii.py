@@ -57,13 +57,13 @@ def _inputs(seed=0, B=2, N=12, D=24):
     return x, adj, umask, jm, params, h, theta
 
 
-def _plain(adj, h, params, theta):
+def _plain(adj, h, params, theta, bf16=False):
     T = torch.from_numpy
     return gcnii_stack_fwd(
         T(adj), T(h), T(h), T(params["conv_w"]), T(theta),
         T(params["reason_w_ih"]), T(params["reason_w_hh"]),
         T(params["reason_b_ih"] + params["reason_b_hh"]),
-        alpha=ALPHA, reason=True).numpy()
+        alpha=ALPHA, reason=True, bf16=bf16).numpy()
 
 
 def test_plain_matches_jax_fused_kernel_and_scan():
@@ -92,7 +92,7 @@ def test_plain_matches_jax_fused_kernel_and_scan():
 
 def test_plain_matches_jax_train_kernel_at_rate_0():
     x, adj, umask, jm, params, h, theta = _inputs(seed=1, B=1, N=12)
-    got = _plain(adj, h, params, theta)
+    got = _plain(adj, h, params, theta, bf16=True)
     want = np.asarray(gcnii_stack_train(
         jnp.asarray(adj), jnp.asarray(h), jnp.asarray(h),
         jnp.asarray(params["conv_w"]), jnp.asarray(theta),
@@ -100,11 +100,13 @@ def test_plain_matches_jax_train_kernel_at_rate_0():
         jnp.asarray(params["reason_b_ih"] + params["reason_b_hh"]),
         alpha=ALPHA, reason=True, rate=0.0, seed=0, interpret=True))
     valid = umask[0] > 0
-    # the train kernel rounds adj, h0, W and every adj@h / support operand
-    # to bf16 (8 bits of mantissa, relative error 2^-9 per rounding) over 16
-    # layers; a relative bound of 2e-2 of the output's scale covers it
+    # the train kernel is bf16 by construction, and so is the port's bf16
+    # mode, rounding at the same points: only f32 summation order differs,
+    # and where two orders round a value to adjacent bf16 numbers, the
+    # output moves by up to ~1e-5 of its scale (measured 9.8e-6 here; JAX's
+    # own jitted run of the kernel is 1.2e-5 from this eager one at N = 40)
     scale = np.abs(got[0][valid]).max()
-    assert np.abs(got[0][valid] - want[0][valid]).max() < 2e-2 * scale
+    assert np.abs(got[0][valid] - want[0][valid]).max() < 2e-5 * scale
 
 
 def test_no_reason_path_matches_jax_fused_kernel():

@@ -15,8 +15,9 @@ from mmdfn_torch.ops import (bigru_layer_bwd, bigru_layer_bwd_plain,
                              gcnii_stack_fwd, gcnii_stack_plain, philox,
                              plain_ops)
 from mmdfn_torch.ops.bigru import _forward as bigru_forward, _sm_count
-from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, _design, _lstm_step,
-                                   gcnii_bwd_launches, gcnii_fwd_launches,
+from mmdfn_torch.ops.gcnii import (DESIGNS, RESIDUALS, RESIDUALS_BF16,
+                                   _design, _lstm_step, gcnii_bwd_launches,
+                                   gcnii_fwd_launches,
                                    _forward as gcnii_forward)
 
 H = 100
@@ -450,6 +451,164 @@ def _gcnii_bwd_inputs(dev, B, L, reason, seed):
     dh = torch.randn(out.shape, generator=g).to(dev)
     return (adj, h0, W, theta, ih, hh, lb, res, dh), dict(
         alpha=0.2, reason=reason, rate=0.4, seed=rate_seed)
+
+
+# the bf16 mode against its plain version: both round at the TPU kernel's
+# points, so they differ by f32 summation order, and where that moves a
+# value across a bf16 rounding boundary, by one bf16 step of that value,
+# which moves the outputs it reaches (through adj, every node of its
+# dialogue) by up to ~2e-4 of their scale (B = 32, N = 240, 16 layers: 37
+# of 768000 elements past 1e-4 of the scale, all from one such flip).  So
+# at most BF16_SHARE of the elements may lie past BF16_RTOL of the scale
+# (past one bf16 step of the element beside it, for d_adj, d_h0 and dW,
+# which both round to bf16), and none past BF16_CAP of the scale (beside
+# that step).  The f32 mode is ~1e-3 of the scale from the bf16 function
+# in most elements, and fails this.
+BF16_RTOL, BF16_SHARE, BF16_CAP = 1e-4, 1e-3, 1e-3
+
+
+def _bf16_agree(got, want, rounded=False, scale=None):
+    s = float(want.abs().max().clamp(min=1e-6)) if scale is None else scale
+    d = (got.float() - want.float()).abs()
+    step = 2.0 ** -7 * want.float().abs() if rounded else 0.0
+    share = float((d > BF16_RTOL * s + step).float().mean())
+    assert share <= BF16_SHARE and bool((d <= BF16_CAP * s + step).all()), (
+        share, float(d.max()), s)
+
+
+def _bf16_slabs(*lead, nl, N):
+    return [torch.zeros(*lead, nl, N, H, device="cuda",
+                        dtype=torch.bfloat16) for _ in RESIDUALS_BF16]
+
+
+def _bf16_bwd_close(got, ref, reason):
+    names = ("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh", "db")
+    for name, a, b in zip(names[:7 if reason else 4], got, ref):
+        _bf16_agree(a, b, rounded=name in ("d_adj", "d_h0", "dW"))
+
+
+def _kernel_d_bf16_decisions(tol):
+    """Kernel D's ReLU decisions in its last call (its tdpre slab is theta
+    times the gradient past the ReLU, zero where the ReLU is off) and the
+    plain backward at them.  Where the gradient past the ReLU is not zero,
+    each decision that differs from the plain recompute of pre from the
+    same bf16 slabs lies within ``tol`` of 0, where two summation orders
+    may decide apart."""
+    args, kw, tdpre = gcnii_stack_bwd.last
+    masks = [t != 0 for t in tdpre]
+    seen = []
+    ref = gcnii_stack_bwd_plain(*args, relu_masks=masks, relu_inputs=seen,
+                                **kw)
+    for m, (pre, g) in zip(masks, seen):
+        differ = (g != 0) & (m != (pre > 0))
+        assert float(torch.where(differ, pre.abs(), 0.0).max()) <= tol
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reason", [True, False])
+@pytest.mark.parametrize("B,L,nl", [(32, 80, 16), (1, 9, 16), (3, 43, 16)])
+def test_gcnii_bf16_kernels_match_plain(B, L, nl, reason):
+    """The bf16 mode (the TPU training kernel's numerics) of kernel B, in
+    training mode (dropout 0.4, the three bf16 residual slabs) and serving
+    (rate 0, no slabs), and of kernel D on the kernel's slabs, at the
+    training shape (B = 32, N = 240, 16 layers) and ragged ones, against
+    their plain bf16 versions; kernel D at its own ReLU decisions, each
+    that differs from the plain recompute within the forward's tolerance
+    of 0; both bit-equal over two calls, each with its documented launch
+    count."""
+    dev = _card()
+    args, g = _gcnii_args(dev, B, L, nl, reason, 41 * B + L)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    N = 3 * L
+    seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
+    opts = dict(alpha=0.2, reason=reason, bf16=True)
+    fwd_args = args if reason else args[:5]
+    before = gcnii_stack_fwd.launches
+    res, res2, res_p = (_bf16_slabs(B, nl=nl, N=N) for _ in range(3))
+    out = gcnii_stack_fwd(*fwd_args, rate=0.4, seed=seed, residuals=res,
+                          **opts)
+    out2 = gcnii_stack_fwd(*fwd_args, rate=0.4, seed=seed, residuals=res2,
+                           **opts)
+    torch.cuda.synchronize()
+    assert gcnii_stack_fwd.launches - before == 2 * gcnii_fwd_launches(
+        nl, reason, DESIGNS["tiled"])
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, b) for a, b in zip(res, res2))
+    want = gcnii_stack_plain(*fwd_args, rate=0.4, seed=seed,
+                             residuals=res_p, **opts)
+    scale = float(want.abs().max().clamp(min=1.0))
+    _bf16_agree(out, want, scale=scale)
+    for a, b in zip(res, res_p):
+        _bf16_agree(a, b, rounded=True, scale=scale)
+    serve = gcnii_stack_fwd(*fwd_args, **opts)
+    want = gcnii_stack_plain(*fwd_args, **opts)
+    _bf16_agree(serve, want, scale=scale)
+
+    dh = torch.randn(out.shape, generator=g).to(dev)
+    bwd_args = (adj, h0, W, theta, ih, hh, lb, res, dh)
+    bopts = dict(alpha=0.2, reason=reason, rate=0.4, seed=seed, bf16=True)
+    before = gcnii_stack_bwd.launches
+    gcnii_stack_bwd.keep_last = True
+    try:
+        got = gcnii_stack_bwd(*bwd_args, **bopts)
+        torch.cuda.synchronize()
+        ref = _kernel_d_bf16_decisions(BF16_RTOL * scale)
+        again = gcnii_stack_bwd(*bwd_args, **bopts)
+    finally:
+        gcnii_stack_bwd.keep_last = False
+        gcnii_stack_bwd.last = None
+    torch.cuda.synchronize()
+    assert gcnii_stack_bwd.launches - before == 2 * gcnii_bwd_launches(
+        nl, reason)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for t in (got[0], got[2], got[3]):     # rounded to bf16
+        assert torch.equal(t, t.to(torch.bfloat16).float())
+    _bf16_bwd_close(got, ref, reason)
+
+
+@pytest.mark.gpu
+def test_gcnii_bf16_config_axis_launch_equals_solo_launches():
+    """The bf16 mode of kernels B (training mode) and D over K = 3
+    configurations in one call each (B = 8, N = 120, 4 layers, the
+    reason-LSTM), the rates {0, 0.2, 0.4} read per configuration: against
+    3 solo calls at the static rates, bit for bit (outputs, the bf16
+    slabs, every gradient)."""
+    from mmdfn_torch.nn.drop_override import make_drop_rate
+
+    dev = _card()
+    K, B, L, nl = len(RATES_K), 8, 40, 4
+    sets = [_gcnii_args(dev, B, L, nl, True, 600 + k)[0] for k in range(K)]
+    theta = sets[0][4]
+    per = [torch.stack([s[i] for s in sets]) for i in (0, 1, 2, 3, 5, 6, 7)]
+    N = 3 * L
+    seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
+    rate = make_drop_rate(RATES_K, device=dev)
+    opts = dict(alpha=0.2, reason=True, bf16=True)
+    res = _bf16_slabs(K, B, nl=nl, N=N)
+    before = gcnii_stack_fwd.launches
+    out = gcnii_forward(*per[:4], theta, *per[4:], rate=rate, seed=seed,
+                        residuals=res, **opts)
+    assert gcnii_stack_fwd.launches - before == gcnii_fwd_launches(
+        nl, True, DESIGNS["tiled"])
+    g = torch.Generator().manual_seed(12)
+    dh = torch.randn(K, B, N, H, generator=g).to(dev)
+    adj, _, h0, W, ih, hh, lb = per
+    got = gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res, dh, rate=rate,
+                          seed=seed, **opts)
+    torch.cuda.synchronize()
+    for k, r in enumerate(RATES_K):
+        res_k = _bf16_slabs(B, nl=nl, N=N)
+        s_k = seed if r else None
+        want = gcnii_forward(*sets[k], rate=r, seed=s_k, residuals=res_k,
+                             **opts)
+        assert torch.equal(out[k], want), k
+        assert all(torch.equal(a[k], b) for a, b in zip(res, res_k)), k
+        a_k = sets[k]
+        want = gcnii_stack_bwd(a_k[0], a_k[2], a_k[3], theta, *a_k[5:],
+                               res_k, dh[k], rate=r, seed=s_k, **opts)
+        for a, b in zip(got, want):
+            assert torch.equal(a[k], b), k
 
 
 @pytest.mark.gpu
