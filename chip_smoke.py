@@ -190,10 +190,28 @@ Phases, in order; any failure raises and the script exits nonzero:
    phase's batch recipe: exactly A 4, C 4, B 49, D 116, its loss and
    gradients against the plain bf16 step held at kernel D's decisions, 10
    timed steps beside 10 parity steps (busy, host enqueue, idle share,
-   peak), the same step with ``variant=False`` stacks refused (JAX's bf16
-   layer scan is not ported), and one served 37-utterance dialogue
-   against the plain model (49 launches of B an append);
-15. parallel: the multi-device layer on the one card, its ranks started
+   peak), and one served 37-utterance dialogue against the plain model
+   (49 launches of B an append);
+15. scan: JAX's bf16 layer scan (``gcn_compute_dtype='bfloat16'`` where no
+   fused kernel runs), kernels B and D in their bf16 scan mode (every op
+   rounded to bf16, the carries bf16; the tiled design): at GF2's shape
+   (B = 32, N = 240, 64 layers, no LSTM, rate 0.4, the last dropout in
+   f32), the flagship's (16 layers, the reason-LSTM), DeepGCN's (N = 80,
+   rate 0) and the non-variant MMGCN's (W (H, H) unfolded), B's training
+   mode and its slabs against the plain scan and D on them against the
+   plain walk at its own ReLU decisions (each that differs from the plain
+   recompute within ``SCAN_DECISION_STEPS`` bf16 steps of max |h| of 0),
+   every output a bf16 value, each held by ``scan_agree`` (at most
+   ``SCAN_SHARE`` of the elements differ, none by more than
+   ``SCAN_CAP_STEPS`` bf16 steps of the scale), timed beside the f32 and
+   bf16 modes in the same call; then the GF2 and DeepGCN steps built by
+   ``run_train_erc``'s ``--tpu_fast`` and the flagship's with
+   ``variant=False`` stacks, each against its plain step held at kernel
+   D's decisions of every stack call (the launches of the scan mode, the
+   loss, every gradient within ``SCAN_GRAD_STEPS`` bf16 steps of its max
+   |.|), 10 timed steps, and one served 37-utterance dialogue of GF2 and
+   of DeepGCN against the plain model;
+16. parallel: the multi-device layer on the one card, its ranks started
    by ``runtime/launch.py`` (two ranks share the card over gloo, so their
    walls measure sharing, not scaling): (a) the flagship at the train
    phase's settings, dropout 0, on 2 data ranks of 16 dialogues (B = 32
@@ -375,11 +393,15 @@ def kernel_name(key: str) -> str:
 
 # the kernels of kernels B and D: each tiled product is named by its
 # epilogue's type
-KERNEL_B_PARTS = ("F1Cell", "F2Hi", "F3Update", "gcnii_fwd_init",
-                  "gcnii_layer_kernel", "gcnii_resident_kernel")
-KERNEL_D_PARTS = ("P1Gates", "P1CellB", "P2Hi", "P3Pre", "P4DProj", "P5DAdj",
-                  "P6Lstm", "P7LstmIn", "WgradW", "WgradLstm",
-                  "gcnii_reduce_kernel")
+# (the bf16 scan mode's, named ...S, first: a name may hold another)
+KERNEL_B_PARTS = ("F1GateS", "F1CellS", "F2HiS", "F3UpdateS", "F1Cell",
+                  "F2Hi", "F3Update", "gcnii_fwd_init", "gcnii_layer_kernel",
+                  "gcnii_resident_kernel")
+KERNEL_D_PARTS = ("P1GateS", "P1CellS", "P2HiS", "P3PreS", "P4DProjS",
+                  "P5DAdjS", "P6LstmS", "P7LstmInS", "P1Gates", "P1CellB",
+                  "P2Hi", "P3Pre", "P4DProj", "P5DAdj", "P6Lstm", "P7LstmIn",
+                  "WgradW", "WgradLstm", "gcnii_reduce_kernel",
+                  "gcnii_scan_lstm_reduce_kernel")
 
 
 def kernel_label(key: str) -> str:
@@ -1116,13 +1138,23 @@ def stack_calls(cfg, L: int) -> list:
     return []
 
 
+def stack_mode(model) -> str:
+    """The numerics mode of the model's GCNII stacks (``ops.gcnii``'s
+    modes; one per model), or 'f32' where it has none."""
+    from mmdfn_torch.nn.gcn import GCNIIStack
+
+    modes = {m.mode for m in model.modules() if isinstance(m, GCNIIStack)}
+    check(len(modes) <= 1, f"the model's stacks run in modes {modes}")
+    return modes.pop() if modes else "f32"
+
+
 def stack_design(model, B: int, N: int, sms: int) -> int:
     """Kernel B's design for the model's GCNII stacks at B dialogues of N
-    nodes: the tiled design where they run in the bf16 mode, else the one
+    nodes: the tiled design where they run in a bf16 mode, else the one
     ``_design`` picks by shape."""
     from mmdfn_torch.ops.gcnii import TILED, _design
 
-    if any(getattr(m, "bf16", False) for m in model.modules()):
+    if stack_mode(model) != "f32":
         return TILED
     return _design(B, N, sms)
 
@@ -1283,11 +1315,12 @@ def timed_steps(torch, dev, cfg, batches, reps=10, named_ops=(),
     B, L = batches[0]["umask"].shape
     calls = stack_calls(cfg, L)
     sms = _sm_count(dev)
+    mode = stack_mode(tr.model)
     want = {"gcnii_fwd": reps * sum(
                 gcnii_fwd_launches(nl, reason,
-                                   stack_design(tr.model, B, N, sms))
+                                   stack_design(tr.model, B, N, sms), mode)
                 for nl, reason, N in calls),
-            "gcnii_bwd": reps * sum(gcnii_bwd_launches(nl, reason)
+            "gcnii_bwd": reps * sum(gcnii_bwd_launches(nl, reason, mode)
                                     for nl, reason, _ in calls)}
     for k, v in want.items():
         check(counts[k] == v, f"{k} launches {counts[k]} != {v}")
@@ -1432,7 +1465,9 @@ def serve_check(torch, dev, cfg, model, dialogues):
     check(counts["bigru_fwd"] == 2 * grus * n,
           f"bi-GRU launches {counts['bigru_fwd']} != 2 x {grus} x {n}")
     sms = _sm_count(dev)
-    want = sum(gcnii_fwd_launches(nl, reason, stack_design(model, 1, N, sms))
+    mode = stack_mode(model)
+    want = sum(gcnii_fwd_launches(nl, reason, stack_design(model, 1, N, sms),
+                                  mode)
                for L in used for nl, reason, N in stack_calls(cfg, L))
     check(counts["gcnii_fwd"] == want,
           f"GCNII launches {counts['gcnii_fwd']} != {want}")
@@ -3056,17 +3091,17 @@ def bf16_agree(torch, got, want, what, rounded=False, scale=None) -> dict:
     return {"max_abs_err": err, "share_past_bound": share, "scale": s}
 
 
-def kernel_d_decisions(torch, tol) -> tuple:
-    """Kernel D's ReLU decisions in its last bf16-mode call (its tdpre slab
-    is nonzero where the ReLU passed; ``gcnii_stack_bwd.keep_last``)
-    against the plain bf16 recompute of each layer's pre from the same bf16
+def kernel_d_decisions(torch, tol, call) -> tuple:
+    """Kernel D's ReLU decisions in a bf16-mode call (``call``, one entry
+    of ``gcnii_stack_bwd.kept``; its tdpre slab is nonzero where the ReLU
+    passed) against the plain bf16 recompute of each layer's pre from the same bf16
     slabs, wherever the gradient past the ReLU is not zero: two summation
     orders may decide apart only where |pre| is within ``tol`` of 0.
     Returns (the kernel's masks, the plain backward at them, the flips,
     max |pre| among the flips)."""
     from mmdfn_torch.ops import gcnii_stack_bwd, gcnii_stack_bwd_plain
 
-    args, kw, tdpre = gcnii_stack_bwd.last
+    args, kw, tdpre = call
     masks = [t != 0 for t in tdpre]
     seen = []
     with torch.no_grad():
@@ -3108,13 +3143,13 @@ def fast_kernels(torch, dev) -> dict:
     nl = W.shape[0]
     seed = torch.tensor([SEED + 12345], dtype=torch.int64, device=dev)
     opts = dict(alpha=0.2, reason=True, rate=RATE, seed=seed)
-    slabs = lambda bf16: residual_slabs((B, nl, N, H), bf16, dev)
-    res16, res16_p, res32 = slabs(True), slabs(True), slabs(False)
-    fwd16 = lambda: gcnii_stack_fwd(*args, residuals=res16, bf16=True,
+    slabs = lambda mode: residual_slabs((B, nl, N, H), mode, dev)
+    res16, res16_p, res32 = slabs("bf16"), slabs("bf16"), slabs("f32")
+    fwd16 = lambda: gcnii_stack_fwd(*args, residuals=res16, mode="bf16",
                                     **opts)
     fwd32 = lambda: gcnii_stack_fwd(*args, residuals=res32, **opts)
-    plain16 = lambda: gcnii_stack_plain(*args, residuals=res16_p, bf16=True,
-                                        **opts)
+    plain16 = lambda: gcnii_stack_plain(*args, residuals=res16_p,
+                                        mode="bf16", **opts)
     n0 = gcnii_stack_fwd.launches
     out = fwd16()
     check(gcnii_stack_fwd.launches - n0 == gcnii_fwd_launches(
@@ -3131,20 +3166,20 @@ def fast_kernels(torch, dev) -> dict:
 
     dh = torch.randn(B, N, H, generator=g).to(dev)
     bwd_args = (adj, h0, W, theta, ih, hh, lb)
-    bwd16 = lambda: gcnii_stack_bwd(*bwd_args, res16, dh, bf16=True, **opts)
+    bwd16 = lambda: gcnii_stack_bwd(*bwd_args, res16, dh, mode="bf16",
+                                    **opts)
     bwd32 = lambda: gcnii_stack_bwd(*bwd_args, res32, dh, **opts)
-    gcnii_stack_bwd.keep_last = True
+    gcnii_stack_bwd.kept = []
     try:
         n0 = gcnii_stack_bwd.launches
         got = bwd16()
         check(gcnii_stack_bwd.launches - n0 == gcnii_bwd_launches(nl, True),
               "kernel D's bf16 mode: its launches")
         torch.cuda.synchronize()
-        _, ref, flips, flip_pre = kernel_d_decisions(torch,
-                                                     BF16_RTOL * scale)
+        _, ref, flips, flip_pre = kernel_d_decisions(
+            torch, BF16_RTOL * scale, gcnii_stack_bwd.kept[-1])
     finally:
-        gcnii_stack_bwd.keep_last = False
-        gcnii_stack_bwd.last = None
+        gcnii_stack_bwd.kept = None
     check(all(torch.equal(t, t.to(torch.bfloat16).float())
               for t in (got[0], got[2], got[3])),
           "kernel D's d_adj, d_h0 and dW are rounded to bf16")
@@ -3160,7 +3195,7 @@ def fast_kernels(torch, dev) -> dict:
         ms[f"bwd_{mode}"].append(time_ms(
             torch, bwd16 if mode == "bf16" else bwd32, 10))
     bwd_plain16 = lambda: gcnii_stack_bwd_plain(*bwd_args, res16, dh,
-                                                bf16=True, **opts)
+                                                mode="bf16", **opts)
 
     R = B * N
     # the f32 mode's operations (gcnii_train_case), of which the products
@@ -3217,9 +3252,9 @@ def fast_kernels(torch, dev) -> dict:
     h1 = torch.relu(torch.randn(1, 3 * L, H, generator=gs)).to(dev)
     sargs = (adj1, h1, h1, *args[3:])
     serve16 = lambda: gcnii_stack_fwd(*sargs, alpha=0.2, reason=True,
-                                      bf16=True)
+                                      mode="bf16")
     serve32 = lambda: gcnii_stack_fwd(*sargs, alpha=0.2, reason=True)
-    s_want = gcnii_stack_plain(*sargs, alpha=0.2, reason=True, bf16=True)
+    s_want = gcnii_stack_plain(*sargs, alpha=0.2, reason=True, mode="bf16")
     s_agree = bf16_agree(torch, serve16(), s_want, "kernel B serving",
                          scale=max(1.0, float(s_want.abs().max())))
     design32 = next(k for k, v in DESIGNS.items()
@@ -3239,8 +3274,8 @@ def fast_kernels(torch, dev) -> dict:
             for k in range(K)]
     per = [torch.stack([s[i] for s in sets]) for i in (0, 1, 2, 3, 5, 6, 7)]
     rate = make_drop_rate(CONFIG_RATES, device=dev)
-    res_k = residual_slabs((K, B, nl, N, H), True, dev)
-    kopts = dict(alpha=0.2, reason=True, bf16=True)
+    res_k = residual_slabs((K, B, nl, N, H), "bf16", dev)
+    kopts = dict(alpha=0.2, reason=True, mode="bf16")
     n0 = (gcnii_stack_fwd.launches, gcnii_stack_bwd.launches)
     out_k = _forward(*per[:4], theta, *per[4:], rate=rate, seed=seed,
                      residuals=res_k, **kopts)
@@ -3253,7 +3288,7 @@ def fast_kernels(torch, dev) -> dict:
           "the config axis: one call of B and of D")
     for k, r in enumerate(CONFIG_RATES):
         a_k, s_k = sets[k], seed if r else None
-        res_1 = residual_slabs((B, nl, N, H), True, dev)
+        res_1 = residual_slabs((B, nl, N, H), "bf16", dev)
         want_k = _forward(*a_k, rate=r, seed=s_k, residuals=res_1, **kopts)
         check(torch.equal(out_k[k], want_k) and all(
             torch.equal(a[k], b) for a, b in zip(res_k, res_1)),
@@ -3297,21 +3332,22 @@ def fast_step_check(torch, dev, cfg, batch) -> dict:
         if masks is not None:
             gcnii_ops.gcnii_stack_bwd_plain = lambda *a, **k: orig(
                 *a, relu_masks=masks, **k)
-        gcnii_ops.gcnii_stack_bwd.keep_last = not plain
+        gcnii_ops.gcnii_stack_bwd.kept = None if plain else []
         try:
             with ops.plain_ops() if plain else contextlib.nullcontext():
                 loss, _ = tr.train_step(batch, seed=1)
             torch.cuda.synchronize()
             decisions = None
             if not plain:    # the step's one stack call
-                h_slab = gcnii_ops.gcnii_stack_bwd.last[0][7][0]
+                call = gcnii_ops.gcnii_stack_bwd.kept[-1]
+                h_slab = call[0][7][0]
                 tol = BF16_RTOL * max(1.0, float(h_slab.float().abs().max()))
-                kmasks, _, flips, flip_pre = kernel_d_decisions(torch, tol)
+                kmasks, _, flips, flip_pre = kernel_d_decisions(torch, tol,
+                                                                call)
                 decisions = (kmasks, flips, flip_pre, tol)
         finally:
             gcnii_ops.gcnii_stack_bwd_plain = orig
-            gcnii_ops.gcnii_stack_bwd.keep_last = False
-            gcnii_ops.gcnii_stack_bwd.last = None
+            gcnii_ops.gcnii_stack_bwd.kept = None
         grads = {n: p.grad for n, p in tr.model.named_parameters()}
         return float(loss), grads, decisions
 
@@ -3356,10 +3392,10 @@ def fast_phase(torch, dev) -> dict:
     by ``run_train_erc``'s ``--tpu_fast`` on the train phase's batch
     recipe, against its plain step (:func:`fast_step_check`), timed beside
     the parity step in the same call (10 steps each: launches, wall, host
-    enqueue, device busy, idle share, peak); the same step with
-    ``variant=False`` stacks, which JAX runs as its bf16 layer scan,
-    refused; and one served 37-utterance dialogue against the plain
-    model."""
+    enqueue, device busy, idle share, peak); and one served 37-utterance
+    dialogue against the plain model.  The same step with
+    ``variant=False`` stacks, which JAX runs as its bf16 layer scan, runs
+    in the scan phase."""
     import dataclasses
 
     import numpy as np
@@ -3383,14 +3419,6 @@ def fast_phase(torch, dev) -> dict:
     rng = np.random.default_rng(SEED)
     batches = [train_batch(torch, rng, dev) for _ in range(4)]
     checked = fast_step_check(torch, dev, cfg, batches[0])
-    try:
-        trainer_for(cfg, dev, nonvariant_build("MMGCN")).train_step(
-            batches[0], seed=1)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    check(refused is not None and "not ported" in refused,
-          "variant=False under --tpu_fast did not raise")
     timed_parity = timed_steps(torch, dev, parity, batches)
     timed_fast = timed_steps(torch, dev, cfg, batches)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3403,10 +3431,402 @@ def fast_phase(torch, dev) -> dict:
             "stream_ms_per_step", "device_busy_ms_per_step", "idle_share",
             "gcnii_fwd_kernels", "gcnii_bwd_kernels", "step_peak_mem_gb")
     return {"card": SMI, "kernels": kernels, "step_check": checked,
-            "variant_false_refused": refused,
             "train_fast": {k: timed_fast.get(k) for k in keys},
             "train_parity_same_call": {k: timed_parity.get(k) for k in keys},
             "serve": served}
+
+
+# the bf16 scan mode (JAX's bf16 layer scan) against its plain version
+# (ops/gcnii.py: _scan_plain, and kernel D's walk in plain ops,
+# _scan_bwd_plain): both round every op to bf16 at the same points and
+# sum each product in f32, in another order; where that rounds a value to
+# the neighbouring bf16 number, the two differ by one bf16 step of it (and
+# a difference would travel on through adj and the layers).  Measured on
+# an H100 (PERF.md §6): the forward, its slabs, d_adj, d_h and d_h0 equal
+# bit for bit; dW and the LSTM weights' gradients (sums over every row, in
+# another order) one step apart in at most 2.2e-4 of their elements, at
+# most 0.42 steps of the scale (a step: 2^-8 of the output's max |.|).  So at most
+# SCAN_SHARE of the elements may differ, none by more than SCAN_CAP_STEPS
+# steps of the scale (one bf16 step of the largest element is two).
+# Kernel D's ReLU decisions that differ from the plain recompute on the
+# kernel's own slabs must lie within SCAN_DECISION_STEPS steps of max |h|
+# of 0 (none differed).  The training step against its plain step (the
+# plain backward held at kernel D's decisions): the loss to
+# STEP_LOSS_RTOL relative (measured 2.9e-6 at most), every gradient within
+# SCAN_GRAD_STEPS steps of its max |.| (measured 2.0: one bf16 step of an
+# element near the max); the served log-probs within SERVE_TOL (4.4e-5).
+SCAN_STEP = 2.0 ** -8
+SCAN_SHARE, SCAN_CAP_STEPS, SCAN_DECISION_STEPS = 1e-3, 2.0, 1.0
+SCAN_GRAD_STEPS = 6.0
+# the kernel cases: (name, gcnii_train_inputs' wiring, layers, alpha,
+# reason, variant, the last dropout in f32, rate)
+SCAN_CASES = (
+    ("GF2", "GF2", 64, 0.1, False, True, True, RATE),
+    ("flagship", "GDF", NLAYERS, 0.2, True, True, False, RATE),
+    ("DeepGCN", "DeepGCN", NLAYERS, 0.1, False, True, False, 0.0),
+    ("MMGCN variant=False", "GDF", NLAYERS, 0.2, True, False, False, RATE),
+)
+
+
+def scan_agree(torch, got, want, what, scale=None) -> dict:
+    """The bf16 scan mode's ``got`` against the plain version's ``want``
+    (see ``SCAN_SHARE``): the share of the elements that differ, the max
+    difference in bf16 steps of the scale, and every element of ``got``
+    a bf16 value."""
+    s = float(want.abs().max().clamp(min=1e-6)) if scale is None else scale
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    share = float((d > 0).float().mean())
+    steps = float(d.max()) / (SCAN_STEP * s)
+    check(share <= SCAN_SHARE and steps <= SCAN_CAP_STEPS,
+          f"{what}, bf16 scan mode vs plain: {share} of the elements "
+          f"differ, the most by {steps} bf16 steps of the scale {s}")
+    return {"max_abs_err": float(d.max()), "max_err_bf16_steps": steps,
+            "share_differing": share, "scale": s}
+
+
+def on_bf16_grid(torch, *ts) -> bool:
+    return all(torch.equal(t, t.to(torch.bfloat16).float()) for t in ts)
+
+
+def scan_bounds(B, N, nl, reason, WI, slabs=True) -> tuple:
+    """The bf16 scan mode's bounds, forward and backward, for B dialogues
+    of N nodes, nl layers and layer weights of WI rows: every product on
+    bf16 operands at the bf16 tensor-core rate (the gates' two, adj @ h1,
+    the support product; D's recompute, its input-gradient, d_adj and
+    weight-gradient products), the elementwise work at the f32 rate; each
+    input read once, each output written once (the slabs in bf16, where
+    ``slabs``: h, and with reason the LSTM's h and c; without it kernel B
+    writes the h slab alone and kernel D reads it alone)."""
+    R = B * N
+    prod = nl * (16 * R * H * H * reason + 2 * B * N * N * H
+                 + 2 * R * WI * H)
+    bwd_prod = prod + nl * (4 * R * WI * H + 4 * B * N * N * H
+                            + 32 * R * H * H * reason)
+    ew, bwd_ew = nl * R * H * (42 if reason else 9), nl * R * H * (
+        102 if reason else 24)
+    lstm = 4 * (8 * H * H + 8 * H) * reason
+    slab = (3 if reason else 1) * 2 * nl * R * H * slabs
+    ins = 4 * B * N * N + 4 * nl * WI * H + 4 * nl + lstm
+    fwd_bytes = ins + 2 * 4 * R * H + 4 * R * H + slab
+    bwd_bytes = (ins + 4 * R * H + slab + 4 * R * H + 4 * B * N * N
+                 + 2 * 4 * R * H + 4 * nl * WI * H + lstm)
+    return (bound(fwd_bytes, ew, prod), bound(bwd_bytes, bwd_ew, bwd_prod))
+
+
+def scan_kernel_case(torch, dev, name, wiring, nl, alpha, reason, variant,
+                     last_f32, rate) -> dict:
+    """Kernels B (training mode, the bf16 residual slabs) and D (on them)
+    in the bf16 scan mode at the training batch (B = 32 dialogues of
+    U[20, 80] turns) in a wiring, against the plain scan (D at its own
+    ReLU decisions, each that differs from the plain recompute within
+    ``SCAN_DECISION_STEPS`` of 0); every output a bf16 value (but GF2's
+    f32 last dropout); the launches; the scan mode timed beside the f32
+    mode and the bf16 mode (on the fold without the variant) in the same
+    call (f32, bf16, scan, scan, bf16, f32); the plain versions' times;
+    the bounds."""
+    from mmdfn_torch.ops import (fold_weights, gcnii_stack_bwd,
+                                 gcnii_stack_bwd_plain, gcnii_stack_fwd,
+                                 gcnii_stack_plain)
+    from mmdfn_torch.ops.gcnii import (SCAN, TILED, gcnii_bwd_launches,
+                                       gcnii_fwd_launches, residual_slabs)
+
+    args, g = gcnii_train_inputs(torch, dev, TRAIN_B, TRAIN_L, seed=70,
+                                 nl=nl, wiring=wiring)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    lb2 = (torch.stack([lb, (torch.rand(4 * H, generator=g) * 0.2
+                             - 0.1).to(dev)]) if reason else None)
+    if not variant:
+        W = W[:, :H].contiguous()
+    B, N, _ = h.shape
+    WI = W.shape[1]
+    seed = torch.tensor([SEED + 777], dtype=torch.int64, device=dev)
+    opts = dict(alpha=alpha, reason=reason, rate=rate,
+                seed=seed if rate else None)
+    kw = dict(opts, mode=SCAN, variant=variant, last_drop_f32=last_f32)
+    sargs = (adj, h, h0, W, theta, ih, hh, lb2)
+    res, res_p = (residual_slabs((B, nl, N, H), SCAN, dev) for _ in "ab")
+    fwd = lambda: gcnii_stack_fwd(*sargs, residuals=res, **kw)
+    n0 = gcnii_stack_fwd.launches
+    out = fwd()
+    check(gcnii_stack_fwd.launches - n0 == gcnii_fwd_launches(
+        nl, reason, TILED, SCAN), f"{name}: kernel B's scan-mode launches")
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = gcnii_stack_plain(*sargs, residuals=res_p, **kw)
+    scale = max(1.0, float(want.abs().max()))
+    check(last_f32 or on_bf16_grid(torch, out),
+          f"{name}: kernel B's output is not on the bf16 grid")
+    fwd_agree = scan_agree(torch, out, want, f"{name}: kernel B", scale)
+    # (without reason the kernel writes no LSTM state)
+    slab_agree = {n: scan_agree(torch, a, b, f"{name}: kernel B's slab {n}",
+                                scale)
+                  for n, a, b in zip(("h", "lh", "lc")[:3 if reason else 1],
+                                     res, res_p)}
+
+    dh = torch.randn(B, N, H, generator=g).to(dev)
+    bargs = (adj, h0, W, theta, ih, hh, lb2)
+    bwd = lambda: gcnii_stack_bwd(*bargs, res, dh, **kw)
+    gcnii_stack_bwd.kept = []
+    try:
+        n0 = gcnii_stack_bwd.launches
+        got = bwd()
+        check(gcnii_stack_bwd.launches - n0 == gcnii_bwd_launches(
+            nl, reason, SCAN), f"{name}: kernel D's scan-mode launches")
+        torch.cuda.synchronize()
+        _, ref, flips, flip_pre = kernel_d_decisions(
+            torch, SCAN_DECISION_STEPS * SCAN_STEP * scale,
+            gcnii_stack_bwd.kept[-1])
+    finally:
+        gcnii_stack_bwd.kept = None
+    names = ("d_adj", "d_h", "d_h0", "dW", "dW_ih", "dW_hh", "db")[
+        :7 if reason else 4]
+    check(on_bf16_grid(torch, *got[:len(names)]),
+          f"{name}: kernel D's outputs are not on the bf16 grid")
+    bwd_agree = {n: scan_agree(torch, a, b, f"{name}: kernel D's {n}")
+                 for n, a, b in zip(names, got, ref)}
+
+    # the f32 and bf16 modes on the same operands (the fold without the
+    # variant; one bias, b_ih + b_hh)
+    Wv = W if variant else fold_weights(W, alpha)
+    lbc = lb2[0] + lb2[1] if reason else None
+    fargs = (adj, h, h0, Wv, theta, ih, hh, lbc)
+    r32 = residual_slabs((B, nl, N, H), "f32", dev)
+    r16 = residual_slabs((B, nl, N, H), "bf16", dev)
+    runs = {"f32": (lambda: gcnii_stack_fwd(*fargs, residuals=r32, **opts),
+                    lambda: gcnii_stack_bwd(adj, h0, Wv, theta, ih, hh, lbc,
+                                            r32, dh, **opts)),
+            "bf16": (lambda: gcnii_stack_fwd(*fargs, residuals=r16,
+                                             mode="bf16", **opts),
+                     lambda: gcnii_stack_bwd(adj, h0, Wv, theta, ih, hh, lbc,
+                                             r16, dh, mode="bf16", **opts)),
+            "scan": (fwd, bwd)}
+    for f, _ in runs.values():
+        f()
+    ms = {f"{d}_{m}": [] for m in runs for d in ("fwd", "bwd")}
+    for m in ("f32", "bf16", "scan", "scan", "bf16", "f32"):
+        f, b = runs[m]
+        ms[f"fwd_{m}"].append(time_ms(torch, f, 10))
+        ms[f"bwd_{m}"].append(time_ms(torch, b, 10))
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(torch, lambda: gcnii_stack_plain(*sargs, **kw),
+                               2)
+        plain_bwd_ms = time_ms(torch, lambda: gcnii_stack_bwd_plain(
+            *bargs, res, dh, **kw), 2)
+
+    fwd_bound, bwd_bound = scan_bounds(B, N, nl, reason, WI)
+    shape = (f"{name}: B={B} N={N} H={H} layers={nl} reason={reason} "
+             f"variant={variant} rate={rate} last dropout "
+             f"{'f32' if last_f32 else 'bf16'}, bf16 scan mode")
+    tol = (f"at most {SCAN_SHARE} of the elements differ, none by more "
+           f"than {SCAN_CAP_STEPS} bf16 steps of the scale")
+    return {
+        "fwd": {"shape": shape, **fwd_agree, "slabs": slab_agree,
+                "tolerance": tol, "ms": min(ms["fwd_scan"]),
+                "ms_runs": ms["fwd_scan"], "f32_mode_ms_runs": ms["fwd_f32"],
+                "bf16_mode_ms_runs": ms["fwd_bf16"], "plain_ms": plain_fwd_ms,
+                "library_ms": None, **fwd_bound},
+        "bwd": {"shape": shape, "by_output": bwd_agree,
+                "max_abs_err": max(v["max_abs_err"]
+                                   for v in bwd_agree.values()),
+                "relu_decisions_differing_from_plain": flips,
+                "max_abs_pre_where_they_differ": flip_pre,
+                "decision_tolerance": SCAN_DECISION_STEPS * SCAN_STEP * scale,
+                "tolerance": f"{tol}, at kernel D's ReLU decisions",
+                "ms": min(ms["bwd_scan"]), "ms_runs": ms["bwd_scan"],
+                "f32_mode_ms_runs": ms["bwd_f32"],
+                "bf16_mode_ms_runs": ms["bwd_bf16"], "plain_ms": plain_bwd_ms,
+                "library_ms": None, **bwd_bound}}
+
+
+def scan_serve_case(torch, dev) -> dict:
+    """Kernel B serving one dialogue at bucket 64 (N = 192, the
+    flagship's 16 layers and reason-LSTM, rate 0) in the bf16 scan mode
+    (the tiled design, 1 + 4 x 16 launches) against the plain scan, timed
+    beside its plain version, the f32 mode (its own design) and the bf16
+    mode (tiled); its bound (:func:`scan_bounds`, no slabs)."""
+    from mmdfn_torch.graph.adjacency import mm_big_adjacency
+    from mmdfn_torch.ops import gcnii_stack_fwd, gcnii_stack_plain
+    from mmdfn_torch.ops.bigru import _sm_count
+    from mmdfn_torch.ops.gcnii import (DESIGNS, SCAN, TILED, _design,
+                                       gcnii_fwd_launches)
+
+    args, g = gcnii_train_inputs(torch, dev, 1, 64, seed=64, lo=64)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    lb2 = torch.stack([lb, lb.flip(0)])
+    kw = dict(alpha=0.2, reason=True)
+    scan = lambda: gcnii_stack_fwd(adj, h, h0, W, theta, ih, hh, lb2,
+                                   mode=SCAN, **kw)
+    n0 = gcnii_stack_fwd.launches
+    out = scan()
+    check(gcnii_stack_fwd.launches - n0 == gcnii_fwd_launches(
+        NLAYERS, True, TILED, SCAN), "kernel B serving: its launches")
+    want = gcnii_stack_plain(adj, h, h0, W, theta, ih, hh, lb2, mode=SCAN,
+                             **kw)
+    check(on_bf16_grid(torch, out), "kernel B serving: not on the bf16 grid")
+    N = h.shape[1]
+    design32 = next(k for k, v in DESIGNS.items()
+                    if v == _design(1, N, _sm_count(dev)))
+    return {"shape": f"B=1 N={N} layers={NLAYERS} reason=True "
+                     "bf16 scan mode, tiled",
+            **scan_agree(torch, out, want, "kernel B serving"),
+            "launches": gcnii_fwd_launches(NLAYERS, True, TILED, SCAN),
+            "ms": time_ms(torch, scan, 20),
+            "plain_ms": time_ms(torch, lambda: gcnii_stack_plain(
+                adj, h, h0, W, theta, ih, hh, lb2, mode=SCAN, **kw), 2),
+            **scan_bounds(1, N, NLAYERS, True, 2 * H, slabs=False)[0],
+            "f32_mode_ms": time_ms(torch, lambda: gcnii_stack_fwd(
+                *args, **kw), 20),
+            "f32_mode_design": design32,
+            "bf16_mode_ms": time_ms(torch, lambda: gcnii_stack_fwd(
+                *args, mode="bf16", **kw), 20)}
+
+
+def scan_step_check(torch, dev, cfg, batch, build=None) -> dict:
+    """One training step of a model whose stacks run the bf16 scan mode,
+    with the kernels and under ``ops.plain_ops()`` from the same weights
+    and seed, the plain step's backward held at kernel D's ReLU decisions
+    of each stack call (read from its tdpre slabs; the plain forward keeps
+    its own ReLU), each decision that differs from the plain recompute on
+    the kernel's slabs within ``SCAN_DECISION_STEPS`` bf16 steps of max
+    |h| of 0: the launches (kernels A and C per bi-GRU, B and D per stack
+    call in the scan mode), the loss to ``STEP_LOSS_RTOL`` relative and
+    every gradient within ``SCAN_GRAD_STEPS`` bf16 steps of its max
+    |.|."""
+    import contextlib
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.ops import gcnii as gcnii_ops
+    from mmdfn_torch.ops.gcnii import (SCAN, TILED, gcnii_bwd_launches,
+                                       gcnii_fwd_launches)
+
+    def one(plain, masks=None):
+        tr = trainer_for(cfg, dev, build)
+        check(stack_mode(tr.model) == SCAN, "the stacks run the scan mode")
+        orig = gcnii_ops.gcnii_stack_plain
+        if masks is not None:     # one list of layer masks a stack call
+            held = iter(masks)
+            gcnii_ops.gcnii_stack_plain = lambda *a, **k: orig(
+                *a, relu_masks=next(held), **k)
+        gcnii_ops.gcnii_stack_bwd.kept = []
+        try:
+            with ops.plain_ops() if plain else contextlib.nullcontext():
+                loss, _ = tr.train_step(batch, seed=1)
+            torch.cuda.synchronize()
+            # the stack calls in forward order
+            kept = gcnii_ops.gcnii_stack_bwd.kept[::-1]
+        finally:
+            gcnii_ops.gcnii_stack_plain = orig
+            gcnii_ops.gcnii_stack_bwd.kept = None
+        grads = {n: p.grad for n, p in tr.model.named_parameters()}
+        return float(loss), grads, kept, tr.model
+
+    ops.reset_launch_counts()
+    loss_k, grads_k, kept, model = one(False)
+    counts = ops.launch_counts()
+    calls = stack_calls(cfg, batch["umask"].shape[1])
+    grus = gru_encoders(model)
+    want = {"bigru_fwd": 2 * grus, "bigru_bwd": 2 * grus,
+            "gcnii_fwd": sum(gcnii_fwd_launches(nl, r, TILED, SCAN)
+                             for nl, r, _ in calls),
+            "gcnii_bwd": sum(gcnii_bwd_launches(nl, r, SCAN)
+                             for nl, r, _ in calls)}
+    check(counts == want and len(kept) == len(calls),
+          f"the scan step's launches {counts} != {want}")
+    masks, flips, flip_pre, tols = [], 0, 0.0, []
+    for call in kept:
+        h_slab = call[0][7][0]
+        tol = SCAN_DECISION_STEPS * SCAN_STEP * max(
+            1.0, float(h_slab.float().abs().max()))
+        m, _, f, fp = kernel_d_decisions(torch, tol, call)
+        masks.append(m)
+        flips, flip_pre = flips + f, max(flip_pre, fp)
+        tols.append(tol)
+    del kept
+    loss_p, grads_p, _, _ = one(True, masks)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"the scan step's loss {loss_k} vs plain {loss_p}")
+    errs = {}
+    for n, gp in grads_p.items():
+        gk = grads_k[n]
+        check(gk is not None and float(gk.abs().max()) > 0,
+              f"no gradient reached {n}")
+        s = float(gp.abs().max())
+        d = (gk - gp).abs()
+        errs[n] = [float(d.max()) / (SCAN_STEP * s),
+                   float((d > 0).float().mean())]
+    worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
+    check(worst[0][1][0] <= SCAN_GRAD_STEPS,
+          f"the scan step's gradients vs plain: {worst[:5]}")
+    return {"launches": counts, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_err,
+            "grad_max_err_bf16_steps": worst[0][1][0],
+            "tolerance": f"loss {STEP_LOSS_RTOL} relative, gradients "
+                         f"{SCAN_GRAD_STEPS} bf16 steps of their max |.|",
+            "held_at_kernel_d_decisions": True,
+            "relu_decisions_differing_from_plain": flips,
+            "max_abs_pre_where_they_differ": flip_pre,
+            "decision_tolerance": min(tols),
+            "grads_top_err_bf16_steps_and_share_differing": [
+                [n, *e] for n, e in worst[:6]]}
+
+
+def scan_phase(torch, dev) -> dict:
+    """JAX's bf16 layer scan (``gcn_compute_dtype='bfloat16'`` where no
+    fused kernel runs): kernels B and D in their bf16 scan mode at GF2's,
+    the flagship's, DeepGCN's and the non-variant MMGCN's shapes
+    (:func:`scan_kernel_case`); the GF2 and DeepGCN training steps built
+    by ``run_train_erc``'s ``--tpu_fast`` and the flagship's with
+    ``variant=False`` stacks on the train phase's batch recipe, each
+    against its plain step (:func:`scan_step_check`) and timed (10 steps:
+    launches, wall, host enqueue, device busy, idle share, peak); one
+    served 37-utterance dialogue of GF2 and of DeepGCN against the plain
+    model."""
+    import numpy as np
+
+    from mmdfn_torch.cli import run_train_erc
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.weights import build_model
+
+    kernels = {c[0]: scan_kernel_case(torch, dev, *c) for c in SCAN_CASES}
+    kernels["serve"] = scan_serve_case(torch, dev)
+    print(json.dumps({"scan_kernels": kernels}), flush=True)
+    base = ["--dataset", "IEMOCAP", "--class_weight", "--batch-size",
+            str(TRAIN_B), "--speaker_weights", "3-0-1", "--dropout",
+            str(RATE), "--seed", str(SEED), "--tpu_fast"]
+    parse = lambda a: run_train_erc.config_from_args(
+        run_train_erc.build_parser().parse_args(base + a))
+    models = {
+        "GF2": (parse(["--graph_type", "GF2"]), None),
+        "DeepGCN": (parse(["--graph_type", "DeepGCN", "--Deep_GCN_nlayers",
+                           str(NLAYERS)]), None),
+        "MMGCN variant=False": (parse(
+            ["--graph_type", "GDF", "--reason_flag", "--Deep_GCN_nlayers",
+             str(NLAYERS)]), nonvariant_build("MMGCN"))}
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=1, n_test=1,
+                                      min_len=SINGLE_SERVE_LEN,
+                                      max_len=SINGLE_SERVE_LEN, seed=SEED)
+        dialogue = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
+    keys = ("launches", "launches_per_step", "step_ms_median",
+            "dialogues_per_sec", "host_enqueue_ms_per_step",
+            "stream_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "gcnii_fwd_kernels", "gcnii_bwd_kernels", "step_peak_mem_gb")
+    steps = {}
+    for name, (cfg, build) in models.items():
+        checked = scan_step_check(torch, dev, cfg, batches[0], build)
+        timed = timed_steps(torch, dev, cfg, batches, build=build)
+        steps[name] = {"step_check": checked,
+                       "train": {k: timed.get(k) for k in keys}}
+        if build is None:
+            steps[name]["serve"] = serve_check(
+                torch, dev, cfg, build_model(cfg), dialogue)[2]
+        print(json.dumps({"scan_model": {name: steps[name]}}), flush=True)
+    return {"card": SMI, "kernels": kernels, "models": steps}
 
 
 # the parallel phase: 2 ranks share the card over gloo; a small pickle for
@@ -3761,7 +4181,7 @@ def main() -> int:
                         ("single", single_phase), ("learn", learn_phase),
                         ("sweep", sweep_phase), ("daily", daily_phase),
                         ("raw", raw_phase), ("fast", fast_phase),
-                        ("parallel", parallel_phase)):
+                        ("scan", scan_phase), ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0
@@ -3769,13 +4189,15 @@ def main() -> int:
     print(json.dumps({"phase_s": seconds,
                       "profile_windows_without_kernels": PROFILE_MISSES}),
           flush=True)
-    train, fast = results["train"], results["fast"]
+    train, fast, scan = results["train"], results["fast"], results["scan"]
 
     # the line's numbers: the training step's shapes (the party streams'
     # B = 192 for the bi-GRU kernels; B = 32, N = 240 for the GCNII stack);
     # launches from the training step's main-path run
     big = (6 * TRAIN_B, TRAIN_L)
     fast_launches = fast["train_fast"]["launches"]
+    scan_launches = scan["models"]["GF2"]["train"]["launches"]
+    scan_cases = [scan["kernels"][c[0]] for c in SCAN_CASES]
     report = [
         ("bigru_fwd", "cuda", "mmdfn_torch/csrc/bigru_fwd.cu",
          "mmdfn_tpu/ops/pallas_rnn.py:266", cases_a[big],
@@ -3804,10 +4226,26 @@ def main() -> int:
          "mmdfn_tpu/ops/pallas_gcnii_train.py:526", fast["kernels"]["bwd"],
          fast["kernels"]["bwd"]["max_abs_err"],
          fast["kernels"]["bwd"]["tolerance"]),
+        # the bf16 scan mode: GF2's shape, and launches from the GF2 step's
+        # main-path run (one stack call a step at that shape); the errors
+        # the largest of the scan cases
+        ("gcnii_fwd_bf16_scan", "cuda", "mmdfn_torch/csrc/gcnii_fwd.cu",
+         "mmdfn_tpu/ops/pallas_gcnii_train.py:472",
+         scan["kernels"]["GF2"]["fwd"],
+         max([c["fwd"]["max_abs_err"] for c in scan_cases]
+             + [scan["kernels"]["serve"]["max_abs_err"]]),
+         scan["kernels"]["GF2"]["fwd"]["tolerance"]),
+        ("gcnii_bwd_bf16_scan", "cuda", "mmdfn_torch/csrc/gcnii_bwd.cu",
+         "mmdfn_tpu/ops/pallas_gcnii_train.py:526",
+         scan["kernels"]["GF2"]["bwd"],
+         max(c["bwd"]["max_abs_err"] for c in scan_cases),
+         scan["kernels"]["GF2"]["bwd"]["tolerance"]),
     ]
     kernels = []
     for name, route, source, replaces, case, err, tol in report:
-        launches = (fast_launches[name[:-5]] if name.endswith("_bf16")
+        base = name.split("_bf16")[0]
+        launches = (scan_launches[base] if name.endswith("_scan")
+                    else fast_launches[base] if name.endswith("_bf16")
                     else train["launches"][name])
         kernels.append({
             "name": name, "route": route, "source": source,
@@ -3816,7 +4254,7 @@ def main() -> int:
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"]})
-    check(set(ops.WRAPPERS) == {k["name"].removesuffix("_bf16")
+    check(set(ops.WRAPPERS) == {k["name"].split("_bf16")[0]
                                 for k in kernels},
           "every kernel of the path is in the report")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,15 +21,17 @@ Every flag of the JAX CLI is accepted with the same name and default,
 except the JAX-only XLA/TPU knobs (:data:`JAX_ONLY_FLAGS`).  ``--tpu_fast``
 sets the JAX package's production configuration
 (``ExperimentConfig.with_tpu_fast``): the GDF/GF stack then runs in the
-TPU training kernel's bf16 numerics (kernels B and D's bf16 mode), while
-GF2 and DeepGCN, whose stacks JAX runs as its bf16 layer scan, raise
-(that mode is not ported yet); the relation, GCN3 and None families and
-the baselines run no GCNII stack and train as without it.  Every graph
-family trains with any multimodal ``--mm_fusion_mthd``; relation,
-DeepGCN, GCN3 and None also on one stream (``--no_multi_modal --modals
-l``, or ``--mm_fusion_mthd concat``: early fusion) over the bases LSTM,
-GRU, DialogRNN and None; ``--no_graph_model`` trains the GRU, LSTM or
-DialogRNN baseline (``--active_listener``, ``--attention``,
+TPU training kernel's bf16 numerics (kernels B and D's bf16 mode), and
+GF2's and DeepGCN's stacks, which JAX runs as its bf16 layer scan, in
+kernels B and D's bf16 scan mode (as does every stack under
+``--gcn_compute_dtype bfloat16`` alone); the relation, GCN3 and None
+families and the baselines run no GCNII stack and train as without it.
+``--transfer_dtype bfloat16`` copies the features to the card as bf16.
+Every graph family trains with any multimodal ``--mm_fusion_mthd``;
+relation, DeepGCN, GCN3 and None also on one stream (``--no_multi_modal
+--modals l``, or ``--mm_fusion_mthd concat``: early fusion) over the
+bases LSTM, GRU, DialogRNN and None; ``--no_graph_model`` trains the
+GRU, LSTM or DialogRNN baseline (``--active_listener``, ``--attention``,
 ``--rec_dropout``) with the masked NLL loss.  ``--dataset DailyDialogue``
 trains the token model (``DailyTrainer``: the TextCNN at ``--vocab_size``,
 ``--max_words``, ``--embedding_dim``, ``--cnn_filters``,
@@ -63,10 +65,14 @@ import sys
 
 import numpy as np
 
-# flags of the JAX CLI that tune XLA or the TPU and have no meaning here
+# flags of the JAX CLI that tune XLA or the TPU and have no meaning here:
+# the scan's unroll and remat and the fused GRU directions change how XLA
+# schedules the same math, and --matmul_precision picks XLA's product
+# precision, which has no f32-exact counterpart on this card (the port's
+# products are f32 on the CUDA cores)
 JAX_ONLY_FLAGS = (
-    "--matmul_precision", "--transfer_dtype", "--param_dtype",
-    "--gcn_scan_unroll", "--gcn_scan_remat", "--rnn_fuse_directions")
+    "--matmul_precision", "--gcn_scan_unroll", "--gcn_scan_remat",
+    "--rnn_fuse_directions")
 # the JAX CLI's off-values of the knobs, which its config keeps as None
 # (mmdfn_tpu/cli/run_train_erc.py:199-210)
 OFF_VALUES = {"gcn_compute_dtype": "float32", "rnn_compute_dtype": "float32",
@@ -170,8 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="the JAX package's production configuration (every knob of "
              "ExperimentConfig.TPU_FAST_KNOBS; a knob also given explicitly "
              "keeps its value): the GDF/GF stack in the TPU training "
-             "kernel's bf16 numerics; GF2 and DeepGCN raise (JAX's bf16 "
-             "layer scan is not ported)")
+             "kernel's bf16 numerics, GF2's and DeepGCN's in JAX's bf16 "
+             "layer scan's (kernels B and D's bf16 scan mode)")
     add("--gcn_backend", type=str, default=None,
         choices=["xla", "pallas", "pallas_fused"],
         help="'pallas' / 'pallas_fused': the GCNII stack in the TPU "
@@ -180,7 +186,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--gcn_compute_dtype", type=str, default=None,
         choices=["float32", "bfloat16"],
         help="'bfloat16' where JAX runs the GCNII layer scan in bf16 (no "
-             "fused kernel): not ported, raises")
+             "fused kernel): kernels B and D's bf16 scan mode")
     add("--rnn_compute_dtype", type=str, default=None,
         choices=["float32", "bfloat16"],
         help="'bfloat16' (the encoders' bf16 scans): not ported, raises")
@@ -196,6 +202,14 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["threefry", "rbg", "unsafe_rbg"],
         help="accepted; changes nothing: the port's dropout draws are its "
              "own (Philox, torch's generator) and match neither JAX's")
+    add("--transfer_dtype", type=str, default="float32",
+        choices=["float32", "bfloat16"],
+        help="the features' host-to-device copy: 'bfloat16' rounds them to "
+             "bf16 on the host, copies half the bytes and widens them on "
+             "the card")
+    add("--param_dtype", type=str, default="float32",
+        choices=["float32", "bfloat16"],
+        help="accepted and dropped: the JAX package reads it nowhere")
     add("--device", type=str, default=None,
         help="'cuda' (the default) or 'cpu' for the plain PyTorch versions; "
              "with --n_data_devices / --n_model_devices, 'cuda:N' runs "

@@ -99,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run every combination in the JAX package's "
                          "production configuration (the preset of "
                          "run_train_erc --tpu_fast): the GDF/GF stack in "
-                         "the TPU training kernel's bf16 numerics")
+                         "the TPU training kernel's bf16 numerics, GF2's and "
+                         "DeepGCN's in JAX's bf16 layer scan's")
     ap.add_argument("--device", type=str, default=None,
                     help="'cuda' (the default) or 'cpu'; with "
                          "--n_data_devices, 'cuda:N' runs every rank on "

@@ -121,9 +121,10 @@ class ExperimentConfig:
     log_jsonl: Optional[str] = None
     # the JAX package's performance knobs (mmdfn_tpu/config.py:129-184),
     # as the port reads them:
-    gcn_compute_dtype: Optional[str] = None  # 'bfloat16' where JAX runs the
-                                            # layer scan in bf16 (no fused
-                                            # kernel): not ported, raises
+    gcn_compute_dtype: Optional[str] = None  # 'bfloat16': where JAX runs
+                                            # the layer scan in bf16 (no
+                                            # fused kernel), kernels B and
+                                            # D's bf16 scan mode
     rnn_compute_dtype: Optional[str] = None  # 'bfloat16': not ported, raises
     rnn_scan_remat: bool = False            # accepted: kernels A and C keep
                                             # what the backward reads either
@@ -142,6 +143,10 @@ class ExperimentConfig:
     rnn_backend: Optional[str] = None       # accepted: kernels A and C
                                             # compute either JAX backend's
                                             # f32 function
+    transfer_dtype: str = "float32"         # 'bfloat16': the features
+                                            # rounded to bf16 on the host,
+                                            # copied as bf16 and widened on
+                                            # the device (prepare_inputs)
     # DailyDialogue's token frontend (mmdfn_tpu/config.py:190-194)
     vocab_size: int = 5000
     max_words: int = 20                     # the word axis, fixed per epoch
@@ -196,7 +201,8 @@ class ExperimentConfig:
 
     # the JAX package's production configuration (mmdfn_tpu/config.py:
     # 222-236): in the port, the GCNII stack's bf16 mode where JAX takes
-    # its fused training kernel; the other knobs change nothing here
+    # its fused training kernel and its bf16 scan mode elsewhere; the other
+    # knobs change nothing here
     TPU_FAST_KNOBS = dict(
         gcn_compute_dtype="bfloat16", rnn_scan_remat=True,
         rnn_backend="pallas", gcn_backend="pallas", gcn_bwd_block=2,
@@ -208,9 +214,7 @@ class ExperimentConfig:
 
     def check_ported(self) -> None:
         """Raise for a knob whose function the port does not compute yet:
-        the encoders' bf16 scans (``rnn_compute_dtype='bfloat16'``).  The
-        GCNII stack's bf16 scan is refused where a stack is built
-        (``nn/gcn.py:GCNIIStack``)."""
+        the encoders' bf16 scans (``rnn_compute_dtype='bfloat16'``)."""
         if self.rnn_compute_dtype == "bfloat16":
             raise NotImplementedError(
                 "rnn_compute_dtype='bfloat16' (the encoders' bf16 scans) is "

@@ -43,6 +43,22 @@
 // h), and F2 writes hi and bf16(hi).  The tiled design only (the resident
 // and row-wise designs have no bf16 mode), with the same launches.
 //
+// The bf16 scan mode (mode 2; the JAX package's bf16 layer scan,
+// mmdfn_tpu/nn/gcn.py:229-287, where gcn_compute_dtype='bfloat16' and no
+// fused kernel runs) rounds as XLA's bf16 scan does (gcnii_scan.cuh): the
+// carries h, lh, lc are bf16 values held in f32 (kept as in serve mode),
+// every elementwise op and every product's value is rounded, and the
+// training mode's three bf16 slabs hold the carries exactly.  The LSTM's
+// gates are ((h W_ih + b_ih) + lh W_hh) + b_hh, so F1 is two products, F1a
+// (h W_ih, its value plus b_ih rounded into a (B, N, 4H) scratch) and F1b
+// (lh W_hh, the gates and the cell in its epilogue), on the interleaved
+// [W_ih; W_hh; b_ih; b_hh].  F2 writes hi rounded (without the variant r,
+// the products' operand: F3 is then r W[l], K = H, on W unfolded); F3 the
+// update, the dropout scaled by the keep scale rounded to bf16 and the
+// skip, each op rounded.  Mode bit 4: the last layer's dropout scales the
+// widened output by the f32 keep scale (JAX's post-loop dropout after the
+// scan, GF2's wiring); bit 8: variant=False.  The tiled design only.
+//
 // Bound: at the training shapes the stack does ~31 GFLOP (0.46 ms of the
 // card's f32 rate), and the four residual slabs add 197 MB of writes (~59
 // us of memory time): bound by operations.  At serve (B = 1, N = 3 * 200,
@@ -158,6 +174,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gcnii_scan.cuh"
 #include "gemm_f32.cuh"
 #include "philox.cuh"
 
@@ -328,6 +345,127 @@ __global__ void gcnii_fwd_init(const float* __restrict__ h, View hs, View h1,
     }
   }
 }
+
+// The bf16 scan mode's epilogues (gcnii_scan.cuh's arithmetic).
+
+// F1a: the first gate product h W_ih plus b_ih, into g1 (B, N, 4H) at the
+// interleaved columns.
+struct F1GateS {
+  float* g1;
+  int N, G;
+  const float* bih;    // (4H) a configuration, interleaved
+  long long bias_ks;   // the next configuration's: bias_ks further
+  int Bc;
+  struct In { float b; };
+  __device__ F1GateS for_batch(int b) const {
+    F1GateS e = *this;
+    e.bih = bih + (b / Bc) * bias_ks;
+    return e;
+  }
+  __device__ In load(int, int, int c) const { return {bih[c]}; }
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    g1[((long long)b * N + r) * G + c] = scan::gate1(v, in.b);
+  }
+};
+
+// F1b: the chunk at column c holds channel c / 4's gates of lh W_hh; with
+// g1 and b_hh the gates' pre-activations, then the cell: h1 (the next lh)
+// and lc in place, and the next layer's bf16 slabs.
+struct F1CellS : gemm::Chunk4 {
+  const float* g1;     // (B, N, 4H)
+  const float* bhh;    // (4H) a configuration, interleaved
+  long long bias_ks;
+  int Bc, N, G;
+  View lc;             // the cell state, in place
+  View h1;             // the layer's LSTM output (the next layer's lh)
+  ViewB res_lh, res_lc;   // the next layer's slabs; p null: not kept
+  struct In { float4 g; float bi, bf, bg, bo, lc; };
+  __device__ F1CellS for_batch(int b) const {
+    F1CellS e = *this;
+    e.bhh = bhh + (b / Bc) * bias_ks;
+    return e;
+  }
+  __device__ In load(int b, int r, int c) const {
+    const float4 g =
+        *reinterpret_cast<const float4*>(g1 + ((long long)b * N + r) * G + c);
+    return {g, bhh[c], bhh[c + 1], bhh[c + 2], bhh[c + 3],
+            *lc.at(b, r, c / 4)};
+  }
+  __device__ void operator()(int b, int r, int c, float4 v, In in) const {
+    const int ch = c / 4;
+    const scan::Cell k = scan::cell(
+        scan::gate(in.g.x, v.x, in.bi), scan::gate(in.g.y, v.y, in.bf),
+        scan::gate(in.g.z, v.z, in.bg), scan::gate(in.g.w, v.w, in.bo),
+        in.lc);
+    *h1.at(b, r, ch) = k.h;
+    *lc.at(b, r, ch) = k.c;
+    res_lh.put(b, r, ch, k.h);
+    res_lc.put(b, r, ch, k.c);
+  }
+};
+
+// F2: hi = adj h1 rounded into the (B, N, H) scratch; without the variant
+// r = (1-a) hi + a h0 there instead (F3's operand).
+struct F2HiS {
+  float* hi;
+  const float* h0;
+  int N, H, variant;
+  scan::Consts k;
+  using In = gemm::NoIn;
+  __device__ In load(int, int, int) const { return {}; }
+  __device__ void operator()(int b, int r, int c, float v, In) const {
+    const long long o = ((long long)b * N + r) * H + c;
+    const float x = scan::R(v);
+    hi[o] = variant ? x : scan::r_of(x, h0[o], k);
+  }
+};
+
+// F3: v = ([hi | h0] W[l])(r, c) (without the variant (r W[l])(r, c)); the
+// update, the ReLU, the dropout and the skip, each op rounded; the last
+// layer's dropout in f32 where last_f32.
+struct F3UpdateS {
+  const float* hi;     // (B, N, H); without the variant r
+  const float* h0;
+  float* h;            // (B, N, H): the layer's input (the skip), then its
+                       // output
+  const float* theta;  // theta[l]
+  scan::Consts k;
+  int l, N, H, reason, drop, Bc, variant, last_f32;
+  philox::Rate rate;
+  const long long* seed;
+  ViewB res_next;      // p null: not kept
+  // set by for_batch, as F3UpdateT's
+  unsigned int thr;
+  float ik;
+  unsigned long long key;
+  int b0;
+  struct In { float hi, h0, q, th; };
+  __device__ F3UpdateS for_batch(int b) const {
+    F3UpdateS e = *this;
+    const int kc = b / Bc;
+    e.b0 = kc * Bc;
+    e.ik = drop ? rate.inv_keep_of(kc) : 1.0f;
+    e.thr = drop ? rate.thresh_of(kc) : 0u;
+    e.key = drop ? (unsigned long long)*seed : 0ull;
+    return e;
+  }
+  __device__ In load(int b, int r, int c) const {
+    const long long o = ((long long)b * N + r) * H + c;
+    return {hi[o], h0[o], reason ? h[o] : 0.0f, *theta};
+  }
+  __device__ void operator()(int b, int r, int c, float v, In in) const {
+    const float th = scan::theta(in.th);
+    const float rr = variant ? scan::r_of(in.hi, in.h0, k) : in.hi;
+    float hn = fmaxf(scan::pre(v, rr, th, scan::omt(th)), 0.0f);
+    if (drop && ik != 1.0f) {   // a keep scale of 1 (rate 0) keeps all
+      const bool kp = philox::keep(key, b - b0, l, r, c, thr);
+      hn = !kp ? 0.0f : last_f32 ? hn * ik : scan::R(hn * scan::R(ik));
+    }
+    if (reason) hn = scan::R(hn + in.q);
+    h[((long long)b * N + r) * H + c] = hn;
+    res_next.put(b, r, c, hn);
+  }
+};
 
 constexpr int kR = 8;        // rows of one dialogue per block
 constexpr int kTX = 128;     // threads over the hidden axis (H <= 128)
@@ -1089,6 +1227,107 @@ int tiled(const float* adj, const float* h, const float* h0, const float* W,
   return launches;
 }
 
+// The tiled design in the bf16 scan mode (see the note at the top).  The
+// carries live as in serve mode (h in out, the lh pair, lc), bf16 values
+// held in f32; scratch: hi (r without the variant), the lh pair, lc and
+// the gates' first product g1 (B, N, 4H): 8 (B, N, H) f32.  wl is [W_ih;
+// W_hh; b_ih; b_hh] interleaved, (2H + 2, 4H) a configuration; W is (nl,
+// 2H, H), or (nl, H, H) without the variant.
+int tiled_scan(const float* adj, const float* h, const float* h0,
+               const float* W, const float* theta, float alpha,
+               const float* wl, float* out, float* scratch, float* res_h,
+               float* res_lh, float* res_lc, int drop,
+               const philox::Rate& rate, const long long* seed, int reason,
+               int variant, int last_f32, int nl, int Bc, int B, int N, int H,
+               cudaStream_t st) {
+  const long long NH = (long long)N * H, NN = (long long)N * N;
+  const long long RH = (long long)B * NH;
+  const int G = 4 * H;
+  const int WI = variant ? 2 * H : H;          // a layer's weight rows
+  const long long WLK = (2LL * H + 2) * G;     // a configuration's wl
+  const long long wk = (long long)nl * WI * H;  // a configuration's W
+  const bool keep = res_h != nullptr;
+  const scan::Consts k = scan::consts(alpha);
+  float* hi = scratch;
+  float* lh_buf[2] = {scratch + RH, scratch + 2 * RH};
+  float* lc_buf = scratch + 3 * RH;
+  float* g1 = scratch + 4 * RH;
+  const View none{nullptr, 0, H};
+  const ViewB noneb{nullptr, 0, H};
+  auto bslab = [&](float* p, int l) {   // layer l's bf16 slab, if kept
+    return keep ? ViewB{reinterpret_cast<bf16*>(p) + l * NH, nl * NH, H}
+                : noneb;
+  };
+  int launches = 0;
+  cudaError_t err = cudaSuccess;
+  GCNII_LAUNCH(init<true>(h, View{out, NH, H}, none,
+                          reason ? View{lh_buf[0], NH, H} : none,
+                          reason ? View{lc_buf, NH, H} : none, B, NH, st,
+                          bslab(res_h, 0), reason ? bslab(res_lh, 0) : noneb,
+                          reason ? bslab(res_lc, 0) : noneb));
+
+  for (int l = 0; l < nl; ++l) {
+    const bool last = l + 1 == nl;
+    const float* h1 = out;   // without reason the layer's input h
+    if (reason) {
+      const Operand Bih = gemm::grouped(gemm::dense(wl, 0, 1, G), Bc, WLK,
+                                        WLK);
+      const F1GateS f1a{g1, N, G, wl + 2LL * H * G, WLK, Bc};
+      GCNII_LAUNCH(wide(gemm::dense(static_cast<const float*>(out), NH, H, 1),
+                        Bih, N, G, H, B, f1a, st));
+      F1CellS f1b{};
+      f1b.g1 = g1;
+      f1b.bhh = wl + (2LL * H + 1) * G;
+      f1b.bias_ks = WLK;
+      f1b.Bc = Bc;
+      f1b.N = N;
+      f1b.G = G;
+      f1b.lc = View{lc_buf, NH, H};
+      f1b.h1 = View{lh_buf[(l + 1) % 2], NH, H};
+      f1b.res_lh = last ? noneb : bslab(res_lh, l + 1);
+      f1b.res_lc = last ? noneb : bslab(res_lc, l + 1);
+      const Operand Bhh = gemm::grouped(
+          gemm::dense(wl + (long long)H * G, 0, 1, G), Bc, WLK, WLK);
+      GCNII_LAUNCH(wide(
+          gemm::dense(static_cast<const float*>(lh_buf[l % 2]), NH, H, 1),
+          Bhh, N, G, H, B, f1b, st));
+      h1 = lh_buf[(l + 1) % 2];
+    }
+    {   // F2
+      const F2HiS f2{hi, h0, N, H, variant, k};
+      GCNII_LAUNCH(narrow100(gemm::dense(adj, NN, N, 1),
+                             gemm::dense(h1, NH, 1, H), N, H, N, B, f2, st));
+    }
+    {   // F3
+      const Operand A =
+          variant ? gemm::cat(static_cast<const float*>(hi), NH, h0, NH, H,
+                              1, H, true)
+                  : gemm::dense(static_cast<const float*>(hi), NH, H, 1);
+      const Operand Bw = gemm::grouped(
+          gemm::dense(W + (long long)l * WI * H, 0, 1, H), Bc, wk, wk);
+      F3UpdateS f3{};
+      f3.hi = hi;
+      f3.h0 = h0;
+      f3.h = out;
+      f3.theta = theta + l;
+      f3.k = k;
+      f3.l = l;
+      f3.N = N;
+      f3.H = H;
+      f3.reason = reason;
+      f3.drop = drop;
+      f3.Bc = Bc;
+      f3.variant = variant;
+      f3.last_f32 = last && last_f32;
+      f3.rate = rate;
+      f3.seed = seed;
+      f3.res_next = last ? noneb : bslab(res_h, l + 1);
+      GCNII_LAUNCH(narrow100(A, Bw, N, H, WI, B, f3, st));
+    }
+  }
+  return launches;
+}
+
 }  // namespace
 
 // The whole forward on `stream`; see the note at the top.  out (B, N, H)
@@ -1101,9 +1340,13 @@ int tiled(const float* adj, const float* h, const float* h0, const float* W,
 // (B, N, H) for hi in the tiled design's training mode, else 4 (B, N, H)
 // (tiled: hi, the two lh buffers and lc; row-wise: two h1 buffers, lh, lc);
 // the resident design keeps its state in shared memory and reads none.
-// use_bf16 = 1: the bf16 mode (the tiled design; see the note at the top):
+// mode & 3 = 1: the bf16 mode (the tiled design; see the note at the top):
 // adj, h0 and W hold bf16 values, the three residual slabs res_h, res_lh,
 // res_lc are bf16 (res_h1 unused), and scratch is 6 (B, N, H) f32.
+// mode & 3 = 2: the bf16 scan mode (the tiled design): adj, h, h0, W and
+// wl hold bf16 values, wl is [W_ih; W_hh; b_ih; b_hh] interleaved, the
+// slabs as in the bf16 mode, scratch 8 (B, N, H) f32; mode & 4: the last
+// layer's dropout in f32; mode & 8: variant=False, W (nl, H, H).
 extern "C" int gcnii_fwd(
     const float* adj, const float* h, const float* h0, const float* W,
     const float* theta, float alpha, const float* wl, const float* ih,
@@ -1111,11 +1354,13 @@ extern "C" int gcnii_fwd(
     float* res_h, float* res_lh, float* res_lc, float* res_h1, int drop,
     const unsigned int* thresh_k, const float* inv_keep_k,
     unsigned int thresh, float inv_keep, const long long* seed, int reason,
-    int design, int nl, int K, int Bc, int N, int H, int use_bf16,
+    int design, int nl, int K, int Bc, int N, int H, int mode,
     void* stream) {
+  const int numerics = mode & 3;
   if (H > kHMax || K <= 0 || Bc <= 0 || N <= 0 || nl <= 0 ||
       (design != kTiled && design != kRowwise && design != kResident) ||
-      (use_bf16 && design != kTiled))
+      numerics == 3 || (numerics && design != kTiled) ||
+      (numerics != 2 && (mode & 12)))
     return -(int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int B = K * Bc;   // the dialogues of all configurations
@@ -1166,7 +1411,11 @@ extern "C" int gcnii_fwd(
     return launches;
   }
 
-  return use_bf16 ? tiled<true>(adj, h, h0, W, theta, alpha, wl, out,
+  if (numerics == 2)
+    return tiled_scan(adj, h, h0, W, theta, alpha, wl, out, scratch, res_h,
+                      res_lh, res_lc, drop, rate, seed, reason,
+                      (mode & 8) == 0, (mode & 4) != 0, nl, Bc, B, N, H, st);
+  return numerics ? tiled<true>(adj, h, h0, W, theta, alpha, wl, out,
                                 scratch, res_h, res_lh, res_lc, res_h1, drop,
                                 rate, seed, reason, nl, Bc, B, N, H, st)
                   : tiled<false>(adj, h, h0, W, theta, alpha, wl, out,

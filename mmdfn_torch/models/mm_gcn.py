@@ -8,8 +8,9 @@ layer weights, ``nn/gcn.py:GCNIIStack``), and ``compute_dtype`` (the
 config's ``gcn_compute_dtype``); MMGCN and DeepGCNII also ``backend``
 (``gcn_backend``), as the JAX package passes them
 (``mmdfn_tpu/models/mm_gcn.py:106-109,189,249-252``).  Only MMGCN's stack
-reaches the bf16 mode: MMGCN2's and DeepGCNII's wirings are JAX's layer
-scan, whose bf16 mode raises (``GCNIIStack``)."""
+reaches the bf16 mode; MMGCN2's and DeepGCNII's wirings are JAX's layer
+scan, which ``compute_dtype='bfloat16'`` runs in kernels B and D's bf16
+scan mode (``GCNIIStack``), as MMGCN's does without a Pallas backend."""
 
 from __future__ import annotations
 

@@ -27,12 +27,15 @@ Tensor = torch.Tensor
 
 
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
-            tag: Optional[str] = None) -> Tensor:
+            tag: Optional[str] = None, bf16: bool = False) -> Tensor:
     """``where(rand < keep, x * inv_keep, 0)`` with ``keep = 1 - rate``
     and ``inv_keep = 1 / keep`` (JAX's ``drop_override.dropout``); the
     identity at rate 0 and zeros at rate 1, as flax's.  Under an override
     for ``tag`` every draw happens and a rate-0 configuration keeps all,
-    scaled by exactly 1."""
+    scaled by exactly 1.  ``bf16``: in bf16, as the GCNII stack's bf16
+    layer scan drops its carry (``mmdfn_tpu/nn/gcn.py:_dropout``): x and
+    inv_keep rounded to bf16, their product rounded; the result widened
+    to f32."""
     ov = drop_override.get(tag) if generator is not None else None
     if ov is None:
         if rate == 0.0:
@@ -44,4 +47,9 @@ def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
     keep, inv_keep, _ = drop_override.resolve(
         tag if ov is not None else None, rate)
     rand = torch.rand(x.shape, generator=generator, device=x.device)
+    if bf16:
+        scale = torch.as_tensor(inv_keep, dtype=torch.float32,
+                                device=x.device).to(torch.bfloat16)
+        return torch.where(rand < keep, x.to(torch.bfloat16) * scale,
+                           0.0).float()
     return torch.where(rand < keep, x * inv_keep, 0.0)

@@ -19,11 +19,13 @@ D's bf16 mode) wherever JAX's ``GCNIIStack`` takes that kernel
 (``mmdfn_tpu/nn/gcn.py:187-192``): the variant's update, dropout after
 each layer, no post-loop dropout, no node-sharded product, at most 64
 layers.  Elsewhere JAX runs its layer scan, in bf16 where
-``compute_dtype='bfloat16'``: that mode is not ported, and such a stack
-raises ``NotImplementedError`` rather than run in f32.  JAX's fallback
-off the TPU (live dropout takes the scan there, the interpreter's PRNG
-being a stub) is not copied: on the CPU the port runs the plain version
-of what the card runs.
+``compute_dtype='bfloat16'`` (``:229-287``): kernels B and D's bf16 scan
+mode, on every wiring (GF2's, DeepGCN's, ``variant=False``, the post-loop
+dropout, more than 64 layers; with ``spmm`` its plain version), and for
+every family where ``gcn_compute_dtype='bfloat16'`` comes without a
+Pallas backend.  JAX's fallback off the TPU (live dropout takes the scan
+there, the interpreter's PRNG being a stub) is not copied: on the CPU the
+port runs the plain version of what the card runs.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from mmdfn_torch.nn.init import reset_linear, reset_linears, reset_uniform
 from mmdfn_torch.nn.linear import Linear
 from mmdfn_torch.ops import (fold_weights, gcnii_stack_fwd, gcnii_stack_plain,
                              is_batched)
+from mmdfn_torch.ops.gcnii import BF16, F32, SCAN
 
 Tensor = torch.Tensor
 
@@ -86,26 +89,22 @@ class ReasonLSTM(nn.Module):
 # most layers it takes (mmdfn_tpu/nn/gcn.py:187-189)
 FUSED_BACKENDS = ("pallas", "pallas_fused")
 FUSED_MAX_LAYERS = 64
-BF16_SCAN_MISSING = (
-    "gcn_compute_dtype='bfloat16' on the GCNII layer-scan path (MMGCN2, "
-    "non-lyc DeepGCNII, variant=False, post-loop dropout, more than 64 "
-    "layers or a model axis; the JAX package's bf16 scan mode) is not "
-    "ported yet")
 
 
-def fused_bf16(backend: Optional[str], compute_dtype: Optional[str], *,
+def stack_mode(backend: Optional[str], compute_dtype: Optional[str], *,
                variant: bool, dropout_mode: str, post_loop_dropout: bool,
-               nlayers: int, spmm) -> bool:
-    """Whether a stack runs in the bf16 mode: where JAX's ``GCNIIStack``
-    takes its fused training kernel (``mmdfn_tpu/nn/gcn.py:187-192``,
-    without the CPU-only fallback).  Raises ``NotImplementedError`` where
-    JAX runs its bf16 layer scan instead."""
+               nlayers: int, spmm) -> str:
+    """The numerics a stack runs in (``ops.gcnii``'s modes): the bf16 mode
+    where JAX's ``GCNIIStack`` takes its fused training kernel
+    (``mmdfn_tpu/nn/gcn.py:187-192``, without the CPU-only fallback), else
+    the bf16 scan mode where ``compute_dtype`` is ``'bfloat16'``
+    (``:229-238``), else f32."""
     fused = (backend in FUSED_BACKENDS and variant and dropout_mode == "after"
              and spmm is None and not post_loop_dropout
              and nlayers <= FUSED_MAX_LAYERS)
-    if not fused and compute_dtype == "bfloat16":
-        raise NotImplementedError(BF16_SCAN_MISSING)
-    return fused
+    if fused:
+        return BF16
+    return SCAN if compute_dtype == "bfloat16" else F32
 
 
 class GCNIIStack(nn.Module):
@@ -126,8 +125,8 @@ class GCNIIStack(nn.Module):
     update; kernels B and D then run on its fold (``ops.fold_weights``).
 
     ``backend`` and ``compute_dtype``: the config's ``gcn_backend`` and
-    ``gcn_compute_dtype`` (:func:`fused_bf16`); ``self.bf16`` says whether
-    the stack runs in the bf16 mode.
+    ``gcn_compute_dtype``; ``self.mode`` is the numerics the stack runs in
+    (:func:`stack_mode`).
 
     ``spmm`` replaces each layer's ``adj @ h`` (the node-sharded product
     of a mesh with a model axis, ``parallel/graph_parallel.py``).  With it
@@ -168,7 +167,7 @@ class GCNIIStack(nn.Module):
         self.rate_tag = rate_tag
         self.relu_inputs: Optional[list] = None
         self._cache = None       # (parameter key, packed weights)
-        self.bf16 = fused_bf16(backend, compute_dtype, variant=variant,
+        self.mode = stack_mode(backend, compute_dtype, variant=variant,
                                dropout_mode=dropout_mode,
                                post_loop_dropout=post_loop_dropout,
                                nlayers=nlayers, spmm=spmm)
@@ -198,8 +197,9 @@ class GCNIIStack(nn.Module):
     def _packed(self) -> tuple:
         """The layer weights as kernel B takes them: W stacked to
         (nlayers, 2H, H) (or (nlayers, H, H)), its fold without the
-        variant (else None), the LSTM weights contiguous as (H, 4H) and
-        ``b_ih + b_hh``.  With autograd off (serving) they are built once
+        variant outside the bf16 scan mode (else None), the LSTM weights
+        contiguous as (H, 4H) and ``b_ih + b_hh`` (the bf16 scan mode:
+        ``[b_ih; b_hh]``).  With autograd off (serving) they are built once
         and rebuilt only after a parameter moves or is written in place;
         with autograd on they are built afresh so gradients reach them
         (the fold is then left to ``gcnii_stack_fwd``, inside the graph)."""
@@ -215,12 +215,14 @@ class GCNIIStack(nn.Module):
             return self._cache[1]
         W = torch.stack([conv.weight for conv in self.convs])
         folded = (fold_weights(W, self.alpha)
-                  if keep and not self.variant else None)
+                  if keep and not self.variant and self.mode != SCAN
+                  else None)
         if self.reason_flag:
             r = self.rnn
+            b = (torch.stack([r.bias_ih_l0, r.bias_hh_l0])
+                 if self.mode == SCAN else r.bias_ih_l0 + r.bias_hh_l0)
             packed = (W, folded, r.weight_ih_l0.t().contiguous(),
-                      r.weight_hh_l0.t().contiguous(),
-                      r.bias_ih_l0 + r.bias_hh_l0)
+                      r.weight_hh_l0.t().contiguous(), b)
         else:
             packed = (W, folded, None, None, None)
         self._cache = (key, packed) if keep else None
@@ -245,18 +247,22 @@ class GCNIIStack(nn.Module):
             h = dropout(h0, rate, generator, tag)
         else:
             h0 = h = x
+        scan = self.mode == SCAN
         if self.dropout_mode == "before":
             # "drop before each layer, then after the loop" draws as "drop
             # the entry, then after each layer": layer l's after-drop is
             # layer l+1's before-drop and the last layer's is the post-loop
             # drop.  So the kernels run in their after-mode on h = drop(x)
             # beside h0 = x, and the entry's gradient reaches x through
-            # both.
-            h = dropout(h, rate, generator, tag)
+            # both.  In the bf16 scan mode the entry's drop is the first
+            # in-loop one, in bf16, and the last layer's the post-loop
+            # one, in f32 (mmdfn_tpu/nn/gcn.py:256-257,282-285).
+            h = dropout(h, rate, generator, tag, bf16=scan)
         if self.dropout_mode == "none":
             in_loop = 0.0
         else:
             in_loop = rate if ov is None else ov
+        last_f32 = scan and self.dropout_mode == "before"
         seed = None
         if ov is not None and in_loop is ov or in_loop > 0.0:
             # the kernels' Philox key, never read by the host
@@ -266,13 +272,15 @@ class GCNIIStack(nn.Module):
             h = gcnii_stack_fwd(adj, h, h0, W, self.theta, *lstm,
                                 alpha=self.alpha, reason=self.reason_flag,
                                 rate=in_loop, seed=seed, variant=self.variant,
-                                folded=folded, bf16=self.bf16)
+                                folded=folded, mode=self.mode,
+                                last_drop_f32=last_f32)
         else:
             h = gcnii_stack_plain(adj, h, h0, W, self.theta, *lstm,
                                   alpha=self.alpha, reason=self.reason_flag,
                                   rate=in_loop, seed=seed, spmm=self.spmm,
                                   relu_inputs=self.relu_inputs,
-                                  variant=self.variant)
+                                  variant=self.variant, mode=self.mode,
+                                  last_drop_f32=last_f32)
         if self.post_loop_dropout and self.dropout_mode != "before":
             h = dropout(h, rate, generator, tag)
         return x, h

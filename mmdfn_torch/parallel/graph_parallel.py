@@ -127,7 +127,12 @@ def sharded_spmm_batched(mesh, adj: Tensor, h: Tensor) -> Tensor:
     a multiple of M (zero rows and columns of the adjacency are inert), the
     partial products reduce-scatter over the nodes and the row blocks are
     gathered back; the gradients of ``adj`` and ``h`` are whole on every
-    model rank."""
+    model rank.  On bf16 operands (the GCNII stack's bf16 scan mode) it
+    computes as a bf16 product does there: the exact products summed in
+    f32, the output rounded to bf16 once."""
+    if h.dtype == torch.bfloat16:
+        return sharded_spmm_batched(mesh, adj.float(), h.float()).to(
+            torch.bfloat16)
     M = mesh[MODEL_AXIS].size()
     if M == 1:
         return torch.bmm(adj, h)

@@ -40,7 +40,12 @@ def graph_products(adj: np.ndarray, h: np.ndarray, h0: np.ndarray,
     """On a (1, world) mesh: this rank's row blocks of ``sharded_spmm`` and
     of ``sharded_gcnii_stack`` (variant with ``W``, else ``W_plain``), and
     for each batched case the hook's whole product with the gradients of
-    ``sum(out * g)`` by ``adj`` and ``h``, beside the dense ``bmm``'s."""
+    ``sum(out * g)`` by ``adj`` and ``h``, beside the dense ``bmm``'s, and
+    the same on bf16 operands (the GCNII stack's bf16 scan mode) beside
+    the dense bf16 product (f32 sums, rounded once); and the GCNII stack
+    in the bf16 scan mode (``W``, dropout 0.4) with the hook beside the
+    dense stack, the same way."""
+    from mmdfn_torch.ops import gcnii_stack_plain
     from mmdfn_torch.parallel import (sharded_gcnii_stack, sharded_spmm,
                                       sharded_spmm_batched)
 
@@ -53,11 +58,28 @@ def graph_products(adj: np.ndarray, h: np.ndarray, h0: np.ndarray,
     out["stack_plain"] = _np(sharded_gcnii_stack(
         mesh, T(adj), T(h), T(h0), T(W_plain), T(theta), alpha,
         variant=False))
+    seed = torch.tensor([7], dtype=torch.int64)
+
+    def scan_stack(p, q, hook):
+        return gcnii_stack_plain(
+            p, q, q, T(W), T(theta), alpha=alpha, reason=False, rate=0.4,
+            seed=seed, mode="bf16_scan",
+            spmm=(lambda m, v: sharded_spmm_batched(mesh, m, v)) if hook
+            else None)
+
     batched = []
     for a, x, g in zip(adj_b, h_b, g_b):
         case = {}
-        for name, fn in (("hook", lambda p, q: sharded_spmm_batched(
-                mesh, p, q)), ("dense", torch.bmm)):
+        bf = torch.bfloat16
+        for name, fn in (
+                ("hook", lambda p, q: sharded_spmm_batched(mesh, p, q)),
+                ("dense", torch.bmm),
+                ("hook_bf16", lambda p, q: sharded_spmm_batched(
+                    mesh, p.to(bf), q.to(bf)).float()),
+                ("dense_bf16", lambda p, q: torch.bmm(
+                    p.to(bf).float(), q.to(bf).float()).to(bf).float()),
+                ("scan_stack_hook", lambda p, q: scan_stack(p, q, True)),
+                ("scan_stack_dense", lambda p, q: scan_stack(p, q, False))):
             p = T(a).requires_grad_()
             q = T(x).requires_grad_()
             y = fn(p, q)

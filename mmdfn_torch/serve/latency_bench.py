@@ -9,8 +9,9 @@ Weights are fresh from ``--seed`` (latency does not depend on them) or
 come from ``--load_model``: the trainer's save directory (its ``best``
 checkpoint and the config in its meta; the summary then has its
 ``ckpt_epoch``) or a ``weights.save_model`` file.  ``--tpu_fast`` serves
-the JAX package's production configuration (the stack in the TPU training
-kernel's bf16 numerics, kernel B's bf16 mode), as
+the JAX package's production configuration (the GDF/GF stack in the TPU
+training kernel's bf16 numerics, kernel B's bf16 mode; a loaded GF2 or
+DeepGCN model in JAX's bf16 layer scan's, kernel B's bf16 scan mode), as
 ``mmdfn_tpu/serve/latency_bench.py --tpu_fast`` does; the summary's
 ``config`` says which.
 

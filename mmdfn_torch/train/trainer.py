@@ -111,20 +111,32 @@ class FitResult:
     history: List[Dict] = field(default_factory=list)
 
 
-def to_device(a: np.ndarray, device: torch.device) -> Tensor:
-    """An array as a tensor on ``device``: on the card from a pinned host
-    copy, so that the copy does not block the host."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+def to_device(a, device: torch.device) -> Tensor:
+    """An array (or a host tensor) as a tensor on ``device``: on the card
+    from a pinned host copy, so that the copy does not block the host."""
+    t = a if isinstance(a, Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
 
 
-def prepare_inputs(batch: Batch, device: torch.device) -> Dict[str, Tensor]:
-    """The batch's arrays as tensors on ``device`` (:func:`to_device`)."""
+def prepare_inputs(batch: Batch, device: torch.device,
+                   transfer_dtype: str = "float32") -> Dict[str, Tensor]:
+    """The batch's arrays as tensors on ``device`` (:func:`to_device`).
+    ``transfer_dtype='bfloat16'`` (``mmdfn_tpu/train/trainer.py:106-107``):
+    the features rounded to bf16 on the host, copied as bf16 (half the
+    bytes) and widened to f32 on the device."""
     put = lambda a: to_device(a, device)
-    return dict(text=put(batch.text), audio=put(batch.audio),
-                visual=put(batch.visual), qmask=put(batch.qmask),
+    if transfer_dtype == "bfloat16":
+        feat = lambda a: put(torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(torch.bfloat16)).float()
+    elif transfer_dtype == "float32":
+        feat = put
+    else:
+        raise ValueError(f"transfer_dtype {transfer_dtype!r}")
+    return dict(text=feat(batch.text), audio=feat(batch.audio),
+                visual=feat(batch.visual), qmask=put(batch.qmask),
                 umask=put(batch.umask), label=put(batch.label))
 
 
@@ -315,7 +327,7 @@ class Trainer:
 
     def _prepare(self, batch) -> Dict[str, Tensor]:
         """A batch's arrays as tensors on the trainer's device."""
-        return prepare_inputs(batch, self.device)
+        return prepare_inputs(batch, self.device, self.cfg.transfer_dtype)
 
     def _put(self, batch) -> Dict[str, Tensor]:
         """The step's inputs: the batch, or with a mesh this rank's block

@@ -447,7 +447,8 @@ class VmapSweep:
                                best_test_acc=meta["best_test_acc"],
                                history=meta["history"])
         self.init_states()
-        test_batches = [(b, prepare_inputs(b, self.device)) for b in
+        test_batches = [(b, prepare_inputs(b, self.device,
+                                           cfg.transfer_dtype)) for b in
                         BucketBatcher(test_dialogues, cfg.batch_size,
                                       info["n_speakers"],
                                       cfg.buckets).epoch()]
@@ -498,7 +499,8 @@ class VmapSweep:
             mask_sums: List[float] = []
             for i, batch in enumerate(batcher.epoch(e)):
                 if active.any():
-                    inputs = prepare_inputs(batch, self.device)
+                    inputs = prepare_inputs(batch, self.device,
+                                            self.cfg.transfer_dtype)
                     for k, loss in enumerate(self.step(inputs, e, i,
                                                        active)):
                         if loss is not None:

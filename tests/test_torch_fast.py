@@ -112,7 +112,7 @@ def test_plain_bf16_forward_matches_the_jax_train_kernel():
         T = torch.from_numpy
         run = lambda bf16: gcnii_stack_plain(
             T(adj), T(h), T(h0), T(W), T(theta), *map(T, lstm), alpha=ALPHA,
-            reason=True, bf16=bf16).numpy()
+            reason=True, mode="bf16" if bf16 else "f32").numpy()
         assert _scaled_err(run(True), want) < 2e-5
         assert _scaled_err(run(False), want) > 1e-4
 
@@ -137,12 +137,13 @@ def test_plain_bf16_backward_matches_the_jax_train_kernel():
     B, N, H = h.shape
 
     def grads(bf16):
-        res = residual_slabs((B, W.shape[0], N, H), bf16, "cpu")
+        mode = "bf16" if bf16 else "f32"
+        res = residual_slabs((B, W.shape[0], N, H), mode, "cpu")
         gcnii_stack_plain(T(adj), T(h), T(h0), T(W), T(theta), *map(T, lstm),
-                          alpha=ALPHA, reason=True, residuals=res, bf16=bf16)
+                          alpha=ALPHA, reason=True, residuals=res, mode=mode)
         return [g.numpy() for g in gcnii_stack_bwd_plain(
             T(adj), T(h0), T(W), T(theta), *map(T, lstm), res, T(dh),
-            alpha=ALPHA, reason=True, bf16=bf16)]
+            alpha=ALPHA, reason=True, mode=mode)]
 
     def within(got):
         # (d_adj, d_h, d_h0, dW, dW_ih, dW_hh, db): JAX's order is (adj,
@@ -181,7 +182,7 @@ def test_flagship_under_tpu_fast_matches_jax(pickle_path):
               class_weight=True, buckets=(12,))
     cfg = ExperimentConfig(**kw).with_tpu_fast()
     tr = Trainer(cfg, device="cpu")
-    assert tr.model.graph_model.graph_net.bf16
+    assert tr.model.graph_model.graph_net.mode == "bf16"
     jtr = JTrainer(JConfig(**kw).with_tpu_fast())
     shapes = jax.eval_shape(lambda: jtr._init_variables(
         jax.random.PRNGKey(0), jtr._example_inputs()))["params"]
@@ -264,36 +265,43 @@ def test_latency_bench_serves_the_fast_config(capsys):
 
 def test_what_jax_sends_to_the_bf16_scan_raises():
     """Where JAX's ``GCNIIStack`` runs its layer scan, ``gcn_compute_
-    dtype='bfloat16'`` is JAX's bf16 scan mode, which the port does not
-    compute: GF2 and DeepGCN under ``with_tpu_fast()``, the stack with
-    ``variant=False``, with dropout before each layer, after the loop,
-    over 64 layers, or with a node-sharded product; and the encoders'
-    ``rnn_compute_dtype='bfloat16'``.  The flagship and the families
-    without a GCNII stack build; ``gcn_backend='pallas'`` alone on the
-    scan path is JAX's f32 scan, which the port runs."""
+    dtype='bfloat16'`` is JAX's bf16 scan mode, which the port runs as
+    kernels B and D's bf16 scan mode: GF2 and DeepGCN under
+    ``with_tpu_fast()``, the stack with ``variant=False``, with dropout
+    before each layer, after the loop, over 64 layers, or with a
+    node-sharded product, and any stack under ``gcn_compute_dtype`` alone.
+    Only the encoders' ``rnn_compute_dtype='bfloat16'`` still raises.  The
+    flagship's stack takes the bf16 mode, and the families without a GCNII
+    stack build; ``gcn_backend='pallas'`` alone on the scan path is JAX's
+    f32 scan, which the port runs."""
     fast = dict(backend="pallas", compute_dtype="bfloat16")
-    refused = [
-        lambda: build_model(ExperimentConfig(graph_type="GF2")
-                            .with_tpu_fast()),
-        lambda: build_model(ExperimentConfig(graph_type="DeepGCN",
+    stacks = lambda m: [s for s in m.modules() if isinstance(s, GCNIIStack)]
+    scan = [
+        *stacks(build_model(ExperimentConfig(graph_type="GF2")
+                            .with_tpu_fast())),
+        *stacks(build_model(ExperimentConfig(graph_type="DeepGCN",
                                              Deep_GCN_nlayers=2)
-                            .with_tpu_fast()),
-        lambda: MMGCN(200, 2, 100, reason_flag=True, variant=False, **fast),
-        lambda: GCNIIStack(24, 2, 32, dropout_mode="before",
-                           post_loop_dropout=True, **fast),
-        lambda: GCNIIStack(24, 2, 32, post_loop_dropout=True, **fast),
-        lambda: GCNIIStack(24, 65, 32, **fast),
-        lambda: GCNIIStack(24, 2, 32, spmm=lambda a, h: a @ h, **fast),
-        lambda: GCNIIStack(24, 2, 32, compute_dtype="bfloat16"),
-        lambda: build_model(ExperimentConfig(graph_type="relation",
-                                             rnn_compute_dtype="bfloat16")),
+                            .with_tpu_fast())),
+        MMGCN(200, 2, 100, reason_flag=True, variant=False,
+              **fast).graph_net,
+        GCNIIStack(24, 2, 32, dropout_mode="before", post_loop_dropout=True,
+                   **fast),
+        GCNIIStack(24, 2, 32, post_loop_dropout=True, **fast),
+        GCNIIStack(24, 65, 32, **fast),
+        GCNIIStack(24, 2, 32, spmm=lambda a, h: a @ h, **fast),
+        GCNIIStack(24, 2, 32, compute_dtype="bfloat16"),
+        *stacks(build_model(ExperimentConfig(
+            graph_type="GDF", Deep_GCN_nlayers=2,
+            gcn_compute_dtype="bfloat16"))),
     ]
-    for build in refused:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build()
-    assert GCNIIStack(24, 64, 32, **fast).bf16
-    assert not GCNIIStack(24, 2, 32, post_loop_dropout=True,
-                          backend="pallas").bf16
+    assert len(scan) == 11
+    assert all(s.mode == "bf16_scan" for s in scan)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(ExperimentConfig(graph_type="relation",
+                                     rnn_compute_dtype="bfloat16"))
+    assert GCNIIStack(24, 64, 32, **fast).mode == "bf16"
+    assert GCNIIStack(24, 2, 32, post_loop_dropout=True,
+                      backend="pallas").mode == "f32"
     for gt in ("GDF", "GF", "relation", "GCN3", "None"):
         build_model(ExperimentConfig(graph_type=gt, Deep_GCN_nlayers=2)
                     .with_tpu_fast())

@@ -63,7 +63,7 @@ def _plain(adj, h, params, theta, bf16=False):
         T(adj), T(h), T(h), T(params["conv_w"]), T(theta),
         T(params["reason_w_ih"]), T(params["reason_w_hh"]),
         T(params["reason_b_ih"] + params["reason_b_hh"]),
-        alpha=ALPHA, reason=True, bf16=bf16).numpy()
+        alpha=ALPHA, reason=True, mode="bf16" if bf16 else "f32").numpy()
 
 
 def test_plain_matches_jax_fused_kernel_and_scan():

@@ -115,7 +115,7 @@ def _residuals(adj, h, h0, W, theta, lstm, reason, rate=0.0, seed=None,
            for _ in (RESIDUALS_BF16 if bf16 else RESIDUALS)]
     out = gcnii_stack_fwd(adj, h, h0, W, theta, *lstm, alpha=ALPHA,
                           reason=reason, rate=rate, seed=seed, residuals=res,
-                          bf16=bf16)
+                          mode="bf16" if bf16 else "f32")
     return out, res
 
 
@@ -138,7 +138,7 @@ def test_bwd_plain_against_the_jax_train_kernel_at_rate_0():
                         tuple(map(T, lstm)), True, bf16=True)
     got = gcnii_stack_bwd_plain(T(adj), T(h0), T(W), T(theta),
                                 *map(T, lstm), res, T(dh), alpha=ALPHA,
-                                reason=True, bf16=True)
+                                reason=True, mode="bf16")
     # (d_adj, d_h, d_h0, dW, dW_ih, dW_hh, db) against the JAX order
     # (adj, h_entry, h0, W, ih, hh, b).  The bf16 mode computes that
     # kernel's function, its backward recomputing from the bf16 residuals:

@@ -494,7 +494,7 @@ def _kernel_d_bf16_decisions(tol):
     each decision that differs from the plain recompute of pre from the
     same bf16 slabs lies within ``tol`` of 0, where two summation orders
     may decide apart."""
-    args, kw, tdpre = gcnii_stack_bwd.last
+    args, kw, tdpre = gcnii_stack_bwd.kept[-1]
     masks = [t != 0 for t in tdpre]
     seen = []
     ref = gcnii_stack_bwd_plain(*args, relu_masks=masks, relu_inputs=seen,
@@ -522,7 +522,7 @@ def test_gcnii_bf16_kernels_match_plain(B, L, nl, reason):
     adj, h, h0, W, theta, ih, hh, lb = args
     N = 3 * L
     seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
-    opts = dict(alpha=0.2, reason=reason, bf16=True)
+    opts = dict(alpha=0.2, reason=reason, mode="bf16")
     fwd_args = args if reason else args[:5]
     before = gcnii_stack_fwd.launches
     res, res2, res_p = (_bf16_slabs(B, nl=nl, N=N) for _ in range(3))
@@ -547,17 +547,16 @@ def test_gcnii_bf16_kernels_match_plain(B, L, nl, reason):
 
     dh = torch.randn(out.shape, generator=g).to(dev)
     bwd_args = (adj, h0, W, theta, ih, hh, lb, res, dh)
-    bopts = dict(alpha=0.2, reason=reason, rate=0.4, seed=seed, bf16=True)
+    bopts = dict(alpha=0.2, reason=reason, rate=0.4, seed=seed, mode="bf16")
     before = gcnii_stack_bwd.launches
-    gcnii_stack_bwd.keep_last = True
+    gcnii_stack_bwd.kept = []
     try:
         got = gcnii_stack_bwd(*bwd_args, **bopts)
         torch.cuda.synchronize()
         ref = _kernel_d_bf16_decisions(BF16_RTOL * scale)
         again = gcnii_stack_bwd(*bwd_args, **bopts)
     finally:
-        gcnii_stack_bwd.keep_last = False
-        gcnii_stack_bwd.last = None
+        gcnii_stack_bwd.kept = None
     torch.cuda.synchronize()
     assert gcnii_stack_bwd.launches - before == 2 * gcnii_bwd_launches(
         nl, reason)
@@ -584,7 +583,7 @@ def test_gcnii_bf16_config_axis_launch_equals_solo_launches():
     N = 3 * L
     seed = torch.tensor([0x5DEECE66D1234], dtype=torch.int64, device=dev)
     rate = make_drop_rate(RATES_K, device=dev)
-    opts = dict(alpha=0.2, reason=True, bf16=True)
+    opts = dict(alpha=0.2, reason=True, mode="bf16")
     res = _bf16_slabs(K, B, nl=nl, N=N)
     before = gcnii_stack_fwd.launches
     out = gcnii_forward(*per[:4], theta, *per[4:], rate=rate, seed=seed,
@@ -592,6 +591,152 @@ def test_gcnii_bf16_config_axis_launch_equals_solo_launches():
     assert gcnii_stack_fwd.launches - before == gcnii_fwd_launches(
         nl, True, DESIGNS["tiled"])
     g = torch.Generator().manual_seed(12)
+    dh = torch.randn(K, B, N, H, generator=g).to(dev)
+    adj, _, h0, W, ih, hh, lb = per
+    got = gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res, dh, rate=rate,
+                          seed=seed, **opts)
+    torch.cuda.synchronize()
+    for k, r in enumerate(RATES_K):
+        res_k = _bf16_slabs(B, nl=nl, N=N)
+        s_k = seed if r else None
+        want = gcnii_forward(*sets[k], rate=r, seed=s_k, residuals=res_k,
+                             **opts)
+        assert torch.equal(out[k], want), k
+        assert all(torch.equal(a[k], b) for a, b in zip(res, res_k)), k
+        a_k = sets[k]
+        want = gcnii_stack_bwd(a_k[0], a_k[2], a_k[3], theta, *a_k[5:],
+                               res_k, dh[k], rate=r, seed=s_k, **opts)
+        for a, b in zip(got, want):
+            assert torch.equal(a[k], b), k
+
+
+# the bf16 scan mode against its plain version: both round every op to
+# bf16 at the same points and sum each product in f32 in another order;
+# where that rounds a value to the neighbouring bf16 number, the two differ
+# by one bf16 step of it (on the card, B = 32, N = 240: the forward and
+# d_adj, d_h, d_h0 equal, the weight gradients' sums one step apart in at
+# most 2.2e-4 of their elements).  So at most SCAN_SHARE of the elements
+# may differ, none by more than SCAN_CAP_STEPS bf16 steps of the scale
+# (2^-8 of its max |.|; chip_smoke.py's bounds); kernel D's ReLU
+# decisions that differ from the plain recompute on its slabs within
+# SCAN_DECISION_STEPS steps of max |h| of 0.
+SCAN_STEP = 2.0 ** -8
+SCAN_SHARE, SCAN_CAP_STEPS, SCAN_DECISION_STEPS = 1e-3, 2.0, 1.0
+
+
+def _scan_agree(got, want, scale=None):
+    s = float(want.abs().max().clamp(min=1e-6)) if scale is None else scale
+    d = (got.float() - want.float()).abs()
+    share = float((d > 0).float().mean())
+    assert share <= SCAN_SHARE and float(d.max()) <= (
+        SCAN_CAP_STEPS * SCAN_STEP * s), (share, float(d.max()), s)
+
+
+def _on_bf16_grid(*ts):
+    return all(torch.equal(t, t.to(torch.bfloat16).float()) for t in ts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reason,variant,last_f32", [
+    (True, True, False), (False, True, True), (True, False, False),
+    (False, False, False)])
+@pytest.mark.parametrize("B,L,nl", [(32, 80, 16), (3, 43, 4)])
+def test_gcnii_scan_kernels_match_plain(B, L, nl, reason, variant, last_f32):
+    """The bf16 scan mode (JAX's bf16 layer scan) of kernel B, in training
+    mode (dropout 0.4, the three bf16 slabs) and serving, and of kernel D
+    on the kernel's slabs, against the plain scan (ops/gcnii.py:
+    _scan_plain, _scan_bwd_plain) in the wirings the port sends to it (the
+    reason-LSTM on and off, ``variant=False`` on W unfolded, GF2's last
+    dropout in f32), at the training shape and a ragged one: kernel D at
+    its own ReLU decisions, each that differs from the plain recompute
+    within the forward's tolerance of 0; every output a bf16 value (but
+    the f32 last dropout's); both bit-equal over two calls, each with its
+    documented launch count."""
+    from mmdfn_torch.ops.gcnii import SCAN
+
+    dev = _card()
+    args, g = _gcnii_args(dev, B, L, nl, reason, 53 * B + L)
+    adj, h, h0, W, theta, ih, hh, lb = args
+    if reason:
+        lb = torch.stack([lb, (torch.rand(4 * H, generator=g) * 0.2
+                               - 0.1).to(dev)])
+    if not variant:
+        W = W[:, :H].contiguous()
+    N = 3 * L
+    seed = torch.tensor([0x5DEECE66D4321], dtype=torch.int64, device=dev)
+    opts = dict(alpha=0.1, reason=reason, mode=SCAN, variant=variant,
+                last_drop_f32=last_f32)
+    fwd_args = (adj, h, h0, W, theta, ih, hh, lb)
+    before = gcnii_stack_fwd.launches
+    res, res2, res_p = (_bf16_slabs(B, nl=nl, N=N) for _ in range(3))
+    out = gcnii_stack_fwd(*fwd_args, rate=0.4, seed=seed, residuals=res,
+                          **opts)
+    out2 = gcnii_stack_fwd(*fwd_args, rate=0.4, seed=seed, residuals=res2,
+                           **opts)
+    torch.cuda.synchronize()
+    assert gcnii_stack_fwd.launches - before == 2 * gcnii_fwd_launches(
+        nl, reason, DESIGNS["tiled"], SCAN)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, b) for a, b in zip(res, res2))
+    assert last_f32 or _on_bf16_grid(out)
+    want = gcnii_stack_plain(*fwd_args, rate=0.4, seed=seed,
+                             residuals=res_p, **opts)
+    scale = float(want.abs().max().clamp(min=1.0))
+    _scan_agree(out, want, scale)
+    for a, b in zip(res, res_p):
+        _scan_agree(a, b, scale)
+    serve = gcnii_stack_fwd(*fwd_args, **opts)
+    assert _on_bf16_grid(serve)
+    _scan_agree(serve, gcnii_stack_plain(*fwd_args, **opts), scale)
+
+    dh = torch.randn(out.shape, generator=g).to(dev)
+    bwd_args = (adj, h0, W, theta, ih, hh, lb, res, dh)
+    bopts = dict(opts, rate=0.4, seed=seed)
+    before = gcnii_stack_bwd.launches
+    gcnii_stack_bwd.kept = []
+    try:
+        got = gcnii_stack_bwd(*bwd_args, **bopts)
+        torch.cuda.synchronize()
+        ref = _kernel_d_bf16_decisions(SCAN_DECISION_STEPS * SCAN_STEP
+                                       * scale)
+        again = gcnii_stack_bwd(*bwd_args, **bopts)
+    finally:
+        gcnii_stack_bwd.kept = None
+    torch.cuda.synchronize()
+    assert gcnii_stack_bwd.launches - before == 2 * gcnii_bwd_launches(
+        nl, reason, SCAN)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    n = 7 if reason else 4
+    assert _on_bf16_grid(*got[:n])
+    for a, b in zip(got[:n], ref[:n]):
+        _scan_agree(a, b)
+
+
+@pytest.mark.gpu
+def test_gcnii_scan_config_axis_launch_equals_solo_launches():
+    """The bf16 scan mode of kernels B (training mode) and D over K = 3
+    configurations in one call each (B = 8, N = 120, 4 layers, the
+    reason-LSTM), the rates {0, 0.2, 0.4} read per configuration: against
+    3 solo calls at the static rates, bit for bit (outputs, the bf16
+    slabs, every gradient)."""
+    from mmdfn_torch.nn.drop_override import make_drop_rate
+    from mmdfn_torch.ops.gcnii import SCAN
+
+    dev = _card()
+    K, B, L, nl = len(RATES_K), 8, 40, 4
+    sets = []
+    for k in range(K):
+        a, g = _gcnii_args(dev, B, L, nl, True, 700 + k)
+        sets.append((*a[:7], torch.stack([a[7], a[7].flip(0)])))
+    theta = sets[0][4]
+    per = [torch.stack([s[i] for s in sets]) for i in (0, 1, 2, 3, 5, 6, 7)]
+    N = 3 * L
+    seed = torch.tensor([0x5DEECE66D4321], dtype=torch.int64, device=dev)
+    rate = make_drop_rate(RATES_K, device=dev)
+    opts = dict(alpha=0.1, reason=True, mode=SCAN)
+    res = _bf16_slabs(K, B, nl=nl, N=N)
+    out = gcnii_forward(*per[:4], theta, *per[4:], rate=rate, seed=seed,
+                        residuals=res, **opts)
     dh = torch.randn(K, B, N, H, generator=g).to(dev)
     adj, _, h0, W, ih, hh, lb = per
     got = gcnii_stack_bwd(adj, h0, W, theta, ih, hh, lb, res, dh, rate=rate,

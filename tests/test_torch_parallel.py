@@ -231,7 +231,11 @@ def test_sharded_products_and_stack_match_jax(groups):
     """``sharded_spmm``, ``sharded_spmm_batched`` (N = 24 and a ragged 21)
     and ``sharded_gcnii_stack`` (variant and not) on 2 model ranks against
     JAX's on a model-axis-2 mesh; the hook's gradients of ``adj`` and
-    ``h`` against the dense ``bmm``'s, on every rank."""
+    ``h`` against the dense ``bmm``'s, on every rank; and the hook on bf16
+    operands (the bf16 scan mode's) against the dense bf16 product, and
+    the bf16 scan stack with the hook against it without (3 layers,
+    dropout 0.4), the output and both gradients each within one bf16 step
+    of the element."""
     ins = _products_inputs()
     mesh = j_make_mesh(n_data=1, n_model=2)
     J = jnp.asarray
@@ -259,6 +263,12 @@ def test_sharded_products_and_stack_match_jax(groups):
             np.testing.assert_allclose(y, yd, atol=1e-5)
             np.testing.assert_allclose(dadj, dadj_d, atol=1e-5)
             np.testing.assert_allclose(dh, dh_d, atol=1e-5)
+            for hook, dense in (("hook_bf16", "dense_bf16"),
+                                ("scan_stack_hook", "scan_stack_dense")):
+                for got, want16 in zip(r["batched"][c][hook],
+                                       r["batched"][c][dense]):
+                    np.testing.assert_allclose(got, want16, rtol=2.0 ** -7,
+                                               atol=0.0, err_msg=hook)
 
 
 def test_mmgcn_with_the_sharded_product_matches_jax_dense(groups):
