@@ -211,7 +211,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    loss, every gradient within ``SCAN_GRAD_STEPS`` bf16 steps of its max
    |.|), 10 timed steps, and one served 37-utterance dialogue of GF2 and
    of DeepGCN against the plain model;
-16. parallel: the multi-device layer on the one card, its ranks started
+16. rnn_bf16: the encoders' bf16 recurrence (``rnn_compute_dtype=
+   'bfloat16'``), kernels A and C in their bf16 scan mode (JAX's bf16
+   ``_gru_scan``: every op rounded to bf16, h and dh carried in bf16,
+   dW_hh and db_hh summed step by step and then over the steps in bf16):
+   A at the serve shapes (B = 6, L = 64 and 200) and A and C at the
+   training step's (B = 32 and 192, L = 80) against the plain scan and
+   the plain walk, each held by ``scan_agree`` (dW_hh and db_hh within
+   ``RNN_W_STEPS`` bf16 steps of their max), C twice for the same bits,
+   timed beside the f32 mode in the same call, the plain versions and
+   cuDNN's GRU on bf16 tensors; a config axis of 4 bit for bit its 4
+   solo launches; then the flagship step built by ``run_train_erc`` with
+   ``--rnn_compute_dtype bfloat16`` alone (the encoders in the scan mode)
+   and with ``--tpu_fast`` (their bf16 mode: the f32 kernels on bf16
+   operands), each against its plain step (loss, every gradient within
+   ``SCAN_GRAD_STEPS`` bf16 steps of its max), exactly A 4, C 4, B 49, D
+   116 a step, 10 timed steps each (the train phase times the parity
+   step in the same call), and one served 37-utterance dialogue each
+   against the plain model;
+17. parallel: the multi-device layer on the one card, its ranks started
    by ``runtime/launch.py`` (two ranks share the card over gloo, so their
    walls measure sharing, not scaling): (a) the flagship at the train
    phase's settings, dropout 0, on 2 data ranks of 16 dialogues (B = 32
@@ -345,6 +363,16 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(torch, fn) -> float:
+    """One call's wall time, ended by a synchronize: for a plain version of
+    thousands of small launches, paced by the host, timed once."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def device_ms(torch, fn, reps: int) -> float:
@@ -1180,12 +1208,12 @@ def trainer_for(cfg, dev, build=None):
 
 
 def step_check(torch, dev, cfg, batch, hold_decisions=False,
-               build=None) -> dict:
+               build=None, grad_rtol=STEP_GRAD_RTOL) -> dict:
     """One training step with the kernels and one under ``ops.plain_ops()``
     from the same weights (``cfg.seed``; ``build`` as in
     :func:`trainer_for`) and step seed: the loss to
     ``STEP_LOSS_RTOL`` relative and every parameter's gradient to
-    ``STEP_GRAD_RTOL`` of its max |.|; the kernel step must launch kernels
+    ``grad_rtol`` of its max |.|; the kernel step must launch kernels
     A and C, and B and D where the model has a GCNII stack.
 
     With ``hold_decisions`` it also counts the GCNII stack's ReLU decisions
@@ -1243,7 +1271,7 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False,
            "grad_rel_err_by_param_top": sorted(
                errs.items(), key=lambda kv: -kv[1])[:5],
            "launches": counts}
-    ok = loss_err <= STEP_LOSS_RTOL and max(errs.values()) <= STEP_GRAD_RTOL
+    ok = loss_err <= STEP_LOSS_RTOL and max(errs.values()) <= grad_rtol
     if hold_decisions:
         want = len(stack_calls(cfg, batch["umask"].shape[1]))
         check(len(calls_k) == len(calls_p) == want,
@@ -1271,7 +1299,7 @@ def step_check(torch, dev, cfg, batch, hold_decisions=False,
     check(loss_err <= STEP_LOSS_RTOL,
           f"step loss kernels {loss_k} vs plain {loss_p}")
     for name, e in errs.items():
-        check(e <= STEP_GRAD_RTOL, f"gradient of {name}: {e} of its scale")
+        check(e <= grad_rtol, f"gradient of {name}: {e} of its scale")
     return out
 
 
@@ -1427,14 +1455,14 @@ def meld_config():
         dropout=RATE, gamma=0.5, seed=SEED, buckets=(MELD_L,))
 
 
-def serve_check(torch, dev, cfg, model, dialogues):
+def serve_check(torch, dev, cfg, model, dialogues, tol=SERVE_TOL):
     """``model`` answers every utterance of ``dialogues`` through
     ``StreamingSession``, the launch counts zeroed just before and read
     just after: kernel A twice per bi-GRU a forward, kernel B its
     documented launches per GCNII stack call; every append's log-probs
-    finite, normalized and within ``SERVE_TOL`` of the same model run with
-    the plain versions.  Returns (the session, the log-probs, a
-    summary)."""
+    finite, normalized and within ``tol`` (``SERVE_TOL``) of the same
+    model run with the plain versions.  Returns (the session, the
+    log-probs, a summary)."""
     from mmdfn_torch import ops
     from mmdfn_torch.data.batching import bucket_length
     from mmdfn_torch.ops.bigru import _sm_count
@@ -1480,14 +1508,14 @@ def serve_check(torch, dev, cfg, model, dialogues):
     with ops.plain_ops():
         ref, _, _ = replay(StreamingSession(model, cfg, device=dev))
     err = max(float(abs(a - b).max()) for a, b in zip(logps, ref))
-    check(err <= SERVE_TOL, f"served log-probs vs plain: {err}")
+    check(err <= tol, f"served log-probs vs plain: {err}")
     lat_sorted = sorted(lat)
     pct = lambda q: lat_sorted[min(n - 1, int(round(q / 100 * (n - 1))))]
     return session, logps, {
         "appends": n, "dialogue_lengths": [len(d) for d in dialogues],
         "launches": counts, "buckets_used": sorted(set(used)),
         "wall_p50_ms": pct(50), "wall_p90_ms": pct(90),
-        "max_abs_err_vs_plain": err, "tolerance": SERVE_TOL}
+        "max_abs_err_vs_plain": err, "tolerance": tol}
 
 
 def meld_serve(torch, dev, cfg) -> dict:
@@ -3302,7 +3330,7 @@ def fast_kernels(torch, dev) -> dict:
     return result
 
 
-def fast_step_check(torch, dev, cfg, batch) -> dict:
+def fast_step_check(torch, dev, cfg, batch, grad_tol=None) -> dict:
     """One ``--tpu_fast`` training step with the kernels and one under
     ``ops.plain_ops()`` (the bf16 mode's plain versions, the plain
     backward from the bf16 carries) from the same weights and seed, the
@@ -3320,7 +3348,8 @@ def fast_step_check(torch, dev, cfg, batch) -> dict:
     numbers, the gradients upstream of them (the encoders', through the
     adjacency and h0) sum those steps into small differences (1.0e-4 of
     the scale at most on the card; the kernels alone are held tighter in
-    :func:`fast_kernels`)."""
+    :func:`fast_kernels`).  ``grad_tol`` replaces ``FAST_GRAD_RTOL`` (the
+    rnn_bf16 phase's step, whose encoders run in bf16)."""
     import contextlib
 
     from mmdfn_torch import ops
@@ -3373,11 +3402,12 @@ def fast_step_check(torch, dev, cfg, batch) -> dict:
         errs[name] = [float((d - step).max()) / s,
                       float((d > BF16_RTOL * s + step).float().mean())]
     worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
-    check(worst[0][1][0] <= FAST_GRAD_RTOL,
+    tol_g = FAST_GRAD_RTOL if grad_tol is None else grad_tol
+    check(worst[0][1][0] <= tol_g,
           f"the fast step's gradients vs plain: {worst[:5]}")
     return {"launches": counts, "loss_kernels": loss_k, "loss_plain": loss_p,
             "loss_rel_err": loss_err, "grad_max_rel_err": worst[0][1][0],
-            "tolerance": FAST_GRAD_RTOL,
+            "tolerance": tol_g,
             "held_at_kernel_d_decisions": True,
             "relu_decisions_differing_from_plain": flips,
             "max_abs_pre_where_they_differ": flip_pre,
@@ -3829,6 +3859,263 @@ def scan_phase(torch, dev) -> dict:
     return {"card": SMI, "kernels": kernels, "models": steps}
 
 
+# the encoders' bf16 recurrence (rnn_compute_dtype='bfloat16'): kernels A
+# and C's bf16 scan mode (JAX's bf16 _gru_scan) against their plain
+# versions (ops/bigru.py: _scan_plain, and kernel C's walk in plain ops,
+# _scan_bwd_plain): both round every op to bf16 at the same points and sum
+# each product in f32, in another order; where that rounds a value to the
+# neighbouring bf16 number, the two differ by one bf16 step of it, and the
+# recurrence carries the difference on to later steps.  ys, hg and dxg are
+# held by scan_agree (at most SCAN_SHARE of the elements differ, none by
+# more than SCAN_CAP_STEPS bf16 steps of the scale); dW_hh and db_hh
+# (per-step sums over the rows, then a bf16 sum over the steps) within
+# RNN_W_STEPS bf16 steps of their max |.|.  The two flagship steps against
+# their plain steps: the loss to STEP_LOSS_RTOL relative, every gradient
+# within SCAN_GRAD_STEPS bf16 steps of its max |.|.
+RNN_W_STEPS = 2.0
+# The served log-probs with bf16 encoders against the plain model: where
+# the kernel's and the plain version's f32 sums round an encoder output to
+# neighbouring bf16 values (2^-8 of it apart), the log-probs downstream
+# move with it, past SERVE_TOL: measured 1.9e-4 under --tpu_fast (the f32
+# kernels' outputs rounded) and 4.8e-7 with the scan mode, on an H100
+RNN_SERVE_TOL = 1e-3
+
+
+def bf16_gru_inputs(torch, dev, B, L, seed=1, K=None):
+    """:func:`bigru_inputs` rounded to bf16 (the bf16 scan mode's
+    operands); with K, K configurations stacked on a leading axis (the
+    mask shared)."""
+    if K is None:
+        return tuple(t.to(torch.bfloat16) if i < 6 else t for i, t in
+                     enumerate(bigru_inputs(torch, dev, B, L, seed=seed)))
+    solo = [bigru_inputs(torch, dev, B, L, seed=seed + k) for k in range(K)]
+    return tuple(torch.stack([s[i] for s in solo]).to(torch.bfloat16)
+                 for i in range(6)) + (solo[0][6],)
+
+
+def rnn_bounds(B, L):
+    """The bf16 scan mode's bounds, forward and backward, for B rows of L
+    steps and both directions: each input read once and each output
+    written once in bf16 (the mask in f32; the saved hg is an input of the
+    backward, as its residual), the products on bf16 operands at the bf16
+    tensor-core rate (h @ W_hh a step; the backward's dhg @ W_hh^T and its
+    weight-gradient product), the gate math and its roundings at the f32
+    rate (~30 H operations a row and step forward, ~60 backward)."""
+    G = 3 * H
+    rows = 2 * B * L
+    fwd_bytes = 2 * (rows * G + 2 * (H * G + G) + rows * H) + 4 * B * L
+    bwd_bytes = (2 * (2 * rows * G + 2 * rows * H + 2 * (H * G + G))
+                 + 4 * B * L + 2 * (rows * G + 2 * (H * G + G)))
+    return (bound(fwd_bytes, rows * 30 * H, rows * 2 * H * G),
+            bound(bwd_bytes, rows * 60 * H, rows * 2 * (2 * H + 1) * G))
+
+
+def rnn_kernel_case(torch, dev, B, L, train=False) -> dict:
+    """Kernel A's bf16 scan mode at (B, L) (holed masks where B > 1)
+    against the plain scan, timed beside the f32 mode on the same values,
+    the plain scan and cuDNN's GRU on bf16 tensors (a speed yardstick
+    only: its rounding points differ); with ``train`` also A's training
+    mode (its hg) and kernel C's scan mode on what it wrote, against the
+    plain walk on the same ys and hg, twice (the same bits), timed beside
+    the f32 mode's C, the plain walk and cuDNN's backward alone."""
+    from mmdfn_torch.ops import bigru_layer_bwd, bigru_layer_fwd
+    from mmdfn_torch.ops.bigru import _forward, _scan_bwd_plain, _scan_plain
+
+    scan = "bf16_scan"
+    t_case = time.perf_counter()
+    args = bf16_gru_inputs(torch, dev, B, L)
+    f32 = tuple(t.float() for t in args)
+    got = bigru_layer_fwd(*args, mode=scan)
+    torch.cuda.synchronize()
+    want = _scan_plain(*args, with_hg=True)
+    out = {"shape": f"B={B} L={L} H={H}",
+           "ys": [scan_agree(torch, a, b, f"kernel A ys at B={B} L={L}")
+                  for a, b in zip(got, want)]}
+    ms = time_ms(torch, lambda: bigru_layer_fwd(*args, mode=scan), 50)
+    f32_ms = time_ms(torch, lambda: bigru_layer_fwd(*f32), 50)
+    plain_ms = wall_ms(torch, lambda: _scan_plain(*args))
+    gru = cudnn_gru(torch, dev, f32).to(torch.bfloat16)
+    gru.flatten_parameters()
+    with torch.no_grad():
+        library_ms = device_ms(torch, lambda: gru(args[0]), 20)
+    fb, bb = rnn_bounds(B, L)
+    out["fwd"] = {"ms": ms, "f32_ms_same_call": f32_ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms, **fb,
+                  "max_abs_err": max(c["max_abs_err"] for c in out["ys"])}
+    out["case_s"] = time.perf_counter() - t_case
+    if not train:
+        return out
+    ys_f, ys_b, hg_f, hg_b = _forward(*args, with_hg=True, mode=scan)
+    torch.cuda.synchronize()
+    check(torch.equal(ys_f, got[0]) and torch.equal(ys_b, got[1]),
+          f"kernel A's training mode changed ys at B={B}")
+    out["hg"] = [scan_agree(torch, a, b, f"kernel A hg at B={B}")
+                 for a, b in zip((hg_f, hg_b), want[2:])]
+    g = torch.Generator().manual_seed(3)
+    dy = [torch.randn(B, L, H, generator=g).to(dev).to(torch.bfloat16)
+          for _ in range(2)]
+    run = lambda: bigru_layer_bwd(*args, ys_f, ys_b, *dy, hg_f, hg_b,
+                                  mode=scan)
+    kg = [t.clone() for t in run()]
+    again = run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(kg, again)),
+          f"kernel C's scan mode differs between launches at B={B}")
+    t0 = time.perf_counter()
+    pg = _scan_bwd_plain(*args, ys_f, ys_b, *dy, hg_f, hg_b)
+    torch.cuda.synchronize()
+    c_plain_ms = (time.perf_counter() - t0) * 1e3
+    names = ("dxg_f", "dxg_b", "dW_hh_f", "db_hh_f", "dW_hh_b", "db_hh_b")
+    bwd = {}
+    for name, a, b in zip(names, kg, pg):
+        if name.startswith("dxg"):
+            bwd[name] = scan_agree(torch, a, b, f"kernel C {name} at B={B}")
+            continue
+        d = (a.float() - b.float()).abs()
+        steps = float(d.max()) / (SCAN_STEP * float(b.float().abs().max()))
+        check(steps <= RNN_W_STEPS, f"kernel C {name} at B={B}: {steps} "
+                                    "bf16 steps of its max")
+        bwd[name] = {"max_abs_err": float(d.max()),
+                     "max_err_bf16_steps": steps,
+                     "share_differing": float((d > 0).float().mean())}
+    c_ms = time_ms(torch, run, 20)
+    f = _forward(*f32, with_hg=True)
+    dyf = [t.float() for t in dy]
+    c_f32_ms = time_ms(torch, lambda: bigru_layer_bwd(
+        *f32, f[0], f[1], *dyf, f[2], f[3]), 20)
+    x = args[0].clone().requires_grad_()
+    o, _ = gru(x)
+    wrt = [x, gru.weight_hh_l0, gru.bias_hh_l0, gru.weight_hh_l0_reverse,
+           gru.bias_hh_l0_reverse]
+    dout = torch.cat(dy, dim=-1)
+    c_library_ms = device_ms(torch, lambda: torch.autograd.grad(
+        o, wrt, dout, retain_graph=True), 20)
+    out["train_ms"] = time_ms(
+        torch, lambda: _forward(*args, with_hg=True, mode=scan), 50)
+    out["bwd"] = {"ms": c_ms, "f32_ms_same_call": c_f32_ms,
+                  "plain_ms": c_plain_ms, "library_ms": c_library_ms, **bb,
+                  "max_abs_err": max(v["max_abs_err"] for v in bwd.values()),
+                  "checks": bwd}
+    out["case_s"] = time.perf_counter() - t_case
+    return out
+
+
+def rnn_config_axis(torch, dev, K=4, B=TRAIN_B, L=TRAIN_L) -> dict:
+    """Kernels A (training mode) and C in the bf16 scan mode with a config
+    axis of K: one launch each against K solo launches, bit for bit."""
+    from mmdfn_torch.ops import bigru_layer_bwd
+    from mmdfn_torch.ops.bigru import _forward
+
+    scan = "bf16_scan"
+    args = bf16_gru_inputs(torch, dev, B, L, seed=7, K=K)
+    g = torch.Generator().manual_seed(5)
+    dy = [torch.randn(K, B, L, H, generator=g).to(dev).to(torch.bfloat16)
+          for _ in range(2)]
+    ys = _forward(*args, with_hg=True, mode=scan)
+    grads = bigru_layer_bwd(*args, ys[0], ys[1], *dy, ys[2], ys[3],
+                            mode=scan)
+    for k in range(K):
+        solo_args = tuple(t[k] for t in args[:6]) + (args[6],)
+        solo = _forward(*solo_args, with_hg=True, mode=scan)
+        check(all(torch.equal(a[k], b) for a, b in zip(ys, solo)),
+              f"kernel A's scan mode, configuration {k} of {K}")
+        solo_g = bigru_layer_bwd(*solo_args, solo[0], solo[1], dy[0][k],
+                                 dy[1][k], solo[2], solo[3], mode=scan)
+        check(all(torch.equal(a[k], b) for a, b in zip(grads, solo_g)),
+              f"kernel C's scan mode, configuration {k} of {K}")
+    return {"K": K, "shape": f"B={B} L={L}", "bit_equal_to_solo_calls": True}
+
+
+def rnn_bf16_phase(torch, dev) -> dict:
+    """The encoders' bf16 recurrence (``rnn_compute_dtype='bfloat16'``):
+    kernels A and C in their bf16 scan mode at the serve shapes (A, B = 6,
+    L = 64 and 200) and the training step's (``lstm_l``'s B = 32 and
+    ``rnn_parties``' B = 192, L = 80) against their plain versions
+    (:func:`rnn_kernel_case`), a config axis of 4 (:func:`rnn_config_axis`);
+    then the flagship step built by ``run_train_erc`` with
+    ``--rnn_compute_dtype bfloat16`` (a: the encoders in the scan mode, the
+    stack in f32) and with ``--tpu_fast`` too (b: the encoders in the bf16
+    mode, the f32 kernels on bf16 operands; the stack in B and D's bf16
+    mode), each against its plain step (a: held at kernel D's ReLU
+    decisions where the gradients disagree; b: as the fast phase's), both
+    launching exactly A 4, C 4, B 49, D 116, 10 timed steps each (the
+    train phase's are the parity step's, in the same call), and one served
+    37-utterance dialogue each against the plain model."""
+    import numpy as np
+
+    from mmdfn_torch.cli import run_train_erc
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.nn.rnn import BiRNN
+    from mmdfn_torch.weights import build_model
+
+    seconds = {}
+    t0 = time.perf_counter()
+    kernels = {f"B={B} L={L}": rnn_kernel_case(torch, dev, B, L)
+               for B, L in ((6, 64), (6, 200))}
+    for B in (TRAIN_B, 6 * TRAIN_B):
+        kernels[f"B={B} L={TRAIN_L}"] = rnn_kernel_case(torch, dev, B,
+                                                        TRAIN_L, train=True)
+    kernels["config_axis"] = rnn_config_axis(torch, dev)
+    print(json.dumps({"rnn_bf16_kernels": kernels}), flush=True)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    argv = ["--dataset", "IEMOCAP", "--graph_type", "GDF", "--reason_flag",
+            "--class_weight", "--Deep_GCN_nlayers", str(NLAYERS),
+            "--batch-size", str(TRAIN_B), "--speaker_weights", "3-0-1",
+            "--dropout", str(RATE), "--seed", str(SEED)]
+    parse = lambda a: run_train_erc.config_from_args(
+        run_train_erc.build_parser().parse_args(argv + a))
+    knob = ["--rnn_compute_dtype", "bfloat16"]
+    cfgs = {"a_knob_alone": parse(knob),
+            "b_knob_tpu_fast": parse(knob + ["--tpu_fast"])}
+    for name, mode in (("a_knob_alone", "bf16_scan"),
+                       ("b_knob_tpu_fast", "bf16")):
+        modes = {m.mode for m in build_model(cfgs[name]).modules()
+                 if isinstance(m, BiRNN)}
+        check(modes == {mode}, f"{name}: the encoders run {modes}")
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(torch, rng, dev) for _ in range(4)]
+    grad_tol = SCAN_GRAD_STEPS * SCAN_STEP
+    want = {"bigru_fwd": 4, "bigru_bwd": 4, "gcnii_fwd": 49,
+            "gcnii_bwd": 116}
+    checked = {"a_knob_alone": step_check(
+        torch, dev, cfgs["a_knob_alone"], batches[0], hold_decisions=True,
+        grad_rtol=grad_tol)}
+    check(checked["a_knob_alone"]["launches"] == want,
+          f"step a's launches {checked['a_knob_alone']['launches']}")
+    checked["b_knob_tpu_fast"] = fast_step_check(
+        torch, dev, cfgs["b_knob_tpu_fast"], batches[0], grad_tol=grad_tol)
+    print(json.dumps({"rnn_bf16_step_check": checked}), flush=True)
+    seconds["step_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys = ("launches", "launches_per_step", "step_ms_median",
+            "dialogues_per_sec", "host_enqueue_ms_per_step",
+            "stream_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "bigru_kernels", "step_peak_mem_gb")
+    timed = {}
+    for name, cfg in cfgs.items():
+        t = timed_steps(torch, dev, cfg, batches)
+        check(t["launches_per_step"] == want, f"{name}: launches a step "
+                                              f"{t['launches_per_step']}")
+        timed[name] = {k: t.get(k) for k in keys}
+    print(json.dumps({"rnn_bf16_train": timed}), flush=True)
+    seconds["timed_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=1, n_test=1,
+                                      min_len=SINGLE_SERVE_LEN,
+                                      max_len=SINGLE_SERVE_LEN, seed=SEED)
+        dialogue = IEMOCAPDataset(f"{tmp}/iem.pkl", train=False).dialogues()
+    served = {name: serve_check(torch, dev, cfgs[name],
+                                build_model(cfgs[name]), dialogue,
+                                tol=RNN_SERVE_TOL)[2]
+              for name in ("a_knob_alone", "b_knob_tpu_fast")}
+    seconds["serve"] = time.perf_counter() - t0
+    return {"card": SMI, "kernels": kernels, "step_check": checked,
+            "train": timed, "serve": served, "seconds": seconds}
+
+
 # the parallel phase: 2 ranks share the card over gloo; a small pickle for
 # the command lines (one epoch of 2 training batches of B = 32)
 PARALLEL_RANKS = 2
@@ -4129,10 +4416,11 @@ def main() -> int:
                       "kernels": list(_build.KERNELS)}), flush=True)
     print(json.dumps({"ptxas": ptxas}), flush=True)
     # the time loops of kernels A and C keep W_hh in registers: no spills
+    # (A: 3 row tilings x serve / training x f32 / bf16 scan; C: 3 x 2)
     loops = [r for r in ptxas if r["lib"] in ("bigru_fwd", "bigru_bwd")
              and ("bigru_fwd_kernel" in r["kernel"]
                  or "bigru_bwd_kernel" in r["kernel"])]
-    check(len(loops) == 9 and all(
+    check(len(loops) == 18 and all(
         r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
         for r in loops), f"bi-GRU time-loop kernels spill: {loops}")
     # kernels B's and D's tiled products keep their register tiles: no
@@ -4181,7 +4469,8 @@ def main() -> int:
                         ("single", single_phase), ("learn", learn_phase),
                         ("sweep", sweep_phase), ("daily", daily_phase),
                         ("raw", raw_phase), ("fast", fast_phase),
-                        ("scan", scan_phase), ("parallel", parallel_phase)):
+                        ("scan", scan_phase), ("rnn_bf16", rnn_bf16_phase),
+                        ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         results[name] = phase(torch, dev)
         seconds[name] = time.perf_counter() - t0
@@ -4190,6 +4479,7 @@ def main() -> int:
                       "profile_windows_without_kernels": PROFILE_MISSES}),
           flush=True)
     train, fast, scan = results["train"], results["fast"], results["scan"]
+    rnn = results["rnn_bf16"]
 
     # the line's numbers: the training step's shapes (the party streams'
     # B = 192 for the bi-GRU kernels; B = 32, N = 240 for the GCNII stack);
@@ -4198,6 +4488,11 @@ def main() -> int:
     fast_launches = fast["train_fast"]["launches"]
     scan_launches = scan["models"]["GF2"]["train"]["launches"]
     scan_cases = [scan["kernels"][c[0]] for c in SCAN_CASES]
+    # the encoders' bf16 scan mode: rnn_parties' shape, launches from step
+    # a's main-path run (the encoders alone in that mode)
+    rnn_launches = rnn["train"]["a_knob_alone"]["launches"]
+    rnn_cases = [c for k, c in rnn["kernels"].items() if k != "config_axis"]
+    rnn_big = rnn["kernels"][f"B={6 * TRAIN_B} L={TRAIN_L}"]
     report = [
         ("bigru_fwd", "cuda", "mmdfn_torch/csrc/bigru_fwd.cu",
          "mmdfn_tpu/ops/pallas_rnn.py:266", cases_a[big],
@@ -4240,11 +4535,27 @@ def main() -> int:
          scan["kernels"]["GF2"]["bwd"],
          max(c["bwd"]["max_abs_err"] for c in scan_cases),
          scan["kernels"]["GF2"]["bwd"]["tolerance"]),
+        # the encoders' bf16 scan mode (rnn_compute_dtype='bfloat16'): the
+        # errors the largest of the cases
+        ("bigru_fwd_bf16_scan", "cuda", "mmdfn_torch/csrc/bigru_fwd.cu",
+         "mmdfn_tpu/ops/pallas_rnn.py:266",
+         {"shape": rnn_big["shape"], **rnn_big["fwd"]},
+         max(c["fwd"]["max_abs_err"] for c in rnn_cases),
+         f"at most {SCAN_SHARE} of the elements differ, none by more than "
+         f"{SCAN_CAP_STEPS} bf16 steps of the scale"),
+        ("bigru_bwd_bf16_scan", "cuda", "mmdfn_torch/csrc/bigru_bwd.cu",
+         "mmdfn_tpu/ops/pallas_rnn.py:298",
+         {"shape": rnn_big["shape"], **rnn_big["bwd"]},
+         max(c["bwd"]["max_abs_err"] for c in rnn_cases if "bwd" in c),
+         f"dxg as the forward's; dW_hh, db_hh within {RNN_W_STEPS} bf16 "
+         "steps of their max"),
     ]
     kernels = []
     for name, route, source, replaces, case, err, tol in report:
         base = name.split("_bf16")[0]
-        launches = (scan_launches[base] if name.endswith("_scan")
+        launches = (rnn_launches[base] if name.startswith("bigru")
+                    and name.endswith("_scan")
+                    else scan_launches[base] if name.endswith("_scan")
                     else fast_launches[base] if name.endswith("_bf16")
                     else train["launches"][name])
         kernels.append({

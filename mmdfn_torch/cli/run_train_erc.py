@@ -26,6 +26,10 @@ GF2's and DeepGCN's stacks, which JAX runs as its bf16 layer scan, in
 kernels B and D's bf16 scan mode (as does every stack under
 ``--gcn_compute_dtype bfloat16`` alone); the relation, GCN3 and None
 families and the baselines run no GCNII stack and train as without it.
+``--rnn_compute_dtype bfloat16`` runs every encoder of the graph models in
+bf16: kernels A and C's bf16 scan mode (JAX's bf16 scans), or with
+``--tpu_fast`` (``rnn_backend='pallas'``) their bf16 mode (JAX's fused
+kernel on bf16 operands).
 ``--transfer_dtype bfloat16`` copies the features to the card as bf16.
 Every graph family trains with any multimodal ``--mm_fusion_mthd``;
 relation, DeepGCN, GCN3 and None also on one stream (``--no_multi_modal
@@ -189,13 +193,17 @@ def build_parser() -> argparse.ArgumentParser:
              "fused kernel): kernels B and D's bf16 scan mode")
     add("--rnn_compute_dtype", type=str, default=None,
         choices=["float32", "bfloat16"],
-        help="'bfloat16' (the encoders' bf16 scans): not ported, raises")
+        help="'bfloat16': the encoders in bf16 (kernels A and C's bf16 "
+             "scan mode, JAX's bf16 scans; with --rnn_backend pallas or "
+             "--tpu_fast their bf16 mode, JAX's fused kernel on bf16 "
+             "operands)")
     add("--gcn_bwd_block", type=int, default=None,
         help="accepted; changes nothing: kernel D contracts all rows in one "
              "product (the same sums up to their order)")
     add("--rnn_backend", type=str, default=None, choices=["xla", "pallas"],
-        help="accepted; changes nothing: kernels A and C compute the f32 "
-             "recurrence of either JAX backend")
+        help="'pallas': with --rnn_compute_dtype bfloat16, kernels A and "
+             "C's bf16 mode (JAX's fused kernel); in f32 both backends are "
+             "kernels A and C's f32 recurrence")
     add("--rnn_scan_remat", action="store_true", default=False,
         help="accepted; changes nothing: JAX's remat saves memory only")
     add("--rng_impl", type=str, default=None,

@@ -125,7 +125,11 @@ class ExperimentConfig:
                                             # the layer scan in bf16 (no
                                             # fused kernel), kernels B and
                                             # D's bf16 scan mode
-    rnn_compute_dtype: Optional[str] = None  # 'bfloat16': not ported, raises
+    rnn_compute_dtype: Optional[str] = None  # 'bfloat16': the encoders in
+                                            # bf16 (nn/rnn.py:rnn_mode):
+                                            # kernels A and C's bf16 scan
+                                            # mode, or under rnn_backend=
+                                            # 'pallas' their bf16 mode
     rnn_scan_remat: bool = False            # accepted: kernels A and C keep
                                             # what the backward reads either
                                             # way (memory only in JAX)
@@ -140,9 +144,13 @@ class ExperimentConfig:
                                             # kernel (nn/gcn.py:GCNIIStack)
     gcn_bwd_block: Optional[int] = None     # accepted: kernel D contracts
                                             # all rows in one product
-    rnn_backend: Optional[str] = None       # accepted: kernels A and C
-                                            # compute either JAX backend's
-                                            # f32 function
+    rnn_backend: Optional[str] = None       # 'pallas': with rnn_compute_
+                                            # dtype='bfloat16', JAX's fused
+                                            # kernel on bf16 operands
+                                            # (kernels A and C's bf16 mode);
+                                            # in f32 both JAX backends
+                                            # compute kernels A and C's f32
+                                            # function
     transfer_dtype: str = "float32"         # 'bfloat16': the features
                                             # rounded to bf16 on the host,
                                             # copied as bf16 and widened on
@@ -201,8 +209,9 @@ class ExperimentConfig:
 
     # the JAX package's production configuration (mmdfn_tpu/config.py:
     # 222-236): in the port, the GCNII stack's bf16 mode where JAX takes
-    # its fused training kernel and its bf16 scan mode elsewhere; the other
-    # knobs change nothing here
+    # its fused training kernel and its bf16 scan mode elsewhere, and with
+    # rnn_compute_dtype='bfloat16' the encoders' bf16 mode (rnn_backend);
+    # the other knobs change nothing here
     TPU_FAST_KNOBS = dict(
         gcn_compute_dtype="bfloat16", rnn_scan_remat=True,
         rnn_backend="pallas", gcn_backend="pallas", gcn_bwd_block=2,
@@ -211,14 +220,6 @@ class ExperimentConfig:
     def with_tpu_fast(self) -> "ExperimentConfig":
         """This config with every knob of ``TPU_FAST_KNOBS`` set."""
         return replace(self, **self.TPU_FAST_KNOBS)
-
-    def check_ported(self) -> None:
-        """Raise for a knob whose function the port does not compute yet:
-        the encoders' bf16 scans (``rnn_compute_dtype='bfloat16'``)."""
-        if self.rnn_compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "rnn_compute_dtype='bfloat16' (the encoders' bf16 scans) is "
-                "not ported yet; the port computes the f32 recurrence only")
 
 
 def flagship_config(nlayers: int = 16, seed: int = 2021) -> ExperimentConfig:

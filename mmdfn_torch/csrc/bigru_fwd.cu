@@ -15,6 +15,21 @@
 // gate pre-activations that the backward (bigru_bwd.cu) reads instead of
 // recomputing them.
 //
+// Scan mode (kScan; the port's 'bf16_scan', JAX's bf16 _gru_scan,
+// mmdfn_tpu/nn/rnn.py:47-95): the operands come in bf16-exact (W_hh, b_hh,
+// xg), values stay in f32 registers and each op's result is rounded to
+// bf16 (round to nearest even) where JAX's bf16 op rounds it:
+//   hg  = bf16(bf16(h @ W_hh) + b_hh)      (the product summed in f32)
+//   r   = sig(bf16(xr + hr)), z likewise, sig(x) = bf16(1 / bf16(1 +
+//         bf16(exp(-x))))
+//   n   = bf16(tanh(bf16(xn + bf16(r hn))))
+//   h'  = bf16(bf16(bf16(1 - z) n) + bf16(z h))
+// so h is carried in bf16; the training mode writes that hg (in f32, for
+// kernel C).  xg, W_hh, b_hh and ys are bf16 arrays: the fetching warp
+// copies xg's bf16 rows into the ring as they are (cp.async, 8 bytes at a
+// time, into the first half of each row's f32 place), and the lanes that
+// read a value widen it.
+//
 // Bound: a serial chain of L dependent steps.  Each step multiplies 1-4
 // rows by the 100 x 300 W_hh: far below one tensor-core tile, and the bytes
 // and FLOPs of a whole launch are tens of microseconds of the card's rates
@@ -52,9 +67,11 @@
 // K = 1 is a run alone.
 //
 // C interface: pointers are device pointers; the stream is the caller's.
-// hg_f / hg_b are null in serve mode.  Returns cudaErrorInvalidValue for an
+// hg_f / hg_b are null in serve mode; scan != 0 selects the scan mode,
+// whose xg, W_hh, b_hh and ys are bf16 (hg stays f32).  Returns cudaErrorInvalidValue for an
 // H or BT the kernel does not take, else cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -77,6 +94,40 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// x rounded to bf16 (to nearest even), held in f32
+__device__ __forceinline__ float rd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// JAX's bf16 logistic: 1 / (1 + exp(-x)), each op rounded
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  return rd(1.0f / rd(1.0f + rd(expf(-x))));
+}
+
+// the element type of xg, W_hh, b_hh and ys: f32, or bf16 in the scan mode
+template <bool kScan>
+struct Io {
+  using T = float;
+};
+template <>
+struct Io<true> {
+  using T = __nv_bfloat16;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// a read-only load, widened to f32
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // where hidden index k sits in a row laid out by slices
 __device__ __forceinline__ int slot_of(int k) {
   return (k / kK) * kKP + k % kK;
@@ -85,6 +136,12 @@ __device__ __forceinline__ int slot_of(int k) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                "l"(src) : "memory");
 }
 
@@ -155,13 +212,37 @@ __device__ __forceinline__ void fetch(float* slot, const float* xg,
     cp_async4(slot + BT * kG + lane, mask + (long long)(b0 + lane) * L + t);
 }
 
+// the same from bf16 xg: each row's bf16 values, as they are, in the first
+// half of its place in the slot (read back by x_at)
+template <int BT>
+__device__ __forceinline__ void fetch(float* slot, const __nv_bfloat16* xg,
+                                      const float* mask, int g0, int b0,
+                                      int nb, int t, int L, int lane) {
+  for (int r = 0; r < nb; ++r) {
+    const __nv_bfloat16* src = xg + ((long long)(g0 + r) * L + t) * kG;
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(slot + r * kG);
+    for (int v = 4 * lane; v < kG; v += 4 * 32) cp_async8(dst + v, src + v);
+  }
+  if (lane < nb)
+    cp_async4(slot + BT * kG + lane, mask + (long long)(b0 + lane) * L + t);
+}
+
+// value j of a row's xg in a slot, as fetch stored it
+template <bool kScan>
+__device__ __forceinline__ float x_at(const float* x, int j) {
+  if (kScan)
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[j]);
+  return x[j];
+}
+
 // one direction's walk; kDir is 0 (forward) or 1 (backward), fixed at
 // compile time so that its operands stay kernel parameters, not registers
-template <int BT, bool kTrain, int kDir>
+template <int BT, bool kTrain, bool kScan, int kDir,
+          typename T = typename Io<kScan>::T>
 __device__ __forceinline__ void fwd_walk(
-    const float* __restrict__ xg, const float* __restrict__ w,
-    const float* __restrict__ bias, long long sk, long long s0, long long s1,
-    const float* __restrict__ mask, float* __restrict__ ys,
+    const T* __restrict__ xg, const T* __restrict__ w,
+    const T* __restrict__ bias, long long sk, long long s0, long long s1,
+    const float* __restrict__ mask, T* __restrict__ ys,
     float* __restrict__ hg, int B, int L) {
   constexpr int kSlot = BT * kG + 8;
   extern __shared__ __align__(16) float smem[];
@@ -211,7 +292,7 @@ __device__ __forceinline__ void fwd_walk(
     for (int q = 0; q < kK; ++q) {
       const int k = s * kK + q;
       wr[g][q] = k < kH && i < kH
-                     ? w[blockIdx.z * sk + k * s0 + (g * kH + i) * s1]
+                     ? to_f(w[blockIdx.z * sk + k * s0 + (g * kH + i) * s1])
                      : 0.0f;
     }
   // the lanes that share rows (BT < kS) compute alike; the first stores
@@ -259,20 +340,32 @@ __device__ __forceinline__ void fwd_walk(
     if (r < nb && i < kH) {
       const float* x = slot + r * kG;
       const float m = slot[BT * kG + r];
-      const float* bk = bias + blockIdx.z * kG;
-      const float ghr = acc[0] + __ldg(bk + i);
-      const float ghz = acc[1] + __ldg(bk + kH + i);
-      const float ghn = acc[2] + __ldg(bk + 2 * kH + i);
+      const T* bk = bias + blockIdx.z * kG;
       const float hprev = hc[r * kRow + hpos];
-      const float rg = sigmoidf_(x[i] + ghr);
-      const float zg = sigmoidf_(x[kH + i] + ghz);
-      const float ng = tanhf(x[2 * kH + i] + rg * ghn);
-      const float hnew = (1.0f - zg) * ng + zg * hprev;
+      float ghr, ghz, ghn, hnew;
+      if (kScan) {
+        ghr = rd(rd(acc[0]) + ld(bk + i));
+        ghz = rd(rd(acc[1]) + ld(bk + kH + i));
+        ghn = rd(rd(acc[2]) + ld(bk + 2 * kH + i));
+        const float rg = sigmoid_bf16(rd(x_at<true>(x, i) + ghr));
+        const float zg = sigmoid_bf16(rd(x_at<true>(x, kH + i) + ghz));
+        const float ng =
+            rd(tanhf(rd(x_at<true>(x, 2 * kH + i) + rd(rg * ghn))));
+        hnew = rd(rd(rd(1.0f - zg) * ng) + rd(zg * hprev));
+      } else {
+        ghr = acc[0] + ld(bk + i);
+        ghz = acc[1] + ld(bk + kH + i);
+        ghn = acc[2] + ld(bk + 2 * kH + i);
+        const float rg = sigmoidf_(x[i] + ghr);
+        const float zg = sigmoidf_(x[kH + i] + ghz);
+        const float ng = tanhf(x[2 * kH + i] + rg * ghn);
+        hnew = (1.0f - zg) * ng + zg * hprev;
+      }
       const float hout = m > 0.0f ? hnew : hprev;
       if (writer) {
         const long long row = (long long)(g0 + r) * L + t;
         hn[r * kRow + hpos] = hout;
-        ys[row * kH + i] = hout;
+        put(ys + row * kH + i, hout);
         if (kTrain) {
           hg[row * kG + i] = ghr;
           hg[row * kG + kH + i] = ghz;
@@ -284,53 +377,59 @@ __device__ __forceinline__ void fwd_walk(
   }
 }
 
-template <int BT, bool kTrain>
+template <int BT, bool kTrain, bool kScan,
+          typename T = typename Io<kScan>::T>
 __global__ void __launch_bounds__(kThreads, 1) bigru_fwd_kernel(
-    const float* __restrict__ xg_f, const float* __restrict__ xg_b,
-    const float* __restrict__ w_f, const float* __restrict__ b_f,
-    const float* __restrict__ w_b, const float* __restrict__ b_b,
+    const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+    const T* __restrict__ w_f, const T* __restrict__ b_f,
+    const T* __restrict__ w_b, const T* __restrict__ b_b,
     long long w_f_sk, long long w_f_s0, long long w_f_s1, long long w_b_sk,
     long long w_b_s0, long long w_b_s1, const float* __restrict__ mask,
-    float* __restrict__ ys_f, float* __restrict__ ys_b,
+    T* __restrict__ ys_f, T* __restrict__ ys_b,
     float* __restrict__ hg_f, float* __restrict__ hg_b, int B, int L) {
   if (blockIdx.x == 0)
-    fwd_walk<BT, kTrain, 0>(xg_f, w_f, b_f, w_f_sk, w_f_s0, w_f_s1, mask,
-                            ys_f, hg_f, B, L);
+    fwd_walk<BT, kTrain, kScan, 0>(xg_f, w_f, b_f, w_f_sk, w_f_s0, w_f_s1,
+                                   mask, ys_f, hg_f, B, L);
   else
-    fwd_walk<BT, kTrain, 1>(xg_b, w_b, b_b, w_b_sk, w_b_s0, w_b_s1, mask,
-                            ys_b, hg_b, B, L);
+    fwd_walk<BT, kTrain, kScan, 1>(xg_b, w_b, b_b, w_b_sk, w_b_s0, w_b_s1,
+                                   mask, ys_b, hg_b, B, L);
 }
 
-template <int BT, bool kTrain>
-int launch(const float* xg_f, const float* xg_b, const float* w_f,
-           const float* b_f, const float* w_b, const float* b_b,
+template <int BT, bool kTrain, bool kScan>
+int launch(const void* xg_f, const void* xg_b, const void* w_f,
+           const void* b_f, const void* w_b, const void* b_b,
            long long w_f_sk, long long w_f_s0, long long w_f_s1,
            long long w_b_sk, long long w_b_s0, long long w_b_s1,
-           const float* mask, float* ys_f, float* ys_b, float* hg_f,
+           const float* mask, void* ys_f, void* ys_b, float* hg_f,
            float* hg_b, int K, int B, int L, cudaStream_t st) {
+  using T = typename Io<kScan>::T;
   const size_t smem = sizeof(float) * (2 * BT * kRow + kRing * (BT * kG + 8));
-  auto kernel = bigru_fwd_kernel<BT, kTrain>;
+  auto kernel = bigru_fwd_kernel<BT, kTrain, kScan>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(2, (B + BT - 1) / BT, K), kThreads, smem, st>>>(
-      xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, w_f_s0, w_f_s1, w_b_sk, w_b_s0,
-      w_b_s1, mask, ys_f, ys_b, hg_f, hg_b, B, L);
+      static_cast<const T*>(xg_f), static_cast<const T*>(xg_b),
+      static_cast<const T*>(w_f), static_cast<const T*>(b_f),
+      static_cast<const T*>(w_b), static_cast<const T*>(b_b), w_f_sk, w_f_s0,
+      w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, static_cast<T*>(ys_f),
+      static_cast<T*>(ys_b), hg_f, hg_b, B, L);
   return (int)cudaGetLastError();
 }
 
-template <bool kTrain>
-int dispatch(int BT, const float* xg_f, const float* xg_b, const float* w_f,
-             const float* b_f, const float* w_b, const float* b_b,
+template <bool kTrain, bool kScan>
+int dispatch(int BT, const void* xg_f, const void* xg_b, const void* w_f,
+             const void* b_f, const void* w_b, const void* b_b,
              long long w_f_sk, long long w_f_s0, long long w_f_s1,
              long long w_b_sk, long long w_b_s0, long long w_b_s1,
-             const float* mask, float* ys_f, float* ys_b, float* hg_f,
+             const float* mask, void* ys_f, void* ys_b, float* hg_f,
              float* hg_b, int K, int B, int L, cudaStream_t st) {
 #define BIGRU_FWD_CASE(N)                                                  \
   case N:                                                                  \
-    return launch<N, kTrain>(xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk,       \
-                             w_f_s0, w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, \
-                             ys_f, ys_b, hg_f, hg_b, K, B, L, st);
+    return launch<N, kTrain, kScan>(xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk,\
+                                    w_f_s0, w_f_s1, w_b_sk, w_b_s0, w_b_s1, \
+                                    mask, ys_f, ys_b, hg_f, hg_b, K, B, L,  \
+                                    st);
   switch (BT) {
     BIGRU_FWD_CASE(1)
     BIGRU_FWD_CASE(2)
@@ -343,22 +442,26 @@ int dispatch(int BT, const float* xg_f, const float* xg_b, const float* w_f,
 
 }  // namespace
 
-extern "C" int bigru_fwd(const float* xg_f, const float* xg_b,
-                         const float* w_f, const float* b_f,
-                         const float* w_b, const float* b_b,
+extern "C" int bigru_fwd(const void* xg_f, const void* xg_b,
+                         const void* w_f, const void* b_f,
+                         const void* w_b, const void* b_b,
                          long long w_f_sk, long long w_f_s0,
                          long long w_f_s1, long long w_b_sk,
                          long long w_b_s0, long long w_b_s1,
-                         const float* mask, float* ys_f, float* ys_b,
+                         const float* mask, void* ys_f, void* ys_b,
                          float* hg_f, float* hg_b, int K, int B, int L,
-                         int H, int BT, void* stream) {
+                         int H, int BT, int scan, void* stream) {
   if (H != kH || K <= 0 || K > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (hg_f != nullptr)
-    return dispatch<true>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, w_f_s0,
-                          w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, ys_f, ys_b,
-                          hg_f, hg_b, K, B, L, st);
-  return dispatch<false>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, w_f_s0,
-                         w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, ys_f, ys_b,
-                         hg_f, hg_b, K, B, L, st);
+#define BIGRU_FWD_DISPATCH(TRAIN, SCAN)                                     \
+  return dispatch<TRAIN, SCAN>(BT, xg_f, xg_b, w_f, b_f, w_b, b_b, w_f_sk, \
+                               w_f_s0, w_f_s1, w_b_sk, w_b_s0, w_b_s1, mask, \
+                               ys_f, ys_b, hg_f, hg_b, K, B, L, st);
+  if (hg_f != nullptr) {
+    if (scan) BIGRU_FWD_DISPATCH(true, true)
+    BIGRU_FWD_DISPATCH(true, false)
+  }
+  if (scan) BIGRU_FWD_DISPATCH(false, true)
+  BIGRU_FWD_DISPATCH(false, false)
+#undef BIGRU_FWD_DISPATCH
 }

@@ -20,9 +20,7 @@ def from_config(cfg: ExperimentConfig, gcn_spmm=None):
     else ``DialogueGNN`` with ``graph_model``, else the baseline that
     ``base_model`` names, on the text features.  ``gcn_spmm``: the graph
     model's GCNII ``adj @ h`` (``DialogueGNN``); the other models run no
-    stack.  A knob whose function the port lacks raises
-    (``ExperimentConfig.check_ported``)."""
-    cfg.check_ported()
+    stack."""
     if cfg.dataset == "DailyDialogue":
         info = cfg.info
         return DialogueGCNDailyModel(

@@ -75,6 +75,13 @@ TAG = "dropout"
 GF2_NLAYERS = 64     # MMGCN2's depth, hard-coded upstream (model.py:956)
 
 
+def _rnn_kw(cfg: ExperimentConfig) -> dict:
+    """The encoders' numerics knobs, which JAX's ``DialogueGNN`` passes to
+    every ``BiRNN`` it builds (``mmdfn_tpu/models/dialogue_gnn.py:
+    175-260``)."""
+    return dict(compute_dtype=cfg.rnn_compute_dtype, backend=cfg.rnn_backend)
+
+
 class DialogueGNN(nn.Module):
     """Top-level ERC model; construct with :meth:`from_config`."""
 
@@ -112,14 +119,15 @@ class DialogueGNN(nn.Module):
                 "l": info["D_text"]}
         for m in self.order:
             setattr(self, f"linear_{m}", Linear(dims[m], HIDDEN_MODALITY))
+        rnn_kw = _rnn_kw(cfg)
         for m in self.order:
             if lstm and (m == "l" or cfg.av_using_lstm):
                 setattr(self, f"lstm_{m}", BiRNN(HIDDEN_MODALITY, D_E,
                                                  dropout=cfg.dropout,
-                                                 rate_tag=TAG))
+                                                 rate_tag=TAG, **rnn_kw))
         if self.use_crn_speaker:
             self.rnn_parties = BiRNN(HIDDEN_MODALITY, D_E, dropout=cfg.dropout,
-                                     rate_tag=TAG)
+                                     rate_tag=TAG, **rnn_kw)
 
         M, n_dim, res = len(self.order), 2 * D_E, cfg.use_residue
         if gt in ("GF", "GDF"):
@@ -180,18 +188,20 @@ class DialogueGNN(nn.Module):
                 f"{cfg.mm_fusion_mthd!r})")
         D_m, n_dim, res = cfg.D_m, 2 * D_E, cfg.use_residue
         n_classes = info["n_classes"]
+        rnn_kw = _rnn_kw(cfg)
         if base == "LSTM":
             M = len(cfg.modals)
             hidden = 250 if M == 3 else (150 if cfg.modals in ("al", "vl")
                                          else 100)
             self.linear_ = Linear(D_m, hidden)
             self.lstm = BiRNN(hidden, D_E, dropout=cfg.dropout,
-                              rate_tag=TAG)
+                              rate_tag=TAG, **rnn_kw)
             if self.use_crn_speaker:
                 self.rnn_parties = BiRNN(hidden, D_E, dropout=cfg.dropout,
-                                         rate_tag=TAG)
+                                         rate_tag=TAG, **rnn_kw)
         elif base == "GRU":
-            self.gru = BiRNN(D_m, D_E, dropout=cfg.dropout, rate_tag=TAG)
+            self.gru = BiRNN(D_m, D_E, dropout=cfg.dropout, rate_tag=TAG,
+                             **rnn_kw)
         elif base == "DialogRNN":
             rnn = lambda: DialogueRNN(D_m, D_G, D_P, D_E, cfg.active_listener,
                                       cfg.attention, D_A, cfg.rec_dropout)
@@ -273,7 +283,6 @@ class DialogueGNN(nn.Module):
             raise NotImplementedError(
                 "base_model='DialogRNN' is single-stream only (as in the "
                 "reference)")
-        cfg.check_ported()
         return cls(cfg, gcn_spmm=gcn_spmm, **widths)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

@@ -13,10 +13,21 @@ frame carries the state unchanged, so outputs are padding-invariant and a
 mask with holes visits a subsequence (the CRN party encoder rides this).
 In training, the output of every layer but the last goes through dropout
 (``mmdfn_tpu/nn/rnn.py:346-351``), drawn from the caller's generator.
+
+``compute_dtype='bfloat16'`` runs the encoder in bf16 as the JAX package's
+``BiRNN`` does (``mmdfn_tpu/nn/rnn.py:265-352``; the mode is
+:func:`rnn_mode`): the input cast to bf16, each layer's weights
+rounded to bf16 (the f32 masters stay), the projection a
+bf16 product plus the bias, each rounded, the inter-layer dropout in bf16,
+and the output widened back to the input's type.  The GRU's recurrence is
+kernels A and C's bf16 mode where JAX takes its fused Pallas kernel
+(``backend='pallas'``), else their bf16 scan mode; the LSTM's is its step
+loop in bf16, each op rounded.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -25,32 +36,61 @@ from torch import nn
 
 from mmdfn_torch.nn.dropout import dropout
 from mmdfn_torch.ops import bigru_layer_fwd
+from mmdfn_torch.ops.bf16 import (BF16, F32, SCAN, Carry, RowBias, Sigmoid,
+                                  Tanh, mm)
 
 Tensor = torch.Tensor
 
 
+def rnn_mode(cell: str, compute_dtype: Optional[str],
+             backend: Optional[str]) -> str:
+    """The numerics a BiRNN runs in (``ops.bigru``'s modes): f32 unless
+    ``compute_dtype`` is 'bfloat16'; then the bf16 mode where JAX's BiRNN
+    takes its fused Pallas kernel (a bidirectional GRU under
+    ``backend='pallas'``, ``mmdfn_tpu/nn/rnn.py:295-296``), else the bf16
+    scan mode (JAX's bf16 scans; the LSTM's bf16 step loop)."""
+    if compute_dtype != "bfloat16":
+        return F32
+    return BF16 if backend == "pallas" and cell == "gru" else SCAN
+
+
 def _lstm_layer(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor, b_hh_f: Tensor,
-                w_hh_b: Tensor, b_hh_b: Tensor, mask: Tensor
-                ) -> Tuple[Tensor, Tensor]:
+                w_hh_b: Tensor, b_hh_b: Tensor, mask: Tensor,
+                bf16: bool = False) -> Tuple[Tensor, Tensor]:
     """One masked bidirectional LSTM layer's recurrence from the projected
     gates xg (B, L, 4H) and W_hh (H, 4H), gates i, f, g, o
     (``mmdfn_tpu/nn/rnn.py:143-175``):
     the two directions stacked on a leading axis, the backward one over
-    reversed time, h and c kept by a select at masked frames."""
+    reversed time, h and c kept by a select at masked frames.  ``bf16``:
+    on bf16 operands, as JAX's bf16 ``_lstm_scan``: ``(xg + bf16(h @
+    W_hh)) + b_hh`` and every gate op rounded, with JAX's transposes
+    (``ops/bf16.py``)."""
     L = xg_f.shape[1]
     xg = torch.stack([xg_f, xg_b.flip(1)])                    # (2, B, L, 4H)
     keep = torch.stack([mask, mask.flip(1)])[..., None] > 0   # (2, B, L, 1)
     W = torch.stack([w_hh_f, w_hh_b])                         # (2, H, 4H)
     bias = torch.stack([b_hh_f, b_hh_b])[:, None]             # (2, 1, 4H)
     h = c = xg.new_zeros(2, xg.shape[1], W.shape[1])
+    if bf16:
+        sig, tanh = Sigmoid.apply, lambda x: Tanh.apply(x, x)
+    else:
+        sig, tanh = torch.sigmoid, torch.tanh
     ys = []
     for t in range(L):
-        i, f, g, o = (xg[:, :, t] + torch.baddbmm(bias, h, W)).chunk(4, -1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        if bf16:
+            g = RowBias.apply(xg[:, :, t] + mm(h, W), bias)
+        else:
+            g = xg[:, :, t] + torch.baddbmm(bias, h, W)
+        i, f, g, o = g.chunk(4, -1)
+        c_new = sig(f) * c + sig(i) * tanh(g)
+        h_new = sig(o) * tanh(c_new)
         h = torch.where(keep[:, :, t], h_new, h)
+        if bf16:
+            h, y = Carry.apply(h)
+        else:
+            y = h
         c = torch.where(keep[:, :, t], c_new, c)
-        ys.append(h)
+        ys.append(y)
     ys = torch.stack(ys, dim=2)
     return ys[0], ys[1].flip(1)
 
@@ -61,15 +101,19 @@ class BiRNN(nn.Module):
 
     Parameters carry torch ``nn.GRU`` / ``nn.LSTM`` names and shapes
     (``weight_ih_l0``, ``weight_hh_l0_reverse``, ...), so a reference
-    state_dict loads as is.
+    state_dict loads as is.  ``compute_dtype`` and ``backend`` take the
+    JAX ``BiRNN``'s names and meanings (the module's note; ``mode``).
     """
 
     def __init__(self, input_size: int, hidden_size: int,
                  num_layers: int = 2, dropout: float = 0.0,
-                 cell: str = "gru", rate_tag: Optional[str] = None):
+                 cell: str = "gru", rate_tag: Optional[str] = None,
+                 compute_dtype: Optional[str] = None,
+                 backend: Optional[str] = None):
         super().__init__()
         if cell not in ("gru", "lstm"):
             raise ValueError(f"cell {cell!r}")
+        self.mode = rnn_mode(cell, compute_dtype, backend)
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dropout = dropout
@@ -103,20 +147,33 @@ class BiRNN(nn.Module):
         dropout on, drawn from ``generator``."""
         if umask is None:
             umask = x.new_ones(x.shape[:2])
-        out = x
-        recurrence = bigru_layer_fwd if self.cell == "gru" else _lstm_layer
+        bf16 = self.mode != F32
+        if bf16:
+            cast = lambda t: t.to(torch.bfloat16)
+            project = lambda inp, w, b: mm(inp, w) + b
+        else:
+            cast = lambda t: t
+            project = lambda inp, w, b: inp @ w + b
+        if self.cell == "gru":
+            recurrence = bigru_layer_fwd if not bf16 else functools.partial(
+                bigru_layer_fwd, mode=self.mode)
+        else:
+            recurrence = functools.partial(_lstm_layer, bf16=bf16)
+        out = cast(x)
         for layer in range(self.num_layers):
-            w = lambda n, suf="": getattr(self, f"{n}_l{layer}{suf}")
-            xg_f = out @ w("weight_ih").t() + w("bias_ih")
-            xg_b = out @ w("weight_ih", "_reverse").t() + w("bias_ih", "_reverse")
+            w = lambda n, suf="": cast(getattr(self, f"{n}_l{layer}{suf}"))
+            xg_f = project(out, w("weight_ih").t(), w("bias_ih"))
+            xg_b = project(out, w("weight_ih", "_reverse").t(),
+                           w("bias_ih", "_reverse"))
             ys_f, ys_b = recurrence(
                 xg_f, xg_b, w("weight_hh").t(), w("bias_hh"),
                 w("weight_hh", "_reverse").t(), w("bias_hh", "_reverse"),
                 umask)
             out = torch.cat([ys_f, ys_b], dim=-1)
             if train and layer < self.num_layers - 1:
-                out = dropout(out, self.dropout, generator, self.rate_tag)
-        return out
+                out = cast(dropout(out, self.dropout, generator,
+                                   self.rate_tag, bf16=bf16))
+        return out.to(x.dtype)
 
 
 class GRUCellStep(nn.Module):

@@ -102,6 +102,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from mmdfn_torch.ops import _build, _mode, philox
+from mmdfn_torch.ops.bf16 import (BF16, F32, MODES, SCAN, Sigmoid, Tanh,
+                                  check_mode, mm, to_bf16)
 from mmdfn_torch.ops.bigru import _sm_count
 
 Tensor = torch.Tensor
@@ -146,20 +148,11 @@ def gcnii_bwd_splits(R: int, nl: int) -> Tuple[int, int]:
     return (max(1, min(_SPLITS_W, R // _SPLIT_ROWS_MIN)),
             max(1, min(_SPLITS_L, nl * R // _SPLIT_ROWS_MIN)))
 
-# the numerics modes (see the module's note)
-F32, BF16, SCAN = "f32", "bf16", "bf16_scan"
-MODES = (F32, BF16, SCAN)
-
 # the residual slabs, each (B, nlayers, N, H): the pre-layer h, lh, lc of
 # every layer and the layer's LSTM output h1; in the bf16 modes the first
 # three, in bf16
 RESIDUALS = ("h", "lh", "lc", "h1")
 RESIDUALS_BF16 = RESIDUALS[:3]
-
-
-def _check_mode(mode: str) -> None:
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r}: one of {MODES}")
 
 
 def _mode_bits(mode: str, variant: bool = True,
@@ -178,16 +171,11 @@ def residual_names(mode: str) -> tuple:
 def residual_slabs(shape, mode: str, dev) -> list:
     """Empty residual slabs of ``shape`` (B, nlayers, N, H) for a mode:
     four f32 ones, or in the bf16 modes three bf16 ones."""
-    _check_mode(mode)
+    check_mode(mode)
     if mode != F32:
         return [torch.empty(shape, device=dev, dtype=torch.bfloat16)
                 for _ in RESIDUALS_BF16]
     return [torch.empty(shape, device=dev) for _ in RESIDUALS]
-
-
-def to_bf16(x: Tensor) -> Tensor:
-    """``x`` rounded to bf16 (to nearest even) and held in its own type."""
-    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def gcnii_fwd_launches(nl: int, reason: bool, design: int = TILED,
@@ -344,7 +332,7 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
     the kernels' decisions with them; ``relu_inputs``,
     when given, receives each layer's ReLU input ``pre``, detached, so
     that a check can compare two steps' decisions."""
-    _check_mode(mode)
+    check_mode(mode)
     if mode == SCAN:
         return _scan_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
                            alpha=alpha, reason=reason, rate=rate, seed=seed,
@@ -390,63 +378,11 @@ def gcnii_stack_plain(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
     return h
 
 
-def _mm(a: Tensor, b: Tensor) -> Tensor:
-    """A product of bf16 tensors as JAX's bf16 dot computes it: the exact
-    products summed in f32, the output rounded to bf16 once."""
-    return (a.float() @ b.float()).to(torch.bfloat16)
-
-
 def _scan_consts(alpha: float) -> Tuple[float, float]:
     """1-α and α rounded to bf16, as JAX rounds a Python float that a bf16
     tensor multiplies (weak typing)."""
     return tuple(float(torch.tensor(v, dtype=torch.bfloat16))
                  for v in (1.0 - alpha, alpha))
-
-
-class _Sigmoid(torch.autograd.Function):
-    """JAX's bf16 ``sigmoid`` (``lax.logistic``): ``1 / (1 + exp(-x))``,
-    each op rounded, and its JVP's transpose ``d (y (1 - y))``, each op
-    rounded (``jax/_src/lax/lax.py``, ``logistic_p``); torch's own
-    sigmoid rounds once each way."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x):
-        return 1 / (1 + torch.exp(-x))
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(output)
-
-    @staticmethod
-    def backward(ctx, d):
-        y, = ctx.saved_tensors
-        return d * (y * (1 - y))
-
-
-class _Tanh(torch.autograd.Function):
-    """``tanh(x)``, called as ``_Tanh.apply(x, x)``, with JAX's JVP
-    transposed, each op rounded: ``a = d (1 - y)`` to the first ``x`` and
-    ``a y`` to the second (``tanh_p``), so that autograd adds them to x's
-    gradient one after the other, as JAX's transpose adds them to the
-    cotangent it carries (the cell state's: ``(d_lc + a) + a y``)."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x, _):
-        return torch.tanh(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(output)
-
-    @staticmethod
-    def backward(ctx, d):
-        y, = ctx.saved_tensors
-        a = d * (1 - y)
-        return a, a * y
 
 
 class _ReluHeld(torch.autograd.Function):
@@ -503,20 +439,20 @@ def _scan_plain(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
             residuals[2][:, l] = lc.detach()
         q = h
         if reason:   # ((h W_ih + b_ih) + lh W_hh) + b_hh, as JAX adds it
-            g = _mm(h, ih) + bih
-            g = g + _mm(lh, hh)
+            g = mm(h, ih) + bih
+            g = g + mm(lh, hh)
             g = g + bhh
             i, f, gg, o = g.chunk(4, dim=-1)
-            i, f, gg, o = _Sigmoid.apply(i), _Sigmoid.apply(f), \
-                _Tanh.apply(gg, gg), _Sigmoid.apply(o)
+            i, f, gg, o = Sigmoid.apply(i), Sigmoid.apply(f), \
+                Tanh.apply(gg, gg), Sigmoid.apply(o)
             lc = f * lc + i * gg
-            lh = o * _Tanh.apply(lc, lc)
+            lh = o * Tanh.apply(lc, lc)
             h = lh
-        hi = _mm(adj, h) if spmm is None else spmm(adj, h)
+        hi = mm(adj, h) if spmm is None else spmm(adj, h)
         if variant:
             support = torch.cat([hi, h0], dim=-1)
         r = a1 * hi + a2 * h0
-        s = _mm(support if variant else r, W[l])
+        s = mm(support if variant else r, W[l])
         pre = th[l] * s + (1 - th[l]) * r
         if relu_inputs is not None:
             relu_inputs.append(pre.detach().float())
@@ -700,7 +636,7 @@ def gcnii_stack_fwd(adj: Tensor, h: Tensor, h0: Tensor, W: Tensor,
       carry the config axis) the kernels take the whole group in one
       launch.
     """
-    _check_mode(mode)
+    check_mode(mode)
     opts = dict(alpha=alpha, reason=reason, rate=rate, seed=seed)
     if mode == BF16 and not variant:
         raise ValueError("gcnii_stack_fwd: the bf16 mode runs the variant's "
@@ -910,7 +846,7 @@ def gcnii_stack_bwd_plain(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
       scan mode: (2, 4H)); the LSTM gradients are zeros without
       ``reason``.
     """
-    _check_mode(mode)
+    check_mode(mode)
     if mode == SCAN:
         return _scan_bwd_plain(adj, h0, W, theta, lstm_ih, lstm_hh, lstm_b,
                                residuals, dh_out, alpha=alpha, reason=reason,
@@ -1008,7 +944,7 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     keyword arguments) and its (nlayers, K B, N, H) tdpre slab, theta
     times the gradient past the ReLU, zero where the ReLU was off (a check
     reads the kernel's ReLU decisions from it)."""
-    _check_mode(mode)
+    check_mode(mode)
     cfg_axis = W.dim() == 4
     scan = mode == SCAN
     popts = dict(alpha=alpha, reason=reason, seed=seed, mode=mode,

@@ -11,11 +11,20 @@ PRNG, this does not reproduce ``jax.random``'s bits.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Union
 
 import torch
 
+from mmdfn_torch.ops import _mode
+
 Tensor = torch.Tensor
+
+# the CPU's recent dropout bits, by (seed, B, layer, N, H): the plain
+# backward draws each layer's bits again from the forward's seed; at most
+# _CACHE_BYTES of them are kept (a 64-layer stack's at the CPU tests' sizes)
+_CACHE: "OrderedDict[tuple, Tensor]" = OrderedDict()
+_CACHE_BYTES = 64 << 20
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -51,7 +60,24 @@ def philox4x32(c0: Tensor, c1: Tensor, c2: Tensor, c3: Tensor,
 
 def dropout_bits(seed: Tensor, B: int, layer: int, N: int, H: int) -> Tensor:
     """(B, N, H) int64 bits of layer ``layer`` for the step seed ``seed``
-    (an int64 tensor of one element, on the device of the result)."""
+    (an int64 tensor of one element, on the device of the result).  On the
+    CPU the bits last drawn are kept (``_CACHE``) and handed out again."""
+    if seed.device.type != "cpu" or _mode.is_batched(seed):
+        return _draw(seed, B, layer, N, H)
+    key = (int(seed.reshape(())), B, layer, N, H)
+    bits = _CACHE.get(key)
+    if bits is None:
+        bits = _CACHE[key] = _draw(seed, B, layer, N, H)
+        held = sum(b.numel() * b.element_size() for b in _CACHE.values())
+        while held > _CACHE_BYTES and len(_CACHE) > 1:
+            old = _CACHE.popitem(last=False)[1]
+            held -= old.numel() * old.element_size()
+    else:
+        _CACHE.move_to_end(key)
+    return bits
+
+
+def _draw(seed: Tensor, B: int, layer: int, N: int, H: int) -> Tensor:
     dev = seed.device
     seed = seed.reshape(()).to(torch.int64)
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
@@ -60,7 +86,7 @@ def dropout_bits(seed: Tensor, B: int, layer: int, N: int, H: int) -> Tensor:
     c1 = torch.full((1, 1, 1), layer, dtype=torch.int64, device=dev)
     c2 = ar(N)[None, :, None]
     c3 = ar(H)[None, None, :]
-    return philox4x32(c0, c1, c2, c3, k0, k1)[0].expand(B, N, H)
+    return philox4x32(c0, c1, c2, c3, k0, k1)[0].expand(B, N, H).contiguous()
 
 
 def keep_mask(seed: Tensor, rate: Union[float, Tensor], B: int, layer: int,

@@ -32,6 +32,7 @@ from mmdfn_torch.data.datasets import IEMOCAPDataset
 from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
 from mmdfn_torch.models.mm_gcn import MMGCN
 from mmdfn_torch.nn.gcn import GCNIIStack
+from mmdfn_torch.nn.rnn import BiRNN
 from mmdfn_torch.ops import gcnii_stack_bwd_plain, gcnii_stack_plain
 from mmdfn_torch.ops.gcnii import residual_slabs
 from mmdfn_torch.serve import latency_bench
@@ -270,10 +271,11 @@ def test_what_jax_sends_to_the_bf16_scan_raises():
     ``with_tpu_fast()``, the stack with ``variant=False``, with dropout
     before each layer, after the loop, over 64 layers, or with a
     node-sharded product, and any stack under ``gcn_compute_dtype`` alone.
-    Only the encoders' ``rnn_compute_dtype='bfloat16'`` still raises.  The
-    flagship's stack takes the bf16 mode, and the families without a GCNII
-    stack build; ``gcn_backend='pallas'`` alone on the scan path is JAX's
-    f32 scan, which the port runs."""
+    Nothing raises: the encoders' ``rnn_compute_dtype='bfloat16'`` runs
+    kernels A and C's bf16 scan mode, and under ``with_tpu_fast()`` their
+    bf16 mode.  The flagship's stack takes the bf16 mode, and the families
+    without a GCNII stack build; ``gcn_backend='pallas'`` alone on the
+    scan path is JAX's f32 scan, which the port runs."""
     fast = dict(backend="pallas", compute_dtype="bfloat16")
     stacks = lambda m: [s for s in m.modules() if isinstance(s, GCNIIStack)]
     scan = [
@@ -296,9 +298,12 @@ def test_what_jax_sends_to_the_bf16_scan_raises():
     ]
     assert len(scan) == 11
     assert all(s.mode == "bf16_scan" for s in scan)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(ExperimentConfig(graph_type="relation",
-                                     rnn_compute_dtype="bfloat16"))
+    encoders = lambda m: {r.mode for r in m.modules()
+                          if isinstance(r, BiRNN)}
+    knob = ExperimentConfig(graph_type="relation",
+                            rnn_compute_dtype="bfloat16")
+    assert encoders(build_model(knob)) == {"bf16_scan"}
+    assert encoders(build_model(knob.with_tpu_fast())) == {"bf16"}
     assert GCNIIStack(24, 64, 32, **fast).mode == "bf16"
     assert GCNIIStack(24, 2, 32, post_loop_dropout=True,
                       backend="pallas").mode == "f32"

@@ -756,6 +756,143 @@ def test_gcnii_scan_config_axis_launch_equals_solo_launches():
             assert torch.equal(a[k], b), k
 
 
+# the bi-GRU kernels' bf16 scan mode (JAX's bf16 _gru_scan) against its
+# plain version: as the GCNII scan mode's, every op rounded at the same
+# points and each product summed in f32 in another order, and a difference
+# carried on by the recurrence: ys, hg and dxg by _scan_agree; dW_hh and
+# db_hh (sums over every row and step) within RNN_W_STEPS bf16 steps of
+# their max (chip_smoke.py's bounds).
+RNN_W_STEPS = 2.0
+
+
+def _bigru_bf16_args(dev, B, L, seed, K=None):
+    if K is None:
+        args, g = _bigru_args(dev, B, L, seed)
+        return tuple(t.to(torch.bfloat16) for t in args[:6]) + args[6:], g
+    sets = [_bigru_args(dev, B, L, seed + k)[0] for k in range(K)]
+    stacked = tuple(torch.stack([s[i] for s in sets]).to(torch.bfloat16)
+                    for i in range(6))
+    return stacked + (sets[0][6],), torch.Generator().manual_seed(seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(1, 200), (6, 64), (13, 9), (32, 80),
+                                 (67, 1), (192, 80), (300, 5)])
+def test_bigru_scan_kernels_match_plain(B, L):
+    """Kernels A (serving and training mode) and C in the bf16 scan mode
+    at every rows-per-block variant, against the plain scan and the plain
+    walk (``ops/bigru.py:_scan_plain``, ``_scan_bwd_plain``) on the
+    kernel's ys and hg: bf16 outputs, C the same bits over two calls, one
+    launch a call each."""
+    from mmdfn_torch.ops.bigru import _scan_bwd_plain, _scan_plain
+
+    dev = _card()
+    args, g = _bigru_bf16_args(dev, B, L, B * 31 + L)
+    before = bigru_layer_fwd.launches
+    serve = bigru_layer_fwd(*args, mode="bf16_scan")
+    ys_f, ys_b, hg_f, hg_b = bigru_forward(*args, with_hg=True,
+                                           mode="bf16_scan")
+    torch.cuda.synchronize()
+    assert bigru_layer_fwd.launches - before == 2
+    assert all(t.dtype == torch.bfloat16 for t in (*serve, ys_f, ys_b))
+    assert torch.equal(serve[0], ys_f) and torch.equal(serve[1], ys_b)
+    assert _on_bf16_grid(hg_f, hg_b)
+    want = _scan_plain(*args, with_hg=True)
+    for a, b in zip((ys_f, ys_b, hg_f, hg_b), want):
+        _scan_agree(a, b)
+    dy = [torch.randn(B, L, H, generator=g).to(dev).to(torch.bfloat16)
+          for _ in range(2)]
+    before = bigru_layer_bwd.launches
+    got = bigru_layer_bwd(*args, ys_f, ys_b, *dy, hg_f, hg_b,
+                          mode="bf16_scan")
+    again = bigru_layer_bwd(*args, ys_f, ys_b, *dy, hg_f, hg_b,
+                            mode="bf16_scan")
+    torch.cuda.synchronize()
+    assert bigru_layer_bwd.launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _scan_bwd_plain(*args, ys_f, ys_b, *dy, hg_f, hg_b)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.dtype == torch.bfloat16
+        if i in (0, 1):
+            _scan_agree(a, b)
+        else:
+            d = float((a.float() - b.float()).abs().max())
+            assert d <= RNN_W_STEPS * SCAN_STEP * float(
+                b.float().abs().max()), (i, d)
+
+
+@pytest.mark.gpu
+def test_bigru_scan_config_axis_launch_equals_solo_launches():
+    """Kernels A (training mode) and C in the bf16 scan mode over K = 3
+    configurations in one launch each (B = 32, L = 80) against 3 solo
+    launches, bit for bit; and through the Functions' vmap rule."""
+    from mmdfn_torch.ops.bigru import BiGRULayer
+
+    dev = _card()
+    K, B, L = 3, 32, 80
+    args, g = _bigru_bf16_args(dev, B, L, 900, K=K)
+    ys = bigru_forward(*args, with_hg=True, mode="bf16_scan")
+    dy = [torch.randn(K, B, L, H, generator=g).to(dev).to(torch.bfloat16)
+          for _ in range(2)]
+    grads = bigru_layer_bwd(*args, ys[0], ys[1], *dy, ys[2], ys[3],
+                            mode="bf16_scan")
+    leaves = [t.clone().requires_grad_(True) for t in args[:6]]
+    vys = torch.func.vmap(lambda *a: BiGRULayer.apply(
+        *a, args[6], "bf16_scan")[:2])(*leaves)
+    vgrads = torch.autograd.grad(vys, leaves, dy)
+    for k in range(K):
+        solo = tuple(t[k] for t in args[:6]) + (args[6],)
+        want = bigru_forward(*solo, with_hg=True, mode="bf16_scan")
+        assert all(torch.equal(a[k], b) for a, b in zip(ys, want)), k
+        assert all(torch.equal(a[k], b) for a, b in zip(vys, want)), k
+        want_g = bigru_layer_bwd(*solo, want[0], want[1], dy[0][k],
+                                 dy[1][k], want[2], want[3],
+                                 mode="bf16_scan")
+        assert all(torch.equal(a[k], b) for a, b in zip(grads, want_g)), k
+        assert all(torch.equal(a[k], b) for a, b in zip(vgrads, want_g)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", [None, "pallas"])
+def test_bf16_encoder_on_the_card_matches_plain(backend):
+    """``BiRNN(compute_dtype='bfloat16')`` at the flagship's widths (B =
+    32, L = 80, a holed mask): the scan mode (kernels A and C's bf16 scan
+    mode) and, with ``backend='pallas'``, the bf16 mode (their f32 mode on
+    bf16 operands), forward and every gradient against the same module
+    under ``plain_ops()``: each output and gradient within 6 bf16 steps of
+    its max (the chip_smoke steps' bound: where the two sum an f32 value
+    in another order and round it to neighbouring bf16 values, layer 1
+    and the gradients move with it)."""
+    from mmdfn_torch.nn.rnn import BiRNN
+
+    dev = _card()
+    torch.manual_seed(0)
+    rnn = BiRNN(200, H, compute_dtype="bfloat16", backend=backend).to(dev)
+    assert rnn.mode == ("bf16" if backend else "bf16_scan")
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(32, 80, 200, generator=g).to(dev)
+    mask = (torch.rand(32, 80, generator=g) > 0.2).float().to(dev)
+    dy = torch.randn(32, 80, 2 * H, generator=g).to(dev)
+
+    def run():
+        X = x.clone().requires_grad_(True)
+        y = rnn(X, mask)
+        return (y.detach(), *torch.autograd.grad(
+            y, [X, *rnn.parameters()], dy))
+    before = bigru_layer_fwd.launches, bigru_layer_bwd.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert (bigru_layer_fwd.launches - before[0],
+            bigru_layer_bwd.launches - before[1]) == (2, 2)
+    with plain_ops():
+        want = run()
+    names = ["y", "x", *(n for n, _ in rnn.named_parameters())]
+    for name, a, b in zip(names, got, want):
+        err = float((a - b).abs().max() / b.abs().max())
+        share = float((a != b).float().mean())
+        assert err <= 6 * SCAN_STEP, (name, err, share)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("reason", [True, False])
 def test_gcnii_bwd_is_deterministic(reason):
