@@ -1,11 +1,16 @@
 """Length-bucketed, statically padded batches (``mmdfn_tpu/data/batching.py``
 ``Batch``, ``collate``, ``BucketBatcher`` and their token-id versions),
-numpy only.
+in numpy.
 
 Streaming pads each dialogue prefix up to the next bucket length; training
 pads each batch's longest dialogue up to the next bucket and the batch axis
 to ``batch_size`` (short batches carry all-zero ``umask`` rows that every
 consumer masks out), so an epoch runs a handful of distinct shapes.
+
+Under a ``torch.profiler`` each batch a batcher collates is a
+``data.collate`` span of step (epoch, i), and its valid utterances and its
+batch_size x bucket slots add to the counters ``data.utterances`` and
+``data.slots`` (``runtime/profiling.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from mmdfn_torch.runtime.profiling import annotate, count
 
 SERVE_BUCKETS = (8, 16, 32, 64, 128, 200)
 DEFAULT_BUCKETS = (16, 24, 32, 48, 64, 96, 128, 160, 200)
@@ -142,10 +149,15 @@ class BucketBatcher:
         if self.sort_by_length:
             order = order[np.argsort([len(self.dialogues[i]) for i in order],
                                      kind="stable")]
-        for s in range(0, len(order), self.batch_size):
-            chunk = [self.dialogues[i] for i in order[s:s + self.batch_size]]
+        for i, s in enumerate(range(0, len(order), self.batch_size)):
+            chunk = [self.dialogues[j] for j in order[s:s + self.batch_size]]
             L = bucket_length(max(len(d) for d in chunk), self.buckets)
-            yield self._collate(chunk, L)
+            with annotate("data.collate", step=(epoch_idx, i)):
+                batch = self._collate(chunk, L)
+            # the padding: valid utterances against the batch's slots
+            count("data.utterances", sum(len(d) for d in chunk))
+            count("data.slots", self.batch_size * L)
+            yield batch
 
     def num_batches(self) -> int:
         return -(-len(self.dialogues) // self.batch_size)

@@ -48,6 +48,11 @@ step, each step's rows summed (W_hh's in f32, rounded once; b_hh's one
 row after another in bf16), then summed over the walk's steps as a bf16
 running sum from the walk's first step on.  In both bf16 modes the
 wrappers take and return bf16 tensors.
+
+Under a ``torch.profiler`` each launch is a span of the program's log
+(``runtime/profiling.py``), ``ops.bigru_fwd`` or ``ops.bigru_bwd``, whose
+attributes are the shapes as launched (K, B, L, H, G, kernel A's
+``train`` and the ``mode``): a roofline reads them.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ import torch
 from mmdfn_torch.ops import _build, _mode
 from mmdfn_torch.ops.bf16 import (BF16, F32, SCAN, Carry, RowBias, Sigmoid,
                                   Tanh, check_mode, mm, row_sum, to_bf16)
+from mmdfn_torch.runtime.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -385,13 +391,15 @@ def _forward(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, mask,
         return (ys_f, ys_b, *hgs)
     fn = _build.load("bigru_fwd", "bigru_fwd", _ARGTYPES)
     hg_ptrs = [t.data_ptr() for t in hgs] if with_hg else [None, None]
-    err = fn(xg_f.data_ptr(), xg_b.data_ptr(), w_hh_f.data_ptr(),
-             b_hh_f.data_ptr(), w_hh_b.data_ptr(), b_hh_b.data_ptr(),
-             *_strides(w_hh_f), *_strides(w_hh_b), mask.data_ptr(),
-             ys_f.data_ptr(), ys_b.data_ptr(), *hg_ptrs, K, B, L, H,
-             _rows_per_block(B, _sm_count(dev), K), int(scan),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "bigru_fwd launch")
+    with annotate("ops.bigru_fwd", K=K, B=B, L=L, H=H, G=G, train=with_hg,
+                  mode=mode):
+        err = fn(xg_f.data_ptr(), xg_b.data_ptr(), w_hh_f.data_ptr(),
+                 b_hh_f.data_ptr(), w_hh_b.data_ptr(), b_hh_b.data_ptr(),
+                 *_strides(w_hh_f), *_strides(w_hh_b), mask.data_ptr(),
+                 ys_f.data_ptr(), ys_b.data_ptr(), *hg_ptrs, K, B, L, H,
+                 _rows_per_block(B, _sm_count(dev), K), int(scan),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "bigru_fwd launch")
     bigru_layer_fwd.launches += 1
     return (ys_f, ys_b, *hgs)
 
@@ -460,16 +468,17 @@ def bigru_layer_bwd(xg_f: Tensor, xg_b: Tensor, w_hh_f: Tensor,
     partials = torch.empty(K, 2, L if scan else splits, H + 1, G,
                            device=dev)
     fn = _build.load("bigru_bwd", "bigru_bwd", _BWD_ARGTYPES)
-    err = fn(xg_f.data_ptr(), xg_b.data_ptr(), hg_f.data_ptr(),
-             hg_b.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-             *_strides(w_hh_f), *_strides(w_hh_b), mask.data_ptr(),
-             ys_f.data_ptr(), ys_b.data_ptr(), dy_f.data_ptr(),
-             dy_b.data_ptr(), dxg_f.data_ptr(), dxg_b.data_ptr(),
-             dhg[0].data_ptr(), dhg[1].data_ptr(), partials.data_ptr(),
-             dwb.data_ptr(), K, B, L, H, _rows_per_block(B, _sm_count(dev), K),
-             _SPLIT_ROWS, int(scan),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "bigru_bwd launch")
+    with annotate("ops.bigru_bwd", K=K, B=B, L=L, H=H, G=G, mode=mode):
+        err = fn(xg_f.data_ptr(), xg_b.data_ptr(), hg_f.data_ptr(),
+                 hg_b.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+                 *_strides(w_hh_f), *_strides(w_hh_b), mask.data_ptr(),
+                 ys_f.data_ptr(), ys_b.data_ptr(), dy_f.data_ptr(),
+                 dy_b.data_ptr(), dxg_f.data_ptr(), dxg_b.data_ptr(),
+                 dhg[0].data_ptr(), dhg[1].data_ptr(), partials.data_ptr(),
+                 dwb.data_ptr(), K, B, L, H,
+                 _rows_per_block(B, _sm_count(dev), K), _SPLIT_ROWS,
+                 int(scan), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "bigru_bwd launch")
     bigru_layer_bwd.launches += 1
     return grads()
 

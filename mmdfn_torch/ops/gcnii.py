@@ -92,6 +92,10 @@ The original GCNII update (``variant=False``: W (nl, H, H), support = r =
 ``mmdfn_tpu/ops/pallas_gcnii.py:121-125`` folds it): ``r @ W`` equals
 ``[hi | h0] @ W_cat``, and autograd carries kernel D's ``dW_cat`` back
 through the fold.  Its plain version computes ``r @ W`` unfolded.
+
+Under a ``torch.profiler`` each kernel call is a span of the program's log
+(``runtime/profiling.py``), ``ops.gcnii_fwd`` (K, B, N, layers, design,
+mode) or ``ops.gcnii_bwd`` (K, B, N, layers, mode).
 """
 
 from __future__ import annotations
@@ -105,6 +109,7 @@ from mmdfn_torch.ops import _build, _mode, philox
 from mmdfn_torch.ops.bf16 import (BF16, F32, MODES, SCAN, Sigmoid, Tanh,
                                   check_mode, mm, to_bf16)
 from mmdfn_torch.ops.bigru import _sm_count
+from mmdfn_torch.runtime.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -798,12 +803,14 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
     stream = torch.cuda.current_stream(dev).cuda_stream
     th_k, ik_k, th, ik = _rate_args(drop, thresh, inv_keep, K, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    n = fn(ptr(adj), ptr(h), ptr(h0), ptr(W), ptr(theta), float(alpha),
-           ptr(wl), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b), ptr(out),
-           ptr(scratch), *res_ptrs, int(drop), ptr(th_k), ptr(ik_k), th, ik,
-           seed_ptr, int(reason), design, nl, K, B, N, H,
-           _mode_bits(mode, variant, last_drop_f32), stream)
-    _build.check(-n if n < 0 else 0, "gcnii_fwd launch")
+    with annotate("ops.gcnii_fwd", K=K, B=B, N=N, layers=nl, design=design,
+                  mode=mode):
+        n = fn(ptr(adj), ptr(h), ptr(h0), ptr(W), ptr(theta), float(alpha),
+               ptr(wl), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b), ptr(out),
+               ptr(scratch), *res_ptrs, int(drop), ptr(th_k), ptr(ik_k), th,
+               ik, seed_ptr, int(reason), design, nl, K, B, N, H,
+               _mode_bits(mode, variant, last_drop_f32), stream)
+        _build.check(-n if n < 0 else 0, "gcnii_fwd launch")
     gcnii_stack_fwd.launches += n
     return out
 
@@ -1047,15 +1054,16 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     th_k, ik_k, th, ik = _rate_args(drop, thresh, inv_keep, K, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    n = fn(ptr(adj), ptr(h0), ptr(W), ptr(theta), float(alpha),
-           *map(ptr, residuals), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b),
-           ptr(dh_out), ptr(dh), ptr(dlh), ptr(dlc), ptr(d_hi), ptr(dh0),
-           ptr(dadj), ptr(hi), ptr(tdpre), ptr(gates), ptr(dgates),
-           ptr(part_w), ptr(part_l), ptr(dW), ptr(dl), int(drop), ptr(th_k),
-           ptr(ik_k), th, ik, seed_ptr, int(reason), nl, K, B, N, H,
-           splits_w, splits_l, _mode_bits(mode, variant, last_drop_f32),
-           ptr(wl), stream)
-    _build.check(-n if n < 0 else 0, "gcnii_bwd launch")
+    with annotate("ops.gcnii_bwd", K=K, B=B, N=N, layers=nl, mode=mode):
+        n = fn(ptr(adj), ptr(h0), ptr(W), ptr(theta), float(alpha),
+               *map(ptr, residuals), ptr(lstm_ih), ptr(lstm_hh), ptr(lstm_b),
+               ptr(dh_out), ptr(dh), ptr(dlh), ptr(dlc), ptr(d_hi), ptr(dh0),
+               ptr(dadj), ptr(hi), ptr(tdpre), ptr(gates), ptr(dgates),
+               ptr(part_w), ptr(part_l), ptr(dW), ptr(dl), int(drop),
+               ptr(th_k), ptr(ik_k), th, ik, seed_ptr, int(reason), nl, K, B,
+               N, H, splits_w, splits_l,
+               _mode_bits(mode, variant, last_drop_f32), ptr(wl), stream)
+        _build.check(-n if n < 0 else 0, "gcnii_bwd launch")
     gcnii_stack_bwd.launches += n
     if gcnii_stack_bwd.kept is not None:
         gcnii_stack_bwd.kept.append((*given, tdpre))

@@ -3,8 +3,12 @@
 
 * :class:`ThroughputMeter`: dialogues/s and utterances/s of a region;
 * :func:`trace`: a torch.profiler trace of a region, written for
-  TensorBoard's profile plugin or Perfetto; :func:`annotate` names a
-  sub-region on its timeline;
+  TensorBoard's profile plugin or Perfetto;
+* :func:`annotate`: the program's span, a named sub-region of a traced
+  region on the profiler's timeline, also kept with its parent, its group
+  step and its attributes in an in-memory log (:func:`spans`), and
+  :func:`count`, the program's counters (:func:`counters`): both record
+  only while a ``torch.profiler`` is active;
 * :func:`device_time_ms` / :func:`device_busy_ms`: what a callable keeps
   the card busy, and the window it spans;
 * :func:`debug_numerics`: autograd's anomaly mode with NaN checks;
@@ -21,16 +25,20 @@ built.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass
-from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
-                    Tuple)
+from typing import (Callable, Dict, Iterator, List, Mapping, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @dataclass
@@ -144,11 +152,122 @@ def device_busy_ms(run: Callable[[], object]) -> Optional[float]:
     return None if t is None else t[0]
 
 
-def annotate(name: str):
-    """A named sub-region of a traced step (``torch.profiler``'s
-    ``record_function``), shown on the trace's timeline; a context
-    manager."""
-    return torch.profiler.record_function(name)
+class Span(NamedTuple):
+    """One finished span of the log.  ``step`` is the (epoch, i) of the
+    group step it belongs to; the times are nanoseconds on the profiler's
+    own clock."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    step: Optional[Tuple[int, int]]
+    start_ns: int
+    end_ns: int
+    attrs: Dict[str, object]
+
+
+# the log keeps the newest spans; a traced group step makes about twenty
+LOG_SPANS = 1 << 16
+_log: deque = deque(maxlen=LOG_SPANS)
+_counters: Dict[str, int] = {}
+_ids = itertools.count(1)
+_local = threading.local()
+_top = None     # the outermost open span, parent of a thread's first one
+_step = None    # the step id last declared
+_OFF = contextlib.nullcontext()
+# a span's profiler range: torch's C++ record function, whose range opens
+# and closes within microseconds of the log's times (under a CUDA trace
+# ``record_function``'s Python enter and exit spend tens of microseconds
+# inside its range, so its ends and the log's would disagree by that)
+_range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 torch.profiler.record_function)
+
+
+class _Span:
+    """An open span: a profiler range of its name, and its log row when it
+    closes."""
+
+    __slots__ = ("name", "step", "attrs", "id", "parent", "start", "_rf",
+                 "_stack")
+
+    def __init__(self, name: str, step, attrs: dict):
+        self.name, self.step, self.attrs = name, step, attrs
+
+    def __enter__(self):
+        global _top, _step
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        # a thread's first span hangs under the outermost span open on
+        # another thread: autograd's device thread launches kernels C and
+        # D while the calling thread waits inside the group step
+        parent = stack[-1] if stack else _top
+        if parent is None:
+            _top = self
+        if self.step is not None:
+            _step = self.step
+        else:
+            self.step = parent.step if parent is not None else _step
+        self.id = next(_ids)
+        self.parent = None if parent is None else parent.id
+        self._rf = _range(self.name)
+        self._rf.__enter__()
+        self.start = time.time_ns()
+        self._stack = stack
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        global _top
+        end = time.time_ns()
+        self._rf.__exit__(*exc)
+        self._stack.pop()
+        if _top is self:
+            _top = None
+        _log.append(Span(self.name, self.id, self.parent, self.step,
+                         self.start, end, self.attrs))
+        return False
+
+
+def annotate(name: str, step: Optional[Tuple[int, int]] = None, **attrs):
+    """The program's span: a context manager that names a sub-region of a
+    traced step.  While a ``torch.profiler`` is active it opens a range
+    of ``name`` on the trace's timeline (as ``record_function`` does) and,
+    when it closes, appends to the log (:func:`spans`) its name, id,
+    parent (the span open on its thread, else the outermost span open on
+    another), its group step (``step``: the (epoch, i) it declares, else
+    its parent's, else the one last declared) and ``attrs``.  The log's
+    times are ``time.time_ns()``: CLOCK_REALTIME, the clock of
+    torch.profiler's host events on Linux.  Otherwise it does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, step, attrs)
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the program's counter ``name`` while a
+    ``torch.profiler`` is active (:func:`counters`)."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def spans() -> List[Span]:
+    """The log: the spans that closed while a profiler was active, oldest
+    first (at most ``LOG_SPANS``, the newest)."""
+    return list(_log)
+
+
+def counters() -> Dict[str, int]:
+    """The counters :func:`count` added to while a profiler was active."""
+    return dict(_counters)
+
+
+def reset() -> None:
+    """Empties the log and the counters."""
+    global _step
+    _log.clear()
+    _counters.clear()
+    _step = None
 
 
 def debug_numerics(enable: bool = True) -> None:

@@ -71,7 +71,7 @@ from mmdfn_torch.losses import focal_loss, masked_nll_loss
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
 from mmdfn_torch.runtime.mesh import (DATA_AXIS, MODEL_AXIS, all_gather,
                                       is_first_rank, replicate, shard_batch)
-from mmdfn_torch.runtime.profiling import (ThroughputMeter,
+from mmdfn_torch.runtime.profiling import (ThroughputMeter, annotate,
                                            grad_histograms_device,
                                            histograms_to_host)
 from mmdfn_torch.train import metrics as M
@@ -135,9 +135,10 @@ def prepare_inputs(batch: Batch, device: torch.device,
         feat = put
     else:
         raise ValueError(f"transfer_dtype {transfer_dtype!r}")
-    return dict(text=feat(batch.text), audio=feat(batch.audio),
-                visual=feat(batch.visual), qmask=put(batch.qmask),
-                umask=put(batch.umask), label=put(batch.label))
+    with annotate("data.to_device"):
+        return dict(text=feat(batch.text), audio=feat(batch.audio),
+                    visual=feat(batch.visual), qmask=put(batch.qmask),
+                    umask=put(batch.umask), label=put(batch.label))
 
 
 def model_text(cfg: ExperimentConfig, inputs: Dict[str, Tensor]) -> Tensor:

@@ -107,6 +107,7 @@ from mmdfn_torch.models.dialogue_gnn import TAG
 from mmdfn_torch.nn import drop_override
 from mmdfn_torch.runtime import checkpoint as ckpt_lib
 from mmdfn_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, is_first_rank
+from mmdfn_torch.runtime.profiling import annotate
 from mmdfn_torch.train.optim import ConfigAdam, StackedAdam
 from mmdfn_torch.train.trainer import (EpochMetrics, Trainer, epoch_loss,
                                        epoch_metrics, model_text,
@@ -327,44 +328,59 @@ class VmapSweep:
         this rank's configurations, seeded as each one's run alone seeds
         that step, and one Adam update of the active ones; each config's
         loss, on the device (None where the config is frozen or another
-        rank's)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.trainers[0].step_seed(epoch, i))
-        self.adam.zero_grad()
-        losses, _ = self._batched(inputs, train=True, generator=gen)
-        losses.sum().backward()
-        self.adam.step(active)
-        losses = losses.detach()
-        lo = self._own.start
-        return [losses[k - lo] if k in self._own and active[k] else None
-                for k in range(self.K)]
+        rank's).  Under a ``torch.profiler`` it is a ``sweep.step`` span of
+        step (epoch, i), its phases ``sweep.forward``, ``sweep.backward``
+        and ``sweep.adam`` (``runtime/profiling.py``)."""
+        B, L = inputs["umask"].shape
+        with annotate("sweep.step", step=(epoch, i), K=len(self._own), B=B,
+                      L=L):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.trainers[0].step_seed(epoch, i))
+            self.adam.zero_grad()
+            with annotate("sweep.forward"):
+                losses, _ = self._batched(inputs, train=True, generator=gen)
+            with annotate("sweep.backward"):
+                losses.sum().backward()
+            with annotate("sweep.adam"):
+                self.adam.step(active)
+            losses = losses.detach()
+            lo = self._own.start
+            return [losses[k - lo] if k in self._own and active[k] else None
+                    for k in range(self.K)]
 
     def evaluate(self, batches) -> Dict[int, EpochMetrics]:
         """Each of this rank's configurations' metrics over ``batches``
         ((Batch, inputs) pairs), from one batched eval step a batch, as
-        ``Trainer.run_epoch`` gives them for that configuration alone."""
-        losses, preds, masks, labels, mask_sums = [], [], [], [], []
-        with torch.no_grad():
-            for batch, inputs in batches:
-                loss, logp = self._batched(inputs, train=False)
-                m = batch.umask.reshape(-1) > 0
-                losses.append(loss)
-                preds.append(logp.argmax(dim=-1))
-                masks.append(m)
-                mask_sums.append(float(m.sum()))
-                labels.append(batch.label.reshape(-1)[m])
-        own = list(self._own)
-        if not losses:
-            nan, empty = float("nan"), np.zeros((0,), np.int64)
-            return {k: EpochMetrics(nan, nan, nan, empty, empty)
-                    for k in own}
-        # one copy back per epoch
-        losses = torch.stack(losses).cpu().numpy().astype(np.float64)
-        preds = [p.reshape(len(own), -1).cpu().numpy() for p in preds]
-        return {k: epoch_metrics(self.trainers[k].cfg, losses[:, j],
-                                 [p[j][m] for p, m in zip(preds, masks)],
-                                 labels, mask_sums)
-                for j, k in enumerate(own)}
+        ``Trainer.run_epoch`` gives them for that configuration alone.
+        Under a ``torch.profiler``: a ``sweep.evaluate`` span, its copy
+        back to the host and the metrics ``sweep.readback``."""
+        with annotate("sweep.evaluate"):
+            losses, preds, masks, labels, mask_sums = [], [], [], [], []
+            with torch.no_grad():
+                for batch, inputs in batches:
+                    loss, logp = self._batched(inputs, train=False)
+                    m = batch.umask.reshape(-1) > 0
+                    losses.append(loss)
+                    preds.append(logp.argmax(dim=-1))
+                    masks.append(m)
+                    mask_sums.append(float(m.sum()))
+                    labels.append(batch.label.reshape(-1)[m])
+            own = list(self._own)
+            if not losses:
+                nan, empty = float("nan"), np.zeros((0,), np.int64)
+                return {k: EpochMetrics(nan, nan, nan, empty, empty)
+                        for k in own}
+            # one copy back per epoch
+            with annotate("sweep.readback"):
+                losses = torch.stack(losses).cpu().numpy().astype(
+                    np.float64)
+                preds = [p.reshape(len(own), -1).cpu().numpy()
+                         for p in preds]
+                return {k: epoch_metrics(
+                            self.trainers[k].cfg, losses[:, j],
+                            [p[j][m] for p, m in zip(preds, masks)], labels,
+                            mask_sums)
+                        for j, k in enumerate(own)}
 
     def _result(self, best_epoch, all_f, all_a, history) -> GroupResult:
         K = self.K

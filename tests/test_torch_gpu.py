@@ -1658,3 +1658,103 @@ def test_data_and_model_parallel_steps_on_the_shared_card_match_one_process():
         dp, tp = r[0]["launches"], r[1]["launches"]
         assert all(v > 0 for v in dp.values()), dp
         assert tp["gcnii_fwd"] == tp["gcnii_bwd"] == 0 < tp["bigru_fwd"], tp
+
+
+@pytest.mark.gpu
+def test_kernel_spans_carry_the_shapes_launched():
+    """Under torch.profiler each launch of kernels A-D is an ``ops.*``
+    span of the program's log whose attributes are the shapes as launched:
+    A and C with a config axis of 3 (A's training mode, then its serve
+    mode alone), B in training mode and serving, D."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmdfn_torch.runtime import profiling
+
+    dev = _card()
+    K, B, L = 3, 6, 20
+    args, g = _bigru_args(dev, B, L, 61)
+    stacked = tuple(torch.stack([a] * K) for a in args[:6]) + (args[6],)
+    serve, _ = _gcnii_args(dev, 1, 64, 16, True, 63)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ys_hg = bigru_forward(*stacked, with_hg=True)
+        dy = [torch.randn(ys_hg[0].shape, generator=g).to(dev)
+              for _ in range(2)]
+        bigru_layer_bwd(*stacked, *ys_hg[:2], *dy, *ys_hg[2:])
+        bigru_forward(*args)
+        # kernel B's training mode, then D on its residuals
+        d_args, d_kw = _gcnii_bwd_inputs(dev, 2, 9, True, 62)
+        gcnii_stack_bwd(*d_args, **d_kw)
+        gcnii_stack_fwd(*serve, alpha=0.2, reason=True)
+        torch.cuda.synchronize()
+    sms = _sm_count(dev)
+    rnn = dict(B=B, L=L, H=H, G=3 * H, mode="f32")
+    assert [(s.name, s.attrs) for s in profiling.spans()] == [
+        ("ops.bigru_fwd", dict(K=K, **rnn, train=True)),
+        ("ops.bigru_bwd", dict(K=K, **rnn)),
+        ("ops.bigru_fwd", dict(K=1, **rnn, train=False)),
+        ("ops.gcnii_fwd", dict(K=1, B=2, N=27, layers=16,
+                               design=_design(2, 27, sms), mode="f32")),
+        ("ops.gcnii_bwd", dict(K=1, B=2, N=27, layers=16, mode="f32")),
+        ("ops.gcnii_fwd", dict(K=1, B=1, N=192, layers=16,
+                               design=_design(1, 192, sms), mode="f32"))]
+    profiling.reset()
+
+
+@pytest.mark.gpu
+def test_group_step_spans_lie_on_the_profilers_clock():
+    """One group step (K = 2, 2 layers, B = 4) under torch.profiler: the
+    logged ``sweep.step`` starts and ends within 50 us of the profiler's
+    own range of that name (on its clock), every span carries the step's
+    id, and kernels C and D, launched from autograd's device thread, hang
+    under the step beside its forward, backward and Adam."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmdfn_torch.config import ExperimentConfig
+    from mmdfn_torch.data.batching import BucketBatcher
+    from mmdfn_torch.data.datasets import IEMOCAPDataset
+    from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
+    from mmdfn_torch.runtime import profiling
+    from mmdfn_torch.train.trainer import prepare_inputs
+    from mmdfn_torch.train.vmap_sweep import VmapSweep
+
+    dev = _card()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_iemocap_pickle(f"{tmp}/iem.pkl", n_train=4, n_test=2,
+                                      min_len=5, max_len=12, seed=3)
+        train = IEMOCAPDataset(f"{tmp}/iem.pkl", True).dialogues()
+    cfg = ExperimentConfig(Deep_GCN_nlayers=2, reason_flag=True,
+                           batch_size=4, buckets=(16,))
+    group = VmapSweep(cfg, [dict(lr=1e-3, l2=1e-4), dict(lr=3e-4, l2=1e-4)],
+                      device=dev)
+    batch = next(BucketBatcher(train, 4, 2, (16,)).epoch(0))
+    inputs = prepare_inputs(batch, dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for i in range(2):      # the first profiler run warms it up
+        profiling.reset()
+        with profile(activities=acts) as prof:
+            group.step(inputs, 0, i, [True, True])
+            torch.cuda.synchronize()
+    got = profiling.spans()
+    step = [s for s in got if s.name == "sweep.step"]
+    ranges = [e for e in prof.profiler.kineto_results.events()
+              if e.name() == "sweep.step"
+              and e.device_type() == torch.autograd.DeviceType.CPU]
+    assert len(step) == len(ranges) == 1
+    step, rng = step[0], ranges[0]
+    assert abs(step.start_ns - rng.start_ns()) <= 50_000, (
+        step.start_ns, rng.start_ns())
+    assert abs(step.end_ns - rng.end_ns()) <= 50_000, (
+        step.end_ns, rng.end_ns())
+    assert {s.step for s in got} == {(0, 1)}
+    assert step.attrs == dict(K=2, B=4, L=16)
+    under = sorted(s.name for s in got if s.parent == step.id)
+    assert under == ["ops.bigru_bwd"] * 4 + ["ops.gcnii_bwd", "sweep.adam",
+                                            "sweep.backward",
+                                            "sweep.forward"], under
+    fwd = next(s for s in got if s.name == "sweep.forward")
+    assert sorted(s.name for s in got if s.parent == fwd.id) == \
+        ["ops.bigru_fwd"] * 4 + ["ops.gcnii_fwd"]
+    profiling.reset()

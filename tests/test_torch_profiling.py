@@ -1,7 +1,10 @@
 """The port's instrumentation against the JAX package's: the gradient
 histograms reduced on the device, ``ThroughputMeter``, and the training
-CLI's ``--profile_dir``, ``--debug_nans`` and ``--tensorboard``."""
+CLI's ``--profile_dir``, ``--debug_nans`` and ``--tensorboard``; and the
+program's spans and counters (``annotate``, ``count``), which record only
+under a ``torch.profiler``, on a tiny group step."""
 
+import contextlib
 import glob
 import json
 import time
@@ -19,10 +22,13 @@ from mmdfn_tpu.runtime import profiling as jprof
 
 from mmdfn_torch.cli import run_train_erc
 from mmdfn_torch.config import ExperimentConfig
+from mmdfn_torch.data.batching import BucketBatcher
 from mmdfn_torch.data.datasets import IEMOCAPDataset
 from mmdfn_torch.data.synthetic import make_synthetic_iemocap_pickle
 from mmdfn_torch.runtime import profiling
 from mmdfn_torch.train import Trainer
+from mmdfn_torch.train.trainer import prepare_inputs
+from mmdfn_torch.train.vmap_sweep import VmapSweep
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -204,3 +210,71 @@ def test_cli_profile_dir_debug_nans_and_tensorboard(pickle_path, tmp_path,
     assert len(kw["bucket_limits"]) == len(kw["bucket_counts"]) == \
         run_train_erc.GRAD_HIST_BINS
     assert sum(kw["bucket_counts"]) == kw["num"]
+
+
+@pytest.fixture(scope="module")
+def group_step(pickle_path):
+    """One step and one evaluation of a group of 2 (1 layer, B = 4, bucket
+    8) on the CPU, without a profiler and under one: for each, the step's
+    batch, the log, the counters and the profiler's range names."""
+    cfg = ExperimentConfig(graph_type="GDF", reason_flag=True,
+                           Deep_GCN_nlayers=1, batch_size=4, buckets=(8,))
+    group = VmapSweep(cfg, [dict(lr=1e-3, l2=1e-4), dict(lr=3e-4, l2=2e-4)],
+                      device="cpu")
+    cpu = torch.device("cpu")
+    train = IEMOCAPDataset(pickle_path, train=True).dialogues()
+    test = [(b, prepare_inputs(b, cpu)) for b in BucketBatcher(
+        IEMOCAPDataset(pickle_path, train=False).dialogues(), 4, 2,
+        (8,)).epoch()]
+    runs = {}
+    for traced in (False, True):
+        profiling.reset()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) if traced
+              else contextlib.nullcontext()) as prof:
+            batch = next(BucketBatcher(train, 4, 2, (8,), shuffle=True,
+                                       seed=1).epoch(3))
+            group.step(prepare_inputs(batch, cpu), 3, 0, [True, True])
+            group.evaluate(test)
+        names = {e.name for e in prof.events()} if traced else set()
+        runs[traced] = (batch, profiling.spans(), profiling.counters(),
+                        names)
+    profiling.reset()
+    return runs
+
+
+def test_spans_and_counters_record_nothing_without_a_profiler(group_step):
+    _, spans, counters, _ = group_step[False]
+    assert spans == []
+    assert all(counters.get(n, 0) == 0 for n in ("data.utterances",
+                                                 "data.slots"))
+
+
+def test_group_step_spans_form_the_steps_tree_under_the_profiler(
+        group_step):
+    """The step's spans hang under ``sweep.step``, the evaluation's read-back
+    under ``sweep.evaluate``; each carries the step's (epoch, i), the data
+    spans that batch's, and each is also a profiler range of its name."""
+    _, spans, _, names = group_step[True]
+    by_name = {s.name: s for s in spans}
+    assert sorted(by_name) == sorted(
+        ["data.collate", "data.to_device", "sweep.step", "sweep.forward",
+         "sweep.backward", "sweep.adam", "sweep.evaluate",
+         "sweep.readback"])
+    assert len(spans) == len(by_name)
+    step = by_name["sweep.step"]
+    assert step.parent is None and step.attrs == dict(K=2, B=4, L=8)
+    for name in ("sweep.forward", "sweep.backward", "sweep.adam"):
+        s = by_name[name]
+        assert s.parent == step.id
+        assert step.start_ns <= s.start_ns <= s.end_ns <= step.end_ns
+    assert by_name["sweep.readback"].parent == by_name["sweep.evaluate"].id
+    assert {s.step for s in spans} == {(3, 0)}
+    assert {s.name for s in spans} <= names
+
+
+def test_data_counters_count_the_batchs_utterances_and_slots(group_step):
+    batch, _, counters, _ = group_step[True]
+    B, L = batch.umask.shape
+    assert counters["data.utterances"] == int(batch.umask.sum()) > 0
+    assert counters["data.slots"] == B * L == 4 * 8
