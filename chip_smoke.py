@@ -171,7 +171,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    numpy's of the same gradients on the host, and 6 Adam steps without
    dropout at the flagship's lr 3e-4 whose loss must fall (and 6 at 3e-3,
    with the kernels and with the plain versions, reported);
-14. fast: the JAX package's production configuration (``--tpu_fast``,
+14. cores: which core runs kernels B's and D's tiled products (the f32
+   mode's on the tensor cores as 3xTF32, the bf16 modes' on the CUDA
+   cores): at the flagship's and GF2's shapes the program's counter
+   ``ops.gcnii_tc_products`` equals the tensor-core launches a profile
+   shows, every product in the f32 mode and none in the bf16 modes; and
+   the bf16 modes' outputs carry the digests the CUDA-core core recorded
+   (``mmdfn_torch/tools/cuda_core_digests.json``) where the toolchain and
+   card are that file's;
+15. fast: the JAX package's production configuration (``--tpu_fast``,
    ``gcn_backend='pallas'``), kernels B and D in their bf16 mode (the TPU
    training kernel's numerics; one tiled design): at the training shapes
    (B = 32, N = 240, 16 layers, rate 0.4) B's training mode against its
@@ -192,7 +200,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    timed steps beside 10 parity steps (busy, host enqueue, idle share,
    peak), and one served 37-utterance dialogue against the plain model
    (49 launches of B an append);
-15. scan: JAX's bf16 layer scan (``gcn_compute_dtype='bfloat16'`` where no
+16. scan: JAX's bf16 layer scan (``gcn_compute_dtype='bfloat16'`` where no
    fused kernel runs), kernels B and D in their bf16 scan mode (every op
    rounded to bf16, the carries bf16; the tiled design): at GF2's shape
    (B = 32, N = 240, 64 layers, no LSTM, rate 0.4, the last dropout in
@@ -211,7 +219,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    loss, every gradient within ``SCAN_GRAD_STEPS`` bf16 steps of its max
    |.|), 10 timed steps, and one served 37-utterance dialogue of GF2 and
    of DeepGCN against the plain model;
-16. rnn_bf16: the encoders' bf16 recurrence (``rnn_compute_dtype=
+17. rnn_bf16: the encoders' bf16 recurrence (``rnn_compute_dtype=
    'bfloat16'``), kernels A and C in their bf16 scan mode (JAX's bf16
    ``_gru_scan``: every op rounded to bf16, h and dh carried in bf16,
    dW_hh and db_hh summed step by step and then over the steps in bf16):
@@ -229,7 +237,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    116 a step, 10 timed steps each (the train phase times the parity
    step in the same call), and one served 37-utterance dialogue each
    against the plain model;
-17. parallel: the multi-device layer on the one card, its ranks started
+18. parallel: the multi-device layer on the one card, its ranks started
    by ``runtime/launch.py`` (two ranks share the card over gloo, so their
    walls measure sharing, not scaling): (a) the flagship at the train
    phase's settings, dropout 0, on 2 data ranks of 16 dialogues (B = 32
@@ -3416,6 +3424,95 @@ def fast_step_check(torch, dev, cfg, batch, grad_tol=None) -> dict:
                 [n, *e] for n, e in worst[:6]]}
 
 
+CORE_DIGESTS = ROOT / "mmdfn_torch" / "tools" / "cuda_core_digests.json"
+
+
+def cores_phase(torch, dev) -> dict:
+    """Which core runs kernels B's and D's tiled products.  At the
+    flagship's shapes in each mode and GF2's in the modes its stacks run
+    (``tools/time_stack.py``'s operands), one forward and one backward
+    under torch.profiler: the
+    program's counter ``ops.gcnii_tc_products`` must equal the products of
+    the two calls in the f32 mode (their launches but B's first and D's
+    sums) and be 0 in the bf16 modes, and the profile must show the
+    tensor-core kernel (``gemm_tc_kernel``) in the f32 mode only and the
+    CUDA-core one (``gemm_kernel``) in the bf16 modes only.  Then the bf16
+    modes' outputs at the flagship's shapes must carry the bits that the
+    CUDA-core core gave before the tensor-core core was added
+    (``CORE_DIGESTS``, recorded on the card from the commit before it),
+    where this toolchain and card are the file's; elsewhere the digests
+    are reported, not compared."""
+    import inspect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmdfn_torch import ops
+    from mmdfn_torch.ops import _build
+    from mmdfn_torch.ops.gcnii import (TC_PRODUCTS, gcnii_bwd_launches,
+                                       gcnii_fwd_launches)
+    from mmdfn_torch.runtime import profiling
+    from mmdfn_torch.tools import time_stack
+
+    takes = inspect.signature(ops.gcnii_stack_fwd).parameters
+    counts = {}
+    # each mode at the flagship's shapes; GF2's (no LSTM) in the modes its
+    # stacks run (f32, and the bf16 scan mode under --tpu_fast)
+    for shape, modes in (("flagship", time_stack.MODES),
+                         ("gf2", ("f32", "bf16_scan"))):
+        _, _, nl, reason, _, _ = time_stack.SHAPES[shape]
+        for mode in modes:
+            fwd, bwd, _ = time_stack.calls(torch, dev, shape, mode, ops,
+                                           takes)
+            fwd()
+            torch.cuda.synchronize()
+            # the profile names the core; it may miss a short window's
+            # first kernels (or all: then it is opened again), so it is not
+            # held to every launch
+            for _ in range(PROFILE_TRIES):
+                profiling.reset()
+                n0 = (ops.gcnii_stack_fwd.launches,
+                      ops.gcnii_stack_bwd.launches)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fwd()
+                    bwd()
+                    torch.cuda.synchronize()
+                kernels = [e.name for e in prof.events() if e.device_type
+                           == torch.autograd.DeviceType.CUDA]
+                if kernels:
+                    break
+            nf = ops.gcnii_stack_fwd.launches - n0[0]
+            nb = ops.gcnii_stack_bwd.launches - n0[1]
+            check(nf == gcnii_fwd_launches(nl, reason, mode=mode)
+                  and nb == gcnii_bwd_launches(nl, reason, mode=mode),
+                  f"{shape} {mode}: launches {nf}, {nb}")
+            products = nf - 1 + nb - 1 - int(reason)
+            counted = profiling.counters().get(TC_PRODUCTS, 0)
+            tc = sum("gemm::gemm_tc_kernel" in k for k in kernels)
+            cuda_core = sum("gemm::gemm_kernel" in k for k in kernels)
+            f32 = mode == "f32"
+            check(counted == (products if f32 else 0)
+                  and (tc > 0) == f32 and (cuda_core > 0) != f32,
+                  f"{shape} {mode}: {counted} counted of {products} "
+                  f"products; the profile shows {tc} tensor-core and "
+                  f"{cuda_core} CUDA-core products")
+            counts[f"{shape} {mode}"] = {TC_PRODUCTS: counted,
+                                         "products": products,
+                                         "gemm_tc_kernel": tc,
+                                         "gemm_kernel": cuda_core}
+    got = time_stack.digests(torch, dev, "flagship", ("bf16", "bf16_scan"))
+    chain = toolchain(torch, _build)
+    here = {"torch": chain["torch"], "cuda": chain["cuda"],
+            "nvcc": chain["nvcc"], "card": torch.cuda.get_device_name(0)}
+    rec = json.loads(CORE_DIGESTS.read_text())
+    compared = rec["toolchain"] == here
+    if compared:
+        check(got == rec["digests"], f"the bf16 modes' bits differ from the "
+              f"CUDA-core core's ({rec['commit']}): {got}")
+    return {"counts": counts, "bf16_digests": got,
+            "bf16_digests_compared": compared, "toolchain": here}
+
+
 def fast_phase(torch, dev) -> dict:
     """The JAX package's production configuration: the kernels in their
     bf16 mode (:func:`fast_kernels`); the flagship's training step built
@@ -4468,7 +4565,8 @@ def main() -> int:
                         ("nonvariant", nonvariant_phase),
                         ("single", single_phase), ("learn", learn_phase),
                         ("sweep", sweep_phase), ("daily", daily_phase),
-                        ("raw", raw_phase), ("fast", fast_phase),
+                        ("raw", raw_phase), ("cores", cores_phase),
+                        ("fast", fast_phase),
                         ("scan", scan_phase), ("rnn_bf16", rnn_bf16_phase),
                         ("parallel", parallel_phase)):
         t0 = time.perf_counter()

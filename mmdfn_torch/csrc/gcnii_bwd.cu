@@ -25,13 +25,16 @@
 // B N rows) the function is nine products a layer: 6 B N^2 H for adj @ h1,
 // adj^T d_hi and d_hi h1^T, 60 R H^2 for the gate recompute, the support
 // product, both input-gradient pairs and the weight gradients; with ~40 R H
-// of elementwise work, ~91 GFLOP, 1.37 ms at the card's 67 TFLOP/s in f32.
-// Its bytes (the four 49 MB residual slabs, the adjacency, and the gates,
-// hi, tdpre and dgates scratch written and read once) take ~0.4 ms, so it
-// is bound by operations.
+// of elementwise work, ~91 GFLOP, 1.37 ms at the card's 67 TFLOP/s in f32
+// (0.55 ms at 3xTF32's 165 on the tensor cores).  Its bytes (the four 49
+// MB residual slabs, the adjacency, and the gates, hi, tdpre and dgates
+// scratch written and read once) take ~0.4 ms, so it is bound by
+// operations.
 //
 // Design: every product is one launch of the tiled product of
-// gemm_f32.cuh, with its elementwise work in the epilogue.  Per layer, each
+// gemm_f32.cuh, with its elementwise work in the epilogue: in the f32
+// mode on the tensor cores as 3xTF32 (launch_tc), in the bf16 modes on
+// the CUDA cores (launch).  Per layer, each
 // batched over the B dialogues (rows = the N nodes of one dialogue):
 //   P1 gates = act([h | lh] [W_ih; W_hh] + b)      wide    -> gates scratch
 //   P2 hi = adj h1                                 narrow  -> hi slab[l]
@@ -49,19 +52,26 @@
 // (B, nl, N, 4H) like the residual slabs).  No operand is copied to
 // transpose it: each is read in place through its strides.
 //
-// Tiles (BM x BN, a thread's register tile, threads; shared memory for a
-// ring of three 8-deep slices): wide 128 x 128, 8 x 8, 256, 25.3 KB, for
-// P1 and the weight-gradient sums; narrow 64 x 128, 4 x 8, 256, 19.2 KB,
-// for the rest (more blocks where a product has 100-240 columns).  Both
-// are capped at 128 registers for two blocks per SM, except the three
-// products with H columns (P2, P3, P6), which launch at most one block per
-// SM.  128 columns let the 16 column threads of a row read B conflict-free;
-// 112 (less padding for H = 100) measured slower.  Registers and spills:
+// Tiles (BM x BN, 256 threads): wide 128 x 128 for P1 and the
+// weight-gradient sums; narrow 64 x 128 for the rest (more blocks where a
+// product has 100-240 columns).  Both are capped at 128 registers for two
+// blocks per SM, except the three products with H columns (P2, P3, P6),
+// which launch at most one block per SM.  On the tensor cores (the f32
+// mode) a warp holds a 64 x 32 (wide) or 32 x 32 (narrow) tile of
+// m16n8k8 products, and a ring of three 16-deep slices takes 52.2 KB
+// (wide, dynamic shared memory) or 39.9 KB; on the CUDA cores (the bf16
+// modes) a thread holds an 8 x 8 or 4 x 8 register tile, and three 8-deep
+// slices take 25.3 or 19.2 KB (128 columns let the 16 column threads of a
+// row read B conflict-free; 112 measured slower).  Registers and spills:
 // see `-Xptxas -v` (chip_smoke.py prints them and fails on a spill).
 //
-// Why f32 on the CUDA cores: TF32 or bf16 tensor cores keep ~3 decimal
+// Why 3xTF32 on the tensor cores, and not TF32: TF32 keeps ~3 decimal
 // digits, and the port holds kernel D to 1e-4 of each gradient's scale
-// against the plain f32 version.
+// against the plain f32 version; split into two TF32 values each operand
+// keeps 22 of f32's 24 significand bits, and the three products sum as
+// f32 does (gemm_f32.cuh; tests/test_torch_tf32x3.py).  The bf16 modes
+// stay on the CUDA cores, whose checks hold them to f32 sums of bf16
+// values in that core's order.
 //
 // Config axis (the grouped sweep's K stacked configurations), as in
 // gcnii_fwd.cu: the walk's products run the K B dialogues as one batch,
@@ -691,12 +701,17 @@ __global__ void gcnii_scan_lstm_reduce_kernel(const float* __restrict__ part,
 }
 
 // The tile shapes (see the note at the top); wide and narrow leave room
-// for two blocks per SM.
-template <bool AKC, bool BKC, class Epi>
+// for two blocks per SM.  TC: on the tensor cores (the f32 mode), else on
+// the CUDA cores (the bf16 modes).
+template <bool TC, bool AKC, bool BKC, class Epi>
 cudaError_t wide(const Operand& A, const Operand& B, int M, int N, int K,
                  int batches, int splits, const Epi& epi, cudaStream_t st) {
-  return gemm::launch<128, 128, 8, AKC, BKC, 2>(A, B, M, N, K, batches,
-                                                splits, epi, st);
+  if constexpr (TC)
+    return gemm::launch_tc<128, 128, 64, 32, AKC, BKC, 2>(
+        A, B, M, N, K, batches, splits, epi, st);
+  else
+    return gemm::launch<128, 128, 8, AKC, BKC, 2>(A, B, M, N, K, batches,
+                                                  splits, epi, st);
 }
 
 // The wide tile with its registers not capped: the bf16 mode's products
@@ -708,20 +723,40 @@ cudaError_t wide1(const OA& A, const OB& B, int M, int N, int K, int batches,
                                                 splits, epi, st);
 }
 
-template <bool AKC, bool BKC, class Epi>
+template <bool TC, bool AKC, bool BKC, class Epi>
 cudaError_t narrow(const Operand& A, const Operand& B, int M, int N, int K,
                    int batches, const Epi& epi, cudaStream_t st) {
-  return gemm::launch<64, 128, 4, AKC, BKC, 2>(A, B, M, N, K, batches, 1,
-                                               epi, st);
+  if constexpr (TC)
+    return gemm::launch_tc<64, 128, 32, 32, AKC, BKC, 2>(A, B, M, N, K,
+                                                         batches, 1, epi, st);
+  else
+    return gemm::launch<64, 128, 4, AKC, BKC, 2>(A, B, M, N, K, batches, 1,
+                                                 epi, st);
 }
 
 // The products with H = 100 columns launch one block per SM at most (B x
-// N / 64 blocks): their registers need no cap (nor the bf16 mode's).
-template <bool AKC, bool BKC, class OA, class OB, class Epi>
+// N / 64 blocks): their registers need no cap (nor the bf16 mode's).  P2
+// and P3 launch as kernel B's F2 and F3.
+template <bool TC, bool AKC, bool BKC, class OA, class OB, class Epi>
 cudaError_t narrow100(const OA& A, const OB& B, int M, int N, int K,
                       int batches, const Epi& epi, cudaStream_t st) {
-  return gemm::launch<64, 128, 4, AKC, BKC, 1>(A, B, M, N, K, batches, 1,
-                                               epi, st);
+  if constexpr (TC)
+    return gemm::launch_tc<64, 128, 32, 32, AKC, BKC, 2>(A, B, M, N, K,
+                                                         batches, 1, epi, st);
+  else
+    return gemm::launch<64, 128, 4, AKC, BKC, 1>(A, B, M, N, K, batches, 1,
+                                                 epi, st);
+}
+
+// The f32 mode's weight-gradient sums (split K) on the tensor cores, at
+// the narrow tile: the wide one spills at two blocks per SM where their
+// group strides apply.
+template <class Epi>
+cudaError_t sums_tc(const Operand& A, const Operand& B, int M, int N, int K,
+                    int batches, int splits, const Epi& epi,
+                    cudaStream_t st) {
+  return gemm::launch_tc<64, 128, 32, 32, false, false, 2>(
+      A, B, M, N, K, batches, splits, epi, st);
 }
 
 cudaError_t reduce(const float* part, int groups, int splits, long long E,
@@ -790,23 +825,23 @@ int backward_bf16(const float* adj, const float* h0, const float* W,
     // P2: the layer's bf16 h1 (without reason: its bf16 h, from the slab)
     const P2HiB p2{hi_l, hir, N, H};
     if (reason)
-      GCNII_LAUNCH((narrow100<true, false>(
+      GCNII_LAUNCH((narrow100<false, true, false>(
           gemm::dense(adj, NN, N, 1),
           gemm::dense(static_cast<const float*>(h1r), NH, 1, H), N, H, N, B,
           p2, st)));
     else
-      GCNII_LAUNCH((narrow100<true, false>(
+      GCNII_LAUNCH((narrow100<false, true, false>(
           gemm::dense(adj, NN, N, 1), gemm::dense(h_l, nl * NH, 1, H), N, H,
           N, B, p2, st)));
     // P3
-    GCNII_LAUNCH((narrow100<true, false>(
+    GCNII_LAUNCH((narrow100<false, true, false>(
         gemm::cat(static_cast<const float*>(hir), NH, h0, NH, H, 1, H, true),
         gemm::grouped(gemm::dense(W_l, 0, 1, H), Bc, WK, WK), N, H, 2 * H, B,
         P3Pre{d, hi_l, h0, dh_src, theta + l, alpha, drop, Bc, rate, seed,
               first, tdpre_l, d_hi, dh0},
         st)));
     // P4
-    GCNII_LAUNCH((narrow<true, true>(
+    GCNII_LAUNCH((narrow<false, true, true>(
         gemm::dense(static_cast<const float*>(tdpre_l), NH, H, 1),
         gemm::grouped(gemm::dense(W_l, 0, H, 1), Bc, WK, WK), N, 2 * H, H, B,
         P4DProjB{{d, d_hi, d_hi, dh0, 1}, last}, st)));
@@ -814,21 +849,21 @@ int backward_bf16(const float* adj, const float* h0, const float* W,
     const Operand dhi_rows = gemm::dense(static_cast<const float*>(d_hi), NH,
                                          H, 1);
     if (reason)
-      GCNII_LAUNCH((narrow<true, true>(
+      GCNII_LAUNCH((narrow<false, true, true>(
           dhi_rows, gemm::dense(static_cast<const float*>(h1f), NH, H, 1), N,
           N, H, B, P5DAdjB{{dadj, N, first}, last}, st)));
     else
-      GCNII_LAUNCH((narrow100<true, true>(
+      GCNII_LAUNCH((narrow100<false, true, true>(
           dhi_rows, gemm::dense(h_l, nl * NH, H, 1), N, N, H, B,
           P5DAdjB{{dadj, N, first}, last}, st)));
     // P6
-    GCNII_LAUNCH((narrow100<false, false>(
+    GCNII_LAUNCH((narrow100<false, false, false>(
         gemm::dense(adj, NN, 1, N),
         gemm::dense(static_cast<const float*>(d_hi), NH, 1, H), N, H, N, B,
         P6LstmT<bf16>{d, reason, first, gates, res_lc, dh, dlh, dlc, dgates},
         st)));
     if (reason)   // P7
-      GCNII_LAUNCH((narrow<true, true>(
+      GCNII_LAUNCH((narrow<false, true, true>(
           gemm::dense(static_cast<const float*>(dgates) + (long long)l * N * G,
                       (long long)nl * N * G, G, 1),
           gemm::grouped(gemm::cat(ih, 0, hh, 0, G, 1, H, false), Bc, LK, LK),
@@ -836,7 +871,7 @@ int backward_bf16(const float* adj, const float* h0, const float* W,
   }
 
   // dW as in gcnii_bwd; rounded to bf16 in its sum
-  GCNII_LAUNCH((wide<false, false>(
+  GCNII_LAUNCH((wide<false, false, false>(
       gemm::grouped(gemm::cat(static_cast<const float*>(hi), RH, h0, 0, 1, H,
                               H, false),
                     nl, CH - nl * RH, CH),
@@ -937,12 +972,12 @@ int backward_scan(const float* adj, const float* h0, const float* W,
     // P2: adj h1 (without reason: the layer's h, from the slab)
     const P2HiS p2{hi_l, h0, N, H, variant, k};
     if (reason)
-      GCNII_LAUNCH((narrow100<true, false>(
+      GCNII_LAUNCH((narrow100<false, true, false>(
           gemm::dense(adj, NN, N, 1),
           gemm::dense(static_cast<const float*>(h1f), NH, 1, H), N, H, N, B,
           p2, st)));
     else
-      GCNII_LAUNCH((narrow100<true, false>(
+      GCNII_LAUNCH((narrow100<false, true, false>(
           gemm::dense(adj, NN, N, 1), gemm::dense(h_l, nl * NH, 1, H), N, H,
           N, B, p2, st)));
     // P3
@@ -968,12 +1003,12 @@ int backward_scan(const float* adj, const float* h0, const float* W,
           variant ? gemm::cat(static_cast<const float*>(hi_l), NH, h0, NH, H,
                               1, H, true)
                   : gemm::dense(static_cast<const float*>(hi_l), NH, H, 1);
-      GCNII_LAUNCH((narrow100<true, false>(
+      GCNII_LAUNCH((narrow100<false, true, false>(
           A, gemm::grouped(gemm::dense(W_l, 0, 1, H), Bc, WK, WK), N, H, WI,
           B, p3, st)));
     }
     // P4
-    GCNII_LAUNCH((narrow<true, true>(
+    GCNII_LAUNCH((narrow<false, true, true>(
         gemm::dense(static_cast<const float*>(tdpre_l), NH, H, 1),
         gemm::grouped(gemm::dense(W_l, 0, H, 1), Bc, WK, WK), N, WI, H, B,
         P4DProjS{d, d_hi, dh0, k, first, variant}, st)));
@@ -981,20 +1016,20 @@ int backward_scan(const float* adj, const float* h0, const float* W,
     const Operand dhi_rows = gemm::dense(static_cast<const float*>(d_hi), NH,
                                          H, 1);
     if (reason)
-      GCNII_LAUNCH((narrow<true, true>(
+      GCNII_LAUNCH((narrow<false, true, true>(
           dhi_rows, gemm::dense(static_cast<const float*>(h1f), NH, H, 1), N,
           N, H, B, P5DAdjS{dadj, N, first}, st)));
     else
-      GCNII_LAUNCH((narrow100<true, true>(
+      GCNII_LAUNCH((narrow100<false, true, true>(
           dhi_rows, gemm::dense(h_l, nl * NH, H, 1), N, N, H, B,
           P5DAdjS{dadj, N, first}, st)));
     // P6
-    GCNII_LAUNCH((narrow100<false, false>(
+    GCNII_LAUNCH((narrow100<false, false, false>(
         gemm::dense(adj, NN, 1, N),
         gemm::dense(static_cast<const float*>(d_hi), NH, 1, H), N, H, N, B,
         P6LstmS{d, reason, first, gates, res_lc, dh, dlh, dlc, dgates}, st)));
     if (reason)   // P7
-      GCNII_LAUNCH((narrow<true, true>(
+      GCNII_LAUNCH((narrow<false, true, true>(
           gemm::dense(static_cast<const float*>(dgates) + (long long)l * N * G,
                       (long long)nl * N * G, G, 1),
           gemm::grouped(gemm::cat(ih, 0, hh, 0, G, 1, H, false), Bc, LK, LK),
@@ -1010,7 +1045,7 @@ int backward_scan(const float* adj, const float* h0, const float* W,
               : gemm::grouped(gemm::dense(static_cast<const float*>(hi), RH,
                                           1, H),
                               nl, CH - nl * RH, CH - nl * RH);
-  GCNII_LAUNCH((wide<false, false>(
+  GCNII_LAUNCH((wide<false, false, false>(
       Aw,
       gemm::grouped(gemm::dense(static_cast<const float*>(tdpre), RH, 1, H),
                     nl, CH - nl * RH, CH - nl * RH),
@@ -1105,37 +1140,37 @@ extern "C" int gcnii_bwd(
     float* tdpre_l = tdpre + l * RH;
     const float* W_l = W + (long long)l * 2 * H * H;
     if (reason)   // P1
-      GCNII_LAUNCH((wide<true, false>(
+      GCNII_LAUNCH((wide<true, true, false>(
           gemm::cat(res_h + l * NH, nl * NH, res_lh + l * NH, nl * NH, H, 1,
                     H, true),
           gemm::grouped(gemm::cat(ih, 0, hh, 0, 1, G, H, true), Bc, LK, LK),
           N, G, 2 * H, B, 1, P1Gates{d, lb, Bc, gates}, st)));
     // P2
-    GCNII_LAUNCH((narrow100<true, false>(
+    GCNII_LAUNCH((narrow100<true, true, false>(
         gemm::dense(adj, NN, N, 1), gemm::dense(h1, nl * NH, 1, H), N, H, N,
         B, P2Hi{hi_l, N, H}, st)));
     // P3
-    GCNII_LAUNCH((narrow100<true, false>(
+    GCNII_LAUNCH((narrow100<true, true, false>(
         gemm::cat(hi_l, NH, h0, NH, H, 1, H, true),
         gemm::grouped(gemm::dense(W_l, 0, 1, H), Bc, WK, WK), N, H, 2 * H, B,
         P3Pre{d, hi_l, h0, dh_src, theta + l, alpha, drop, Bc, rate, seed,
                first, tdpre_l, d_hi, dh0},
         st)));
     // P4
-    GCNII_LAUNCH((narrow<true, true>(
+    GCNII_LAUNCH((narrow<true, true, true>(
         gemm::dense(tdpre_l, NH, H, 1),
         gemm::grouped(gemm::dense(W_l, 0, H, 1), Bc, WK, WK), N, 2 * H, H, B,
         P4DProj{{d, d_hi, d_hi, dh0, 1}}, st)));
     // P5
-    GCNII_LAUNCH((narrow<true, true>(
+    GCNII_LAUNCH((narrow<true, true, true>(
         gemm::dense(d_hi, NH, H, 1), gemm::dense(h1, nl * NH, H, 1), N, N, H,
         B, P5DAdj{dadj, N, first}, st)));
     // P6
-    GCNII_LAUNCH((narrow100<false, false>(
+    GCNII_LAUNCH((narrow100<true, false, false>(
         gemm::dense(adj, NN, 1, N), gemm::dense(d_hi, NH, 1, H), N, H, N, B,
         P6Lstm{d, reason, first, gates, res_lc, dh, dlh, dlc, dgates}, st)));
     if (reason)   // P7
-      GCNII_LAUNCH((narrow<true, true>(
+      GCNII_LAUNCH((narrow<true, true, true>(
           gemm::dense(dgates + (long long)l * N * G, (long long)nl * N * G, G,
                       1),
           gemm::grouped(gemm::cat(ih, 0, hh, 0, G, 1, H, false), Bc, LK, LK),
@@ -1146,21 +1181,21 @@ extern "C" int gcnii_bwd(
   // rows, every (k, l) at once: batch z = k nl + l starts at layer l's
   // slab, row k Bc N (a group stride CH - nl RH every nl batches; h0's
   // CH)
-  GCNII_LAUNCH((wide<false, false>(
+  GCNII_LAUNCH(sums_tc(
       gemm::grouped(gemm::cat(hi, RH, h0, 0, 1, H, H, false), nl,
                     CH - nl * RH, CH),
       gemm::grouped(gemm::dense(tdpre, RH, 1, H), nl, CH - nl * RH,
                     CH - nl * RH),
-      2 * H, H, R, K * nl, splits_w, WgradW{{part_w, 2 * H, H}}, st)));
+      2 * H, H, R, K * nl, splits_w, WgradW{{part_w, 2 * H, H}}, st));
   GCNII_LAUNCH(reduce(part_w, K * nl, splits_w, 2LL * H * H, dW, st));
   if (reason) {
     // [dW_ih; dW_hh; db][k] = [h | lh | 1]^T dgates over configuration k's
     // Bc nl N rows
     Operand A = gemm::cat(res_h, nl * CH, res_lh, nl * CH, 1, H, H, false);
     A.one_row = 2 * H;
-    GCNII_LAUNCH((wide<false, false>(
+    GCNII_LAUNCH(sums_tc(
         A, gemm::dense(dgates, (long long)Bc * nl * N * G, 1, G), 2 * H + 1,
-        G, R * nl, K, splits_l, WgradLstm{{part_l, 2 * H + 1, G}}, st)));
+        G, R * nl, K, splits_l, WgradLstm{{part_l, 2 * H + 1, G}}, st));
     GCNII_LAUNCH(reduce(part_l, K, splits_l, (2LL * H + 1) * G, dl, st));
   }
 #undef GCNII_LAUNCH

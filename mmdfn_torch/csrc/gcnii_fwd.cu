@@ -60,14 +60,18 @@
 // scan, GF2's wiring); bit 8: variant=False.  The tiled design only.
 //
 // Bound: at the training shapes the stack does ~31 GFLOP (0.46 ms of the
-// card's f32 rate), and the four residual slabs add 197 MB of writes (~59
-// us of memory time): bound by operations.  At serve (B = 1, N = 3 * 200,
-// 16 layers) it does about 3.1 GFLOP and moves about 1.8 MB: operations.
+// card's f32 rate of 67 TFLOP/s, 0.19 ms of 3xTF32's 165), and the four
+// residual slabs add 197 MB of writes (~59 us of memory time): bound by
+// operations.  At serve (B = 1, N = 3 * 200, 16 layers) it does about 3.1
+// GFLOP and moves about 1.8 MB: operations.
 //
 // Design (the tiled path): each layer is three launches of the tiled f32
 // product of gemm_f32.cuh (the one kernel D runs on), batched over the B
 // dialogues with rows = the N nodes of one dialogue, the elementwise work
-// in each product's epilogue:
+// in each product's epilogue.  In the f32 mode the products run on the
+// tensor cores as 3xTF32 (gemm_f32.cuh's launch_tc), in the bf16 modes on
+// the CUDA cores (launch); the resident and row-wise designs keep their
+// own products on the CUDA cores:
 //   F1 [h | lh] [W_ih; W_hh] + b; the LSTM cell    wide   -> h1, lh', lc'
 //   F2 hi = adj h1                                  narrow -> hi scratch
 //   F3 [hi | h0] W[l]; the update, the Philox keep, the skip
@@ -92,14 +96,19 @@
 // place: each element of them is read and written by the one thread that
 // owns it in F3 (h, the skip) and F1 (lc).
 //
-// Tiles: as kernel D's (gcnii_bwd.cu): F1 wide 128 x 128 (8 x 8 a thread,
-// 256 threads, two blocks per SM), F2 and F3 narrow 64 x 128 (4 x 8, 256
-// threads).  F2 and F3 are kernel D's P2 and P3 on the same operands at
-// the same tiles, and F3 forms the pre-activation by the same expression
-// as P3, so the backward recomputes hi and the ReLU's input bit for bit:
-// its ReLU decisions are the forward's.  f32 on the CUDA cores: TF32 keeps
-// ~3 decimal digits, and the port holds kernel B to 1e-5 of max |h|
-// against the plain f32 version.
+// Tiles: as kernel D's (gcnii_bwd.cu): F1 wide 128 x 128 (256 threads, two
+// blocks per SM; on the tensor cores a 64 x 32 tile a warp, on the CUDA
+// cores 8 x 8 a thread), F2 and F3 narrow 64 x 128 (256 threads; 32 x 32
+// a warp, or 4 x 8 a thread).  F2 and F3 are kernel D's P2 and P3 on the
+// same operands at the same tiles and core, and F3 forms the
+// pre-activation by the same expression as P3, so the backward recomputes
+// hi and the ReLU's input bit for bit: its ReLU decisions are the
+// forward's.  Why 3xTF32 and not TF32: TF32 keeps ~3 decimal digits, and
+// the port holds kernel B to 1e-5 of max |h| against the plain f32
+// version; the three products hold each operand to 2^-22 (gemm_f32.cuh),
+// as f32 does.  The bf16 modes stay on the CUDA cores: their checks hold
+// them to f32 sums of bf16 values in that core's order, and their tensor-
+// core path (bf16 mma) is a change of its own.
 //
 // The row-wise design (gcnii_layer_kernel, one launch per layer): each
 // block owns kR rows of one dialogue and computes hi = adj[rows] @ h1 (the
@@ -1049,21 +1058,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The designs gcnii_fwd runs (the wrapper picks one by shape).
 enum Design { kTiled = 0, kRowwise = 1, kResident = 2 };
 
-// F1 at the wide tile.
-template <class Epi>
+// F1 at the wide tile; TC: on the tensor cores (the f32 mode), else on
+// the CUDA cores (the bf16 modes).
+template <bool TC, class Epi>
 cudaError_t wide(const Operand& A, const Operand& B, int M, int N, int K,
                  int batches, const Epi& e, cudaStream_t st) {
-  return gemm::launch<128, 128, 8, true, false, 2>(A, B, M, N, K, batches, 1,
-                                                   e, st);
+  if constexpr (TC)
+    return gemm::launch_tc<128, 128, 64, 32, true, false, 2>(
+        A, B, M, N, K, batches, 1, e, st);
+  else
+    return gemm::launch<128, 128, 8, true, false, 2>(A, B, M, N, K, batches,
+                                                     1, e, st);
 }
 
 // F2 and F3 at the narrow tile: B x N / 64 blocks, one block per SM at
-// most at the training shape, so their registers are not capped.
-template <class Epi>
+// most at the training shape, so their registers are not capped.  Kernel
+// D's P2 and P3 launch the same.
+template <bool TC, class Epi>
 cudaError_t narrow100(const Operand& A, const Operand& B, int M, int N,
                       int K, int batches, const Epi& e, cudaStream_t st) {
-  return gemm::launch<64, 128, 4, true, false, 1>(A, B, M, N, K, batches, 1,
-                                                  e, st);
+  if constexpr (TC)
+    return gemm::launch_tc<64, 128, 32, 32, true, false, 2>(
+        A, B, M, N, K, batches, 1, e, st);
+  else
+    return gemm::launch<64, 128, 4, true, false, 1>(A, B, M, N, K, batches,
+                                                    1, e, st);
 }
 
 // One launch of the resident kernel: grid (kCluster, B), one cluster a
@@ -1200,14 +1219,14 @@ int tiled(const float* adj, const float* h, const float* h0, const float* W,
           gemm::cat(h_l.p, h_l.bs, lh_l.p, lh_l.bs, H, 1, H, true);
       const Operand Bw = gemm::grouped(gemm::dense(wl, 0, 1, G), Bc,
                                        (2LL * H + 1) * G, (2LL * H + 1) * G);
-      GCNII_LAUNCH(wide(A, Bw, N, G, 2 * H, B, f1, st));
+      GCNII_LAUNCH(wide<!BF16>(A, Bw, N, G, 2 * H, B, f1, st));
     }
     {   // F2 (BF16: on bf16(h1))
       const Operand A = gemm::dense(adj, NN, N, 1);
       const Operand Bh = BF16 ? gemm::dense(h1r, NH, 1, H)
                               : gemm::dense(h1_l.p, h1_l.bs, 1, H);
       const F2HiT<BF16> f2{hi, N, H, hir};
-      GCNII_LAUNCH(narrow100(A, Bh, N, H, N, B, f2, st));
+      GCNII_LAUNCH(narrow100<!BF16>(A, Bh, N, H, N, B, f2, st));
     }
     {   // F3 (BF16: on bf16(hi))
       const Operand A = gemm::cat(BF16 ? hir : hi, NH, h0, NH, H, 1, H, true);
@@ -1221,7 +1240,7 @@ int tiled(const float* adj, const float* h, const float* h0, const float* W,
       F3UpdateT<BF16> f3{hi, h0, h_l, h_next, h1_next, theta + l, alpha, l,
                          N, H, reason, drop, Bc, rate, seed};
       f3.res_next = last ? noneb : bslab(res_h, l + 1);
-      GCNII_LAUNCH(narrow100(A, Bw, N, H, 2 * H, B, f3, st));
+      GCNII_LAUNCH(narrow100<!BF16>(A, Bw, N, H, 2 * H, B, f3, st));
     }
   }
   return launches;
@@ -1273,8 +1292,9 @@ int tiled_scan(const float* adj, const float* h, const float* h0,
       const Operand Bih = gemm::grouped(gemm::dense(wl, 0, 1, G), Bc, WLK,
                                         WLK);
       const F1GateS f1a{g1, N, G, wl + 2LL * H * G, WLK, Bc};
-      GCNII_LAUNCH(wide(gemm::dense(static_cast<const float*>(out), NH, H, 1),
-                        Bih, N, G, H, B, f1a, st));
+      GCNII_LAUNCH(wide<false>(
+          gemm::dense(static_cast<const float*>(out), NH, H, 1), Bih, N, G,
+          H, B, f1a, st));
       F1CellS f1b{};
       f1b.g1 = g1;
       f1b.bhh = wl + (2LL * H + 1) * G;
@@ -1288,15 +1308,16 @@ int tiled_scan(const float* adj, const float* h, const float* h0,
       f1b.res_lc = last ? noneb : bslab(res_lc, l + 1);
       const Operand Bhh = gemm::grouped(
           gemm::dense(wl + (long long)H * G, 0, 1, G), Bc, WLK, WLK);
-      GCNII_LAUNCH(wide(
+      GCNII_LAUNCH(wide<false>(
           gemm::dense(static_cast<const float*>(lh_buf[l % 2]), NH, H, 1),
           Bhh, N, G, H, B, f1b, st));
       h1 = lh_buf[(l + 1) % 2];
     }
     {   // F2
       const F2HiS f2{hi, h0, N, H, variant, k};
-      GCNII_LAUNCH(narrow100(gemm::dense(adj, NN, N, 1),
-                             gemm::dense(h1, NH, 1, H), N, H, N, B, f2, st));
+      GCNII_LAUNCH(narrow100<false>(gemm::dense(adj, NN, N, 1),
+                                    gemm::dense(h1, NH, 1, H), N, H, N, B,
+                                    f2, st));
     }
     {   // F3
       const Operand A =
@@ -1322,7 +1343,7 @@ int tiled_scan(const float* adj, const float* h, const float* h0,
       f3.rate = rate;
       f3.seed = seed;
       f3.res_next = last ? noneb : bslab(res_h, l + 1);
-      GCNII_LAUNCH(narrow100(A, Bw, N, H, WI, B, f3, st));
+      GCNII_LAUNCH(narrow100<false>(A, Bw, N, H, WI, B, f3, st));
     }
   }
   return launches;

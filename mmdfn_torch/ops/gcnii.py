@@ -5,7 +5,7 @@ Kernel B replaces ``mmdfn_tpu/ops/pallas_gcnii.py:gcnii_stack_fused`` and
 ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_fwd`` (``csrc/gcnii_fwd.cu``):
 one C call, ``gcnii_fwd``, runs the whole stack in one of three designs,
 picked by shape (:func:`_design`).  At the training batch it runs three
-register-tiled f32 products a layer (``csrc/gemm_f32.cuh``): the
+tiled f32 products a layer (``csrc/gemm_f32.cuh``): the
 reason-LSTM's gates with the cell in the epilogue, ``adj @ h1``, and
 ``[hi | h0] @ W[l]`` with the update, the dropout and the skip in the
 epilogue.  A serve forward (one dialogue) fills too few blocks for them:
@@ -18,11 +18,17 @@ from Philox (``csrc/philox.cuh``, key the step seed, counter (b, layer,
 node, channel)) and writes the residuals the backward reads.
 
 Kernel D replaces ``mmdfn_tpu/ops/pallas_gcnii_train.py:_stack_bwd``
-(``csrc/gcnii_bwd.cu``): the reverse layer walk as register-tiled f32
+(``csrc/gcnii_bwd.cu``): the reverse layer walk as tiled f32
 products (``csrc/gemm_f32.cuh``) with the elementwise work in their
 epilogues, the dropout bits drawn again, and every gradient (adjacency,
 entry h, h0, the per-layer weights, the reason-LSTM's weights); the weight
 gradients are summed once after the walk.
+
+In the f32 mode both kernels run their tiled products on the tensor cores
+as 3xTF32 (each operand split into two TF32 values, three TF32 products
+into f32 accumulators: f32's accuracy, ``gemm_f32.cuh``'s note); in the
+bf16 modes, and kernel B's resident and row-wise designs, on the CUDA
+cores.  The mode alone decides; there is no other switch.
 
 ``gcnii_stack_fwd`` with autograd on goes through :class:`GCNIIStackTrain`
 (kernel B in training mode, keeping the residuals; kernel D backward); with
@@ -95,7 +101,8 @@ through the fold.  Its plain version computes ``r @ W`` unfolded.
 
 Under a ``torch.profiler`` each kernel call is a span of the program's log
 (``runtime/profiling.py``), ``ops.gcnii_fwd`` (K, B, N, layers, design,
-mode) or ``ops.gcnii_bwd`` (K, B, N, layers, mode).
+mode) or ``ops.gcnii_bwd`` (K, B, N, layers, mode), and adds the products
+it ran on the tensor cores to the counter ``ops.gcnii_tc_products``.
 """
 
 from __future__ import annotations
@@ -109,7 +116,7 @@ from mmdfn_torch.ops import _build, _mode, philox
 from mmdfn_torch.ops.bf16 import (BF16, F32, MODES, SCAN, Sigmoid, Tanh,
                                   check_mode, mm, to_bf16)
 from mmdfn_torch.ops.bigru import _sm_count
-from mmdfn_torch.runtime.profiling import annotate
+from mmdfn_torch.runtime.profiling import annotate, count
 
 Tensor = torch.Tensor
 
@@ -157,6 +164,8 @@ def gcnii_bwd_splits(R: int, nl: int) -> Tuple[int, int]:
 # every layer and the layer's LSTM output h1; in the bf16 modes the first
 # three, in bf16
 RESIDUALS = ("h", "lh", "lc", "h1")
+# the program's counter of the products run on the tensor cores (3xTF32)
+TC_PRODUCTS = "ops.gcnii_tc_products"
 RESIDUALS_BF16 = RESIDUALS[:3]
 
 
@@ -167,6 +176,15 @@ def _mode_bits(mode: str, variant: bool = True,
     ``variant=False``."""
     return (MODES.index(mode) + 4 * int(mode == SCAN and last_drop_f32)
             + 8 * int(mode == SCAN and not variant))
+
+
+def tc_products(launches: int, mode: str, tiled: bool,
+                others: int = 1) -> int:
+    """The products of a C call that ran on the tensor cores: in the f32
+    mode every tiled product (all its launches but ``others``: kernel B's
+    first launch, kernel D's sums after the walk); none in the bf16 modes
+    or kernel B's resident and row-wise designs."""
+    return launches - others if mode == F32 and tiled else 0
 
 
 def residual_names(mode: str) -> tuple:
@@ -811,6 +829,7 @@ def _forward(adj, h, h0, W, theta, lstm_ih, lstm_hh, lstm_b, *, alpha,
                ik, seed_ptr, int(reason), design, nl, K, B, N, H,
                _mode_bits(mode, variant, last_drop_f32), stream)
         _build.check(-n if n < 0 else 0, "gcnii_fwd launch")
+    count(TC_PRODUCTS, tc_products(n, mode, design == TILED))
     gcnii_stack_fwd.launches += n
     return out
 
@@ -1064,6 +1083,7 @@ def gcnii_stack_bwd(adj: Tensor, h0: Tensor, W: Tensor, theta: Tensor,
                N, H, splits_w, splits_l,
                _mode_bits(mode, variant, last_drop_f32), ptr(wl), stream)
         _build.check(-n if n < 0 else 0, "gcnii_bwd launch")
+    count(TC_PRODUCTS, tc_products(n, mode, True, 1 + int(reason)))
     gcnii_stack_bwd.launches += n
     if gcnii_stack_bwd.kept is not None:
         gcnii_stack_bwd.kept.append((*given, tdpre))
